@@ -1,0 +1,145 @@
+"""Build, load and launch the port's CUDA kernels.
+
+The sources in `guidedvd3dgs_tpu_torch/csrc/*.cu` are compiled by `nvcc`
+into one shared library with a plain C interface, loaded with `ctypes`
+(no PyTorch headers, so the build takes seconds). The library is built at
+first use into `build/torch_kernels/` of the checkout, named by a hash of
+the sources and flags, so an edited source is rebuilt and a stale library
+is never loaded.
+
+Every C entry point launches on the stream it is given and returns
+`cudaGetLastError()`; `launch` raises on a non-zero code and only then
+counts the launch in `LAUNCHES`, so a count says the kernel really ran.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # IEEE op by op, as the plain versions compute (see csrc/common.cuh)
+    "-fmad=false",
+    "-Xptxas=-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signature of every kernel entry point (the trailing pointer is the stream)
+SIGNATURES = {
+    "preprocess_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    "expand": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "blend_fwd": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+}
+
+# Launch counts of each kernel in this process; `launch` is the only writer.
+LAUNCHES = {name: 0 for name in SIGNATURES}
+
+_lib = None  # the loaded library, once built
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the port's kernels need the CUDA toolkit")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    srcs, hdrs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs + hdrs:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libgvd_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile the kernels if the library for the current sources is
+    missing. Returns (path, seconds spent compiling, compiler output)."""
+    path = library_path()
+    if path.exists():
+        return path, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    srcs, _ = _sources()
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, srcs)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    # atomic: a concurrent build never loads a half-written library
+    os.replace(tmp, path)
+    path.with_suffix(".log").write_text(log)
+    return path, secs, log
+
+
+def library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        path, _, _ = build()
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, f"gvd_{name}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.gvd_error_string.argtypes = [ctypes.c_int]
+        lib.gvd_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel entry `gvd_<name>` and raise if its launch failed."""
+    lib = library()
+    rc = getattr(lib, f"gvd_{name}")(*args)
+    if rc != 0:
+        msg = lib.gvd_error_string(rc).decode()
+        raise RuntimeError(f"kernel {name} failed to launch: CUDA error {rc} ({msg})")
+    LAUNCHES[name] += 1
+
+
+def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, device: torch.device,
+               shape: tuple | None = None) -> None:
+    """Raise unless `t` is a contiguous `dtype` tensor on `device` of
+    `shape` (None entries match any size)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and (
+        t.dim() != len(shape) or any(s is not None and s != d for s, d in zip(shape, t.shape))
+    ):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
