@@ -2,16 +2,22 @@
 
 The JAX package `guidedvd3dgs_tpu` is the reference this package is held
 against; module names follow its layout. This package imports `torch` and
-never `jax`. It may import the reference package's pure-numpy host modules
-(config, COLMAP/PLY readers, graphics and pose helpers).
+never `jax`, nothing of the reference package and nothing of `tools/`: it
+keeps its own copies of the host modules it needs (config, COLMAP/PLY
+readers, dataset readers, graphics helpers, the synthetic scene).
 
 Layout:
-  ops/     preprocess (kernel K1), tile binning (kernel K3), tile blend
-           (kernel K4), the dense oracle and the public `rasterize`
+  ops/     preprocess and its VJP (kernels K1, K2), tile binning (K3),
+           tile blend and its backward (K4, K5), the per-Gaussian gradient
+           sum (K6), the dense oracle, the public `rasterize`, the 3-NN
   csrc/    the hand-written CUDA kernels, built by ops/_build.py with nvcc
-  models/  Gaussian parameters and the render API
-  scene/   cameras and the scene reader
-  utils/   SH, losses, PNG codec
-  render.py, metrics.py  the serving CLIs (`python -m guidedvd3dgs_tpu_torch.render`)
+  models/  Gaussian parameters, the training state (Adam, densification)
+           and the render API
+  train/   the baseline trainer, checkpoints, the metrics log
+  scene/   cameras, readers, the scene container, the synthetic scene
+  utils/   SH, losses, PNG codec, LR schedule, graphics helpers
+  render.py, metrics.py, train_baseline.py  the CLIs
+           (`python -m guidedvd3dgs_tpu_torch.train_baseline`, ...)
+  config.py  the config tree and its CLI flags
   convert.py  numpy bridge from the reference package's arrays
 """

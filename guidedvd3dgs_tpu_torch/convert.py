@@ -1,8 +1,10 @@
 """Numpy bridge from the reference package's arrays to the port's objects.
 
 `params_from_numpy` takes the leaves of the reference `GaussianParams`
-(as numpy arrays, by name) and returns the port's module; tests use it so
-that both packages compute on the same weights.
+(as numpy arrays, by name) and returns the port's module;
+`state_from_numpy` takes a reference `GaussianState` whose leaves numpy
+can convert and returns the port's training state of its active rows.
+Tests use them so that both packages compute on the same weights.
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from guidedvd3dgs_tpu_torch.models.gaussians import GaussianParams
+from guidedvd3dgs_tpu_torch.models.gaussians import PARAM_NAMES, GaussianParams, GaussianState
 from guidedvd3dgs_tpu_torch.ops.projection import RasterCamera
 
 
@@ -18,6 +20,30 @@ def params_from_numpy(leaves: dict, device="cpu") -> GaussianParams:
     """leaves: {xyz, features_dc, features_rest, scaling, rotation,
     opacity} as arrays (any array type numpy can convert)."""
     return GaussianParams.from_arrays({k: np.asarray(v) for k, v in leaves.items()}, device)
+
+
+def state_from_numpy(state, device="cpu") -> GaussianState:
+    """The port's state of a reference state's active rows: parameters,
+    Adam moments, step, confidence and densification statistics (any object
+    with the reference GaussianState's fields)."""
+    act = np.asarray(state.active, bool)
+
+    def rows(a):
+        return torch.from_numpy(np.ascontiguousarray(np.asarray(a)[act], np.float32)).to(device)
+
+    def group(g):
+        return {k: rows(getattr(g, k)) for k in PARAM_NAMES}
+
+    return GaussianState(
+        params=GaussianParams(**group(state.params)),
+        adam_m=group(state.adam_m),
+        adam_v=group(state.adam_v),
+        step=int(np.asarray(state.step)),
+        confidence=rows(state.confidence),
+        max_radii2d=rows(state.max_radii2d),
+        xyz_gradient_accum=rows(state.xyz_gradient_accum),
+        denom=rows(state.denom),
+    )
 
 
 def raster_camera_from_numpy(cam, device="cpu") -> RasterCamera:

@@ -1,9 +1,10 @@
 """Render API: Gaussian parameters -> image.
 
-Counterpart of `guidedvd3dgs_tpu/models/render.py::render_gaussians` and
-`guidedvd3dgs_tpu/train/baseline.py::eval_render`, forward only: the
-activations, then the rasterizer. The confidence gradient rescaling of the
-reference only acts on gradients and arrives with the training slice.
+Counterpart of `guidedvd3dgs_tpu/models/render.py` (`render_gaussians`,
+`render_state`) and `guidedvd3dgs_tpu/train/baseline.py::eval_render`: the
+activations, the optional confidence rescaling of the gradients, then the
+rasterizer. `means2d_offset` (N, 2) zeros that require grad give the
+viewspace gradient that densification reads.
 """
 
 from __future__ import annotations
@@ -12,9 +13,28 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from guidedvd3dgs_tpu_torch.models.gaussians import GaussianParams
+from guidedvd3dgs_tpu_torch.models.gaussians import GaussianParams, GaussianState
 from guidedvd3dgs_tpu_torch.ops.projection import RasterCamera
 from guidedvd3dgs_tpu_torch.ops.raster import rasterize
+
+
+class _ConfidenceGradScale(torch.autograd.Function):
+    """Identity whose gradient is multiplied by the per-Gaussian
+    confidence (a backward-only rescaling)."""
+
+    @staticmethod
+    def forward(ctx, x, conf):
+        ctx.save_for_backward(conf)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (conf,) = ctx.saved_tensors
+        return g * conf.reshape(conf.shape[:1] + (1,) * (g.dim() - 1)), None
+
+
+def _confidence_grad_scale(x: torch.Tensor, conf: torch.Tensor) -> torch.Tensor:
+    return _ConfidenceGradScale.apply(x, conf)
 
 
 class RenderResult(NamedTuple):
@@ -35,13 +55,26 @@ def render_gaussians(
     override_color: Optional[torch.Tensor] = None,
     backend: str = "auto",
     active_degree: Optional[int] = None,
+    means2d_offset: Optional[torch.Tensor] = None,
+    confidence: Optional[torch.Tensor] = None,
+    use_confidence: bool = False,
 ) -> RenderResult:
-    shs = None if override_color is not None else params.get_features
+    """Differentiable render. With `use_confidence`, each parameter's
+    gradient is multiplied by its Gaussian's `confidence` (N, 1)."""
+    xyz, f_dc, f_rest = params.xyz, params.features_dc, params.features_rest
+    scaling, rotation, opacity = params.scaling, params.rotation, params.opacity
+    if use_confidence:
+        conf = confidence[:, 0]
+        xyz, f_dc, f_rest, scaling, rotation, opacity = (
+            _confidence_grad_scale(t, conf) for t in (xyz, f_dc, f_rest, scaling, rotation, opacity)
+        )
+    shs = None if override_color is not None else torch.cat([f_dc, f_rest], dim=1)
+    n = torch.linalg.norm(rotation, dim=-1, keepdim=True)
     out = rasterize(
-        params.xyz,
-        params.get_scaling,
-        params.get_rotation,
-        params.get_opacity,
+        xyz,
+        torch.exp(scaling),
+        rotation / torch.clamp(n, min=1e-12),
+        torch.sigmoid(opacity),
         shs,
         cam,
         bg,
@@ -50,6 +83,7 @@ def render_gaussians(
         colors_precomp=override_color,
         backend=backend,
         active_degree=active_degree,
+        means2d_offset=means2d_offset,
     )
     return RenderResult(
         color=out.color,
@@ -59,6 +93,13 @@ def render_gaussians(
         visibility_filter=out.radii > 0,
         num_instances=out.num_instances,
     )
+
+
+def render_state(state: GaussianState, cam: RasterCamera, bg: torch.Tensor,
+                 active_sh_degree: int, **kwargs) -> RenderResult:
+    """render_gaussians of a training state (its parameters and confidence)."""
+    return render_gaussians(state.params, cam, bg, active_sh_degree,
+                            confidence=state.confidence, **kwargs)
 
 
 @torch.no_grad()

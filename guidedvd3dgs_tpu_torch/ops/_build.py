@@ -42,6 +42,9 @@ SIGNATURES = {
     "preprocess_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     "expand": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "blend_fwd": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "blend_bwd": [_P, _I] + [_P] * 10 + [_I] * 4 + [_P, _P],
+    "segsum": [_P, _P, _P, _I, _P, _P],
+    "preprocess_bwd": [_P] * 6 + [_I] * 4 + [_F, _I, _I] + [_P] * 5 + [_P],
 }
 
 # Launch counts of each kernel in this process; `launch` is the only writer.

@@ -31,6 +31,7 @@ def rasterize(
     cov3d_precomp: Optional[torch.Tensor] = None,
     backend: str = "auto",
     active_degree: Optional[int] = None,
+    means2d_offset: Optional[torch.Tensor] = None,
 ) -> RenderOutput:
     kwargs = dict(
         sh_degree=sh_degree,
@@ -38,6 +39,7 @@ def rasterize(
         colors_precomp=colors_precomp,
         cov3d_precomp=cov3d_precomp,
         active_degree=active_degree,
+        means2d_offset=means2d_offset,
     )
     if backend in ("auto", "tiles"):
         return rasterize_tiles(means3d, scales, rotations, opacities, shs, cam, bg, **kwargs)

@@ -7,7 +7,8 @@ below 1e-4 (the instance that triggers it is not added), a Gaussian only
 touching the 16x16 tiles of its radius rectangle. The per-pixel recurrence
 is the reference's closed form over chunks of 256 Gaussians (masked
 cumulative sums of log transmittance). O(N * P) work: for tests and tiny
-scenes, and for an explicit `backend="dense"`.
+scenes, and for an explicit `backend="dense"`; its gradient is torch
+autograd of this forward.
 """
 
 from __future__ import annotations
@@ -150,12 +151,19 @@ def rasterize_dense(
     cov3d_precomp: Optional[torch.Tensor] = None,
     chunk: int = 256,
     active_degree: Optional[int] = None,
+    means2d_offset: Optional[torch.Tensor] = None,
 ) -> RenderOutput:
-    """Full dense rasterization: preprocess + blend (forward only)."""
+    """Full dense rasterization: preprocess + blend, differentiable by
+    torch autograd. `means2d_offset` (N, 2) is added to the screen means
+    scaled by (W/2, H/2), as in the tile rasterizer."""
     proc = preprocess_gaussians(
         means3d, scales, rotations, opacities, shs, cam,
         sh_degree=sh_degree, scale_modifier=scale_modifier,
         colors_precomp=colors_precomp, cov3d_precomp=cov3d_precomp,
         active_degree=active_degree,
     )
+    if means2d_offset is not None:
+        off_scale = torch.tensor([0.5 * cam.width, 0.5 * cam.height], dtype=proc.means2d.dtype,
+                                 device=proc.means2d.device)
+        proc = proc._replace(means2d=proc.means2d + means2d_offset * off_scale)
     return rasterize_dense_processed(proc, cam, bg, chunk=chunk)

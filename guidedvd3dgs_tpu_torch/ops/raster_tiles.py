@@ -1,38 +1,48 @@
-"""Tile rasterizer, forward: the production render path of the port.
+"""Tile rasterizer: the production render path of the port, with its
+backward.
 
 Counterpart of `guidedvd3dgs_tpu/ops/raster_tiles.py::rasterize_tiles`
-(forward only):
-  kernel K1 (ops/preprocess_fused.py)  per-Gaussian (16, N) table
-  binning (ops/tiling.py)              kernel K3 + one 64-bit key sort
-  kernel K4 (`_run_fwd`, csrc/blend_fwd.cu)
-                                       front-to-back alpha blend per 16x16
-                                       tile over its depth-sorted instances
+(the `_raster_core` custom VJP):
+  forward   kernel K1 (ops/preprocess_fused.py)  per-Gaussian (16, N) table
+            binning (ops/tiling.py)              kernel K3 + one 64-bit key sort
+            kernel K4 (`_run_fwd`, csrc/blend_fwd.cu)
+                                                 front-to-back alpha blend per
+                                                 16x16 tile
+  backward  kernel K5 (`_run_bwd`, csrc/blend_bwd.cu)
+                                                 per-instance gradients of the
+                                                 blend, rebuilt front to back
+            kernel K6 (ops/segsum.py)            per-Gaussian sums
+            kernel K2 (ops/preprocess_fused.py)  VJP of the preprocess
 
 Blend rule (the dense oracle's), per pixel over the tile's instances:
 power = -0.5 (a dx^2 + c dy^2) - b dx dy, skipped if > 0;
 alpha = min(0.99, op * exp(power)), skipped if < 1/255; if
 T (1 - alpha) < 1e-4 the pixel stops without adding this instance;
 otherwise color, depth and 1 accumulate with weight alpha T and
-T *= 1 - alpha. Output color = acc + T bg.
+T *= 1 - alpha. Output color = acc + T bg. The backward passes the 0.99
+clamp through, as the reference and the CUDA original do.
 
-The backward kernels arrive with the training slice; until then a call
-that would need a gradient raises.
+Saved for the backward, as the reference keeps them: the post-activation
+inputs (K2 recomputes the preprocess), the binning with K1's table (the
+port's instances carry owner ids, not field copies, so the table is the
+binning's field store) and the forward color, depth and alpha.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-from guidedvd3dgs_tpu_torch.ops import _build, preprocess_fused, tiling
+from guidedvd3dgs_tpu_torch.ops import _build, preprocess_fused, segsum, tiling
 from guidedvd3dgs_tpu_torch.ops.projection import ALPHA_EPS, ALPHA_MAX, T_EPS, RasterCamera
 from guidedvd3dgs_tpu_torch.ops.raster_dense import RenderOutput
 from guidedvd3dgs_tpu_torch.ops.tiling import TILE, TileBinning
 
 TILE_PIX = TILE * TILE
 # element budget of one tile batch of the plain blend: ~10 live
-# (tiles, instances, 256) f32 temporaries of this size
+# (tiles, instances, 256) f32 temporaries of this size (the backward
+# keeps about twice as many and takes half the budget)
 PLAIN_BATCH_ELEMS = 1 << 24
 
 
@@ -43,28 +53,44 @@ def _tiles_to_planes(tiles: torch.Tensor, gx: int, gy: int) -> torch.Tensor:
     return x.permute(2, 0, 3, 1, 4).reshape(r, gy * TILE, gx * TILE)
 
 
-def _blend_tiles_plain(tab, inst_gauss, tile_start, tile_count, t0, t1, gx, bg):
-    """Plain blend of tiles [t0, t1): (t1 - t0, 5, TILE_PIX) rows color,
-    depth, alpha. The sequential per-pixel rule in closed form: a running
-    product of (1 - alpha) and the first triggering instance per pixel."""
+class TileBatch(NamedTuple):
+    """K4's per-pixel rule in closed form over the tiles [t0, t1) of a
+    binning: B tiles, K = their largest instance count, P = 256 pixels."""
+
+    f: torch.Tensor  # (10, B, K) render fields of each tile's instances
+    valid: torch.Tensor  # (B, K) instance k exists in the tile
+    idx: torch.Tensor  # (B, K) its sorted instance index (clamped)
+    dx: torch.Tensor  # (B, K, P) mean - pixel
+    dy: torch.Tensor
+    araw: torch.Tensor  # op * exp(power)
+    live: torch.Tensor  # power <= 0, araw >= 1/255, valid
+    alpha: torch.Tensor  # min(araw, 0.99) where live, else 0
+    t_incl: torch.Tensor  # T after instance k (running product of 1 - alpha)
+    t_before: torch.Tensor  # T before instance k
+    trigger: torch.Tensor  # instance k would take T below 1e-4
+    include: torch.Tensor  # live and before the first trigger: blended
+
+
+def tile_batch(tab, binning: TileBinning, t0: int, t1: int) -> TileBatch:
     dev = tab.device
-    b = t1 - t0
-    cnt = tile_count[t0:t1].long()
+    gx = binning.grid_x
+    cnt = binning.tile_count[t0:t1].long()
     k = max(int(cnt.max()), 1)
     ks = torch.arange(k, device=dev)
-    valid = ks[None, :] < cnt[:, None]  # (B, K)
-    if inst_gauss.numel():
-        idx = torch.clamp(tile_start[t0:t1].long()[:, None] + ks[None, :], max=inst_gauss.numel() - 1)
-        f = tab[:10, inst_gauss[idx].long()]  # (10, B, K)
+    valid = ks[None, :] < cnt[:, None]
+    idx = torch.clamp(binning.tile_start[t0:t1].long()[:, None] + ks[None, :],
+                      max=max(binning.num_instances - 1, 0))
+    if binning.num_instances:
+        f = tab[:10, binning.inst_gauss[idx].long()]
     else:
-        f = torch.zeros((10, b, k), dtype=torch.float32, device=dev)
+        f = torch.zeros((10,) + valid.shape, dtype=torch.float32, device=dev)
     tids = torch.arange(t0, t1, device=dev)
     lin = torch.arange(TILE_PIX, device=dev)
     pixx = ((tids % gx)[:, None] * TILE + lin[None, :] % TILE).float()  # (B, P)
     pixy = ((tids // gx)[:, None] * TILE + lin[None, :] // TILE).float()
 
     mx, my, ca, cb, cc, op = (f[i][:, :, None] for i in range(preprocess_fused.F_R))
-    dx = mx - pixx[:, None, :]  # (B, K, P)
+    dx = mx - pixx[:, None, :]
     dy = my - pixy[:, None, :]
     power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
     araw = op * torch.exp(power)
@@ -72,38 +98,106 @@ def _blend_tiles_plain(tab, inst_gauss, tile_start, tile_count, t0, t1, gx, bg):
     alpha = torch.where(live, torch.clamp(araw, max=ALPHA_MAX), torch.zeros_like(araw))
     one_minus = 1.0 - alpha
     t_incl = torch.cumprod(one_minus, dim=1)
-    t_pad = torch.cat([torch.ones_like(t_incl[:, :1]), t_incl], dim=1)  # T before k at [k]
-    t_before = t_pad[:, :-1]
+    t_before = torch.cat([torch.ones_like(t_incl[:, :1]), t_incl[:, :-1]], dim=1)
     trigger = live & (t_before * one_minus < T_EPS)
-    no_trigger_yet = torch.cumsum(trigger.int(), dim=1) == 0
-    include = live & no_trigger_yet
-    w = torch.where(include, alpha * t_before, torch.zeros_like(alpha))
+    include = live & (torch.cumsum(trigger.int(), dim=1) == 0)
+    return TileBatch(f, valid, idx, dx, dy, araw, live, alpha, t_incl, t_before, trigger, include)
+
+
+def _blend_tiles_plain(tab, binning: TileBinning, t0, t1, bg):
+    """Plain blend of tiles [t0, t1): (t1 - t0, 5, TILE_PIX) rows color,
+    depth, alpha."""
+    q = tile_batch(tab, binning, t0, t1)
+    w = torch.where(q.include, q.alpha * q.t_before, torch.zeros_like(q.alpha))
+    # T after the last blended instance: before the stopping one, or at the end
+    t_pad = torch.cat([torch.ones_like(q.t_incl[:, :1]), q.t_incl], dim=1)
+    no_trigger_yet = torch.cumsum(q.trigger.int(), dim=1) == 0
     first = no_trigger_yet.sum(dim=1, keepdim=True)  # index of the stopping instance, or K
     t_final = torch.gather(t_pad, 1, first)[:, 0]  # (B, P)
-    cd = f[preprocess_fused.F_R :]  # (4, B, K) r, g, b, depth
-    acc = torch.einsum("bkp,cbk->bcp", w, cd)  # (B, 4, P)
+    acc = torch.einsum("bkp,cbk->bcp", w, q.f[preprocess_fused.F_R:])  # (B, 4, P): r, g, b, depth
     color = acc[:, :3] + t_final[:, None, :] * bg[None, :, None]
     return torch.cat([color, acc[:, 3:4], w.sum(dim=1)[:, None]], dim=1)
+
+
+def _planes_to_tiles(planes: torch.Tensor, gx: int, gy: int) -> torch.Tensor:
+    """(R, H, W) -> (gy * gx, R, TILE_PIX), zero-padded to whole tiles."""
+    r, h, w = planes.shape
+    x = torch.zeros((r, gy * TILE, gx * TILE), dtype=planes.dtype, device=planes.device)
+    x[:, :h, :w] = planes
+    x = x.reshape(r, gy, TILE, gx, TILE).permute(1, 3, 0, 2, 4)
+    return x.reshape(gy * gx, r, TILE_PIX)
+
+
+def _tile_batches(counts, budget: int):
+    """Consecutive tile ranges [t0, t1) whose (tiles x max count x 256)
+    stays within `budget` elements (at least one tile each)."""
+    num_tiles = len(counts)
+    t0 = 0
+    while t0 < num_tiles:
+        t1, kmax = t0 + 1, max(counts[t0], 1)
+        while t1 < num_tiles and max(kmax, counts[t1]) * (t1 - t0 + 1) * TILE_PIX <= budget:
+            kmax = max(kmax, counts[t1])
+            t1 += 1
+        yield t0, t1
+        t0 = t1
 
 
 def blend_fwd_plain(tab, binning: TileBinning, bg, width: int, height: int):
     """Plain PyTorch version of K4, in batches of tiles to bound memory."""
     gx, gy = binning.grid_x, binning.grid_y
     num_tiles = gx * gy
-    counts = binning.tile_count.tolist()
     tiles = torch.empty((num_tiles, 5, TILE_PIX), dtype=torch.float32, device=tab.device)
-    t0 = 0
-    while t0 < num_tiles:
-        t1, kmax = t0 + 1, max(counts[t0], 1)
-        while t1 < num_tiles and max(kmax, counts[t1]) * (t1 - t0 + 1) * TILE_PIX <= PLAIN_BATCH_ELEMS:
-            kmax = max(kmax, counts[t1])
-            t1 += 1
-        tiles[t0:t1] = _blend_tiles_plain(
-            tab, binning.inst_gauss, binning.tile_start, binning.tile_count, t0, t1, gx, bg
-        )
-        t0 = t1
+    for t0, t1 in _tile_batches(binning.tile_count.tolist(), PLAIN_BATCH_ELEMS):
+        tiles[t0:t1] = _blend_tiles_plain(tab, binning, t0, t1, bg)
     planes = _tiles_to_planes(tiles, gx, gy)[:, :height, :width]
     return planes[0:3], planes[3], planes[4]
+
+
+def _blend_bwd_tiles_plain(tab, binning: TileBinning, fwd, cot, t0, t1):
+    """Plain backward of tiles [t0, t1). fwd, cot: (B, 5, TILE_PIX) rows
+    (C (3), D, A) and (dC (3), dD, dA). Returns ((B, K, 10) instance
+    gradients, (B, K) valid mask, (B, K) sorted instance index): the
+    closed form of the rule, then the suffix sums from U - prefix."""
+    q = tile_batch(tab, binning, t0, t1)
+    w = torch.where(q.include, q.alpha * q.t_before, torch.zeros_like(q.alpha))
+    dC, dD, dA = cot[:, 0:3], cot[:, 3], cot[:, 4]
+    U = (fwd[:, 0:3] * dC).sum(1) + fwd[:, 3] * dD + fwd[:, 4] * dA  # (B, P)
+    rgb, dep = q.f[preprocess_fused.F_R:preprocess_fused.F_D], q.f[preprocess_fused.F_D]
+    u = torch.einsum("cbk,bcp->bkp", rgb, dC) + dep[:, :, None] * dD[:, None, :] + dA[:, None, :]
+    prefix = torch.cumsum(w * u, dim=1)  # inclusive of instance k
+    S = U[:, None, :] - prefix
+    dalpha = torch.where(q.include, q.t_before * u - S / torch.clamp(1.0 - q.alpha, min=1e-3),
+                         torch.zeros_like(q.alpha))
+    g = dalpha * torch.where(q.live, q.araw, torch.zeros_like(q.araw))
+    dx, dy = q.dx, q.dy
+    s0 = g.sum(-1)
+    mxs, mys = (g * dx).sum(-1), (g * dy).sum(-1)
+    mxx, mxy, myy = (g * dx * dx).sum(-1), (g * dx * dy).sum(-1), (g * dy * dy).sum(-1)
+    ca, cb, cc, op = (q.f[i] for i in (preprocess_fused.F_CA, preprocess_fused.F_CB,
+                                        preprocess_fused.F_CC, preprocess_fused.F_OP))
+    d_col = torch.einsum("bkp,bcp->bkc", w, dC)
+    d_dep = (w * dD[:, None, :]).sum(-1)
+    out = torch.stack(
+        [-(ca * mxs + cb * mys), -(cc * mys + cb * mxs), -0.5 * mxx, -mxy, -0.5 * myy,
+         s0 / torch.clamp(op, min=1e-12), d_col[..., 0], d_col[..., 1], d_col[..., 2], d_dep],
+        dim=-1,
+    )
+    return out, q.valid, q.idx
+
+
+def blend_bwd_plain(tab, binning: TileBinning, color, depth, alpha, dC, dD, dA,
+                    width: int, height: int):
+    """Plain PyTorch version of K5: (M, 10) per-instance gradients in
+    expansion-slot order (zero for instances no pixel reached), in batches
+    of tiles."""
+    gx, gy = binning.grid_x, binning.grid_y
+    fwd = _planes_to_tiles(torch.cat([color, depth[None], alpha[None]]), gx, gy)
+    cot = _planes_to_tiles(torch.cat([dC, dD[None], dA[None]]), gx, gy)
+    grad = torch.zeros((binning.num_instances, segsum.NF), dtype=torch.float32, device=tab.device)
+    for t0, t1 in _tile_batches(binning.tile_count.tolist(), PLAIN_BATCH_ELEMS // 2):
+        out, valid, idx = _blend_bwd_tiles_plain(tab, binning, fwd[t0:t1], cot[t0:t1], t0, t1)
+        grad[binning.perm[idx[valid]].long()] = out[valid]
+    return grad
 
 
 def _run_fwd(tab: torch.Tensor, binning: TileBinning, bg: torch.Tensor, width: int, height: int):
@@ -136,6 +230,95 @@ def _run_fwd(tab: torch.Tensor, binning: TileBinning, bg: torch.Tensor, width: i
     return color, depth, alpha
 
 
+def _run_bwd(tab: torch.Tensor, binning: TileBinning, color, depth, alpha, dC, dD, dA,
+             width: int, height: int) -> torch.Tensor:
+    """Kernel K5: the (M, 10) per-instance gradients (F_* order: mean2D x/y,
+    conic a/b/c, opacity, r/g/b, depth) at each instance's expansion slot,
+    from the forward's outputs and their cotangents. CPU tensors take the
+    plain version."""
+    if tab.device.type == "cpu":
+        return blend_bwd_plain(tab, binning, color, depth, alpha, dC, dD, dA, width, height)
+    if tab.device.type != "cuda":
+        raise ValueError(f"no blend backward kernel for device {tab.device}")
+    dev = tab.device
+    n = tab.shape[1]
+    m = binning.num_instances
+    gx, gy = binning.grid_x, binning.grid_y
+    num_tiles = gx * gy
+    _build.check_cuda("tab", tab, torch.float32, dev, (16, n))
+    _build.check_cuda("inst_gauss", binning.inst_gauss, torch.int32, dev, (m,))
+    _build.check_cuda("perm", binning.perm, torch.int32, dev, (m,))
+    _build.check_cuda("tile_start", binning.tile_start, torch.int32, dev, (num_tiles,))
+    _build.check_cuda("tile_count", binning.tile_count, torch.int32, dev, (num_tiles,))
+    for name, t, shape in (("color", color, (3, height, width)), ("depth", depth, (height, width)),
+                           ("alpha", alpha, (height, width)), ("dC", dC, (3, height, width)),
+                           ("dD", dD, (height, width)), ("dA", dA, (height, width))):
+        _build.check_cuda(name, t, torch.float32, dev, shape)
+    if gx != (width + TILE - 1) // TILE or gy != (height + TILE - 1) // TILE:
+        raise ValueError(f"binning grid {gx}x{gy} does not cover {width}x{height}")
+    # instances the blend never reaches (culled, or past every pixel's stop)
+    # keep this zero
+    grad = torch.zeros((m, segsum.NF), dtype=torch.float32, device=dev)
+    _build.launch(
+        "blend_bwd",
+        tab.data_ptr(), n, binning.inst_gauss.data_ptr(), binning.perm.data_ptr(),
+        binning.tile_start.data_ptr(), binning.tile_count.data_ptr(), color.data_ptr(),
+        depth.data_ptr(), alpha.data_ptr(), dC.data_ptr(), dD.data_ptr(), dA.data_ptr(),
+        gx, gy, width, height, grad.data_ptr(), _build.stream_of(tab),
+    )
+    return grad
+
+
+def _reduce_per_gaussian(grad_inst: torch.Tensor, binning: TileBinning) -> torch.Tensor:
+    """(M, 10) per-instance gradients -> (10, N) per-Gaussian sums (kernel
+    K6 over each Gaussian's contiguous expansion slots; no sort)."""
+    return segsum.segment_sum_sorted(grad_inst, binning.offsets, binning.count)
+
+
+class _RasterizeTiles(torch.autograd.Function):
+    """K1 -> binning -> K4 forward; K5 -> K6 -> K2 backward."""
+
+    @staticmethod
+    def forward(ctx, means3d, scales, rotations, opacities, shs, means2d_offset, cfg):
+        cam, bg, sh_degree, scale_modifier, active_degree = cfg
+        tab = preprocess_fused.preprocess_fused_fwd(
+            means3d, scales, rotations, opacities, shs, cam, sh_degree, scale_modifier,
+            active_degree=active_degree,
+        )
+        if means2d_offset is not None:
+            # the screen-space hook of densification: means2d + offset * (W/2, H/2)
+            tab[0] = tab[0] + means2d_offset[:, 0] * (0.5 * cam.width)
+            tab[1] = tab[1] + means2d_offset[:, 1] * (0.5 * cam.height)
+        radii = preprocess_fused.visible_radii(tab)
+        binning = tiling.bin_gaussians(tab, radii, cam.width, cam.height)
+        color, depth, alpha = _run_fwd(tab, binning, bg, cam.width, cam.height)
+        ctx.save_for_backward(means3d, scales, rotations, opacities, shs, color, depth, alpha)
+        ctx.tab, ctx.binning, ctx.cfg = tab, binning, cfg
+        ctx.mark_non_differentiable(radii)
+        return color, depth, alpha, radii, binning.num_instances
+
+    @staticmethod
+    def backward(ctx, d_color, d_depth, d_alpha, _d_radii, _d_num):
+        means3d, scales, rotations, opacities, shs, color, depth, alpha = ctx.saved_tensors
+        cam, _bg, sh_degree, scale_modifier, active_degree = ctx.cfg
+
+        def cot(g, like):
+            return torch.zeros_like(like) if g is None else g.contiguous()
+
+        grad_inst = _run_bwd(ctx.tab, ctx.binning, color, depth, alpha, cot(d_color, color),
+                             cot(d_depth, depth), cot(d_alpha, alpha), cam.width, cam.height)
+        acc = _reduce_per_gaussian(grad_inst, ctx.binning)
+        g_means, g_scales, g_rots, g_opac, g_shs = preprocess_fused.preprocess_fused_bwd(
+            means3d, scales, rotations, opacities, shs, cam, sh_degree, scale_modifier, acc,
+            active_degree=active_degree,
+        )
+        g_off = None
+        if ctx.needs_input_grad[5]:
+            # the offset is additive on the mean rows: the same rows, rescaled
+            g_off = torch.stack([acc[0] * (0.5 * cam.width), acc[1] * (0.5 * cam.height)], dim=-1)
+        return g_means, g_scales, g_rots, g_opac, g_shs, g_off, None
+
+
 def rasterize_tiles(
     means3d: torch.Tensor,
     scales: torch.Tensor,
@@ -148,10 +331,14 @@ def rasterize_tiles(
     scale_modifier: float = 1.0,
     colors_precomp: Optional[torch.Tensor] = None,
     cov3d_precomp: Optional[torch.Tensor] = None,
+    means2d_offset: Optional[torch.Tensor] = None,
     active_degree: Optional[int] = None,
 ) -> RenderOutput:
-    """Render through K1 -> binning (K3 + sort) -> K4. Inputs are
-    post-activation; CUDA tensors run the kernels, CPU tensors their
+    """Render through K1 -> binning (K3 + sort) -> K4, differentiable
+    through K5 -> K6 -> K2. Inputs are post-activation; `means2d_offset`
+    (N, 2), usually zeros that require grad, is added to the screen means
+    scaled by (W/2, H/2), and its gradient is the viewspace gradient that
+    densification reads. CUDA tensors run the kernels, CPU tensors their
     plain versions."""
     if colors_precomp is not None or cov3d_precomp is not None:
         raise NotImplementedError(
@@ -159,17 +346,8 @@ def rasterize_tiles(
         )
     if shs is None:
         raise ValueError("the tile rasterizer needs SH features")
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (means3d, scales, rotations, opacities, shs)
-    ):
-        raise NotImplementedError(
-            "the tile rasterizer has no backward yet; render under torch.no_grad()"
-        )
-    tab = preprocess_fused.preprocess_fused_fwd(
-        means3d, scales, rotations, opacities, shs, cam, sh_degree, scale_modifier,
-        active_degree=active_degree,
+    cfg = (cam, bg, sh_degree, float(scale_modifier), active_degree)
+    color, depth, alpha, radii, num_instances = _RasterizeTiles.apply(
+        means3d, scales, rotations, opacities, shs, means2d_offset, cfg
     )
-    radii = preprocess_fused.visible_radii(tab)
-    binning = tiling.bin_gaussians(tab, radii, cam.width, cam.height)
-    color, depth, alpha = _run_fwd(tab, binning, bg, cam.width, cam.height)
-    return RenderOutput(color, depth, alpha, radii, radii > 0, 0, binning.num_instances)
+    return RenderOutput(color, depth, alpha, radii, radii > 0, 0, num_instances)

@@ -13,6 +13,12 @@ rasterizer_impl.cu of the CUDA original:
      equal keys keep Gaussian order);
   5. per-tile start and count from the histogram.
 None of the TPU packing, padding or capacity machinery is needed here.
+
+The binning also keeps what the backward needs to reduce per-instance
+gradients without a second sort: the sort's permutation (`perm[i]` is the
+expansion slot of sorted instance i) and K3's per-Gaussian `offsets` and
+`count` (Gaussian g owns the contiguous slots [offsets[g],
+offsets[g] + count[g]), in ascending tile order).
 """
 
 from __future__ import annotations
@@ -35,6 +41,9 @@ class TileBinning(NamedTuple):
     num_instances: int  # M: all expanded instances, culled ones included
     grid_x: int
     grid_y: int
+    perm: torch.Tensor  # (M,) int32 expansion slot of each sorted instance
+    offsets: torch.Tensor  # (N,) int32 first expansion slot of each Gaussian
+    count: torch.Tensor  # (N,) int32 expansion slots of each Gaussian
 
 
 def _to_i32(x: torch.Tensor) -> torch.Tensor:
@@ -89,9 +98,11 @@ def bin_gaussians(
     `expand_fn` is K3's wrapper; a check against the plain chain passes
     `expand.expand_instances_plain`."""
     args = expand_inputs(tab, radii, width, height)
+    count, offsets = args[3], args[4]
     gx, num_tiles, total = args[-3:]
     keys, owners, hist = expand_fn(tab, *args)
     _, perm = torch.sort(keys, stable=True)
     inst_gauss = owners[perm]
     tile_start = (torch.cumsum(hist, 0, dtype=torch.int32) - hist).to(torch.int32)
-    return TileBinning(inst_gauss, tile_start, hist, total, gx, num_tiles // gx)
+    return TileBinning(inst_gauss, tile_start, hist, total, gx, num_tiles // gx,
+                       perm.to(torch.int32), offsets, count)

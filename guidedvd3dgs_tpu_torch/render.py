@@ -18,7 +18,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from guidedvd3dgs_tpu.config import ModelParams, PipelineParams, build_parser, get_combined_args
+from guidedvd3dgs_tpu_torch.config import ModelParams, PipelineParams, build_parser, get_combined_args
 from guidedvd3dgs_tpu_torch.models.gaussians import GaussianParams
 from guidedvd3dgs_tpu_torch.models.render import eval_render
 from guidedvd3dgs_tpu_torch.scene.cameras import Camera

@@ -16,9 +16,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from guidedvd3dgs_tpu.scene.dataset_readers import CameraInfo
-from guidedvd3dgs_tpu.utils.graphics import fov2focal
 from guidedvd3dgs_tpu_torch.scene.cameras import Camera
+from guidedvd3dgs_tpu_torch.scene.dataset_readers import CameraInfo
+from guidedvd3dgs_tpu_torch.utils.graphics import fov2focal
 from guidedvd3dgs_tpu_torch.utils.image_io import read_png
 
 

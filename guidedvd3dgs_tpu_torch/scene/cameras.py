@@ -16,8 +16,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from guidedvd3dgs_tpu.utils.graphics import getProjectionMatrix, getWorld2View2
 from guidedvd3dgs_tpu_torch.ops.projection import RasterCamera
+from guidedvd3dgs_tpu_torch.utils.graphics import getProjectionMatrix, getWorld2View2
 
 
 def _build_matrices(R, T, fovx, fovy, trans, scale):

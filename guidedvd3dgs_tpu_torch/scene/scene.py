@@ -1,8 +1,7 @@
-"""Scene container: camera lists and model snapshots.
+"""Scene container: camera lists, the initial Gaussians, model snapshots.
 
-Counterpart of `guidedvd3dgs_tpu/scene/scene.py` on the read path. The
-dataset readers are the reference package's (pure numpy); cameras and
-Gaussians are the port's.
+Counterpart of `guidedvd3dgs_tpu/scene/scene.py`, with the port's own
+dataset readers, cameras and Gaussians.
 """
 
 from __future__ import annotations
@@ -10,10 +9,14 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import types
 from typing import List, Optional
 
-from guidedvd3dgs_tpu.scene import dataset_readers
-from guidedvd3dgs_tpu_torch.models.gaussians import GaussianParams
+import numpy as np
+
+from guidedvd3dgs_tpu_torch.models.gaussians import GaussianParams, GaussianState, create_from_pcd
+from guidedvd3dgs_tpu_torch.scene import dataset_readers
+from guidedvd3dgs_tpu_torch.scene.ply import save_gaussian_ply
 from guidedvd3dgs_tpu_torch.scene.camera_utils import camera_list_from_infos, camera_to_json
 from guidedvd3dgs_tpu_torch.scene.cameras import Camera
 
@@ -63,11 +66,27 @@ class Scene:
             with open(os.path.join(self.model_path, "cameras.json"), "w") as f:
                 json.dump([camera_to_json(i, c) for i, c in enumerate(cams)], f)
 
+    def _ply_path(self, iteration: int) -> str:
+        return os.path.join(self.model_path, "point_cloud", f"iteration_{iteration}", "point_cloud.ply")
+
     def load_gaussians(self, iteration: int, device) -> GaussianParams:
-        path = os.path.join(
-            self.model_path, "point_cloud", f"iteration_{iteration}", "point_cloud.ply"
-        )
-        return GaussianParams.from_ply(path, device)
+        return GaussianParams.from_ply(self._ply_path(iteration), device)
+
+    def create_gaussians(self, max_sh_degree: int = 3, use_color: bool = True,
+                         device="cpu") -> GaussianState:
+        """The initial training state: from the scene's point cloud, or the
+        loaded snapshot when load_iteration was given."""
+        if self.loaded_iter:
+            return GaussianState.fresh(self.load_gaussians(self.loaded_iter, device))
+        pcd = self.scene_info.point_cloud
+        return create_from_pcd(np.asarray(pcd.points, np.float32), np.asarray(pcd.colors, np.float32),
+                               max_sh_degree=max_sh_degree, use_color=use_color, device=device)
+
+    def save(self, iteration: int, state: GaussianState) -> None:
+        """Write point_cloud/iteration_<iteration>/point_cloud.ply."""
+        arrays = {k: v.cpu().numpy() for k, v in state.params.tensors().items()}
+        save_gaussian_ply(self._ply_path(iteration), types.SimpleNamespace(**arrays),
+                          np.ones(state.num_gaussians, bool))
 
     def getTrainCameras(self) -> List[Camera]:
         return self.train_cameras

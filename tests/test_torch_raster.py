@@ -89,14 +89,19 @@ def test_tiles_match_reference_tiles(n, seed):
 
 
 def test_tiles_refuse_what_needs_a_backward():
+    """The tile rasterizer is differentiable (the gradient reaches every
+    input and the screen offset); precomputed colors / cov3D still raise."""
     cam, parts = setup(50, 3)
-    t = [torch.from_numpy(p) for p in parts]
+    t = [torch.from_numpy(p).requires_grad_(True) for p in parts]
     rc = raster_camera_from_numpy(cam)
     bg = torch.from_numpy(BG)
-    t[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        raster_tiles.rasterize_tiles(*t, rc, bg)
+    off = torch.zeros((50, 2), requires_grad=True)
+    out = raster_tiles.rasterize_tiles(*t, rc, bg, means2d_offset=off)
+    (out.color.sum() + 0.1 * out.depth.sum() + out.alpha.sum()).backward()
+    for p in t + [off]:
+        assert p.grad is not None and p.grad.shape == p.shape
+        assert torch.isfinite(p.grad).all() and float(p.grad.abs().max()) > 0
     with torch.no_grad():
         assert raster_tiles.rasterize_tiles(*t, rc, bg).color.shape == (3, H, W)
-        with pytest.raises(NotImplementedError):
-            raster_tiles.rasterize_tiles(*t, rc, bg, colors_precomp=torch.zeros(50, 3))
+    with pytest.raises(NotImplementedError):
+        raster_tiles.rasterize_tiles(*t, rc, bg, colors_precomp=torch.zeros(50, 3))
