@@ -38,12 +38,32 @@ and the exit code is non-zero; there is no CPU fallback):
               make_scene), then the render and metrics CLIs on its
               iteration-0 and iteration-2000 models: test PSNR must gain
               at least 2 dB
-The line before the last is the JSON kernel table (launches from phase 5);
-the last line is {"ok": true, "device": {...}}.
+  7. generate the video-diffusion generation path (ViewCrafter at full
+              width: 25 frames, 320x448, UNet 320 channels, ViT-H-14
+              towers, random weights from a seed)
+     7a. kernel L1 (flash attention) against its plain version on the
+              card at the UNet's, the VAE's and a ragged shape, in float32
+              and bfloat16: max abs error against the stated tolerance,
+              median ms, bound, plain ms and the ms of
+              torch.nn.functional.scaled_dot_product_attention
+     7b. one request through `ViewCrafterEngine.generate(no_guidance=True)`
+              in bfloat16 with GEN_STEPS DDIM steps (cut from the default
+              50; every step is the same program): conditioning, ms per
+              step, decode, total, peak memory, L1's launches against
+              10 per step + 2, the frames finite in [0, 1]; one DDIM step
+              traced by stage with the idle share
+     7c. one DDIM step at full width in float32 through L1 and through
+              its plain version: the latents agree within STEP_TOL
+`python3 chip_smoke.py --generate-only STEPS` runs phases 1, 2 and 7b
+alone with STEPS DDIM steps (the 50-step request of PERF.md).
+The line before the last is the JSON kernel table (launches of K1-K6 from
+phase 5, of L1 from phase 7b); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -55,9 +75,11 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
@@ -73,14 +95,23 @@ from guidedvd3dgs_tpu_torch.config import (  # noqa: E402
     get_combined_args,
 )
 from guidedvd3dgs_tpu_torch.convert import params_from_numpy  # noqa: E402
+from guidedvd3dgs_tpu_torch.diffusion import attention as d_attention  # noqa: E402
+from guidedvd3dgs_tpu_torch.diffusion import nnops as d_nnops  # noqa: E402
+from guidedvd3dgs_tpu_torch.diffusion import schedules as S  # noqa: E402
+from guidedvd3dgs_tpu_torch.diffusion import synthesis, unet3d  # noqa: E402
+from guidedvd3dgs_tpu_torch.diffusion.init import init_diffusion_params  # noqa: E402
+from guidedvd3dgs_tpu_torch.diffusion.model import LatentDiffusionConfig, apply_model  # noqa: E402
+from guidedvd3dgs_tpu_torch.diffusion.samplers import ddim  # noqa: E402
 from guidedvd3dgs_tpu_torch.models import gaussians as G  # noqa: E402
 from guidedvd3dgs_tpu_torch.models.render import eval_render  # noqa: E402
 from guidedvd3dgs_tpu_torch.ops import _build, expand, preprocess_fused, raster_tiles, segsum, tiling  # noqa: E402
+from guidedvd3dgs_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain  # noqa: E402
 from guidedvd3dgs_tpu_torch.ops.knn import dist_knn3  # noqa: E402
 from guidedvd3dgs_tpu_torch.scene import cameras, dataset_readers, synthetic  # noqa: E402
 from guidedvd3dgs_tpu_torch.scene.ply import load_gaussian_ply  # noqa: E402
 from guidedvd3dgs_tpu_torch.scene.scene import Scene  # noqa: E402
 from guidedvd3dgs_tpu_torch.train.baseline import BaselineTrainer  # noqa: E402
+from guidedvd3dgs_tpu_torch.train.guided import ViewCrafterEngine  # noqa: E402
 
 SEED = 20261016
 WIDTH, HEIGHT, HFOV = 640, 480, 90.0
@@ -100,12 +131,16 @@ KERNELS = {
     "blend_bwd": ("guidedvd3dgs_tpu_torch/csrc/blend_bwd.cu",
                   "guidedvd3dgs_tpu/ops/raster_tiles.py:718"),
     "segsum": ("guidedvd3dgs_tpu_torch/csrc/segsum.cu", "guidedvd3dgs_tpu/ops/segsum.py:144"),
+    "flash_attn_fwd": ("guidedvd3dgs_tpu_torch/csrc/flash_attn_fwd.cu",
+                       "guidedvd3dgs_tpu/diffusion/nnops.py:193"),
 }
-# the kernels of a render (phase 4); training (phase 5) runs all six
+# the kernels of a render (phase 4); training (phase 5) runs K1-K6
 FORWARD_KERNELS = ("preprocess_fwd", "expand", "blend_fwd")
+GAUSSIAN_KERNELS = ("preprocess_fwd", "preprocess_bwd", "expand", "blend_fwd", "blend_bwd", "segsum")
 # the card's peaks for the bounds (H100 SXM data sheet, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 # f32 operations per (instance, pixel) pair a pixel walks before its stop
 # (expf counted as one, comparisons not counted), by class. Every walked
 # pair takes the offset and the quadratic form (11) and most stop there;
@@ -158,6 +193,30 @@ DENSE_TRACE = range(10, 20)
 DENSE_SELECT = 0.1
 # phase 6: iterations of the CLI run on the tool-default synthetic scene
 CLI_ITERS = 2000
+# phase 7: the ViewCrafter request (configs/inference_pvd_1024.yaml widths,
+# the guidedvd engine size) and L1's shapes on its path: the UNet's level-0
+# spatial attention per CFG branch, the VAE's mid-block attention with the
+# 25 frames batched (encode in float32, decode in bfloat16), the per-frame
+# VAE shape of the JAX package, and a ragged tail
+GEN_FRAMES, GEN_H, GEN_W = 25, 320, 448
+GEN_STEPS = 10  # of the default 50: every DDIM step is the same program
+BF16, F32 = torch.bfloat16, torch.float32
+L1_SHAPES = [((25, 5, 2240, 64), BF16), ((25, 5, 2240, 64), F32), ((25, 1, 2240, 512), F32),
+             ((25, 1, 2240, 512), BF16), ((1, 1, 2240, 512), F32), ((1, 1, 2240, 512), BF16),
+             ((2, 3, 1200, 64), F32)]
+L1_MAIN = L1_SHAPES[0]  # the UNet's, ten launches per DDIM step of the bf16 request
+# L1 against its plain version on unit-normal inputs: float32 (another sum
+# order); bfloat16 against the plain version of the same bf16 inputs, which
+# rounds the weights to bf16 before the second product
+L1_TOL = {F32: 2e-5, BF16: 1e-2}
+# 7c: one float32 DDIM step through L1 and through its plain version; the
+# ten attentions differ by ~1e-6, carried through the UNet and the CFG
+# scale of 7.5 to latents of O(1)
+STEP_TOL = 1e-3
+# 7b's trace: the stage of each diffusion function (by its module name)
+STAGE_FNS = {"attention": "attention", "conv2d": "conv", "conv3d": "conv",
+             "group_norm": "GroupNorm", "linear": "matmul", "conv1d_k1": "matmul"}
+STAGE_ORDER = ("L1", "attention", "conv", "GroupNorm", "matmul", "other")
 
 
 def log(msg: str) -> None:
@@ -228,6 +287,12 @@ def trace_summary(prof, units: int):
         elif evt.name == "aten::_local_scalar_dense":
             readback_us += end - start
             readbacks += 1
+    ms = {k: v / 1e3 / units for k, v in stage_us.items()}
+    return ms, idle_share(spans, first, last), readback_us / 1e3 / units, readbacks / units
+
+
+def idle_share(spans, first: float, last: float) -> float:
+    """1 - (the union of the device spans) / (first event to last device event)."""
     if not spans:
         raise RuntimeError("the profiler recorded no device time")
     busy, cur_s, cur_e = 0.0, None, None
@@ -238,8 +303,7 @@ def trace_summary(prof, units: int):
         else:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
-    ms = {k: v / 1e3 / units for k, v in stage_us.items()}
-    return ms, 1.0 - busy / (last - first), readback_us / 1e3 / units, readbacks / units
+    return 1.0 - busy / (last - first)
 
 
 PROFILER_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -286,10 +350,11 @@ def phase_build():
         f"(nvcc {compile_s:.1f} s) | ptxas: {'; '.join(regs)}")
 
 
-def bound(n_bytes: float, n_flops: float):
+def bound(n_bytes: float, n_flops: float, peak_flops: float = PEAK_F32_FLOPS):
     """The least time the card could take: the larger of bytes over the
-    memory rate and operations over the f32 peak. Returns (ms, bound_by)."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / PEAK_F32_FLOPS
+    memory rate and operations over the peak of their type (f32 unless
+    given). Returns (ms, bound_by)."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -630,8 +695,8 @@ def run_steps(trainer, iters: int, trace: range):
 
 def check_launches(iters: int) -> dict:
     launches = dict(_build.LAUNCHES)
-    if any(n != iters for n in launches.values()):
-        raise AssertionError(f"each kernel should run once per step ({iters}): {launches}")
+    if any(launches[n] != iters for n in GAUSSIAN_KERNELS) or launches["flash_attn_fwd"]:
+        raise AssertionError(f"each of K1-K6 should run once per step ({iters}): {launches}")
     return launches
 
 
@@ -789,7 +854,8 @@ def phase_cli(dev, work: Path):
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
-    for name, n in launches.items():
+    for name in GAUSSIAN_KERNELS:
+        n = launches[name]
         if n < CLI_ITERS:
             raise AssertionError(f"kernel {name} ran {n} times in {CLI_ITERS} training steps")
     # iteration 0's model: the trainer's initial state, as a snapshot
@@ -813,20 +879,248 @@ def phase_cli(dev, work: Path):
         f"SSIM {s0:.5f} -> {s1:.5f} (iteration 0 -> {CLI_ITERS}) | launches {launches}")
 
 
+def l1_bound(shape, dtype):
+    """L1's least time: q, k, v read once and o written once, against the
+    two products (4 B H N^2 D operations) at the peak of the input type."""
+    b, h, n, d = shape
+    elem = torch.empty((), dtype=dtype).element_size()
+    return bound(4 * b * h * n * d * elem, 4 * b * h * n * n * d,
+                 PEAK_BF16_FLOPS if dtype == BF16 else PEAK_F32_FLOPS)
+
+
+def phase_l1(dev):
+    """7a: L1 against its plain version at every shape of L1_SHAPES."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    rows, res = [], {}
+    with torch.no_grad():
+        for shape, dtype in L1_SHAPES:
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3))
+            scale = shape[3] ** -0.5
+            got = flash_attention(q, k, v, scale)
+            want = flash_attention_plain(q, k, v, scale)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if got.dtype != dtype or got.shape != want.shape or not err <= L1_TOL[dtype]:
+                raise AssertionError(f"L1 {shape} {dtype}: max abs err {err:.3g} > {L1_TOL[dtype]}")
+            r = dict(max_abs_err=err, bound=l1_bound(shape, dtype),
+                     ms=median_ms(lambda: flash_attention(q, k, v, scale)),
+                     plain_ms=median_ms(lambda: flash_attention_plain(q, k, v, scale)),
+                     library_ms=median_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)))
+            res[(shape, dtype)] = r
+            rows.append(f"{shape} {str(dtype)[6:]}: err {err:.3g} (tol {L1_TOL[dtype]}), {r['ms']:.3f} ms "
+                        f"vs plain {r['plain_ms']:.3f}, sdpa {r['library_ms']:.3f}, bound "
+                        f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+            del q, k, v, got, want
+    log("phase 7a L1 vs plain (unit-normal inputs; median of 10, host clock with synchronize): "
+        + " | ".join(rows))
+    return res[L1_MAIN]
+
+
+@contextlib.contextmanager
+def timed(module, name: str, record: list):
+    """Time every call of module.name (synchronised on both sides) into
+    `record`, in ms, while the context is open."""
+    fn = getattr(module, name)
+
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        record.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    with mock.patch.object(module, name, run):
+        yield
+
+
+@contextlib.contextmanager
+def labelled_stages():
+    """Run every diffusion function of STAGE_FNS inside a profiler range
+    "stage:<stage>", so that a trace can sort the kernels by stage."""
+    with contextlib.ExitStack() as stack:
+        for module in (d_nnops, d_attention, unet3d):
+            for name, stage in STAGE_FNS.items():
+                fn = getattr(module, name, None)
+                if fn is None:
+                    continue
+
+                def run(*args, _fn=fn, _label=f"stage:{stage}", **kwargs):
+                    with torch.profiler.record_function(_label):
+                        return _fn(*args, **kwargs)
+
+                stack.enter_context(mock.patch.object(module, name, run))
+        yield
+
+
+def stage_summary(prof):
+    """Device ms per stage of a trace under labelled_stages (L1 by its
+    kernel name; the rest by the innermost "stage:" range above the op that
+    launched the kernel; "other" takes what no range holds), the idle share
+    of the traced span, and the device ms of the largest kernels of the
+    "attention" stage by name."""
+    stage_us = dict.fromkeys(STAGE_ORDER, 0.0)
+    attn_kernels = {}
+    spans, first, last, total = [], math.inf, -math.inf, 0.0
+    for evt in prof.events():
+        first = min(first, evt.time_range.start)
+        if evt.name.startswith("stage:"):
+            continue  # a range itself, also mirrored on the device's timeline
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            dur = evt.time_range.end - evt.time_range.start
+            spans.append((evt.time_range.start, evt.time_range.end))
+            last = max(last, evt.time_range.end)
+            total += dur
+            if "flash_attn" in evt.name:
+                stage_us["L1"] += dur
+        elif evt.kernels:
+            p, stage = evt, None
+            while p is not None and stage is None:
+                if p.name.startswith("stage:"):
+                    stage = p.name[len("stage:"):]
+                p = p.cpu_parent
+            for kern in evt.kernels:
+                if stage is not None and "flash_attn" not in kern.name:
+                    stage_us[stage] += kern.duration
+                    if stage == "attention":
+                        attn_kernels[kern.name] = attn_kernels.get(kern.name, 0.0) + kern.duration / 1e3
+    idle = idle_share(spans, first, last)
+    stage_us["other"] = total - sum(v for k, v in stage_us.items() if k != "other")
+    top = sorted(attn_kernels.items(), key=lambda kv: -kv[1])[:4]
+    return {k: v / 1e3 for k, v in stage_us.items()}, idle, top
+
+
+def one_step(params, mcfg, scfg, cond, uncond, x, index, noise, plain=False):
+    """One DDIM step of the request's sampler (CFG pair, then the update)."""
+    sched = mcfg.schedule(x.device)
+    pr = S.make_ddim_params(sched, scfg.ddim_steps, eta=scfg.ddim_eta, method=scfg.timestep_spacing)
+    t = pr.timesteps[index].expand(x.shape[0])
+    mo, _ = ddim.cfg_model_output(lambda x_, t_: apply_model(params, mcfg, x_, t_, cond, plain=plain),
+                                  lambda x_, t_: apply_model(params, mcfg, x_, t_, uncond, plain=plain),
+                                  x, t, scfg.cfg_scale, scfg.guidance_rescale)
+    return ddim.ddim_step(sched, pr, index, x, mo, noise).x_prev
+
+
+def phase_generate(dev, steps: int, trace_and_f32: bool = True) -> int:
+    """7b (and 7c): one full-width request of `steps` DDIM steps through
+    the engine a user calls, in bfloat16. Returns L1's launches in it."""
+    mcfg = LatentDiffusionConfig(compute_dtype="bfloat16")
+    scfg = synthesis.SynthesisConfig(ddim_steps=steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_diffusion_params(mcfg, scfg, seed=SEED, device=dev, dtype=BF16)
+    engine = ViewCrafterEngine(params, mcfg, scfg, video_length=GEN_FRAMES, height=GEN_H, width=GEN_W)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for part in params for v in part.values())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    renders = torch.rand((GEN_FRAMES, GEN_H, GEN_W, 3), generator=gen, device=dev)
+
+    # the main path of this slice
+    cond_ms, model_ms, update_ms, decode_ms = [], [], [], []
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with timed(synthesis, "build_conditioning", cond_ms), timed(synthesis, "decode_video_frames", decode_ms), \
+            timed(ddim, "cfg_model_output", model_ms), timed(ddim, "ddim_step", update_ms):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        video = engine.generate(renders, no_guidance=True, generator=gen)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected = 10 * steps + 2  # 5 level-0 spatial attentions x 2 CFG branches per step; VAE encode, decode
+    if launches["flash_attn_fwd"] != expected or any(launches[n] for n in GAUSSIAN_KERNELS):
+        raise AssertionError(f"launches in the request {launches}; L1 expected {expected}")
+    if tuple(video.shape) != (GEN_FRAMES, 3, GEN_H, GEN_W) or not bool(torch.isfinite(video).all()) \
+            or float(video.min()) < 0.0 or float(video.max()) > 1.0:
+        raise AssertionError(f"bad video: shape {tuple(video.shape)}, range "
+                             f"[{float(video.min())}, {float(video.max())}]")
+    step_ms = [m + u for m, u in zip(model_ms, update_ms)]
+    log(f"phase 7b request (ViewCrafter full width, {n_params} parameters in bf16, random from a seed; "
+        f"{GEN_FRAMES}x{GEN_H}x{GEN_W}, {steps} DDIM steps, no guidance, compute bf16): set-up "
+        f"(init on the card + text pair) {setup_s:.2f} s | conditioning {cond_ms[0]:.1f} ms | DDIM step "
+        f"ms median {statistics.median(step_ms):.1f} (first {step_ms[0]:.1f}, min {min(step_ms):.1f}, "
+        f"max {max(step_ms):.1f}; model pair {statistics.median(model_ms):.1f}) | decode "
+        f"{decode_ms[0]:.1f} ms | total {total_s:.3f} s | peak allocated {peak_gb:.2f} GB | L1 launches "
+        f"{launches['flash_attn_fwd']} (expected {expected}) | video std {float(video.std()):.4f}")
+    if not trace_and_f32:
+        return launches["flash_attn_fwd"]
+
+    # one DDIM step traced by stage, outside the counted run
+    with torch.no_grad():
+        cond, uncond = synthesis.build_conditioning(params, mcfg, scfg, renders * 2.0 - 1.0,
+                                                       generator=gen, text_pair=engine.text_pair)
+        x = torch.randn(cond.concat.shape, generator=gen, device=dev)
+        noise = torch.randn(x.shape, generator=gen, device=dev)
+        index = steps // 2
+        one_step(params, mcfg, scfg, cond, uncond, x, index, noise)
+        torch.cuda.synchronize()
+        with labelled_stages(), torch.profiler.profile(activities=PROFILER_ACTIVITIES) as prof:
+            one_step(params, mcfg, scfg, cond, uncond, x, index, noise)
+            torch.cuda.synchronize()
+    dev_ms, idle, top = stage_summary(prof)
+    log("phase 7b one DDIM step traced (bf16, CFG pair + update), device ms: "
+        + " ".join(f"{k} {dev_ms[k]:.3f}" for k in STAGE_ORDER)
+        + f" (total {sum(dev_ms.values()):.3f}), idle share {idle:.3f} (under the profiler); "
+        "largest attention kernels: " + "; ".join(f"{name[:70]} {ms:.3f}" for name, ms in top))
+
+    # 7c: one float32 step through L1 and through its plain version
+    mcfg32 = dataclasses.replace(mcfg, compute_dtype="float32")
+    params32 = params._replace(unet={k: v.float() for k, v in params.unet.items()})
+    with torch.no_grad():
+        before = _build.LAUNCHES["flash_attn_fwd"]
+        got = one_step(params32, mcfg32, scfg, cond, uncond, x, index, noise)
+        mid = _build.LAUNCHES["flash_attn_fwd"]
+        want = one_step(params32, mcfg32, scfg, cond, uncond, x, index, noise, plain=True)
+        torch.cuda.synchronize()
+    if mid - before != 10 or _build.LAUNCHES["flash_attn_fwd"] != mid:
+        raise AssertionError(f"7c: L1 launched {mid - before} times through the kernel path "
+                             f"(expected 10), {_build.LAUNCHES['flash_attn_fwd'] - mid} through the plain one")
+    err = (got - want).abs().max().item()
+    if not (bool(torch.isfinite(got).all()) and err <= STEP_TOL):
+        raise AssertionError(f"7c: the f32 step through L1 differs from the plain chain by {err:.3g}")
+    log(f"phase 7c one f32 DDIM step (TF32 off) at index {index}, L1 vs its plain version: latent max abs "
+        f"diff {err:.3g} (tol {STEP_TOL}; max |latent| {got.abs().max().item():.3f})")
+    return launches["flash_attn_fwd"]
+
+
 def main() -> None:
-    dev = phase_device()
-    phase_build()
-    res = phase_kernels(dev)
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--generate-only", type=int, metavar="STEPS", default=None,
+                        help="run phases 1, 2 and 7b alone, with STEPS DDIM steps")
+    args = parser.parse_args()
+    start = time.perf_counter()
+    secs = {}
+
+    def run(name, fn, *fn_args, **fn_kwargs):
+        t = time.perf_counter()
+        out = fn(*fn_args, **fn_kwargs)
+        secs[name] = time.perf_counter() - t
+        return out
+
+    dev = run("1", phase_device)
+    run("2", phase_build)
+    if args.generate_only is not None:
+        phase_generate(dev, args.generate_only, trace_and_f32=False)
+        return
+    res = run("3", phase_kernels, dev)
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=build_dir))
     try:
-        phase_main(dev, work)
-        launches = phase_train(dev)
-        phase_train_dense(dev)
-        phase_cli(dev, work)
+        run("4", phase_main, dev, work)
+        launches = run("5", phase_train, dev)
+        run("5b", phase_train_dense, dev)
+        run("6", phase_cli, dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    res["flash_attn_fwd"] = run("7a", phase_l1, dev)
+    launches["flash_attn_fwd"] = run("7b-7c", phase_generate, dev, GEN_STEPS)
+    log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+        + f"; total {time.perf_counter() - start:.1f}")
     table = [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
              max_abs_err=res[name]["max_abs_err"], ms=res[name]["ms"],

@@ -4,7 +4,9 @@
 (as numpy arrays, by name) and returns the port's module;
 `state_from_numpy` takes a reference `GaussianState` whose leaves numpy
 can convert and returns the port's training state of its active rows.
-Tests use them so that both packages compute on the same weights.
+`diffusion_params_from_numpy` carries the reference DiffusionParams'
+weights across. Tests use them so that both packages compute on the same
+weights.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from guidedvd3dgs_tpu_torch.diffusion.model import DiffusionParams
 from guidedvd3dgs_tpu_torch.models.gaussians import PARAM_NAMES, GaussianParams, GaussianState
 from guidedvd3dgs_tpu_torch.ops.projection import RasterCamera
 
@@ -44,6 +47,22 @@ def state_from_numpy(state, device="cpu") -> GaussianState:
         xyz_gradient_accum=rows(state.xyz_gradient_accum),
         denom=rows(state.denom),
     )
+
+
+def diffusion_params_from_numpy(params, device="cpu", dtype=None) -> DiffusionParams:
+    """The port's DiffusionParams from any object with the reference
+    DiffusionParams' five fields (unet, vae, resampler, clip_text,
+    clip_image), each a {torch name: array} mapping: the same names and
+    layouts, on `device`; floating arrays cast to `dtype` when given."""
+
+    def tensor(a):
+        t = torch.from_numpy(np.array(a))
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(device)
+
+    return DiffusionParams(*({k: tensor(v) for k, v in getattr(params, f).items()}
+                             for f in DiffusionParams._fields))
 
 
 def raster_camera_from_numpy(cam, device="cpu") -> RasterCamera:

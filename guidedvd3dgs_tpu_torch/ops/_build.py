@@ -45,6 +45,7 @@ SIGNATURES = {
     "blend_bwd": [_P, _I] + [_P] * 10 + [_I] * 4 + [_P, _P],
     "segsum": [_P, _P, _P, _I, _P, _P],
     "preprocess_bwd": [_P] * 6 + [_I] * 4 + [_F, _I, _I] + [_P] * 5 + [_P],
+    "flash_attn_fwd": [_P] * 4 + [_I] * 4 + [_F, _P],
 }
 
 # Launch counts of each kernel in this process; `launch` is the only writer.
@@ -83,20 +84,40 @@ def library_path() -> Path:
 
 def build() -> tuple[Path, float, str]:
     """Compile the kernels if the library for the current sources is
-    missing. Returns (path, seconds spent compiling, compiler output)."""
+    missing: one nvcc per source, all started together, then one link.
+    Returns (path, seconds spent compiling, compiler output)."""
     path = library_path()
     if path.exists():
         return path, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     srcs, _ = _sources()
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, srcs)]
+    tag = f"{path.stem}.{os.getpid()}"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     t0 = time.perf_counter()
+    jobs = []
+    for src in srcs:
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [_nvcc(), *compile_flags, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    logs = []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            for _, _, other in jobs:
+                other.kill()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    objs = [obj for _, obj, _ in jobs]
+    cmd = [_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     secs = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
+    log = "".join(logs) + proc.stdout + proc.stderr
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
     # atomic: a concurrent build never loads a half-written library
     os.replace(tmp, path)
     path.with_suffix(".log").write_text(log)

@@ -7,7 +7,10 @@ histogram exact; K4 color/alpha atol 2e-5, depth atol 2e-4, rtol 1e-4;
 K2 max abs error over max |grad| of each output 1e-4 (hand-derived against
 autograd); K5 rows within 1e-4 of the field's max |grad| + 1e-4 relative,
 all but 1e-4 of them (a pixel may stop one instance apart, as in K4); K6
-within count * 2^-23 * sum |terms| of the float64 sums.
+within count * 2^-23 * sum |terms| of the float64 sums; L1 (flash
+attention) within 2e-5 of its plain version in float32 and 1e-2 in
+bfloat16 (the plain version from the same bf16 inputs) on unit-normal
+inputs (other sum orders; the plain version rounds the weights to bf16).
 Run on the card without the reference package's conftest (it imports
 JAX):
 
@@ -18,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from guidedvd3dgs_tpu_torch.ops import _build, expand, preprocess_fused, raster_tiles, segsum, tiling
+from guidedvd3dgs_tpu_torch.ops import _build, expand, flash_attention, preprocess_fused, raster_tiles, segsum, tiling
 from guidedvd3dgs_tpu_torch.scene.cameras import PseudoCamera
 
 torch.set_num_threads(2)
@@ -146,3 +149,32 @@ def test_k6_matches_plain(dev):
         grad.abs(), binning.offsets, binning.count) + 1e-30
     assert got.shape == want.shape
     assert bool(((got - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("shape", [(2, 3, 1200, 64), (1, 1, 300, 512), (3, 2, 77, 32), (1, 2, 200, 128)])
+def test_l1_matches_plain(dev, dtype, tol, shape):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(shape[2])
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3))
+    scale = shape[3] ** -0.5
+    before = _build.LAUNCHES["flash_attn_fwd"]
+    got = flash_attention.flash_attention(q, k, v, scale)
+    assert _build.LAUNCHES["flash_attn_fwd"] == before + 1
+    want = flash_attention.flash_attention_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def test_l1_rejects_what_it_does_not_take(dev):
+    q = torch.randn((1, 2, 64, 64), device=dev)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(q.half(), q.half(), q.half(), 0.125)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(q[..., :48].contiguous(), q[..., :48].contiguous(),
+                                        q[..., :48].contiguous(), 0.125)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2), 0.125)
+    with pytest.raises(NotImplementedError):
+        flash_attention.flash_attention(q.requires_grad_(), q, q, 0.125)
