@@ -54,10 +54,39 @@ and the exit code is non-zero; there is no CPU fallback):
               traced by stage with the idle share
      7c. one DDIM step at full width in float32 through L1 and through
               its plain version: the latents agree within STEP_TOL
+  8. guided   generation under scene-grounding guidance (the same
+              ViewCrafter at full width), which differentiates through L1
+     8a. L1's backward (the dK/dV and dQ kernels) against its plain
+              backward on the card at the guided step's shapes (the UNet's
+              batched CFG pair and one branch, the VAE's decode chunk) and
+              a ragged one, in float32 and bfloat16: max abs error of dq,
+              dk, dv over max |grad| against L1_BWD_TOL, median ms of each
+              kernel, bounds, the plain backward's ms and the backward of
+              torch.nn.functional.scaled_dot_product_attention; the
+              forward's log-sum-exp against torch.logsumexp
+     8b. one request through `ViewCrafterEngine.generate(no_guidance=
+              False)` in bfloat16 with GUIDED_STEPS guided DDIM steps (cut
+              from the default 50; every step is the same program), 480x640
+              renders and guidance with a hole in the observed masks:
+              conditioning, per-step ms by part (CFG pair forward, decode
+              gradients, each branch again with its VJP, update), decode,
+              total, peak memory, L1's
+              launches against the formula, rho > 0 at every step, frames
+              finite in [0, 1], the masked L2 to the guidance against an
+              unguided request with the same noise (a reading); one guided
+              step traced by stage, backward kernels included
+     8c. one float32 guided step at full spatial width with STEP32_FRAMES
+              frames through L1's kernels and through its plain forward and
+              backward (`plain=True`): x_prev agrees within GUIDED_STEP_TOL;
+              its dL/dx through L1's backward kernels and through its
+              plain backward after the same forward within GUIDED_GRAD_TOL
+              (L2 norms)
 `python3 chip_smoke.py --generate-only STEPS` runs phases 1, 2 and 7b
-alone with STEPS DDIM steps (the 50-step request of PERF.md).
+alone with STEPS DDIM steps; `--guided-only STEPS` phases 1, 2 and 8b
+(the 50-step requests of PERF.md).
 The line before the last is the JSON kernel table (launches of K1-K6 from
-phase 5, of L1 from phase 7b); the last line is {"ok": true, "device": {...}}.
+phase 5, of L1's forward from phase 7b, of its backward from phase 8b);
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -65,6 +94,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -99,19 +129,22 @@ from guidedvd3dgs_tpu_torch.diffusion import attention as d_attention  # noqa: E
 from guidedvd3dgs_tpu_torch.diffusion import nnops as d_nnops  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion import schedules as S  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion import synthesis, unet3d  # noqa: E402
+from guidedvd3dgs_tpu_torch.diffusion import vae as d_vae  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion.init import init_diffusion_params  # noqa: E402
-from guidedvd3dgs_tpu_torch.diffusion.model import LatentDiffusionConfig, apply_model  # noqa: E402
-from guidedvd3dgs_tpu_torch.diffusion.samplers import ddim  # noqa: E402
+from guidedvd3dgs_tpu_torch.diffusion.model import Conditioning, LatentDiffusionConfig, apply_model  # noqa: E402
+from guidedvd3dgs_tpu_torch.diffusion.samplers import ddim, ddim_guidance  # noqa: E402
+from guidedvd3dgs_tpu_torch.guidance.loss_guidance import make_guidance_fn, resize_guidance  # noqa: E402
 from guidedvd3dgs_tpu_torch.models import gaussians as G  # noqa: E402
 from guidedvd3dgs_tpu_torch.models.render import eval_render  # noqa: E402
 from guidedvd3dgs_tpu_torch.ops import _build, expand, preprocess_fused, raster_tiles, segsum, tiling  # noqa: E402
+from guidedvd3dgs_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from guidedvd3dgs_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain  # noqa: E402
 from guidedvd3dgs_tpu_torch.ops.knn import dist_knn3  # noqa: E402
 from guidedvd3dgs_tpu_torch.scene import cameras, dataset_readers, synthetic  # noqa: E402
 from guidedvd3dgs_tpu_torch.scene.ply import load_gaussian_ply  # noqa: E402
 from guidedvd3dgs_tpu_torch.scene.scene import Scene  # noqa: E402
 from guidedvd3dgs_tpu_torch.train.baseline import BaselineTrainer  # noqa: E402
-from guidedvd3dgs_tpu_torch.train.guided import ViewCrafterEngine  # noqa: E402
+from guidedvd3dgs_tpu_torch.train.guided import ViewCrafterEngine, resize_renders  # noqa: E402
 
 SEED = 20261016
 WIDTH, HEIGHT, HFOV = 640, 480, 90.0
@@ -133,7 +166,13 @@ KERNELS = {
     "segsum": ("guidedvd3dgs_tpu_torch/csrc/segsum.cu", "guidedvd3dgs_tpu/ops/segsum.py:144"),
     "flash_attn_fwd": ("guidedvd3dgs_tpu_torch/csrc/flash_attn_fwd.cu",
                        "guidedvd3dgs_tpu/diffusion/nnops.py:193"),
+    # the backward of the library kernel that nnops.py:193 calls
+    "flash_attn_bwd_dkv": ("guidedvd3dgs_tpu_torch/csrc/flash_attn_bwd.cu",
+                           "jax/experimental/pallas/ops/tpu/flash_attention.py:941"),
+    "flash_attn_bwd_dq": ("guidedvd3dgs_tpu_torch/csrc/flash_attn_bwd.cu",
+                          "jax/experimental/pallas/ops/tpu/flash_attention.py:1287"),
 }
+L1_BWD_KERNELS = ("flash_attn_bwd_dkv", "flash_attn_bwd_dq")
 # the kernels of a render (phase 4); training (phase 5) runs K1-K6
 FORWARD_KERNELS = ("preprocess_fwd", "expand", "blend_fwd")
 GAUSSIAN_KERNELS = ("preprocess_fwd", "preprocess_bwd", "expand", "blend_fwd", "blend_bwd", "segsum")
@@ -213,10 +252,45 @@ L1_TOL = {F32: 2e-5, BF16: 1e-2}
 # ten attentions differ by ~1e-6, carried through the UNet and the CFG
 # scale of 7.5 to latents of O(1)
 STEP_TOL = 1e-3
-# 7b's trace: the stage of each diffusion function (by its module name)
+# 7b's and 8b's traces: the stage of each diffusion function (by its module name)
 STAGE_FNS = {"attention": "attention", "conv2d": "conv", "conv3d": "conv",
              "group_norm": "GroupNorm", "linear": "matmul", "conv1d_k1": "matmul"}
-STAGE_ORDER = ("L1", "attention", "conv", "GroupNorm", "matmul", "other")
+STAGE_ORDER = ("L1 fwd", "L1 bwd", "attention", "conv", "GroupNorm", "matmul", "other")
+# phase 8: the guided request (GUIDED_STEPS of the default 50), its renders
+# and guidance at the train resolution of the Replica camera (the engine
+# resizes them), the observed masks with a hole of a fifth of the frame
+GUIDED_STEPS = 3
+GUIDE_H, GUIDE_W = 480, 640
+HOLE = (slice(120, 360), slice(0, 256))  # 240 x 256 of 480 x 640 = 0.2
+# L1's shapes in the guided step: the UNet's level-0 attention of one
+# branch (25; each branch's VJP runs alone) and with the CFG pair batched
+# (50, the pair's forward); the VAE's decode chunk; ragged
+DECODE_CHUNK = ddim_guidance.GuidedSampleConfig().decode_chunk
+L1_BWD_SHAPES = [((25, 5, 2240, 64), BF16), ((25, 5, 2240, 64), F32), ((50, 5, 2240, 64), BF16),
+                 ((50, 5, 2240, 64), F32), ((DECODE_CHUNK, 1, 2240, 512), BF16),
+                 ((DECODE_CHUNK, 1, 2240, 512), F32), ((2, 3, 1200, 64), F32)]
+L1_BWD_MAIN = L1_BWD_SHAPES[0]
+# dq, dk, dv against the plain backward of the same inputs, max abs error
+# over max |grad|: float32 another sum order; bfloat16 the tensor-core
+# kernels round dS to bf16 for two of their products (the plain version
+# keeps it float32); the log-sum-exp absolute, against torch.logsumexp
+L1_BWD_TOL = {F32: 1e-4, BF16: 2e-2}
+LSE_TOL = 1e-4
+# 8c: one float32 guided step of STEP32_FRAMES frames through L1's kernels
+# and through its plain pair, x_prev within GUIDED_STEP_TOL of max |x_prev|;
+# and its dL/dx through L1's backward kernels and through its plain
+# backward after the same kernel forward (cuDNN deterministic), within
+# GUIDED_GRAD_TOL in L2 norm over |dL/dx|. Read by
+# scripts/guided_step_parity.py on 8c's inputs (H100): x_prev 2.07e-4, all
+# of it the forward's (plain forward with the kernel backward 2.5e-6),
+# against 3.69e-4 with dQ zeroed and 7.97e-4 with Delta zeroed; a bf16
+# backward (2.05e-4) hides in the forward's gap, which the clamp of the
+# decoded frames in the guidance loss spreads. dL/dx 1.713e-5 (the same in
+# every run), against 3.894e-5 with the bf16 backward, 1.68e-3 with dQ
+# zeroed and 3.88e-3 with Delta zeroed
+STEP32_FRAMES = 5
+GUIDED_STEP_TOL = 3e-4
+GUIDED_GRAD_TOL = 2.6e-5
 
 
 def log(msg: str) -> None:
@@ -695,7 +769,8 @@ def run_steps(trainer, iters: int, trace: range):
 
 def check_launches(iters: int) -> dict:
     launches = dict(_build.LAUNCHES)
-    if any(launches[n] != iters for n in GAUSSIAN_KERNELS) or launches["flash_attn_fwd"]:
+    if any(launches[n] != iters for n in GAUSSIAN_KERNELS) or any(
+            launches[n] for n in ("flash_attn_fwd",) + L1_BWD_KERNELS):
         raise AssertionError(f"each of K1-K6 should run once per step ({iters}): {launches}")
     return launches
 
@@ -918,9 +993,10 @@ def phase_l1(dev):
 
 
 @contextlib.contextmanager
-def timed(module, name: str, record: list):
+def timed(module, name: str, record: list, outputs: list | None = None):
     """Time every call of module.name (synchronised on both sides) into
-    `record`, in ms, while the context is open."""
+    `record`, in ms, while the context is open; append what each call
+    returns to `outputs` if given."""
     fn = getattr(module, name)
 
     def run(*args, **kwargs):
@@ -929,6 +1005,8 @@ def timed(module, name: str, record: list):
         out = fn(*args, **kwargs)
         torch.cuda.synchronize()
         record.append((time.perf_counter() - t) * 1e3)
+        if outputs is not None:
+            outputs.append(out)
         return out
 
     with mock.patch.object(module, name, run):
@@ -940,7 +1018,7 @@ def labelled_stages():
     """Run every diffusion function of STAGE_FNS inside a profiler range
     "stage:<stage>", so that a trace can sort the kernels by stage."""
     with contextlib.ExitStack() as stack:
-        for module in (d_nnops, d_attention, unet3d):
+        for module in (d_nnops, d_attention, unet3d, d_vae):
             for name, stage in STAGE_FNS.items():
                 fn = getattr(module, name, None)
                 if fn is None:
@@ -955,15 +1033,41 @@ def labelled_stages():
 
 
 def stage_summary(prof):
-    """Device ms per stage of a trace under labelled_stages (L1 by its
-    kernel name; the rest by the innermost "stage:" range above the op that
-    launched the kernel; "other" takes what no range holds), the idle share
-    of the traced span, and the device ms of the largest kernels of the
-    "attention" stage by name."""
+    """Device ms per stage of a trace under labelled_stages: L1's forward
+    and backward by their kernel names; every other kernel by the
+    innermost "stage:" range above the op that launched it or, in a
+    backward pass, above the forward op whose autograd node it runs (the
+    profiler's sequence number and forward thread pair them, as torch's
+    own backward stack traces do); "other" takes what neither places.
+    Also the idle share of the traced span and the device ms of the
+    largest kernels of the "attention" stage by name."""
     stage_us = dict.fromkeys(STAGE_ORDER, 0.0)
     attn_kernels = {}
     spans, first, last, total = [], math.inf, -math.inf, 0.0
-    for evt in prof.events():
+    events = prof.events()
+
+    def labelled(evt):
+        while evt is not None:
+            if evt.name.startswith("stage:"):
+                return evt.name[len("stage:"):]
+            evt = evt.cpu_parent
+        return None
+
+    def backward_node(evt):
+        while evt is not None:
+            if evt.scope == 1:  # a backward function
+                return evt
+            evt = evt.cpu_parent
+        return None
+
+    fwd_stage = {}
+    for evt in events:
+        if evt.device_type == torch.autograd.DeviceType.CPU and evt.sequence_nr >= 0 \
+                and backward_node(evt) is None:
+            stage = labelled(evt)
+            if stage is not None:
+                fwd_stage.setdefault((evt.sequence_nr, evt.thread), stage)
+    for evt in events:
         first = min(first, evt.time_range.start)
         if evt.name.startswith("stage:"):
             continue  # a range itself, also mirrored on the device's timeline
@@ -972,14 +1076,15 @@ def stage_summary(prof):
             spans.append((evt.time_range.start, evt.time_range.end))
             last = max(last, evt.time_range.end)
             total += dur
-            if "flash_attn" in evt.name:
-                stage_us["L1"] += dur
+            if "flash_attn_fwd" in evt.name:
+                stage_us["L1 fwd"] += dur
+            elif "flash_attn_bwd" in evt.name:
+                stage_us["L1 bwd"] += dur
         elif evt.kernels:
-            p, stage = evt, None
-            while p is not None and stage is None:
-                if p.name.startswith("stage:"):
-                    stage = p.name[len("stage:"):]
-                p = p.cpu_parent
+            stage = labelled(evt)
+            node = backward_node(evt) if stage is None else None
+            if node is not None:
+                stage = fwd_stage.get((node.sequence_nr, node.fwd_thread))
             for kern in evt.kernels:
                 if stage is not None and "flash_attn" not in kern.name:
                     stage_us[stage] += kern.duration
@@ -989,6 +1094,11 @@ def stage_summary(prof):
     stage_us["other"] = total - sum(v for k, v in stage_us.items() if k != "other")
     top = sorted(attn_kernels.items(), key=lambda kv: -kv[1])[:4]
     return {k: v / 1e3 for k, v in stage_us.items()}, idle, top
+
+
+def fmt_diffusion_stages(dev_ms: dict, idle: float) -> str:
+    return (" ".join(f"{k} {dev_ms[k]:.3f}" for k in STAGE_ORDER)
+            + f" (total {sum(dev_ms.values()):.3f}), idle share {idle:.3f} (under the profiler)")
 
 
 def one_step(params, mcfg, scfg, cond, uncond, x, index, noise, plain=False):
@@ -1002,17 +1112,29 @@ def one_step(params, mcfg, scfg, cond, uncond, x, index, noise, plain=False):
     return ddim.ddim_step(sched, pr, index, x, mo, noise).x_prev
 
 
+@functools.lru_cache(maxsize=1)
+def gen_params(dev):
+    """The ViewCrafter's random parameters on the card in bf16 (phases 7
+    and 8 share them) and the seconds their init took."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_diffusion_params(LatentDiffusionConfig(), synthesis.SynthesisConfig(), seed=SEED,
+                                   device=dev, dtype=BF16)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
 def phase_generate(dev, steps: int, trace_and_f32: bool = True) -> int:
     """7b (and 7c): one full-width request of `steps` DDIM steps through
     the engine a user calls, in bfloat16. Returns L1's launches in it."""
     mcfg = LatentDiffusionConfig(compute_dtype="bfloat16")
     scfg = synthesis.SynthesisConfig(ddim_steps=steps)
+    params, init_s = gen_params(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    params = init_diffusion_params(mcfg, scfg, seed=SEED, device=dev, dtype=BF16)
     engine = ViewCrafterEngine(params, mcfg, scfg, video_length=GEN_FRAMES, height=GEN_H, width=GEN_W)
     torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
+    setup_s = init_s + time.perf_counter() - t0
     n_params = sum(v.numel() for part in params for v in part.values())
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 8)
@@ -1032,7 +1154,7 @@ def phase_generate(dev, steps: int, trace_and_f32: bool = True) -> int:
     launches = dict(_build.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expected = 10 * steps + 2  # 5 level-0 spatial attentions x 2 CFG branches per step; VAE encode, decode
-    if launches["flash_attn_fwd"] != expected or any(launches[n] for n in GAUSSIAN_KERNELS):
+    if launches["flash_attn_fwd"] != expected or any(launches[n] for n in GAUSSIAN_KERNELS + L1_BWD_KERNELS):
         raise AssertionError(f"launches in the request {launches}; L1 expected {expected}")
     if tuple(video.shape) != (GEN_FRAMES, 3, GEN_H, GEN_W) or not bool(torch.isfinite(video).all()) \
             or float(video.min()) < 0.0 or float(video.max()) > 1.0:
@@ -1063,9 +1185,8 @@ def phase_generate(dev, steps: int, trace_and_f32: bool = True) -> int:
             torch.cuda.synchronize()
     dev_ms, idle, top = stage_summary(prof)
     log("phase 7b one DDIM step traced (bf16, CFG pair + update), device ms: "
-        + " ".join(f"{k} {dev_ms[k]:.3f}" for k in STAGE_ORDER)
-        + f" (total {sum(dev_ms.values()):.3f}), idle share {idle:.3f} (under the profiler); "
-        "largest attention kernels: " + "; ".join(f"{name[:70]} {ms:.3f}" for name, ms in top))
+        + fmt_diffusion_stages(dev_ms, idle) + "; largest attention kernels: "
+        + "; ".join(f"{name[:70]} {ms:.3f}" for name, ms in top))
 
     # 7c: one float32 step through L1 and through its plain version
     mcfg32 = dataclasses.replace(mcfg, compute_dtype="float32")
@@ -1087,10 +1208,302 @@ def phase_generate(dev, steps: int, trace_and_f32: bool = True) -> int:
     return launches["flash_attn_fwd"]
 
 
+def l1_bwd_bounds(shape, dtype):
+    """L1's backward kernels' least times: dK/dV reads q, k, v, dO, the
+    log-sum-exp and Delta and writes dk, dv, against four n x n products
+    (S, dP, dV, dK: 8 B H N^2 D operations); dQ reads the same and writes
+    dq, against three (6 B H N^2 D), at the peak of the input type."""
+    b, h, n, d = shape
+    elems, rows = b * h * n * d, b * h * n
+    size = torch.empty((), dtype=dtype).element_size()
+    peak = PEAK_BF16_FLOPS if dtype == BF16 else PEAK_F32_FLOPS
+    reads = 4 * elems * size + 2 * rows * 4
+    return (bound(reads + 2 * elems * size, 8 * rows * n * d, peak),
+            bound(reads + elems * size, 6 * rows * n * d, peak))
+
+
+def phase_l1_bwd(dev):
+    """8a: L1's backward against its plain backward at every shape of
+    L1_BWD_SHAPES; returns the rows of the kernel table at L1_BWD_MAIN."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    rows, res = [], {}
+    for shape, dtype in L1_BWD_SHAPES:
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(4))
+        scale = shape[3] ** -0.5
+        with torch.no_grad():
+            out, lse = fa.flash_attention_lse(q, k, v, scale)
+            want_lse = torch.logsumexp(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, dim=-1)
+            lse_err = (lse - want_lse).abs().max().item()
+            del want_lse
+            got = fa.flash_attention_bwd(q, k, v, out, lse, do, scale)
+            want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, scale)
+            torch.cuda.synchronize()
+            abs_errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
+            errs = [e / w.float().abs().max().item() for e, w in zip(abs_errs, want)]
+            del got, want
+        if not (lse_err <= LSE_TOL and all(e <= L1_BWD_TOL[dtype] for e in errs)):
+            raise AssertionError(f"L1 backward {shape} {dtype}: log-sum-exp err {lse_err:.3g} (tol "
+                                 f"{LSE_TOL}); dq, dk, dv err / max |grad| {errs} (tol {L1_BWD_TOL[dtype]})")
+        delta = fa.attention_delta(out, do)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        sdpa = F.scaled_dot_product_attention(*leaves, scale=scale)
+        bounds = l1_bwd_bounds(shape, dtype)
+        with torch.no_grad():
+            r = dict(dkv_ms=median_ms(lambda: fa.bwd_dkv_kernel(q, k, v, do, lse, delta, scale)),
+                     dq_ms=median_ms(lambda: fa.bwd_dq_kernel(q, k, v, do, lse, delta, scale)),
+                     plain_ms=median_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do, scale)))
+        r["library_ms"] = median_ms(lambda: torch.autograd.grad(sdpa, leaves, do, retain_graph=True))
+        r.update(abs_errs=abs_errs, errs=errs, lse_err=lse_err, bounds=bounds)
+        res[(shape, dtype)] = r
+        rows.append(f"{shape} {str(dtype)[6:]}: err/max|g| dq {errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g} "
+                    f"(tol {L1_BWD_TOL[dtype]}), lse err {lse_err:.3g}; dK/dV {r['dkv_ms']:.3f} ms (bound "
+                    f"{bounds[0][0]:.4f}, {bounds[0][1]}), dQ {r['dq_ms']:.3f} ms (bound {bounds[1][0]:.4f}, "
+                    f"{bounds[1][1]}); plain backward {r['plain_ms']:.3f}, sdpa backward {r['library_ms']:.3f}")
+        del q, k, v, do, out, lse, delta, leaves, sdpa
+    log("phase 8a L1 backward vs plain (unit-normal q, k, v, dO; median of 10, host clock with "
+        "synchronize; the plain and sdpa times are of the whole backward): " + " | ".join(rows))
+    main = res[L1_BWD_MAIN]
+    whole = {"plain_ms_of": "the whole backward (dq, dk, dv)", "library_ms_of": "the whole backward (dq, dk, dv)"}
+    return {"flash_attn_bwd_dkv": dict(max_abs_err=max(main["abs_errs"][1:]), ms=main["dkv_ms"],
+                                       plain_ms=main["plain_ms"], library_ms=main["library_ms"],
+                                       bound=main["bounds"][0], extra=whole),
+            "flash_attn_bwd_dq": dict(max_abs_err=main["abs_errs"][0], ms=main["dq_ms"],
+                                      plain_ms=main["plain_ms"], library_ms=main["library_ms"],
+                                      bound=main["bounds"][1], extra=whole)}
+
+
+def guided_inputs(dev, gen):
+    """The request's renders (T, 480, 640, 3), guidance images (T, 3, 480,
+    640) in [0, 1], observed masks with the HOLE, depths."""
+    t = GEN_FRAMES
+    renders = torch.rand((t, GUIDE_H, GUIDE_W, 3), generator=gen, device=dev)
+    images = torch.rand((t, 3, GUIDE_H, GUIDE_W), generator=gen, device=dev)
+    masks = torch.ones((t, 1, GUIDE_H, GUIDE_W), device=dev)
+    masks[:, :, HOLE[0], HOLE[1]] = 0.0
+    depths = 1.0 + 2.0 * torch.rand((t, 1, GUIDE_H, GUIDE_W), generator=gen, device=dev)
+    return renders, images, masks, depths
+
+
+def guided_launches(ucfg, steps: int, frames: int, chunk: int) -> tuple[int, int]:
+    """L1's launches (forward; each backward kernel) in `steps` guided steps
+    of `frames` frames. Per step the level-0 spatial attentions (5 in the
+    ViewCrafter UNet: 2 input and 3 output blocks) run forward once for the
+    batched pair (without autograd), then forward and backward once in each
+    branch for its VJP; one VAE mid attention per decode chunk runs forward
+    and backward."""
+    level0 = (2 * ucfg.num_res_blocks + 1) * (1 in ucfg.attention_resolutions)
+    level0 += len(ucfg.channel_mult) == 1  # the middle block's, when level 0 is the deepest
+    chunks = -(-frames // chunk)
+    return steps * (3 * level0 + chunks), steps * (2 * level0 + chunks)
+
+
+def masked_l2(video, buffers) -> float:
+    m = buffers.masks.permute(0, 3, 1, 2)
+    return float(((video - buffers.images.permute(0, 3, 1, 2)) ** 2 * m).sum() / (3 * m.sum()))
+
+
+def guided_step_inputs(dev, params, mcfg, scfg, engine, renders):
+    """The inputs of 8b's traced step and of 8c, from SEED + 11: the
+    request's conditioning (with its own encode noise), x_t and the step's
+    noise; returns (sched, pr, cond, uncond, x, step_noise, index)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    f = 2 ** (len(mcfg.vae.ch_mult) - 1)  # the VAE's downsampling
+    lat = (GEN_FRAMES, GEN_H // f, GEN_W // f, 4)
+    with torch.no_grad():
+        cond, uncond = synthesis.build_conditioning(
+            params, mcfg, scfg, resize_renders(renders, GEN_H, GEN_W) * 2.0 - 1.0,
+            eps=torch.randn(lat, generator=gen, device=dev), text_pair=engine.text_pair)
+    sched = mcfg.schedule(dev)
+    pr = S.make_ddim_params(sched, scfg.ddim_steps, eta=scfg.ddim_eta, method=scfg.timestep_spacing)
+    x = torch.randn((1,) + lat, generator=gen, device=dev)
+    step_noise = torch.randn(x.shape, generator=gen, device=dev)
+    return sched, pr, cond, uncond, x, step_noise, scfg.ddim_steps // 2
+
+
+def plain_backward():
+    """Within it L1's autograd Function takes its plain backward after the
+    kernel forward: 8c's reference for dL/dx, whose forward must be the
+    same (the guidance loss clamps the decoded frames to [0, 1], so the
+    forward's rounding flips pixels at the clamp in or out)."""
+    return mock.patch.object(fa, "flash_attention_bwd", fa.flash_attention_bwd_plain)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """Within it cuDNN takes deterministic algorithms: 8c's dL/dx
+    comparison then sees L1's backward and not the order in which a
+    convolution's backward sums."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
+def f32_guided_step(params, mcfg, gcfg, sched, pr, cond, uncond, bufs, x, step_noise, index: int):
+    """8c's step: one float32 guided step of the first STEP32_FRAMES frames
+    of the bf16 request's inputs, the UNet's and the VAE's weights cast to
+    float32 (run it with TF32 off). Returns (step, grad): step(plain=False)
+    -> (x_prev, pred_x0, rho) of the whole step; grad(plain=False) -> the
+    step's dL/dx from the pred_x0 and the branches' v of one forward through
+    L1's kernel: the decode gradients and the pair's VJP alone."""
+    t = STEP32_FRAMES
+    mcfg32 = dataclasses.replace(mcfg, compute_dtype="float32")
+    params32 = params._replace(unet={k: v.float() for k, v in params.unet.items()},
+                               vae={k: v.float() for k, v in params.vae.items()})
+    c32, u32 = (Conditioning(c.context, c.concat[:, :t].contiguous(), c.fs) for c in (cond, uncond))
+    g32 = make_guidance_fn(bufs._replace(images=bufs.images[:t], masks=bufs.masks[:t]))
+    x32, n32 = x[:, :t].contiguous(), step_noise[:, :t].contiguous()
+    v_cond, v_uncond = ddim_guidance.pair_forward(params32, mcfg32, pr, c32, u32, x32, index)
+    pred_x0 = ddim_guidance.cfg_pred_x0(sched, pr, gcfg, x32, index, v_cond, v_uncond)[0]
+
+    def step(plain: bool = False):
+        return ddim_guidance.guided_step(params32, mcfg32, sched, pr, c32, u32, gcfg, g32, 1.0, x32, index,
+                                         n32, plain)
+
+    def grad(plain: bool = False):
+        grads = ddim_guidance.per_frame_guidance_grads(params32, mcfg32, g32, pred_x0[0], index, gcfg, plain)
+        return ddim_guidance.pair_vjp(params32, mcfg32, sched, pr, c32, u32, gcfg, x32, index, v_cond, v_uncond,
+                                      grads[None], plain)
+    return step, grad
+
+
+def phase_guided(dev, steps: int, trace_and_f32: bool = True) -> dict:
+    """8b (and 8c): one full-width guided request of `steps` guided DDIM
+    steps through the engine a user calls, in bfloat16. Returns L1's
+    launches in it."""
+    mcfg = LatentDiffusionConfig(compute_dtype="bfloat16")
+    scfg = synthesis.SynthesisConfig(ddim_steps=steps)
+    params, _ = gen_params(dev)
+    engine = ViewCrafterEngine(params, mcfg, scfg, video_length=GEN_FRAMES, height=GEN_H, width=GEN_W)
+    gcfg = engine.guided_cfg
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 10)
+    renders, images, masks, depths = guided_inputs(dev, gen)
+    f = 2 ** (len(mcfg.vae.ch_mult) - 1)  # the VAE's downsampling
+    lat = (GEN_FRAMES, GEN_H // f, GEN_W // f, 4)
+    noise = synthesis.SynthesisNoise(
+        encode_eps=torch.randn(lat, generator=gen, device=dev),
+        x_T=torch.randn((1,) + lat, generator=gen, device=dev),
+        steps=torch.randn((steps * (2 * gcfg.recur_steps - 1), 1) + lat, generator=gen, device=dev))
+
+    # the main path of this slice
+    cond_ms, step_ms, pair_ms, grads_ms, vjp_ms, ddim_ms, upd_ms, decode_ms, upd_out = ([] for _ in range(9))
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with timed(synthesis, "build_conditioning", cond_ms), timed(synthesis, "decode_video_frames", decode_ms), \
+            timed(ddim_guidance, "guided_step", step_ms), timed(ddim_guidance, "pair_forward", pair_ms), \
+            timed(ddim_guidance, "per_frame_guidance_grads", grads_ms), \
+            timed(ddim_guidance, "pair_vjp", vjp_ms), timed(ddim_guidance, "ddim_step", ddim_ms), \
+            timed(ddim_guidance, "guidance_update", upd_ms, upd_out):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        video = engine.generate(renders, images, masks, depths, no_guidance=False, noise=noise)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_steps = steps * gcfg.recur_steps
+    fwd, bwd = guided_launches(mcfg.unet, n_steps, GEN_FRAMES, gcfg.decode_chunk)
+    expected = {"flash_attn_fwd": fwd + 2, "flash_attn_bwd_dkv": bwd, "flash_attn_bwd_dq": bwd}
+    if any(launches[n] != e for n, e in expected.items()) or any(launches[n] for n in GAUSSIAN_KERNELS):
+        raise AssertionError(f"launches in the guided request {launches}; expected {expected}")
+    rhos = [float(rho) for _, rho in upd_out]
+    if len(rhos) != n_steps or not all(math.isfinite(r) and r > 0 for r in rhos):
+        raise AssertionError(f"rho per step {rhos}: expected {n_steps} positive values")
+    if tuple(video.shape) != (GEN_FRAMES, 3, GEN_H, GEN_W) or not bool(torch.isfinite(video).all()) \
+            or float(video.min()) < 0.0 or float(video.max()) > 1.0:
+        raise AssertionError(f"bad guided video: shape {tuple(video.shape)}, range "
+                             f"[{float(video.min())}, {float(video.max())}]")
+    # a reading, not a check (random weights): the masked L2 to the guidance
+    # of the guided frames and of an unguided request with the same noise
+    bufs = resize_guidance(images, GEN_H, GEN_W, masks=masks)
+    unguided = engine.generate(renders, no_guidance=True, noise=noise._replace(steps=noise.steps[:steps]))
+    l2_guided, l2_unguided = masked_l2(video, bufs), masked_l2(unguided, bufs)
+    med = statistics.median
+    log(f"phase 8b guided request (ViewCrafter full width, random bf16 weights; {GEN_FRAMES}x{GEN_H}x{GEN_W} "
+        f"from {GUIDE_H}x{GUIDE_W} renders and guidance, hole {HOLE[0].stop - HOLE[0].start}x"
+        f"{HOLE[1].stop - HOLE[1].start} in the masks; {steps} guided DDIM steps of the default 50, "
+        f"CFG pair batched, then each branch again for its VJP, decode_chunk {gcfg.decode_chunk}): "
+        f"conditioning {cond_ms[0]:.1f} ms | guided step ms median {med(step_ms):.1f} (first "
+        f"{step_ms[0]:.1f}, min {min(step_ms):.1f}); by part, medians: pair forward {med(pair_ms):.1f}, "
+        f"decode gradients {med(grads_ms):.1f}, the branches again with their VJPs {med(vjp_ms):.1f}, update {med(ddim_ms) + med(upd_ms):.1f} | decode {decode_ms[0]:.1f} ms | total "
+        f"{total_s:.3f} s | peak allocated {peak_gb:.2f} GB | launches fwd {launches['flash_attn_fwd']} "
+        f"dK/dV {launches['flash_attn_bwd_dkv']} dQ {launches['flash_attn_bwd_dq']} (expected {expected}) | "
+        f"rho per step {', '.join(f'{r:.4g}' for r in rhos)} | masked L2 to the guidance: guided "
+        f"{l2_guided:.6f}, unguided with the same noise {l2_unguided:.6f}")
+    if not trace_and_f32:
+        return launches
+
+    # one guided step traced by stage, outside the counted run
+    sched, pr, cond, uncond, x, step_noise, index = guided_step_inputs(dev, params, mcfg, scfg, engine, renders)
+    gfn = make_guidance_fn(bufs)
+
+    def step():
+        return ddim_guidance.guided_step(params, mcfg, sched, pr, cond, uncond, gcfg, gfn, 1.0, x, index,
+                                         step_noise)
+
+    step()
+    torch.cuda.synchronize()
+    with labelled_stages(), torch.profiler.profile(activities=PROFILER_ACTIVITIES) as prof:
+        step()
+        torch.cuda.synchronize()
+    dev_ms, idle, _ = stage_summary(prof)
+    log("phase 8b one guided step traced (bf16: CFG pair forward, decode gradients, each branch again "
+        "with its VJP, update), "
+        "device ms: " + fmt_diffusion_stages(dev_ms, idle))
+
+    # 8c: one float32 guided step of STEP32_FRAMES frames through L1's
+    # kernels and through its plain forward and backward
+    t = STEP32_FRAMES
+    step32, grad32 = f32_guided_step(params, mcfg, gcfg, sched, pr, cond, uncond, bufs, x, step_noise, index)
+    before = dict(_build.LAUNCHES)
+    got, _, rho_k = step32()
+    mid = dict(_build.LAUNCHES)
+    want, _, rho_p = step32(plain=True)
+    torch.cuda.synchronize()
+    plain_launched = {n: _build.LAUNCHES[n] - mid[n] for n in mid}
+    # the same kernel step again: how far two runs of it differ (cuDNN's
+    # backward algorithms need not sum in one order)
+    again = step32()[0]
+    with deterministic_cudnn():
+        gx = grad32()
+        with plain_backward():
+            gx_plain = grad32()
+        gx_again = grad32()
+    fwd32, bwd32 = guided_launches(mcfg.unet, 1, t, gcfg.decode_chunk)
+    ran = {n: mid[n] - before[n] for n in ("flash_attn_fwd",) + L1_BWD_KERNELS}
+    if ran != {"flash_attn_fwd": fwd32, "flash_attn_bwd_dkv": bwd32, "flash_attn_bwd_dq": bwd32} \
+            or any(plain_launched.values()):
+        raise AssertionError(f"8c: L1 launched {ran} through the kernel path (expected {fwd32}, "
+                             f"{bwd32}, {bwd32}), {plain_launched} through the plain one")
+    scale_x, scale_g = got.abs().max().item(), gx_plain.norm().item()
+    err, rerun = (got - want).abs().max().item(), (got - again).abs().max().item()
+    gerr, grerun = (gx - gx_plain).norm().item() / scale_g, (gx - gx_again).norm().item() / scale_g
+    if not (bool(torch.isfinite(got).all()) and err <= GUIDED_STEP_TOL * scale_x
+            and bool(torch.isfinite(gx).all()) and gerr <= GUIDED_GRAD_TOL):
+        raise AssertionError(f"8c: the f32 guided step through L1's kernels differs from the plain chain "
+                             f"by {err:.3g} (max |x_prev| {scale_x:.3f}); its dL/dx by {gerr:.3g} of |dL/dx|")
+    log(f"phase 8c one f32 guided step (TF32 off; {t} frames at {GEN_H}x{GEN_W}, index {index}), L1's kernels "
+        f"vs its plain forward and backward: x_prev max abs diff {err:.3g} = {err / scale_x:.3g} of max "
+        f"|x_prev| {scale_x:.3f} (tol {GUIDED_STEP_TOL}); the kernel step run twice differs by {rerun:.3g}; "
+        f"rho {float(rho_k):.6g} vs {float(rho_p):.6g} | dL/dx from one forward's pred_x0 and v, L1's "
+        f"backward kernels vs its plain backward (the forward L1's kernel in both, cuDNN deterministic): "
+        f"|diff| {gerr:.4g} of |dL/dx| {scale_g:.4g} (L2 norms; tol {GUIDED_GRAD_TOL}); the kernels run "
+        f"twice {grerun:.3g}")
+    return launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--generate-only", type=int, metavar="STEPS", default=None,
                         help="run phases 1, 2 and 7b alone, with STEPS DDIM steps")
+    parser.add_argument("--guided-only", type=int, metavar="STEPS", default=None,
+                        help="run phases 1, 2 and 8b alone, with STEPS guided DDIM steps")
     args = parser.parse_args()
     start = time.perf_counter()
     secs = {}
@@ -1106,6 +1519,9 @@ def main() -> None:
     if args.generate_only is not None:
         phase_generate(dev, args.generate_only, trace_and_f32=False)
         return
+    if args.guided_only is not None:
+        phase_guided(dev, args.guided_only, trace_and_f32=False)
+        return
     res = run("3", phase_kernels, dev)
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
@@ -1119,13 +1535,17 @@ def main() -> None:
         shutil.rmtree(work, ignore_errors=True)
     res["flash_attn_fwd"] = run("7a", phase_l1, dev)
     launches["flash_attn_fwd"] = run("7b-7c", phase_generate, dev, GEN_STEPS)
+    res.update(run("8a", phase_l1_bwd, dev))
+    guided = run("8b-8c", phase_guided, dev, GUIDED_STEPS)
+    launches.update({name: guided[name] for name in L1_BWD_KERNELS})
     log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
         + f"; total {time.perf_counter() - start:.1f}")
     table = [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
              max_abs_err=res[name]["max_abs_err"], ms=res[name]["ms"],
              plain_ms=res[name]["plain_ms"], bound_ms=res[name]["bound"][0],
-             bound_by=res[name]["bound"][1], library_ms=res[name].get("library_ms"))
+             bound_by=res[name]["bound"][1], library_ms=res[name].get("library_ms"),
+             **res[name].get("extra", {}))
         for name, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": table}))

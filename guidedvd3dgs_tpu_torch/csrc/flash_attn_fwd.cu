@@ -11,7 +11,10 @@
 // Layout: q, k, v, o are contiguous (B*H, n, D) in float32 or bfloat16, one
 // type for all four. Logits, softmax statistics and the output accumulator
 // are float32; the scale multiplies the float32 logit; the output is
-// written in the input type.
+// written in the input type. Under autograd the caller also passes `lse`
+// (B*H, n) float32, and each query row writes m + log(l) of its online
+// softmax there (the backward's P = exp(S - lse), flash_attn_bwd.cu); a
+// null `lse` writes nothing.
 //
 // What bounds it on this card: operations. At the UNet's level-0 shape
 // (B*H = 25*5, n = 2240, D = 64, bf16) it does 4 * 125 * 2240^2 * 64 =
@@ -40,22 +43,19 @@
 // and each key adds p * v. A row's 32 dims per thread keep the accumulator
 // in registers for every D (no spill at D = 512).
 
-#include "common.cuh"
+#include "flash_attn.cuh"
 
-#include <cuda_bf16.h>
 #include <math.h>
-#include <stdint.h>
 
 namespace gvd {
 namespace {
 
-constexpr int FA_DT = 32;  // head dims per thread
-constexpr int FA_NC = FA_DT / 4;  // float4 chunks per thread
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+using fa::mma_bf16;
+using fa::pack_bf16;
+using fa::store_out;
+using fa::to_f32;
+constexpr int FA_DT = fa::DT;  // head dims per thread
+constexpr int FA_NC = fa::NC;  // float4 chunks per thread
 
 template <int D>
 struct FaShape {
@@ -69,7 +69,7 @@ struct FaShape {
 template <int D, typename T>
 __global__ void __launch_bounds__(FaShape<D>::THREADS)
 flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      T* __restrict__ o, int n, float scale) {
+                      T* __restrict__ o, float* __restrict__ lse, int n, float scale) {
   constexpr int G = FaShape<D>::G;
   constexpr int THREADS = FaShape<D>::THREADS;
   constexpr int BQ = FaShape<D>::BQ;
@@ -157,6 +157,8 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 #pragma unroll
       for (int e = 0; e < 4; ++e) store_out(out + (c * G + g) * 4 + e, acc[c * 4 + e] * inv);
     }
+    // the G threads of a row hold the same m and l
+    if (lse != nullptr && g == 0) lse[(size_t)blockIdx.y * n + row] = m + logf(l);
   }
 }
 
@@ -174,19 +176,6 @@ constexpr int MMA_BQ = 64;       // query rows per block (4 warps x 16)
 constexpr int MMA_BK = 64;       // keys per shared tile
 constexpr int MMA_THREADS = 128;
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
 // two neighbouring bf16 of row `row` (zero past the ragged tail)
 __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* base, int row, int d, int n, int D) {
   return row < n ? *reinterpret_cast<const uint32_t*>(base + (size_t)row * D + d) : 0u;
@@ -195,8 +184,8 @@ __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* base, int row
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int n,
-                          float scale) {
+                          const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int n, float scale) {
   constexpr int KP = D + 8;       // padded K row
   constexpr int VP = MMA_BK + 8;  // padded V^T row
   constexpr int KD = D / 16;      // k-steps of Q K^T
@@ -313,6 +302,11 @@ flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+  if (lse != nullptr && t4 == 0) {  // the 4 lanes of a row hold the same m and l
+    float* lh = lse + (size_t)blockIdx.y * n;
+    if (r0 < n) lh[r0] = m0 + logf(l0);
+    if (r0 + 8 < n) lh[r0 + 8] = m1 + logf(l1);
+  }
   __nv_bfloat16* oh = o + head;
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
@@ -327,47 +321,47 @@ flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
 }
 
 template <int D>
-int launch_fa_mma(const void* q, const void* k, const void* v, void* o, int bh, int n, float scale,
-                  cudaStream_t stream) {
+int launch_fa_mma(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int n,
+                  float scale, cudaStream_t stream) {
   const dim3 grid((n + MMA_BQ - 1) / MMA_BQ, bh);
   flash_attn_fwd_mma_kernel<D><<<grid, MMA_THREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), n, scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, n, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D, typename T>
-int launch_fa(const void* q, const void* k, const void* v, void* o, int bh, int n, float scale,
-              cudaStream_t stream) {
+int launch_fa(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int n,
+              float scale, cudaStream_t stream) {
   using S = FaShape<D>;
   auto kernel = flash_attn_fwd_kernel<D, T>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n + S::BQ - 1) / S::BQ, bh);
   kernel<<<grid, S::THREADS, S::SMEM, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                                static_cast<const T*>(v), static_cast<T*>(o), n, scale);
+                                                static_cast<const T*>(v), static_cast<T*>(o), lse, n, scale);
   return (int)cudaGetLastError();
 }
 
-int dispatch_f32(const void* q, const void* k, const void* v, void* o, int bh, int n, int d,
-                 float scale, cudaStream_t stream) {
+int dispatch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int n,
+                 int d, float scale, cudaStream_t stream) {
   switch (d) {
-    case 32: return launch_fa<32, float>(q, k, v, o, bh, n, scale, stream);
-    case 64: return launch_fa<64, float>(q, k, v, o, bh, n, scale, stream);
-    case 128: return launch_fa<128, float>(q, k, v, o, bh, n, scale, stream);
-    case 512: return launch_fa<512, float>(q, k, v, o, bh, n, scale, stream);
+    case 32: return launch_fa<32, float>(q, k, v, o, lse, bh, n, scale, stream);
+    case 64: return launch_fa<64, float>(q, k, v, o, lse, bh, n, scale, stream);
+    case 128: return launch_fa<128, float>(q, k, v, o, lse, bh, n, scale, stream);
+    case 512: return launch_fa<512, float>(q, k, v, o, lse, bh, n, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // bf16: the tensor cores up to D = 128, the float32-FMA kernel at D = 512
-int dispatch_bf16(const void* q, const void* k, const void* v, void* o, int bh, int n, int d,
-                  float scale, cudaStream_t stream) {
+int dispatch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int n,
+                  int d, float scale, cudaStream_t stream) {
   switch (d) {
-    case 32: return launch_fa_mma<32>(q, k, v, o, bh, n, scale, stream);
-    case 64: return launch_fa_mma<64>(q, k, v, o, bh, n, scale, stream);
-    case 128: return launch_fa_mma<128>(q, k, v, o, bh, n, scale, stream);
-    case 512: return launch_fa<512, __nv_bfloat16>(q, k, v, o, bh, n, scale, stream);
+    case 32: return launch_fa_mma<32>(q, k, v, o, lse, bh, n, scale, stream);
+    case 64: return launch_fa_mma<64>(q, k, v, o, lse, bh, n, scale, stream);
+    case 128: return launch_fa_mma<128>(q, k, v, o, lse, bh, n, scale, stream);
+    case 512: return launch_fa<512, __nv_bfloat16>(q, k, v, o, lse, bh, n, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -375,12 +369,13 @@ int dispatch_bf16(const void* q, const void* k, const void* v, void* o, int bh, 
 }  // namespace
 }  // namespace gvd
 
-// dtype: 0 float32, 1 bfloat16. Returns cudaGetLastError() of the launch.
-GVD_API int gvd_flash_attn_fwd(const void* q, const void* k, const void* v, void* o, int bh, int n,
-                               int d, int dtype, float scale, cudaStream_t stream) {
+// dtype: 0 float32, 1 bfloat16; lse: (bh, n) float32 or null. Returns
+// cudaGetLastError() of the launch.
+GVD_API int gvd_flash_attn_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                               int n, int d, int dtype, float scale, cudaStream_t stream) {
   if (bh <= 0 || n <= 0) return 0;
   if (bh > 65535) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return gvd::dispatch_f32(q, k, v, o, bh, n, d, scale, stream);
-  if (dtype == 1) return gvd::dispatch_bf16(q, k, v, o, bh, n, d, scale, stream);
+  if (dtype == 0) return gvd::dispatch_f32(q, k, v, o, lse, bh, n, d, scale, stream);
+  if (dtype == 1) return gvd::dispatch_bf16(q, k, v, o, lse, bh, n, d, scale, stream);
   return (int)cudaErrorInvalidValue;
 }

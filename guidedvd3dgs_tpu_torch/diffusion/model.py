@@ -92,7 +92,8 @@ def decode_frame(params: DiffusionParams, cfg: LatentDiffusionConfig, z: torch.T
 
 
 def decode_video_frames(params: DiffusionParams, cfg: LatentDiffusionConfig,
-                        zs: torch.Tensor) -> torch.Tensor:
+                        zs: torch.Tensor, plain: bool = False) -> torch.Tensor:
     """(T, h, w, 4) -> (T, H, W, 3), the frames decoded as one batch in
-    cfg.compute_dtype and returned at zs's dtype."""
-    return vae_decode(params.vae, cfg.vae, zs.to(cfg.dtype)).to(zs.dtype)
+    cfg.compute_dtype and returned at zs's dtype. `plain=True` runs L1's
+    plain version where the kernel would run."""
+    return vae_decode(params.vae, cfg.vae, zs.to(cfg.dtype), plain=plain).to(zs.dtype)

@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from guidedvd3dgs_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from guidedvd3dgs_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain_autograd
 
 Params = dict  # flat {torch_name: tensor}
 
@@ -132,12 +132,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
 
     Unmasked self-attention of at least FLASH_MIN_SEQ tokens takes kernel L1
     (`ops.flash_attention`, reference nnops.py:295-303); `plain=True` sends
-    it to L1's plain version instead. Everything else (cross-attention,
+    it to L1's plain version instead, whose backward under autograd is L1's
+    plain backward. Everything else (cross-attention,
     masked or biased attention, shorter sequences) takes the einsum form of
     reference nnops.py:317-323."""
     if bias is None and mask is None and q.shape[2] == k.shape[2] and q.shape[2] >= FLASH_MIN_SEQ:
         args = (q.contiguous(), k.contiguous(), v.contiguous(), scale)
-        return flash_attention_plain(*args) if plain else flash_attention(*args)
+        return flash_attention_plain_autograd(*args) if plain else flash_attention(*args)
     sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         sim = sim + bias

@@ -43,7 +43,7 @@ def cfg_model_output(apply_cond: ApplyFn, apply_uncond: ApplyFn, x: torch.Tensor
 
 
 def ddim_step(sched: DiffusionSchedule, pr: DDIMParams, index: int, x: torch.Tensor,
-              model_output: torch.Tensor, noise: torch.Tensor) -> DDIMStepOut:
+              model_output: torch.Tensor, noise: torch.Tensor, temperature: float = 1.0) -> DDIMStepOut:
     """x_t -> x_{t-1} at DDIM index `index` (reference ddim_guidance.py:274-291)."""
     t = pr.timesteps[index].expand(x.shape[0])
     a_prev = pr.alphas_prev[index]
@@ -52,7 +52,7 @@ def ddim_step(sched: DiffusionSchedule, pr: DDIMParams, index: int, x: torch.Ten
     pred_x0 = predict_start_from_z_and_v(sched, x, t, model_output)
     pred_x0 = pred_x0 * (pr.scale_arr_prev[index] / pr.scale_arr[index])
     dir_xt = torch.sqrt(torch.clamp(1.0 - a_prev - sigma_t ** 2, min=0.0)) * e_t
-    x_prev = torch.sqrt(a_prev) * pred_x0 + dir_xt + sigma_t * noise
+    x_prev = torch.sqrt(a_prev) * pred_x0 + dir_xt + sigma_t * noise * temperature
     return DDIMStepOut(x_prev, pred_x0, e_t, model_output)
 
 

@@ -7,19 +7,22 @@ utils_vc/diffusion_utils.py:111-223):
   uncond context = OpenCLIP-text("")     ++ Resampler(OpenCLIP-image(zeros))
   c_concat       = the VAE latents of the point-cloud renders (both)
 
-then plain DDIM sampling with CFG and the VAE decode of every frame. With
+then DDIM sampling with CFG, under scene-grounding guidance when a
+guidance function is given (samplers/ddim_guidance.py) and plain otherwise
+(the reference's --no_guidance), and the VAE decode of every frame. With
 the guidedvd config (25 frames, resampler video_length 16 -> 256 image
 tokens) the context is (1, 77 + 256, 1024) and the UNet repeats it per
-frame. This slice carries generation without guidance (the reference's
---no_guidance); the guided sampler and the two-scale CFG come with the
-guided slice.
+frame. The two-scale CFG (--multiple_cond_cfg) is not ported yet.
 
 Noise: the three draws of a request (the VAE encode's eps, x_T, the step
 noise) are taken from `noise` where given, else from `generator`.
+Conditioning and the final decode run without autograd; the guided
+sampler turns it on for its own gradients.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import NamedTuple, Optional, Tuple
 
@@ -37,10 +40,9 @@ from guidedvd3dgs_tpu_torch.diffusion.model import (
 )
 from guidedvd3dgs_tpu_torch.diffusion.resampler import ResamplerConfig, resampler_apply
 from guidedvd3dgs_tpu_torch.diffusion.samplers.ddim import ddim_sample
+from guidedvd3dgs_tpu_torch.diffusion.samplers.ddim_guidance import GuidedSampleConfig, guided_ddim_sample
 from guidedvd3dgs_tpu_torch.diffusion.tokenizer import tokenize
-
-GUIDED_SLICE = ("comes with the guided sampler slice (samplers/ddim_guidance.py, "
-                "samplers/ddim_multicond.py)")
+from guidedvd3dgs_tpu_torch.guidance.loss_guidance import GuidanceFn
 
 
 @dataclass(frozen=True)
@@ -50,7 +52,7 @@ class SynthesisConfig:
     cfg_scale: float = 7.5
     guidance_rescale: float = 0.7
     timestep_spacing: str = "uniform_trailing"
-    # the two-scale CFG (reference --multiple_cond_cfg): not in this slice
+    # the two-scale CFG (reference --multiple_cond_cfg): not ported yet
     multiple_cond_cfg: bool = False
     fs: int = 10
     prompt: str = "Rotating view of a scene"
@@ -62,16 +64,18 @@ class SynthesisConfig:
 class SynthesisNoise(NamedTuple):
     """Injected noise of one request; a None field is drawn from the
     generator. encode_eps: (T, h, w, 4); x_T: (1, T, h, w, 4); steps:
-    (S, 1, T, h, w, 4) in the sampler's loop order."""
+    (draws, 1, T, h, w, 4) in the sampler's loop order (S draws without
+    guidance; S * (2 recur_steps - 1) with it, ddim_guidance.py)."""
 
     encode_eps: Optional[torch.Tensor] = None
     x_T: Optional[torch.Tensor] = None
     steps: Optional[torch.Tensor] = None
 
 
-def _check_unguided(guidance_fn, scfg: SynthesisConfig) -> None:
-    if guidance_fn is not None or scfg.multiple_cond_cfg:
-        raise NotImplementedError("guided and two-scale CFG sampling " + GUIDED_SLICE)
+def _check_config(scfg: SynthesisConfig) -> None:
+    if scfg.multiple_cond_cfg:
+        raise NotImplementedError("the two-scale CFG sampler is not ported yet "
+                                  "(ROADMAP queue 6, samplers/ddim_multicond.py)")
 
 
 def encode_text_pair(params: DiffusionParams, scfg: SynthesisConfig, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -106,10 +110,14 @@ def sample_from_conditioning(params: DiffusionParams, mcfg: LatentDiffusionConfi
                              scfg: SynthesisConfig, cond: Conditioning, uncond: Conditioning,
                              noise: SynthesisNoise = SynthesisNoise(),
                              generator: Optional[torch.Generator] = None,
-                             guidance_fn=None) -> torch.Tensor:
+                             guidance_fn: Optional[GuidanceFn] = None,
+                             guided_cfg: GuidedSampleConfig = GuidedSampleConfig(),
+                             scale_guidance_weight: float = 1.0) -> torch.Tensor:
     """Sampling and decode from prebuilt conditioning: the generated video
-    (T, H, W, 3) in [-1, 1]. Without guidance only."""
-    _check_unguided(guidance_fn, scfg)
+    (T, H, W, 3) in [-1, 1]. With `guidance_fn`, the guided sampler with
+    `guided_cfg` (its CFG scale and rescale taken from `scfg`, as JAX
+    synthesis.py:236-238)."""
+    _check_config(scfg)
     dev = cond.concat.device
     sched = mcfg.schedule(dev)
     pr = S.make_ddim_params(sched, scfg.ddim_steps, eta=scfg.ddim_eta, method=scfg.timestep_spacing)
@@ -118,26 +126,40 @@ def sample_from_conditioning(params: DiffusionParams, mcfg: LatentDiffusionConfi
     if x_T is None:
         x_T = torch.randn((1, t, lh, lw, 4), generator=generator, dtype=torch.float32, device=dev)
 
-    def ap_c(x, ts):
-        return apply_model(params, mcfg, x, ts, cond)
+    if guidance_fn is not None:
+        gcfg = dataclasses.replace(guided_cfg, cfg_scale=scfg.cfg_scale,
+                                   guidance_rescale=scfg.guidance_rescale)
+        x0 = guided_ddim_sample(params, mcfg, sched, pr, cond, uncond, x_T, guidance_fn, gcfg,
+                                scale_guidance_weight, noise=noise.steps, generator=generator)
+    else:
+        def ap_c(x, ts):
+            return apply_model(params, mcfg, x, ts, cond)
 
-    def ap_u(x, ts):
-        return apply_model(params, mcfg, x, ts, uncond)
+        def ap_u(x, ts):
+            return apply_model(params, mcfg, x, ts, uncond)
 
-    x0 = ddim_sample(sched, pr, ap_c, ap_u, x_T, noise=noise.steps, generator=generator,
-                     cfg_scale=scfg.cfg_scale, guidance_rescale=scfg.guidance_rescale)
-    return decode_video_frames(params, mcfg, x0[0])
+        with torch.no_grad():
+            x0 = ddim_sample(sched, pr, ap_c, ap_u, x_T, noise=noise.steps, generator=generator,
+                             cfg_scale=scfg.cfg_scale, guidance_rescale=scfg.guidance_rescale)
+    with torch.no_grad():
+        return decode_video_frames(params, mcfg, x0[0])
 
 
 def image_guided_synthesis(params: DiffusionParams, mcfg: LatentDiffusionConfig,
                            scfg: SynthesisConfig, video: torch.Tensor,
                            generator: Optional[torch.Generator] = None,
-                           noise: SynthesisNoise = SynthesisNoise(), guidance_fn=None,
+                           noise: SynthesisNoise = SynthesisNoise(),
+                           guidance_fn: Optional[GuidanceFn] = None,
+                           guided_cfg: GuidedSampleConfig = GuidedSampleConfig(),
+                           scale_guidance_weight: float = 1.0,
                            text_pair: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
     """The generated video (T, H, W, 3) in [-1, 1] from renders `video`
-    (T, H, W, 3) in [-1, 1]. Without guidance only: a guidance function or
+    (T, H, W, 3) in [-1, 1], guided by `guidance_fn` when given.
     multiple_cond_cfg raises NotImplementedError."""
-    _check_unguided(guidance_fn, scfg)
-    cond, uncond = build_conditioning(params, mcfg, scfg, video, eps=noise.encode_eps,
-                                      generator=generator, text_pair=text_pair)
-    return sample_from_conditioning(params, mcfg, scfg, cond, uncond, noise=noise, generator=generator)
+    _check_config(scfg)
+    with torch.no_grad():
+        cond, uncond = build_conditioning(params, mcfg, scfg, video, eps=noise.encode_eps,
+                                          generator=generator, text_pair=text_pair)
+    return sample_from_conditioning(params, mcfg, scfg, cond, uncond, noise=noise, generator=generator,
+                                    guidance_fn=guidance_fn, guided_cfg=guided_cfg,
+                                    scale_guidance_weight=scale_guidance_weight)

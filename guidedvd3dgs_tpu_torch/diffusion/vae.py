@@ -49,14 +49,15 @@ def _resnet_block(p: Params, prefix: str, x: torch.Tensor, in_ch: int, out_ch: i
     return x + h
 
 
-def _attn_block(p: Params, prefix: str, x: torch.Tensor) -> torch.Tensor:
+def _attn_block(p: Params, prefix: str, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
     """Single-head spatial self-attention (reference ae_modules.py:26-77);
-    at full size 40*56 = 2240 tokens of 512 dims, which takes kernel L1."""
+    at full size 40*56 = 2240 tokens of 512 dims, which takes kernel L1
+    (its plain version with `plain`)."""
     b, hh, ww, c = x.shape
     h = group_norm(p, f"{prefix}.norm", x, eps=1e-6)
     q, k, v = (conv2d(p, f"{prefix}.{nm}", h, padding=0).reshape(b, 1, hh * ww, c)
                for nm in ("q", "k", "v"))
-    out = attention(q, k, v, c ** -0.5).reshape(b, hh, ww, c)
+    out = attention(q, k, v, c ** -0.5, plain=plain).reshape(b, hh, ww, c)
     return x + conv2d(p, f"{prefix}.proj_out", out, padding=0)
 
 
@@ -84,13 +85,13 @@ def encoder_apply(p: Params, cfg: VAEConfig, x: torch.Tensor) -> torch.Tensor:
     return conv2d(p, "conv_out", silu(group_norm(p, "norm_out", h, eps=1e-6)))
 
 
-def decoder_apply(p: Params, cfg: VAEConfig, z: torch.Tensor) -> torch.Tensor:
+def decoder_apply(p: Params, cfg: VAEConfig, z: torch.Tensor, plain: bool = False) -> torch.Tensor:
     """z: (B, h, w, z_channels) -> (B, f*h, f*w, 3)."""
     n = len(cfg.ch_mult)
     block_in = cfg.ch * cfg.ch_mult[-1]
     h = conv2d(p, "conv_in", z)
     h = _resnet_block(p, "mid.block_1", h, block_in, block_in)
-    h = _attn_block(p, "mid.attn_1", h)
+    h = _attn_block(p, "mid.attn_1", h, plain)
     h = _resnet_block(p, "mid.block_2", h, block_in, block_in)
     for i in reversed(range(n)):
         block_out = cfg.ch * cfg.ch_mult[i]
@@ -123,8 +124,9 @@ def vae_encode(p: Params, cfg: VAEConfig, x: torch.Tensor, eps: Optional[torch.T
     return cfg.scale_factor * (mean + std * eps.to(mean.dtype))
 
 
-def vae_decode(p: Params, cfg: VAEConfig, z: torch.Tensor, unscale: bool = True) -> torch.Tensor:
+def vae_decode(p: Params, cfg: VAEConfig, z: torch.Tensor, unscale: bool = True,
+               plain: bool = False) -> torch.Tensor:
     """(B, h, w, z) latent -> (B, H, W, 3) pixels (reference ddpm3d.py:646-675)."""
     if unscale:
         z = z / cfg.scale_factor
-    return decoder_apply(_sub(p, "decoder."), cfg, conv2d(p, "post_quant_conv", z, padding=0))
+    return decoder_apply(_sub(p, "decoder."), cfg, conv2d(p, "post_quant_conv", z, padding=0), plain)

@@ -45,7 +45,9 @@ SIGNATURES = {
     "blend_bwd": [_P, _I] + [_P] * 10 + [_I] * 4 + [_P, _P],
     "segsum": [_P, _P, _P, _I, _P, _P],
     "preprocess_bwd": [_P] * 6 + [_I] * 4 + [_F, _I, _I] + [_P] * 5 + [_P],
-    "flash_attn_fwd": [_P] * 4 + [_I] * 4 + [_F, _P],
+    "flash_attn_fwd": [_P] * 5 + [_I] * 4 + [_F, _P],
+    "flash_attn_bwd_dkv": [_P] * 8 + [_I] * 4 + [_F, _P],
+    "flash_attn_bwd_dq": [_P] * 7 + [_I] * 4 + [_F, _P],
 }
 
 # Launch counts of each kernel in this process; `launch` is the only writer.

@@ -1,5 +1,6 @@
 """General math helpers: the opacity activation's inverse, the position
-learning-rate schedule, quaternion -> rotation matrix.
+learning-rate schedule, the guidance-weight warmup, quaternion -> rotation
+matrix.
 
 Counterpart of `guidedvd3dgs_tpu/utils/general.py`. Quaternions are
 (w, x, y, z) throughout.
@@ -39,6 +40,20 @@ def get_expon_lr_func(
         return 0.0 if step < 0 else float(delay_rate * log_lerp)
 
     return helper
+
+
+def learning_rate_decay(step, lr_init, lr_final, max_steps, lr_delay_steps=0, lr_delay_mult=1):
+    """mip-NeRF style log-lerp decay (reference utils/viewcrafter_wrapper.py
+    :663-691 learning_rate_decay/log_lerp; used for the optional
+    guidance-weight warmup)."""
+    if lr_delay_steps > 0:
+        delay_rate = lr_delay_mult + (1 - lr_delay_mult) * np.sin(
+            0.5 * np.pi * np.clip(step / lr_delay_steps, 0, 1)
+        )
+    else:
+        delay_rate = 1.0
+    t = np.clip(step / max_steps, 0, 1)
+    return delay_rate * np.exp(t * (np.log(lr_final) - np.log(lr_init)) + np.log(lr_init))
 
 
 def build_rotation(q: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Image losses and metrics: L1, PSNR, window SSIM.
+"""Image losses and metrics: L1, PSNR, window SSIM and its per-pixel map.
 
 Counterpart of `guidedvd3dgs_tpu/utils/losses.py`. Images are (C, H, W) or
 (N, C, H, W). SSIM blurs with the 11x11, sigma 1.5 Gaussian window as a
@@ -61,3 +61,20 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11) -> torch
     if img1.dim() == 3:
         img1, img2 = img1[None], img2[None]
     return _ssim_map(img1, img2, window_size).mean()
+
+
+def ssim_noavg(img1: torch.Tensor, img2: torch.Tensor, mask: torch.Tensor | None = None,
+               window_size: int = 11) -> torch.Tensor:
+    """Per-pixel SSIM map of the guidance loss (reference
+    utils/loss_utils.py:86-117). With a mask, the masked-out pixels of both
+    images are filled with 1 before the comparison."""
+    squeeze = img1.dim() == 3
+    if squeeze:
+        img1, img2 = img1[None], img2[None]
+        if mask is not None:
+            mask = mask[None]
+    if mask is not None:
+        img1 = img1 * mask + (1 - mask)
+        img2 = img2 * mask + (1 - mask)
+    out = _ssim_map(img1, img2, window_size)
+    return out[0] if squeeze else out

@@ -10,7 +10,11 @@ all but 1e-4 of them (a pixel may stop one instance apart, as in K4); K6
 within count * 2^-23 * sum |terms| of the float64 sums; L1 (flash
 attention) within 2e-5 of its plain version in float32 and 1e-2 in
 bfloat16 (the plain version from the same bf16 inputs) on unit-normal
-inputs (other sum orders; the plain version rounds the weights to bf16).
+inputs (other sum orders; the plain version rounds the weights to bf16);
+L1's log-sum-exp within 1e-4 of torch.logsumexp of the float32 logits;
+L1's backward (dq, dk, dv) within 1e-4 of max |grad| of its plain
+backward in float32 and 2e-2 in bfloat16 (the tensor-core kernels round
+dS to bf16 for its two products; the plain version keeps it float32).
 Run on the card without the reference package's conftest (it imports
 JAX):
 
@@ -176,5 +180,62 @@ def test_l1_rejects_what_it_does_not_take(dev):
                                         q[..., :48].contiguous(), 0.125)
     with pytest.raises(ValueError):
         flash_attention.flash_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2), 0.125)
-    with pytest.raises(NotImplementedError):
-        flash_attention.flash_attention(q.requires_grad_(), q, q, 0.125)
+    # an input that requires grad takes the autograd Function: its backward
+    # launches the dK/dV and dQ kernels once each
+    leaves = [q.clone().requires_grad_() for _ in range(3)]
+    out = flash_attention.flash_attention(*leaves, 0.125)
+    before = dict(_build.LAUNCHES)
+    out.square().sum().backward()
+    for name in ("flash_attn_bwd_dkv", "flash_attn_bwd_dq"):
+        assert _build.LAUNCHES[name] == before[name] + 1
+    for t in leaves:
+        assert t.grad.shape == q.shape and bool(torch.isfinite(t.grad).all())
+
+
+BWD_SHAPES = [(2, 3, 1200, 64), (1, 1, 300, 512), (3, 2, 77, 32), (1, 2, 200, 128)]
+
+
+def l1_inputs(dev, shape, dtype, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_l1_lse_matches_logsumexp(dev, dtype, shape):
+    q, k, v, _ = l1_inputs(dev, shape, dtype, 7)
+    scale = shape[3] ** -0.5
+    out, lse = flash_attention.flash_attention_lse(q, k, v, scale)
+    want = torch.logsumexp(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, dim=-1)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == shape[:3]
+    assert float((lse - want).abs().max()) <= 1e-4
+    assert torch.equal(out, flash_attention.flash_attention(q, k, v, scale))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_l1_bwd_matches_plain(dev, dtype, tol, shape):
+    """dq, dk, dv of the two kernels against the plain backward of the same
+    inputs, max abs error over max |grad|; and the Function under autograd
+    against the plain pair (nnops.attention(plain=True)'s)."""
+    q, k, v, do = l1_inputs(dev, shape, dtype, shape[2] + 1)
+    scale = shape[3] ** -0.5
+    out, lse = flash_attention.flash_attention_lse(q, k, v, scale)
+    before = dict(_build.LAUNCHES)
+    got = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, scale)
+    for name in ("flash_attn_bwd_dkv", "flash_attn_bwd_dq"):
+        assert _build.LAUNCHES[name] == before[name] + 1
+    want = flash_attention.flash_attention_bwd_plain(q, k, v, out, lse, do, scale)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == q.shape and bool(torch.isfinite(g).all())
+        assert float((g.float() - w.float()).abs().max() / w.float().abs().max()) <= tol
+
+    grads = []
+    for fn in (flash_attention.flash_attention, flash_attention.flash_attention_plain_autograd):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        grads.append(torch.autograd.grad(fn(*leaves, scale), leaves, do))
+    for g, w in zip(*grads):
+        assert float((g.float() - w.float()).abs().max() / w.float().abs().max()) <= tol

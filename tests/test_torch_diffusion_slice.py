@@ -15,6 +15,8 @@ Also `load_viewcrafter_checkpoint` on a tiny saved state dict with the
 checkpoint's quirks, against the JAX package's loader.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -89,12 +91,20 @@ def test_generate_draws_from_the_generator(engines):
 
 
 def test_guided_paths_are_not_in_this_slice(engines):
+    """The guided request runs through the engine (guidance at another
+    size, no depths): frames of the engine's size in [0, 1]. The two-scale
+    CFG is not ported and raises, naming its queue."""
     _, teng = engines
-    pc = torch.zeros((T, ENGINE, ENGINE, 3))
-    with pytest.raises(NotImplementedError, match="guided"):
-        teng.generate(pc, no_guidance=False)
-    with pytest.raises(NotImplementedError, match="guided"):
-        image_guided_synthesis(teng.params, teng.mcfg, teng.scfg, pc, guidance_fn=lambda *a: 0.0)
+    rng = np.random.default_rng(13)
+    pc = torch.from_numpy(rng.uniform(size=(T, ENGINE, ENGINE, 3)).astype(np.float32))
+    gi = torch.from_numpy(rng.uniform(size=(T, 3, TRAIN, TRAIN)).astype(np.float32))
+    gm = torch.ones((T, 1, TRAIN, TRAIN))
+    out = teng.generate(pc, gi, gm, None, generator=torch.Generator().manual_seed(0), no_guidance=False)
+    assert out.shape == (T, 3, ENGINE, ENGINE) and bool(torch.isfinite(out).all())
+    assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
+    multi = dataclasses.replace(teng.scfg, multiple_cond_cfg=True)
+    with pytest.raises(NotImplementedError, match="queue 6"):
+        image_guided_synthesis(teng.params, teng.mcfg, multi, pc * 2.0 - 1.0)
 
 
 @pytest.mark.parametrize("size", [(32, 32), (56, 48), (24, 60)])

@@ -10,6 +10,7 @@ einsum path of `nnops.attention`. Tolerances: float32 2e-6 (the same
 products summed in another order); bfloat16 2e-2 (the weights are rounded
 to bf16 before the second product, in another order in each package).
 The JAX `mha_reference` keeps default matmul precision (3e-6 in f32).
+L1's backward is tested in tests/test_torch_flash_attention_bwd.py.
 """
 
 import jax.numpy as jnp
@@ -61,9 +62,17 @@ def test_wrapper_takes_the_plain_version_on_cpu():
 
 
 def test_wrapper_is_forward_only():
+    """Under autograd the wrapper's output carries L1's backward: an input
+    that requires grad gets a finite gradient of its shape, and the output
+    is the plain forward's."""
     q, k, v = map(torch.from_numpy, qkv((1, 1, 64, 32), 4))
-    with pytest.raises(NotImplementedError, match="guided"):
-        fa.flash_attention(q.requires_grad_(), k, v, 0.2)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, 0.2)
+    assert torch.equal(out.detach(), fa.flash_attention_plain(q, k, v, 0.2))
+    out.square().sum().backward()
+    for t in leaves:
+        assert t.grad is not None and t.grad.shape == t.shape and bool(torch.isfinite(t.grad).all())
+        assert float(t.grad.abs().max()) > 0
 
 
 def _spy(monkeypatch):

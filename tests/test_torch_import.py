@@ -33,12 +33,14 @@ assert not loaded, loaded
 print(" ".join(names))
 """
 
-# the generation slice's modules, each of which must be among those imported
+# the generation and guided-sampler slices' modules, each of which must be
+# among those imported
 DIFFUSION_MODULES = [
     "ops.flash_attention", "diffusion.nnops", "diffusion.schedules", "diffusion.attention",
     "diffusion.unet3d", "diffusion.vae", "diffusion.tokenizer", "diffusion.clip",
     "diffusion.resampler", "diffusion.model", "diffusion.samplers.ddim", "diffusion.synthesis",
     "diffusion.init", "diffusion.convert", "train.guided",
+    "diffusion.samplers.ddim_guidance", "guidance", "guidance.loss_guidance",
 ]
 
 
@@ -50,7 +52,7 @@ def test_every_port_module_imports_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
-    assert len(names) >= 50  # every module of the port
+    assert len(names) >= 53  # every module of the port
     missing = [m for m in DIFFUSION_MODULES if f"guidedvd3dgs_tpu_torch.{m}" not in names]
     assert not missing, missing
 
