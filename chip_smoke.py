@@ -62,8 +62,9 @@ and the exit code is non-zero; there is no CPU fallback):
               a ragged one, in float32 and bfloat16: max abs error of dq,
               dk, dv over max |grad| against L1_BWD_TOL, median ms of each
               kernel, bounds, the plain backward's ms and the backward of
-              torch.nn.functional.scaled_dot_product_attention; the
-              forward's log-sum-exp against torch.logsumexp
+              torch.nn.functional.scaled_dot_product_attention, the pair's
+              ratio to it and share of the bound; the forward's
+              log-sum-exp against torch.logsumexp
      8b. one request through `ViewCrafterEngine.generate(no_guidance=
               False)` in bfloat16 with GUIDED_STEPS guided DDIM steps (cut
               from the default 50; every step is the same program), 480x640
@@ -80,10 +81,13 @@ and the exit code is non-zero; there is no CPU fallback):
               backward (`plain=True`): x_prev agrees within GUIDED_STEP_TOL;
               its dL/dx through L1's backward kernels and through its
               plain backward after the same forward within GUIDED_GRAD_TOL
-              (L2 norms)
+              (L2 norms); and that dL/dx with L1's backward in bf16 (the
+              bf16 kernels against the plain backward of the same bf16
+              inputs) within GUIDED_GRAD_TOL_BF16
 `python3 chip_smoke.py --generate-only STEPS` runs phases 1, 2 and 7b
 alone with STEPS DDIM steps; `--guided-only STEPS` phases 1, 2 and 8b
-(the 50-step requests of PERF.md).
+(the 50-step requests of PERF.md); `--backward-only` phases 1, 2, 8a and
+8b-8c (L1's backward kernels and the guided step).
 The line before the last is the JSON kernel table (launches of K1-K6 from
 phase 5, of L1's forward from phase 7b, of its backward from phase 8b);
 the last line is {"ok": true, "device": {...}}.
@@ -270,6 +274,7 @@ L1_BWD_SHAPES = [((25, 5, 2240, 64), BF16), ((25, 5, 2240, 64), F32), ((50, 5, 2
                  ((50, 5, 2240, 64), F32), ((DECODE_CHUNK, 1, 2240, 512), BF16),
                  ((DECODE_CHUNK, 1, 2240, 512), F32), ((2, 3, 1200, 64), F32)]
 L1_BWD_MAIN = L1_BWD_SHAPES[0]
+L1_BWD_VAE = L1_BWD_SHAPES[4]  # the decode chunk's: its times are extra fields of the JSON line
 # dq, dk, dv against the plain backward of the same inputs, max abs error
 # over max |grad|: float32 another sum order; bfloat16 the tensor-core
 # kernels round dS to bf16 for two of their products (the plain version
@@ -291,6 +296,14 @@ LSE_TOL = 1e-4
 STEP32_FRAMES = 5
 GUIDED_STEP_TOL = 3e-4
 GUIDED_GRAD_TOL = 2.6e-5
+# 8c's bf16 check: the same dL/dx with L1's backward run in bf16
+# (`bf16_backward`: the bf16 kernels, wgmma at D = 64 and mma.sync at the
+# VAE's D = 512) against the plain backward of the same bf16 inputs, cuDNN
+# deterministic, in L2 norm over |dL/dx|. Read by
+# scripts/guided_step_parity.py at the three DDIM indices (H100): 1.776e-5,
+# 1.925e-5, 1.92e-5 (each twice identical), against 1.63e-3 to 1.76e-3
+# with dQ zeroed and 3.85e-3 to 4.11e-3 with Delta zeroed
+GUIDED_GRAD_TOL_BF16 = 4e-5
 
 
 def log(msg: str) -> None:
@@ -1256,21 +1269,29 @@ def phase_l1_bwd(dev):
         r["library_ms"] = median_ms(lambda: torch.autograd.grad(sdpa, leaves, do, retain_graph=True))
         r.update(abs_errs=abs_errs, errs=errs, lse_err=lse_err, bounds=bounds)
         res[(shape, dtype)] = r
+        pair = r["dkv_ms"] + r["dq_ms"]
         rows.append(f"{shape} {str(dtype)[6:]}: err/max|g| dq {errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g} "
                     f"(tol {L1_BWD_TOL[dtype]}), lse err {lse_err:.3g}; dK/dV {r['dkv_ms']:.3f} ms (bound "
                     f"{bounds[0][0]:.4f}, {bounds[0][1]}), dQ {r['dq_ms']:.3f} ms (bound {bounds[1][0]:.4f}, "
-                    f"{bounds[1][1]}); plain backward {r['plain_ms']:.3f}, sdpa backward {r['library_ms']:.3f}")
+                    f"{bounds[1][1]}); plain backward {r['plain_ms']:.3f}, sdpa backward {r['library_ms']:.3f}; "
+                    f"dK/dV + dQ {pair / r['library_ms']:.2f}x sdpa's, at "
+                    f"{(bounds[0][0] + bounds[1][0]) / pair:.1%} of the bound")
         del q, k, v, do, out, lse, delta, leaves, sdpa
     log("phase 8a L1 backward vs plain (unit-normal q, k, v, dO; median of 10, host clock with "
         "synchronize; the plain and sdpa times are of the whole backward): " + " | ".join(rows))
-    main = res[L1_BWD_MAIN]
-    whole = {"plain_ms_of": "the whole backward (dq, dk, dv)", "library_ms_of": "the whole backward (dq, dk, dv)"}
+    main, vae = res[L1_BWD_MAIN], res[L1_BWD_VAE]
+    whole = {"plain_ms_of": "the whole backward (dq, dk, dv)", "library_ms_of": "the whole backward (dq, dk, dv)",
+             "shape_d512": list(L1_BWD_VAE[0])}
     return {"flash_attn_bwd_dkv": dict(max_abs_err=max(main["abs_errs"][1:]), ms=main["dkv_ms"],
                                        plain_ms=main["plain_ms"], library_ms=main["library_ms"],
-                                       bound=main["bounds"][0], extra=whole),
+                                       bound=main["bounds"][0],
+                                       extra=dict(whole, ms_d512=vae["dkv_ms"], library_ms_d512=vae["library_ms"],
+                                                  bound_ms_d512=vae["bounds"][0][0])),
             "flash_attn_bwd_dq": dict(max_abs_err=main["abs_errs"][0], ms=main["dq_ms"],
                                       plain_ms=main["plain_ms"], library_ms=main["library_ms"],
-                                      bound=main["bounds"][1], extra=whole)}
+                                      bound=main["bounds"][1],
+                                      extra=dict(whole, ms_d512=vae["dq_ms"], library_ms_d512=vae["library_ms"],
+                                                 bound_ms_d512=vae["bounds"][1][0]))}
 
 
 def guided_inputs(dev, gen):
@@ -1330,6 +1351,22 @@ def plain_backward():
     return mock.patch.object(fa, "flash_attention_bwd", fa.flash_attention_bwd_plain)
 
 
+def bf16_backward(plain: bool = False):
+    """L1's backward in bfloat16, to patch in as `fa.flash_attention_bwd`:
+    q, k, v, o and dO rounded to bf16, the bf16 backward kernels (with
+    `plain`, the plain backward of the same bf16 inputs), the gradients cast
+    back. 8c's bf16 check: in the float32 step around it L1's bf16
+    arithmetic is the only difference between the two. A whole bf16 step is
+    no yardstick: its own rounding moves dL/dx by ~9% in L2 for any change
+    of one attention's gradient, a planted fault included (PERF.md)."""
+    real = fa.flash_attention_bwd_plain if plain else fa.flash_attention_bwd
+
+    def bwd(q, k, v, o, lse, do, scale):
+        grads = real(*(t.to(BF16) for t in (q, k, v, o)), lse, do.to(BF16), scale)
+        return tuple(g.float() for g in grads)
+    return bwd
+
+
 @contextlib.contextmanager
 def deterministic_cudnn():
     """Within it cuDNN takes deterministic algorithms: 8c's dL/dx
@@ -1344,17 +1381,21 @@ def deterministic_cudnn():
         cudnn.deterministic, cudnn.benchmark = saved
 
 
-def f32_guided_step(params, mcfg, gcfg, sched, pr, cond, uncond, bufs, x, step_noise, index: int):
-    """8c's step: one float32 guided step of the first STEP32_FRAMES frames
-    of the bf16 request's inputs, the UNet's and the VAE's weights cast to
-    float32 (run it with TF32 off). Returns (step, grad): step(plain=False)
-    -> (x_prev, pred_x0, rho) of the whole step; grad(plain=False) -> the
-    step's dL/dx from the pred_x0 and the branches' v of one forward through
-    L1's kernel: the decode gradients and the pair's VJP alone."""
+def small_guided_step(params, mcfg, gcfg, sched, pr, cond, uncond, bufs, x, step_noise, index: int,
+                      dtype=F32):
+    """8c's step: one guided step of the first STEP32_FRAMES frames of the
+    bf16 request's inputs, in float32 (the UNet's and the VAE's weights
+    cast; run it with TF32 off) or in the request's bfloat16. Returns
+    (step, grad): step(plain=False) -> (x_prev, pred_x0, rho) of the whole
+    step; grad(plain=False) -> the step's dL/dx from the pred_x0 and the
+    branches' v of one forward through L1's kernel: the decode gradients
+    and the pair's VJP alone."""
     t = STEP32_FRAMES
-    mcfg32 = dataclasses.replace(mcfg, compute_dtype="float32")
-    params32 = params._replace(unet={k: v.float() for k, v in params.unet.items()},
-                               vae={k: v.float() for k, v in params.vae.items()})
+    mcfg32, params32 = mcfg, params
+    if dtype == F32:
+        mcfg32 = dataclasses.replace(mcfg, compute_dtype="float32")
+        params32 = params._replace(unet={k: v.float() for k, v in params.unet.items()},
+                                   vae={k: v.float() for k, v in params.vae.items()})
     c32, u32 = (Conditioning(c.context, c.concat[:, :t].contiguous(), c.fs) for c in (cond, uncond))
     g32 = make_guidance_fn(bufs._replace(images=bufs.images[:t], masks=bufs.masks[:t]))
     x32, n32 = x[:, :t].contiguous(), step_noise[:, :t].contiguous()
@@ -1460,7 +1501,7 @@ def phase_guided(dev, steps: int, trace_and_f32: bool = True) -> dict:
     # 8c: one float32 guided step of STEP32_FRAMES frames through L1's
     # kernels and through its plain forward and backward
     t = STEP32_FRAMES
-    step32, grad32 = f32_guided_step(params, mcfg, gcfg, sched, pr, cond, uncond, bufs, x, step_noise, index)
+    step32, grad32 = small_guided_step(params, mcfg, gcfg, sched, pr, cond, uncond, bufs, x, step_noise, index)
     before = dict(_build.LAUNCHES)
     got, _, rho_k = step32()
     mid = dict(_build.LAUNCHES)
@@ -1484,17 +1525,32 @@ def phase_guided(dev, steps: int, trace_and_f32: bool = True) -> dict:
     scale_x, scale_g = got.abs().max().item(), gx_plain.norm().item()
     err, rerun = (got - want).abs().max().item(), (got - again).abs().max().item()
     gerr, grerun = (gx - gx_plain).norm().item() / scale_g, (gx - gx_again).norm().item() / scale_g
+    # the same dL/dx with L1's backward in bf16: the bf16 kernels against the
+    # plain backward of the same bf16 inputs
+    with deterministic_cudnn():
+        with mock.patch.object(fa, "flash_attention_bwd", bf16_backward()):
+            g16 = grad32()
+        with mock.patch.object(fa, "flash_attention_bwd", bf16_backward(plain=True)):
+            g16_plain = grad32()
+        with mock.patch.object(fa, "flash_attention_bwd", bf16_backward()):
+            g16_again = grad32()
+    gerr16 = (g16 - g16_plain).norm().item() / g16_plain.norm().item()
+    rerun16 = (g16 - g16_again).norm().item() / g16_plain.norm().item()
     if not (bool(torch.isfinite(got).all()) and err <= GUIDED_STEP_TOL * scale_x
-            and bool(torch.isfinite(gx).all()) and gerr <= GUIDED_GRAD_TOL):
+            and bool(torch.isfinite(gx).all()) and gerr <= GUIDED_GRAD_TOL
+            and bool(torch.isfinite(g16).all()) and gerr16 <= GUIDED_GRAD_TOL_BF16):
         raise AssertionError(f"8c: the f32 guided step through L1's kernels differs from the plain chain "
-                             f"by {err:.3g} (max |x_prev| {scale_x:.3f}); its dL/dx by {gerr:.3g} of |dL/dx|")
+                             f"by {err:.3g} (max |x_prev| {scale_x:.3f}); its dL/dx by {gerr:.3g} of |dL/dx|; "
+                             f"with L1's backward in bf16 by {gerr16:.3g} (tol {GUIDED_GRAD_TOL_BF16})")
     log(f"phase 8c one f32 guided step (TF32 off; {t} frames at {GEN_H}x{GEN_W}, index {index}), L1's kernels "
         f"vs its plain forward and backward: x_prev max abs diff {err:.3g} = {err / scale_x:.3g} of max "
         f"|x_prev| {scale_x:.3f} (tol {GUIDED_STEP_TOL}); the kernel step run twice differs by {rerun:.3g}; "
         f"rho {float(rho_k):.6g} vs {float(rho_p):.6g} | dL/dx from one forward's pred_x0 and v, L1's "
         f"backward kernels vs its plain backward (the forward L1's kernel in both, cuDNN deterministic): "
         f"|diff| {gerr:.4g} of |dL/dx| {scale_g:.4g} (L2 norms; tol {GUIDED_GRAD_TOL}); the kernels run "
-        f"twice {grerun:.3g}")
+        f"twice {grerun:.3g} | the same dL/dx with L1's backward in bf16, the bf16 kernels vs the plain "
+        f"backward of the same bf16 inputs: {gerr16:.4g} of |dL/dx| {g16_plain.norm().item():.4g} (tol "
+        f"{GUIDED_GRAD_TOL_BF16}); the kernels run twice {rerun16:.3g}")
     return launches
 
 
@@ -1504,6 +1560,8 @@ def main() -> None:
                         help="run phases 1, 2 and 7b alone, with STEPS DDIM steps")
     parser.add_argument("--guided-only", type=int, metavar="STEPS", default=None,
                         help="run phases 1, 2 and 8b alone, with STEPS guided DDIM steps")
+    parser.add_argument("--backward-only", action="store_true",
+                        help="run phases 1, 2, 8a and 8b-8c alone: L1's backward kernels and the guided step")
     args = parser.parse_args()
     start = time.perf_counter()
     secs = {}
@@ -1521,6 +1579,11 @@ def main() -> None:
         return
     if args.guided_only is not None:
         phase_guided(dev, args.guided_only, trace_and_f32=False)
+        return
+    if args.backward_only:
+        run("8a", phase_l1_bwd, dev)
+        run("8b-8c", phase_guided, dev, GUIDED_STEPS)
+        log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
         return
     res = run("3", phase_kernels, dev)
     build_dir = ROOT / "build"

@@ -12,7 +12,6 @@ namespace fa {
 
 constexpr int DT = 32;       // head dims per thread in the FMA kernels
 constexpr int NC = DT / 4;   // float4 chunks per thread
-constexpr int THREADS_MMA = 128;  // 4 warps of 16 rows in the tensor-core kernels
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -40,41 +39,6 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&p);
-}
-
-// two neighbouring bf16 at `p` (a 4-byte aligned address)
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment of k-step kk from a row-major bf16 tile in shared memory whose
-// warp rows start at `row0` (stride `ld` elements)
-__device__ __forceinline__ void ld_a_frag(uint32_t* a, const __nv_bfloat16* tile, int ld, int row0, int kk,
-                                          int g, int t4) {
-  const __nv_bfloat16* p = tile + (row0 + g) * ld + kk * 16 + t4 * 2;
-  a[0] = ld_pair(p);
-  a[1] = ld_pair(p + 8 * ld);
-  a[2] = ld_pair(p + 8);
-  a[3] = ld_pair(p + 8 * ld + 8);
-}
-
-// Stage rows [r0, r0 + rows) of a (n, D) bf16 matrix into shared memory:
-// row-major into `rm` (row stride D + 8) and, when `tr` is not null,
-// transposed into `tr` (row stride rows + 8). Rows past n are zero.
-template <int D>
-__device__ __forceinline__ void stage_bf16(const __nv_bfloat16* __restrict__ src, int r0, int rows, int n,
-                                           __nv_bfloat16* rm, __nv_bfloat16* tr) {
-  for (int i = threadIdx.x; i < rows * D / 8; i += blockDim.x) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    uint4 v4 = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n) v4 = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c);
-    *reinterpret_cast<uint4*>(rm + r * (D + 8) + c) = v4;
-    if (tr != nullptr) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v4);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) tr[(c + j) * (rows + 8) + r] = e[j];
-    }
-  }
 }
 
 }  // namespace fa

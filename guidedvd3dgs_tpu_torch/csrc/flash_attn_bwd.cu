@@ -13,299 +13,823 @@
 // under jax.vjp. As there, the work is split in two kernels, one that owns
 // a tile of keys and walks the queries (dK, dV) and one that owns a tile of
 // queries and walks the keys (dQ): every output element is summed by one
-// thread in a fixed order, so the result is deterministic and needs no
+// owner in a fixed order, so the result is deterministic and needs no
 // atomics. Delta is a row reduction the caller computes (the JAX VJP does
-// so outside its kernels too). The ragged tail is masked as in the forward:
-// keys >= n get P = 0, rows >= n are read as zero and never written.
+// so outside its kernels too). The ragged tail: keys >= n get P = 0, rows
+// >= n are read as zero and never written.
 //
 // Layout: q, k, v, dO and the outputs are contiguous (B*H, n, D) in one
-// type, float32 or bfloat16; lse and Delta are (B*H, n) float32. Every
-// accumulator is float32; P is rounded to the input type before the
-// product with dO, as the plain version rounds the forward's weights.
+// type, float32 or bfloat16, 16-byte aligned; lse and Delta are (B*H, n)
+// float32. Every accumulator is float32; P is rounded to the input type
+// before the product with dO, as the plain version rounds the forward's
+// weights, and the bf16 kernels round dS to bf16 for its two products.
 //
-// What bounds it on this card: operations. At the UNet's shape in the
-// guided step (B*H = 25*5, n = 2240, D = 64, bf16; one CFG branch, whose
-// VJP runs alone) one n x n product is 2 * 125 * 2240^2 * 64 = 8.03e10
-// FLOP. dK/dV does four (S, dP, dV, dK): 3.21e11 FLOP, 0.325 ms at 989
-// TFLOP/s; dQ three (S, dP, dQ): 2.41e11 FLOP, 0.244 ms; q, k, v and dO are
-// 36 MB each (0.05 ms at 3.35 TB/s). So bf16 at D <= 128 runs on the
-// tensor cores (mma.sync m16n8k16, below): S and dP are recomputed per
-// tile in f32 fragments and never leave registers, and P and dS become the
-// bf16 A fragments of the next product directly (the forward's trick), so
-// no n x n matrix touches memory. The tiles are staged with plain loads and no pipeline; the
-// operands that a product needs transposed (Q, dO for dK/dV; K for dQ) are
-// staged twice, once per layout. float32, and bf16 at D = 512 (the VAE's
-// single head), take every product as a float32 FMA (__fmaf_rn: the library
-// is built with -fmad=false), the forward's FMA design: G = D/32 threads
-// own a row with 32 dims each in registers, the other side's rows stream
-// through dynamic shared memory, and each pair of rows meets by a butterfly
-// shuffle; its ceiling is the 67 TFLOP/s float32 rate.
+// What bounds it on this card: operations. One n x n product is 2 * B*H *
+// n^2 * D FLOP; dK/dV does four (S, dP, dV, dK), dQ three (S, dP, dQ).
+// At the UNet's shape in the guided step (B*H = 25*5, n = 2240, D = 64,
+// bf16; one CFG branch, whose VJP runs alone) that is 3.21e11 and 2.41e11
+// FLOP, 0.325 and 0.244 ms at 989 TFLOP/s, against 36 MB for each of q, k,
+// v, dO (0.05 ms at 3.35 TB/s). At the VAE decode chunk's (B*H = 5, n =
+// 2240, D = 512, bf16) 1.03e11 and 7.7e10 FLOP, 0.104 and 0.078 ms. Three
+// designs:
+//
+//  * bf16, D in {32, 64, 128} (the UNet): one warpgroup (128 threads)
+//    owns 64 rows (keys for dK/dV, queries for dQ), resident in shared
+//    memory, and streams the other side's rows (Q, dO, lse, Delta; or K,
+//    V) through a two-stage ring that TMA fills (cp.async.bulk.tensor,
+//    completion on an mbarrier per stage): the next tile's copy runs
+//    while this tile's products do, and a row past n arrives as zero from
+//    TMA's out-of-bounds fill. TMA writes each tile in the 128-byte
+//    swizzle (64-byte at D = 32), in slabs of 64 (32) columns, which is
+//    the canonical layout `wgmma` reads in either major. The products are
+//    `wgmma.mma_async` (Hopper's only path to the full tensor-core rate):
+//    S^T = K Q^T and dP^T = V dO^T (dK/dV; S = Q K^T and dP = dO V^T for
+//    dQ) from shared memory with both operands K-major; then P^T and dS^T
+//    are converted in registers into the bf16 A operand of dV += P^T dO and
+//    dK += dS^T Q (dQ += dS K), whose B operand is the same staged tile
+//    read MN-major, so nothing is staged twice and no n x n matrix leaves
+//    the registers. Several blocks share an SM, so one block's exp runs
+//    beside another's products.
+//  * bf16, D = 512 (the VAE's single head): 64 keys' dK and dV
+//    accumulators would take the whole register file, so a block of 8
+//    warps owns 32 rows, resident in shared memory (padded rows, 64 KB),
+//    and streams 32-row tiles of the other side through a two-stage
+//    cp.async ring (128 KB). The 8 warps compute the tile's 32 x 32 S^T and
+//    dP^T once (one m16n8 tile each, contracting all 512 dims with
+//    mma.sync m16n8k16 from ldmatrix), pass P^T and dS^T through shared
+//    memory as bf16, and each warp then accumulates its own 64 dims of dK
+//    and dV (dQ) with B read by ldmatrix.trans from the staged tile. The
+//    decode chunk's 5 heads give 70 * 5 = 350 blocks, 2.7 waves of 132
+//    SMs. mma.sync rather than wgmma: a 64-row warpgroup tile does not fit
+//    beside the 512-dim accumulators.
+//  * float32 at every D: every product a float32 FMA (__fmaf_rn: the
+//    library is built with -fmad=false), the forward's FMA design: G = D/32
+//    threads own a row with 32 dims each in registers, the other side's
+//    rows stream through dynamic shared memory, and each pair of rows meets
+//    by a butterfly shuffle; its ceiling is the 67 TFLOP/s float32 rate.
+//    It is the exact yardstick of the bf16 kernels' arithmetic.
+//
+// The bf16 kernels take P = exp2(S * scale * log2(e) - lse * log2(e)), the
+// same value as exp(S * scale - lse) within a few float32 ulps.
+//
+// Measured (chip_smoke.py phase 8a, median of 10 launches; NVIDIA H100
+// 80GB HBM3, 700.00 W): at (25, 5, 2240, 64) bf16 dK/dV 0.812 ms and dQ
+// 0.620 ms, 40% of their bounds and 1.27x the backward of torch's
+// scaled_dot_product_attention (the mma.sync design with plain staging
+// took 3.147 and 2.292); at (5, 1, 2240, 512) bf16 0.81-0.83 and 0.70-0.72
+// ms, 12% of the bounds and 0.2x sdpa's backward (the FMA design took
+// 15.6-16.4 and 15.0-15.6). Two wgmma groups per tile (the exp under
+// dP's product) measured slower for dK/dV (1.000 ms), so each phase is
+// one group.
 
 #include "flash_attn.cuh"
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <math.h>
 
 namespace gvd {
 namespace {
 
 using bf16 = __nv_bfloat16;
-using fa::ld_pair;
 using fa::mma_bf16;
 using fa::pack_bf16;
 
-// ---- bf16 tensor-core path (D <= 128) ----
+constexpr float LOG2E = 1.4426950408889634f;
+
+// ---- PTX: shared addresses, mbarriers, TMA, cp.async, ldmatrix, wgmma ----
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// arrive once and expect `bytes` more from asynchronous copies
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// wait until the barrier's phase `parity` has completed; a copy that never
+// lands traps (a launch failure) instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done, spins = 0;
+  do {
+    if (++spins == (1u << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int x, int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
+      "[%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar, int x) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x)
+      : "memory");
+}
+
+// 16 (4) bytes global -> shared, asynchronously; zeros where !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8 and receives, of each matrix, row l / 4 and
+// columns 2 (l % 4), +1 (with .trans: rows 2 (l % 4), +1 of column l / 4)
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// wgmma shared-memory descriptor of a tile in the canonical swizzled
+// layout of span SW bytes (128 or 64): rows of SW bytes, 8-row groups SBO
+// = 8 SW apart. As a K-major operand the rows are M (N) and the k-steps
+// advance the start by 32 bytes inside the span; as an MN-major one the
+// rows are K and a k-step advances by 16 rows. LBO (the stride between
+// spans along MN) is unused: an operand never spans more than one.
+template <int SW>
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  constexpr uint64_t layout = SW == 128 ? 1 : 2;  // 128-byte or 64-byte swizzle
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(8 * SW >> 4) << 32) |
+         (layout << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// keep the compiler from moving reads of wgmma accumulators above the wait
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A B, m64n64k16: A and B from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A B, m64n32k16: A and B from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A B, m64n64k16: A (bf16 pairs) from registers, B from shared memory MN-major
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A B, m64n32k16: A (bf16 pairs) from registers, B from shared memory MN-major
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int accumulate) {
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, accumulate);
+  else wgmma_ss_n32(d, da, db, accumulate);
+}
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db, int accumulate) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db, accumulate);
+  else wgmma_rs_n32(d, a, db, accumulate);
+}
+
+// ---- bf16, D <= 128: TMA ring and wgmma ----
 
 template <int D>
-struct BwdMma {
-  static constexpr int KP = D + 8;                // padded row of a row-major tile
-  // dK/dV: 64 keys per block (4 warps x 16), queries in tiles of BQ
-  static constexpr int BK = 64;
-  static constexpr int BQ = D <= 64 ? 64 : 32;
-  static constexpr int QTP = BQ + 8;              // padded row of Q^T, dO^T
-  static constexpr int DKV_SMEM = (2 * BK * KP + 2 * BQ * KP + 2 * D * QTP) * 2 + 2 * BQ * 4;
-  // dQ: 64 queries per block (4 warps x 16), keys in tiles of BK2
-  static constexpr int BQ2 = 64;
-  static constexpr int BK2 = D <= 64 ? 64 : 32;
-  static constexpr int KTP = BK2 + 8;             // padded row of K^T
-  static constexpr int DQ_SMEM = (2 * BK2 * KP + D * KTP) * 2;
+struct BwdWg {
+  static constexpr int CW = D >= 64 ? 64 : 32;  // columns of a swizzled slab
+  static constexpr int SW = CW * 2;             // bytes of a slab row: the swizzle span
+  static constexpr int NS = D / CW;             // slabs of a row
+  static constexpr int BM = 64;                 // rows the warpgroup owns
+  static constexpr int BN = D <= 64 ? 64 : 32;  // rows of a streamed tile
+  static constexpr int STAGES = 2;
+  static constexpr int OWN = BM * D * 2;        // bytes of the owned tile
+  static constexpr int TILE = BN * D * 2;       // bytes of a streamed tile
+  // a streamed lse or Delta tile: BN + 4 floats from the 16-byte aligned
+  // start at or below the tile's first row (TMA takes no other start),
+  // 128-byte aligned in shared memory
+  static constexpr int VLEN = BN + 4;
+  static constexpr int VEC = (VLEN * 4 + 127) / 128 * 128;
+  static constexpr int KSTEPS = CW / 16;        // wgmma k-steps inside a slab
+  // dK/dV: K, V | Q, dO per stage | lse, Delta per stage | barriers (+1024 to align)
+  static constexpr int DKV_BARS = 2 * OWN + STAGES * (2 * TILE + 2 * VEC);
+  static constexpr int DKV_SMEM = 1024 + DKV_BARS + 8 * (1 + STAGES);
+  // dQ: Q, dO | K, V per stage | barriers
+  static constexpr int DQ_BARS = 2 * OWN + STAGES * 2 * TILE;
+  static constexpr int DQ_SMEM = 1024 + DQ_BARS + 8 * (1 + STAGES);
 };
 
-// dK/dV. Each warp owns 16 keys and computes the transposed products
-// S^T = K Q^T and dP^T = V dO^T (rows = its keys), so that P^T and dS^T
-// are A fragments of dV += P^T dO and dK += dS^T Q.
+// The tensor maps of one launch: rows of q, k, v, dO as (B*H, n, D) with a
+// box of one slab by BM or BN rows; lse and Delta as one flat vector.
+struct WgMaps {
+  CUtensorMap q, k, v, dout, lse, delta;
+};
+
+// TMA of rows [r0, r0 + R) of one head into a tile of NS slabs
+template <int D, int R>
+__device__ __forceinline__ void tma_rows(unsigned char* dst, const CUtensorMap& map, uint64_t* bar, int r0,
+                                         int head) {
+  using S = BwdWg<D>;
+#pragma unroll
+  for (int s = 0; s < S::NS; ++s) tma_load_3d(dst + s * R * S::SW, &map, bar, s * S::CW, r0, head);
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023u) & ~1023u) - a);
+}
+
+// S (+)= A B^T over the D head dims: A the owned tile, B a streamed one,
+// both K-major (rows of D dims). S: 64 x BN.
 template <int D>
-__global__ void __launch_bounds__(fa::THREADS_MMA)
-flash_attn_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                              const float* __restrict__ lse, const float* __restrict__ delta,
-                              bf16* __restrict__ dk, bf16* __restrict__ dv, int n, float scale) {
-  using S = BwdMma<D>;
-  constexpr int KP = S::KP, BK = S::BK, BQ = S::BQ, QTP = S::QTP;
-  constexpr int KD = D / 16;  // k-steps over the head dims
-  constexpr int NQ = BQ / 8;  // n-tiles over the queries
-  constexpr int ND = D / 8;   // n-tiles over the head dims
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [BK][KP]
-  bf16* vs = ks + BK * KP;                       // [BK][KP]
-  bf16* qs = vs + BK * KP;                       // [BQ][KP]
-  bf16* dos = qs + BQ * KP;                      // [BQ][KP]
-  bf16* qt = dos + BQ * KP;                      // [D][QTP]
-  bf16* dot = qt + D * QTP;                      // [D][QTP]
-  float* lse_s = reinterpret_cast<float*>(dot + D * QTP);
-  float* delta_s = lse_s + BQ;
+__device__ __forceinline__ void wg_rows_dot(float* s, const unsigned char* a, const unsigned char* b) {
+  using S = BwdWg<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int slab = kk / S::KSTEPS, in = (kk % S::KSTEPS) * 2;  // 32 bytes = 2 descriptor units
+    wgmma_ss<S::BN>(s, smem_desc<S::SW>(a + slab * S::BM * S::SW) + in,
+                    smem_desc<S::SW>(b + slab * S::BN * S::SW) + in, kk > 0);
+  }
+}
 
+// acc[slab] += A T over the BN streamed rows: A (64 x BN) the bf16 register
+// fragments `a`, T the streamed tile read MN-major (BN x D)
+template <int D>
+__device__ __forceinline__ void wg_acc_rows(float (*acc)[BwdWg<D>::CW / 2], const uint32_t (*a)[4],
+                                            const unsigned char* t) {
+  using S = BwdWg<D>;
+#pragma unroll
+  for (int s = 0; s < S::NS; ++s) {
+#pragma unroll
+    for (int kk = 0; kk < S::BN / 16; ++kk)
+      wgmma_rs<S::CW>(acc[s], a[kk], smem_desc<S::SW>(t + s * S::BN * S::SW + kk * 16 * S::SW), 1);
+  }
+}
+
+// write a 64 x D accumulator (rows row0 + the thread's rows) times `mul`
+template <int D>
+__device__ __forceinline__ void wg_store(bf16* out, const float (*acc)[BwdWg<D>::CW / 2], int row0, int n,
+                                         float mul) {
+  using S = BwdWg<D>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int w16 = warp * 16;
-  const int k0 = blockIdx.x * BK;
-  const size_t head = (size_t)blockIdx.y * (size_t)n * D;
-  const float* lse_h = lse + (size_t)blockIdx.y * n;
-  const float* delta_h = delta + (size_t)blockIdx.y * n;
-
-  fa::stage_bf16<D>(k + head, k0, BK, n, ks, nullptr);
-  fa::stage_bf16<D>(v + head, k0, BK, n, vs, nullptr);
-
-  float dka[ND][4], dva[ND][4];
+  const int r = row0 + warp * 16 + (lane >> 2), c = (lane & 3) * 2;
 #pragma unroll
-  for (int dt = 0; dt < ND; ++dt) {
+  for (int s = 0; s < S::NS; ++s) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dka[dt][e] = dva[dt][e] = 0.0f;
+    for (int i = 0; i < S::CW / 8; ++i) {
+      const int d = s * S::CW + i * 8 + c;
+      if (r < n)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * D + d) =
+            __floats2bfloat162_rn(acc[s][i * 4 + 0] * mul, acc[s][i * 4 + 1] * mul);
+      if (r + 8 < n)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(r + 8) * D + d) =
+            __floats2bfloat162_rn(acc[s][i * 4 + 2] * mul, acc[s][i * 4 + 3] * mul);
+    }
+  }
+}
+
+// dK/dV. The warpgroup owns 64 keys (K, V resident) and walks the queries:
+// S^T = K Q^T and dP^T = V dO^T (rows = keys), so that P^T and dS^T are
+// the A operands of dV += P^T dO and dK += dS^T Q.
+template <int D>
+__global__ void __launch_bounds__(128, 2)
+flash_attn_bwd_dkv_wg_kernel(const __grid_constant__ WgMaps maps, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                             int n, float scale) {
+  using S = BwdWg<D>;
+  constexpr int BN = S::BN, NT = BN / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ks = align1024(smem_raw);
+  unsigned char* vs = ks + S::OWN;
+  unsigned char* qs = vs + S::OWN;                 // [STAGES] tiles
+  unsigned char* dos = qs + S::STAGES * S::TILE;   // [STAGES] tiles
+  float* lse_s = reinterpret_cast<float*>(dos + S::STAGES * S::TILE);      // [STAGES][VEC / 4]
+  float* delta_s = lse_s + S::STAGES * S::VEC / 4;                         // [STAGES][VEC / 4]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(delta_s + S::STAGES * S::VEC / 4);  // K/V, then per stage
+
+  const int tid = threadIdx.x, t4 = tid & 3;
+  const int head = blockIdx.y, k0 = blockIdx.x * S::BM;
+  const int ntiles = (n + BN - 1) / BN;
+  const float sl2 = scale * LOG2E;
+
+  auto load_tile = [&](int st, int q0) {
+    const int at = (head * n + q0) & ~3;  // lse and Delta of rows q0.. start (head * n + q0) % 4 floats in
+    mbar_expect_tx(&bars[1 + st], 2 * S::TILE + 2 * S::VLEN * 4);
+    tma_rows<D, BN>(qs + st * S::TILE, maps.q, &bars[1 + st], q0, head);
+    tma_rows<D, BN>(dos + st * S::TILE, maps.dout, &bars[1 + st], q0, head);
+    tma_load_1d(lse_s + st * S::VEC / 4, &maps.lse, &bars[1 + st], at);
+    tma_load_1d(delta_s + st * S::VEC / 4, &maps.delta, &bars[1 + st], at);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 1 + S::STAGES; ++i) mbar_init(&bars[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&bars[0], 2 * S::OWN);
+    tma_rows<D, S::BM>(ks, maps.k, &bars[0], k0, head);
+    tma_rows<D, S::BM>(vs, maps.v, &bars[0], k0, head);
+    for (int st = 0; st < S::STAGES && st < ntiles; ++st) load_tile(st, st * BN);
   }
 
-  for (int q0 = 0; q0 < n; q0 += BQ) {
-    __syncthreads();  // every warp is done with the previous tile (and K, V are staged)
-    fa::stage_bf16<D>(q + head, q0, BQ, n, qs, qt);
-    fa::stage_bf16<D>(dout + head, q0, BQ, n, dos, dot);
-    for (int i = threadIdx.x; i < BQ; i += blockDim.x) {
-      const bool ok = q0 + i < n;
-      lse_s[i] = ok ? lse_h[q0 + i] : 0.0f;
-      delta_s[i] = ok ? delta_h[q0 + i] : 0.0f;
-    }
-    __syncthreads();
+  float dka[S::NS][S::CW / 2], dva[S::NS][S::CW / 2];
+#pragma unroll
+  for (int s = 0; s < S::NS; ++s) {
+#pragma unroll
+    for (int i = 0; i < S::CW / 2; ++i) dka[s][i] = dva[s][i] = 0.0f;
+  }
+  mbar_wait(&bars[0], 0);
 
-    float s[NQ][4], dp[NQ][4];
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j % S::STAGES, q0 = j * BN;
+    mbar_wait(&bars[1 + st], (j / S::STAGES) & 1);
+    const unsigned char* qt = qs + st * S::TILE;
+    const unsigned char* ot = dos + st * S::TILE;
+
+    float s[BN / 2], dp[BN / 2];
+    wg_fence();
+    wg_rows_dot<D>(s, ks, qt);
+    wg_rows_dot<D>(dp, vs, ot);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T (0 for queries past n) and dS^T as bf16 A fragments: query
+    // n-tiles 2kk and 2kk+1 are the two halves of k-step kk
+    const int off = (head * n + q0) & 3;
+    const float* lt = lse_s + st * S::VEC / 4 + off;
+    const float* dt = delta_s + st * S::VEC / 4 + off;
+    uint32_t pa[BN / 16][4], dsa[BN / 16][4];
 #pragma unroll
-    for (int nt = 0; nt < NQ; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.0f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t ka[4], va[4];
-      fa::ld_a_frag(ka, ks, KP, w16, kk, g, t4);
-      fa::ld_a_frag(va, vs, KP, w16, kk, g, t4);
-#pragma unroll
-      for (int nt = 0; nt < NQ; ++nt) {
-        const bf16* qb = qs + (nt * 8 + g) * KP + kk * 16 + t4 * 2;
-        mma_bf16(s[nt], ka, ld_pair(qb), ld_pair(qb + 8));
-        const bf16* db = dos + (nt * 8 + g) * KP + kk * 16 + t4 * 2;
-        mma_bf16(dp[nt], va, ld_pair(db), ld_pair(db + 8));
-      }
-    }
-    // P^T (0 for queries past n) and dS^T, packed as bf16 A fragments:
-    // query n-tiles 2kk and 2kk+1 are the two halves of k-step kk
-    uint32_t pa[NQ / 2][4], dsa[NQ / 2][4];
-#pragma unroll
-    for (int nt = 0; nt < NQ; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = nt * 8 + t4 * 2 + e;
-        const bool ok = q0 + col < n;
-        const float l = lse_s[col], dl = delta_s[col];
-        const float p0 = ok ? expf(s[nt][e] * scale - l) : 0.0f;      // key row g
-        const float p1 = ok ? expf(s[nt][2 + e] * scale - l) : 0.0f;  // key row g + 8
-        s[nt][e] = p0;
-        s[nt][2 + e] = p1;
-        dp[nt][e] = p0 * (dp[nt][e] - dl);
-        dp[nt][2 + e] = p1 * (dp[nt][2 + e] - dl);
-      }
-      pa[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(s[nt][0], s[nt][1]);
-      pa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(s[nt][2], s[nt][3]);
-      dsa[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(dp[nt][0], dp[nt][1]);
-      dsa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(dp[nt][2], dp[nt][3]);
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = nt * 8 + t4 * 2;
+      const bool ok0 = q0 + col < n, ok1 = q0 + col + 1 < n;
+      const float l0 = lt[col] * LOG2E, l1 = lt[col + 1] * LOG2E;
+      const float dl0 = dt[col], dl1 = dt[col + 1];
+      const float p00 = ok0 ? exp2f(s[nt * 4 + 0] * sl2 - l0) : 0.0f;  // key row g
+      const float p01 = ok1 ? exp2f(s[nt * 4 + 1] * sl2 - l1) : 0.0f;
+      const float p10 = ok0 ? exp2f(s[nt * 4 + 2] * sl2 - l0) : 0.0f;  // key row g + 8
+      const float p11 = ok1 ? exp2f(s[nt * 4 + 3] * sl2 - l1) : 0.0f;
+      pa[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(p00, p01);
+      pa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p10, p11);
+      dsa[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(p00 * (dp[nt * 4 + 0] - dl0), p01 * (dp[nt * 4 + 1] - dl1));
+      dsa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p10 * (dp[nt * 4 + 2] - dl0), p11 * (dp[nt * 4 + 3] - dl1));
     }
     // dV += P^T dO and dK += dS^T Q (the scale at the end)
+    wg_fence();
+    wg_acc_rows<D>(dva, pa, ot);
+    wg_acc_rows<D>(dka, dsa, qt);
+    wg_commit();
+    wg_wait_all();
 #pragma unroll
-    for (int dt = 0; dt < ND; ++dt) {
-#pragma unroll
-      for (int kk = 0; kk < NQ / 2; ++kk) {
-        const bf16* ob = dot + (dt * 8 + g) * QTP + kk * 16 + t4 * 2;
-        mma_bf16(dva[dt], pa[kk], ld_pair(ob), ld_pair(ob + 8));
-        const bf16* qb = qt + (dt * 8 + g) * QTP + kk * 16 + t4 * 2;
-        mma_bf16(dka[dt], dsa[kk], ld_pair(qb), ld_pair(qb + 8));
-      }
+    for (int s2 = 0; s2 < S::NS; ++s2) {
+      fence_regs(dka[s2]);
+      fence_regs(dva[s2]);
     }
+    __syncthreads();  // every warp is done with stage st
+    if (tid == 0 && j + S::STAGES < ntiles) load_tile(st, q0 + S::STAGES * BN);
   }
 
-  const int r0 = k0 + w16 + g;  // this thread's keys: r0 and r0 + 8
+  const size_t base = (size_t)head * n * D;
+  wg_store<D>(dk + base, dka, k0, n, scale);
+  wg_store<D>(dv + base, dva, k0, n, 1.0f);
+}
+
+// dQ. The warpgroup owns 64 queries (Q, dO resident) and walks the keys:
+// S = Q K^T, dP = dO V^T, dS as the A operand of dQ += dS K.
+template <int D>
+__global__ void __launch_bounds__(128, 2)
+flash_attn_bwd_dq_wg_kernel(const __grid_constant__ WgMaps maps, const float* __restrict__ lse,
+                            const float* __restrict__ delta, bf16* __restrict__ dq, int n, float scale) {
+  using S = BwdWg<D>;
+  constexpr int BN = S::BN, NT = BN / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* qs = align1024(smem_raw);
+  unsigned char* dos = qs + S::OWN;
+  unsigned char* ks = dos + S::OWN;               // [STAGES] tiles
+  unsigned char* vs = ks + S::STAGES * S::TILE;   // [STAGES] tiles
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vs + S::STAGES * S::TILE);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int head = blockIdx.y, q0 = blockIdx.x * S::BM;
+  const int ntiles = (n + BN - 1) / BN;
+  const float sl2 = scale * LOG2E;
+
+  auto load_tile = [&](int st, int k0) {
+    mbar_expect_tx(&bars[1 + st], 2 * S::TILE);
+    tma_rows<D, BN>(ks + st * S::TILE, maps.k, &bars[1 + st], k0, head);
+    tma_rows<D, BN>(vs + st * S::TILE, maps.v, &bars[1 + st], k0, head);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 1 + S::STAGES; ++i) mbar_init(&bars[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&bars[0], 2 * S::OWN);
+    tma_rows<D, S::BM>(qs, maps.q, &bars[0], q0, head);
+    tma_rows<D, S::BM>(dos, maps.dout, &bars[0], q0, head);
+    for (int st = 0; st < S::STAGES && st < ntiles; ++st) load_tile(st, st * BN);
+  }
+
+  // this thread's query rows r0 and r0 + 8
+  const int r0 = q0 + warp * 16 + g;
+  const float* lse_h = lse + (size_t)head * n;
+  const float* delta_h = delta + (size_t)head * n;
+  const float l0 = r0 < n ? lse_h[r0] * LOG2E : 0.0f, l1 = r0 + 8 < n ? lse_h[r0 + 8] * LOG2E : 0.0f;
+  const float dl0 = r0 < n ? delta_h[r0] : 0.0f, dl1 = r0 + 8 < n ? delta_h[r0 + 8] : 0.0f;
+
+  float dqa[S::NS][S::CW / 2];
 #pragma unroll
-  for (int dt = 0; dt < ND; ++dt) {
-    const int d = dt * 8 + t4 * 2;
-    if (r0 < n) {
-      const size_t at = head + (size_t)r0 * D + d;
-      *reinterpret_cast<__nv_bfloat162*>(dv + at) = __floats2bfloat162_rn(dva[dt][0], dva[dt][1]);
-      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
-          __floats2bfloat162_rn(dka[dt][0] * scale, dka[dt][1] * scale);
+  for (int s = 0; s < S::NS; ++s) {
+#pragma unroll
+    for (int i = 0; i < S::CW / 2; ++i) dqa[s][i] = 0.0f;
+  }
+  mbar_wait(&bars[0], 0);
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j % S::STAGES, k0 = j * BN;
+    mbar_wait(&bars[1 + st], (j / S::STAGES) & 1);
+    const unsigned char* kt = ks + st * S::TILE;
+    const unsigned char* vt = vs + st * S::TILE;
+
+    float s[BN / 2], dp[BN / 2];
+    wg_fence();
+    wg_rows_dot<D>(s, qs, kt);
+    wg_rows_dot<D>(dp, dos, vt);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // dS = P o (dP - Delta), P = 0 for keys past n; key n-tiles 2kk and
+    // 2kk+1 are the two halves of k-step kk of the A operand
+    uint32_t dsa[BN / 16][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = k0 + nt * 8 + t4 * 2;
+      const bool ok0 = col < n, ok1 = col + 1 < n;
+      const float p00 = ok0 ? exp2f(s[nt * 4 + 0] * sl2 - l0) : 0.0f;  // row g
+      const float p01 = ok1 ? exp2f(s[nt * 4 + 1] * sl2 - l0) : 0.0f;
+      const float p10 = ok0 ? exp2f(s[nt * 4 + 2] * sl2 - l1) : 0.0f;  // row g + 8
+      const float p11 = ok1 ? exp2f(s[nt * 4 + 3] * sl2 - l1) : 0.0f;
+      dsa[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(p00 * (dp[nt * 4 + 0] - dl0), p01 * (dp[nt * 4 + 1] - dl0));
+      dsa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p10 * (dp[nt * 4 + 2] - dl1), p11 * (dp[nt * 4 + 3] - dl1));
     }
-    if (r0 + 8 < n) {
-      const size_t at = head + (size_t)(r0 + 8) * D + d;
-      *reinterpret_cast<__nv_bfloat162*>(dv + at) = __floats2bfloat162_rn(dva[dt][2], dva[dt][3]);
-      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
-          __floats2bfloat162_rn(dka[dt][2] * scale, dka[dt][3] * scale);
+    wg_fence();
+    wg_acc_rows<D>(dqa, dsa, kt);
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int s2 = 0; s2 < S::NS; ++s2) fence_regs(dqa[s2]);
+    __syncthreads();  // every warp is done with stage st
+    if (tid == 0 && j + S::STAGES < ntiles) load_tile(st, k0 + S::STAGES * BN);
+  }
+  wg_store<D>(dq + (size_t)head * n * D, dqa, q0, n, scale);
+}
+
+// ---- bf16, D = 512: cp.async ring and mma.sync ----
+
+struct Bwd512 {
+  static constexpr int D = 512;
+  static constexpr int THREADS = 256;           // 8 warps, 64 head dims of the accumulators each
+  static constexpr int BR = 32;                 // rows a block owns
+  static constexpr int BT = 32;                 // rows of a streamed tile
+  static constexpr int LD = D + 8;              // padded row: the 8 rows of an ldmatrix hit distinct banks
+  static constexpr int PLD = BT + 8;            // padded row of the P^T, dS^T (dS) tiles
+  static constexpr int TILE = BR * LD * 2;      // bytes of a staged tile of rows
+  static constexpr int PT = BR * PLD * 2;       // bytes of a P^T or dS^T tile
+  // dK/dV: K, V | Q, dO per stage | lse, Delta per stage | P^T, dS^T
+  static constexpr int DKV_SMEM = 2 * TILE + 2 * 2 * TILE + 2 * 2 * BT * 4 + 2 * PT;
+  // dQ: Q, dO | K, V per stage | dS
+  static constexpr int DQ_SMEM = 2 * TILE + 2 * 2 * TILE + PT;
+};
+
+// cp.async rows [r0, r0 + 32) of a (n, 512) head into a padded tile (zero past n)
+__device__ __forceinline__ void cp_rows512(bf16* dst, const bf16* __restrict__ src, int r0, int n) {
+  using S = Bwd512;
+#pragma unroll
+  for (int i = threadIdx.x; i < S::BT * S::D / 8; i += S::THREADS) {
+    const int r = i / (S::D / 8), c = (i % (S::D / 8)) * 8;
+    const bool ok = r0 + r < n;
+    cp_async16(dst + r * S::LD + c, src + (ok ? (size_t)(r0 + r) * S::D + c : 0), ok);
+  }
+}
+
+// cp.async values [r0, r0 + 32) of a length-n row vector (zero past n)
+__device__ __forceinline__ void cp_vec32(float* dst, const float* __restrict__ src, int r0, int n) {
+  const int i = threadIdx.x;
+  if (i < Bwd512::BT) cp_async4(dst + i, src + (r0 + i < n ? r0 + i : 0), r0 + i < n);
+}
+
+// c += A B over the 512 dims for one m16n8 tile: A rows a0.. of `a`, B^T
+// rows b0.. of `b` (both padded row-major tiles, K-major)
+__device__ __forceinline__ void mma_rows512(float* c, const bf16* a, int a0, const bf16* b, int b0) {
+  using S = Bwd512;
+  const int lane = threadIdx.x % 32;
+  const bf16* pa = a + (a0 + (lane & 7) + ((lane >> 3) & 1) * 8) * S::LD + (lane >> 4) * 8;
+  const bf16* pb = b + (b0 + (lane & 7)) * S::LD + (lane >> 3) * 8;
+#pragma unroll 4
+  for (int kk = 0; kk < S::D / 16; kk += 2) {
+    uint32_t af0[4], af1[4], bf[4];
+    ldsm_x4(af0, pa + kk * 16);
+    ldsm_x4(af1, pa + kk * 16 + 16);
+    ldsm_x4(bf, pb + kk * 16);  // k-steps kk (bf[0], bf[1]) and kk + 1 (bf[2], bf[3])
+    mma_bf16(c, af0, bf[0], bf[1]);
+    mma_bf16(c, af1, bf[2], bf[3]);
+  }
+}
+
+// acc[mt][nt] += X T over the 32 streamed rows, for the warp's 64 dims:
+// X (32 x 32 bf16, row-major with row PLD) the P^T / dS^T (dS) tile, T the
+// staged tile (32 x 512, read transposed by ldmatrix)
+__device__ __forceinline__ void mma_acc512(float (*acc)[8][4], const bf16* x, const bf16* t) {
+  using S = Bwd512;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ar = (lane & 7) + ((lane >> 3) & 1) * 8, ac = (lane >> 4) * 8;
+#pragma unroll
+  for (int kq = 0; kq < S::BT / 16; ++kq) {
+    uint32_t xa[2][4];
+    ldsm_x4(xa[0], x + ar * S::PLD + kq * 16 + ac);
+    ldsm_x4(xa[1], x + (16 + ar) * S::PLD + kq * 16 + ac);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t tb[4];  // n-tiles 2np (tb[0], tb[1]) and 2np + 1 (tb[2], tb[3])
+      ldsm_x4_t(tb, t + (kq * 16 + ar) * S::LD + warp * 64 + np * 16 + ac);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        mma_bf16(acc[mt][2 * np], xa[mt], tb[0], tb[1]);
+        mma_bf16(acc[mt][2 * np + 1], xa[mt], tb[2], tb[3]);
+      }
     }
   }
 }
 
-// dQ. Each warp owns 16 queries (q and dO as A fragments in registers)
-// and walks the keys: S = Q K^T, dP = dO V^T, dS as the A fragment of
-// dQ += dS K (K staged transposed as its B operand).
-template <int D>
-__global__ void __launch_bounds__(fa::THREADS_MMA)
-flash_attn_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                             const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                             const float* __restrict__ lse, const float* __restrict__ delta,
-                             bf16* __restrict__ dq, int n, float scale) {
-  using S = BwdMma<D>;
-  constexpr int KP = S::KP, BK = S::BK2, KTP = S::KTP;
-  constexpr int KD = D / 16;  // k-steps over the head dims
-  constexpr int NK = BK / 8;  // n-tiles over the keys
-  constexpr int ND = D / 8;   // n-tiles over the head dims
+__device__ __forceinline__ void store512(bf16* out, const float (*acc)[8][4], int row0, int n, float mul) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, c = (lane & 3) * 2;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int r = row0 + mt * 16 + g;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int d = warp * 64 + nt * 8 + c;
+      if (r < n)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * Bwd512::D + d) =
+            __floats2bfloat162_rn(acc[mt][nt][0] * mul, acc[mt][nt][1] * mul);
+      if (r + 8 < n)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(r + 8) * Bwd512::D + d) =
+            __floats2bfloat162_rn(acc[mt][nt][2] * mul, acc[mt][nt][3] * mul);
+    }
+  }
+}
+
+// dK/dV at D = 512: the block owns 32 keys and walks the queries. Warp w
+// computes the (key m-tile w % 2, query n-tile w / 2) tile of S^T and dP^T
+// and writes its P^T and dS^T; then accumulates dims [64 w, 64 w + 64) of
+// dV += P^T dO and dK += dS^T Q.
+__global__ void __launch_bounds__(Bwd512::THREADS, 1)
+flash_attn_bwd_dkv_512_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                              const bf16* __restrict__ dout, const float* __restrict__ lse,
+                              const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int n,
+                              float scale) {
+  using S = Bwd512;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [BK][KP]
-  bf16* vs = ks + BK * KP;                       // [BK][KP]
-  bf16* kt = vs + BK * KP;                       // [D][KTP]
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + S::BR * S::LD;
+  bf16* qs = vs + S::BR * S::LD;        // [2] tiles
+  bf16* dos = qs + 2 * S::BT * S::LD;   // [2] tiles
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * S::BT * S::LD);  // [2][BT]
+  float* delta_s = lse_s + 2 * S::BT;                                // [2][BT]
+  bf16* pt = reinterpret_cast<bf16*>(delta_s + 2 * S::BT);           // [BR][PLD]
+  bf16* dst = pt + S::BR * S::PLD;                                   // [BR][PLD]
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t4 = lane & 3;
-  const size_t head = (size_t)blockIdx.y * (size_t)n * D;
-  const int r0 = blockIdx.x * S::BQ2 + warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-  const bf16* qh = q + head;
-  const bf16* oh = dout + head;
-
-  auto pair_at = [&](const bf16* base, int row, int d) -> uint32_t {
-    return row < n ? ld_pair(base + (size_t)row * D + d) : 0u;
-  };
-  uint32_t qf[KD][4], of[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    const int d0 = kk * 16 + t4 * 2;
-    qf[kk][0] = pair_at(qh, r0, d0);
-    qf[kk][1] = pair_at(qh, r0 + 8, d0);
-    qf[kk][2] = pair_at(qh, r0, d0 + 8);
-    qf[kk][3] = pair_at(qh, r0 + 8, d0 + 8);
-    of[kk][0] = pair_at(oh, r0, d0);
-    of[kk][1] = pair_at(oh, r0 + 8, d0);
-    of[kk][2] = pair_at(oh, r0, d0 + 8);
-    of[kk][3] = pair_at(oh, r0 + 8, d0 + 8);
-  }
+  const int mt = warp & 1, nt = warp >> 1;
+  const int k0 = blockIdx.x * S::BR;
+  const size_t head = (size_t)blockIdx.y * (size_t)n * S::D;
   const float* lse_h = lse + (size_t)blockIdx.y * n;
   const float* delta_h = delta + (size_t)blockIdx.y * n;
-  const float l0 = r0 < n ? lse_h[r0] : 0.0f, l1 = r0 + 8 < n ? lse_h[r0 + 8] : 0.0f;
-  const float dl0 = r0 < n ? delta_h[r0] : 0.0f, dl1 = r0 + 8 < n ? delta_h[r0 + 8] : 0.0f;
+  const int ntiles = (n + S::BT - 1) / S::BT;
+  const float sl2 = scale * LOG2E;
 
-  float dqa[ND][4];
+  auto load_tile = [&](int st, int q0) {
+    cp_rows512(qs + st * S::BT * S::LD, q + head, q0, n);
+    cp_rows512(dos + st * S::BT * S::LD, dout + head, q0, n);
+    cp_vec32(lse_s + st * S::BT, lse_h, q0, n);
+    cp_vec32(delta_s + st * S::BT, delta_h, q0, n);
+  };
+  cp_rows512(ks, k + head, k0, n);
+  cp_rows512(vs, v + head, k0, n);
+  load_tile(0, 0);
+  cp_async_commit();
+  if (ntiles > 1) load_tile(1, S::BT);
+  cp_async_commit();
+
+  float dka[2][8][4], dva[2][8][4];
 #pragma unroll
-  for (int dt = 0; dt < ND; ++dt) dqa[dt][0] = dqa[dt][1] = dqa[dt][2] = dqa[dt][3] = 0.0f;
+  for (int a = 0; a < 2; ++a) {
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[a][b][e] = dva[a][b][e] = 0.0f;
+    }
+  }
 
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    __syncthreads();  // every warp is done with the previous tile
-    fa::stage_bf16<D>(k + head, k0, BK, n, ks, kt);
-    fa::stage_bf16<D>(v + head, k0, BK, n, vs, nullptr);
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j & 1, q0 = j * S::BT;
+    cp_async_wait<1>();  // tile j (and K, V) have landed; tile j + 1 may be in flight
     __syncthreads();
+    const bf16* qt = qs + st * S::BT * S::LD;
+    const bf16* ot = dos + st * S::BT * S::LD;
 
-    float s[NK][4], dp[NK][4];
-#pragma unroll
-    for (int nt = 0; nt < NK; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        const bf16* kb = ks + (nt * 8 + g) * KP + kk * 16 + t4 * 2;
-        mma_bf16(s[nt], qf[kk], ld_pair(kb), ld_pair(kb + 8));
-        const bf16* vb = vs + (nt * 8 + g) * KP + kk * 16 + t4 * 2;
-        mma_bf16(dp[nt], of[kk], ld_pair(vb), ld_pair(vb + 8));
-      }
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    mma_rows512(s, ks, mt * 16, qt, nt * 8);
+    mma_rows512(dp, vs, mt * 16, ot, nt * 8);
+    {
+      const int col = nt * 8 + t4 * 2;  // this thread's queries col, col + 1; keys g, g + 8 of m-tile mt
+      const float* lt = lse_s + st * S::BT;
+      const float* dt = delta_s + st * S::BT;
+      const bool ok0 = q0 + col < n, ok1 = q0 + col + 1 < n;
+      const float l0 = lt[col] * LOG2E, l1 = lt[col + 1] * LOG2E;
+      const float p00 = ok0 ? exp2f(s[0] * sl2 - l0) : 0.0f, p01 = ok1 ? exp2f(s[1] * sl2 - l1) : 0.0f;
+      const float p10 = ok0 ? exp2f(s[2] * sl2 - l0) : 0.0f, p11 = ok1 ? exp2f(s[3] * sl2 - l1) : 0.0f;
+      const int r = mt * 16 + g;
+      *reinterpret_cast<uint32_t*>(pt + r * S::PLD + col) = pack_bf16(p00, p01);
+      *reinterpret_cast<uint32_t*>(pt + (r + 8) * S::PLD + col) = pack_bf16(p10, p11);
+      *reinterpret_cast<uint32_t*>(dst + r * S::PLD + col) =
+          pack_bf16(p00 * (dp[0] - dt[col]), p01 * (dp[1] - dt[col + 1]));
+      *reinterpret_cast<uint32_t*>(dst + (r + 8) * S::PLD + col) =
+          pack_bf16(p10 * (dp[2] - dt[col]), p11 * (dp[3] - dt[col + 1]));
     }
-    // dS = P o (dP - Delta), P = 0 for keys past n; key n-tiles 2kk and
-    // 2kk+1 are the two halves of k-step kk of the A fragment
-    uint32_t dsa[NK / 2][4];
-#pragma unroll
-    for (int nt = 0; nt < NK; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool ok = k0 + nt * 8 + t4 * 2 + e < n;
-        const float p0 = ok ? expf(s[nt][e] * scale - l0) : 0.0f;      // row g
-        const float p1 = ok ? expf(s[nt][2 + e] * scale - l1) : 0.0f;  // row g + 8
-        dp[nt][e] = p0 * (dp[nt][e] - dl0);
-        dp[nt][2 + e] = p1 * (dp[nt][2 + e] - dl1);
-      }
-      dsa[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(dp[nt][0], dp[nt][1]);
-      dsa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(dp[nt][2], dp[nt][3]);
-    }
-#pragma unroll
-    for (int dt = 0; dt < ND; ++dt) {
-#pragma unroll
-      for (int kk = 0; kk < NK / 2; ++kk) {
-        const bf16* kb = kt + (dt * 8 + g) * KTP + kk * 16 + t4 * 2;
-        mma_bf16(dqa[dt], dsa[kk], ld_pair(kb), ld_pair(kb + 8));
-      }
-    }
+    __syncthreads();  // P^T and dS^T are complete
+    mma_acc512(dva, pt, ot);
+    mma_acc512(dka, dst, qt);
+    __syncthreads();  // every warp is done with stage st, P^T and dS^T
+    if (j + 2 < ntiles) load_tile(st, q0 + 2 * S::BT);
+    cp_async_commit();
   }
-
-  bf16* dqh = dq + head;
-#pragma unroll
-  for (int dt = 0; dt < ND; ++dt) {
-    const int d = dt * 8 + t4 * 2;
-    if (r0 < n)
-      *reinterpret_cast<__nv_bfloat162*>(dqh + (size_t)r0 * D + d) =
-          __floats2bfloat162_rn(dqa[dt][0] * scale, dqa[dt][1] * scale);
-    if (r0 + 8 < n)
-      *reinterpret_cast<__nv_bfloat162*>(dqh + (size_t)(r0 + 8) * D + d) =
-          __floats2bfloat162_rn(dqa[dt][2] * scale, dqa[dt][3] * scale);
-  }
+  store512(dk + head, dka, k0, n, scale);
+  store512(dv + head, dva, k0, n, 1.0f);
 }
 
-// ---- float32 FMA path (float32, and bf16 at D = 512) ----
+// dQ at D = 512: the block owns 32 queries and walks the keys. Warp w
+// computes the (query m-tile w % 2, key n-tile w / 2) tile of S and dP and
+// writes its dS; then accumulates dims [64 w, 64 w + 64) of dQ += dS K.
+__global__ void __launch_bounds__(Bwd512::THREADS, 1)
+flash_attn_bwd_dq_512_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                             const bf16* __restrict__ dout, const float* __restrict__ lse,
+                             const float* __restrict__ delta, bf16* __restrict__ dq, int n, float scale) {
+  using S = Bwd512;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dos = qs + S::BR * S::LD;
+  bf16* ks = dos + S::BR * S::LD;       // [2] tiles
+  bf16* vs = ks + 2 * S::BT * S::LD;    // [2] tiles
+  bf16* dss = vs + 2 * S::BT * S::LD;   // [BR][PLD]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int mt = warp & 1, nt = warp >> 1;
+  const int q0 = blockIdx.x * S::BR;
+  const size_t head = (size_t)blockIdx.y * (size_t)n * S::D;
+  const int ntiles = (n + S::BT - 1) / S::BT;
+  const float sl2 = scale * LOG2E;
+
+  // this thread's query rows r0 and r0 + 8 of S
+  const int r0 = q0 + mt * 16 + g;
+  const float* lse_h = lse + (size_t)blockIdx.y * n;
+  const float* delta_h = delta + (size_t)blockIdx.y * n;
+  const float l0 = r0 < n ? lse_h[r0] * LOG2E : 0.0f, l1 = r0 + 8 < n ? lse_h[r0 + 8] * LOG2E : 0.0f;
+  const float dl0 = r0 < n ? delta_h[r0] : 0.0f, dl1 = r0 + 8 < n ? delta_h[r0 + 8] : 0.0f;
+
+  auto load_tile = [&](int st, int k0) {
+    cp_rows512(ks + st * S::BT * S::LD, k + head, k0, n);
+    cp_rows512(vs + st * S::BT * S::LD, v + head, k0, n);
+  };
+  cp_rows512(qs, q + head, q0, n);
+  cp_rows512(dos, dout + head, q0, n);
+  load_tile(0, 0);
+  cp_async_commit();
+  if (ntiles > 1) load_tile(1, S::BT);
+  cp_async_commit();
+
+  float dqa[2][8][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqa[a][b][e] = 0.0f;
+    }
+  }
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j & 1, k0 = j * S::BT;
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* kt = ks + st * S::BT * S::LD;
+    const bf16* vt = vs + st * S::BT * S::LD;
+
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    mma_rows512(s, qs, mt * 16, kt, nt * 8);
+    mma_rows512(dp, dos, mt * 16, vt, nt * 8);
+    {
+      const int col = nt * 8 + t4 * 2;  // this thread's keys col, col + 1 of the tile
+      const bool ok0 = k0 + col < n, ok1 = k0 + col + 1 < n;
+      const float p00 = ok0 ? exp2f(s[0] * sl2 - l0) : 0.0f, p01 = ok1 ? exp2f(s[1] * sl2 - l0) : 0.0f;
+      const float p10 = ok0 ? exp2f(s[2] * sl2 - l1) : 0.0f, p11 = ok1 ? exp2f(s[3] * sl2 - l1) : 0.0f;
+      const int r = mt * 16 + g;
+      *reinterpret_cast<uint32_t*>(dss + r * S::PLD + col) = pack_bf16(p00 * (dp[0] - dl0), p01 * (dp[1] - dl0));
+      *reinterpret_cast<uint32_t*>(dss + (r + 8) * S::PLD + col) =
+          pack_bf16(p10 * (dp[2] - dl1), p11 * (dp[3] - dl1));
+    }
+    __syncthreads();  // dS is complete
+    mma_acc512(dqa, dss, kt);
+    __syncthreads();  // every warp is done with stage st and dS
+    if (j + 2 < ntiles) load_tile(st, k0 + 2 * S::BT);
+    cp_async_commit();
+  }
+  store512(dq + head, dqa, q0, n, scale);
+}
+
+// ---- float32: FMA ----
 
 template <int D>
 struct BwdFma {
@@ -491,28 +1015,102 @@ cudaError_t set_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// cuTensorMapEncodeTiled, looked up at run time (the library links the CUDA runtime only)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// rows of a (bh, n, d) bf16 tensor: a box of one slab by `rows`, in the
+// slab's swizzle; rows past n (and heads past bh) read as zero
+bool rows_map(CUtensorMap* m, const void* base, int bh, int n, int d, int rows) {
+  const int cw = d >= 64 ? 64 : 32;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)n * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)cw, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encoder()(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, unit,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, cw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a float32 vector of `len` values, boxes of `box_len`; past its end reads zero
+bool vec_map(CUtensorMap* m, const float* base, size_t len, int box_len) {  // box_len * 4: a multiple of 16
+  const cuuint64_t dims[1] = {(cuuint64_t)len};
+  const cuuint64_t strides[1] = {(cuuint64_t)len * 4};  // not read at rank 1
+  const cuuint32_t box[1] = {(cuuint32_t)box_len};
+  const cuuint32_t unit[1] = {1};
+  return encoder()(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(base), dims, strides, box, unit,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D>
-int dkv_mma(const BwdArgs& a) {
-  using S = BwdMma<D>;
-  auto kernel = flash_attn_bwd_dkv_mma_kernel<D>;
+int dkv_wg(const BwdArgs& a) {
+  using S = BwdWg<D>;
+  WgMaps m = {};
+  if (encoder() == nullptr || !rows_map(&m.q, a.q, a.bh, a.n, D, S::BN) ||
+      !rows_map(&m.dout, a.dout, a.bh, a.n, D, S::BN) || !rows_map(&m.k, a.k, a.bh, a.n, D, S::BM) ||
+      !rows_map(&m.v, a.v, a.bh, a.n, D, S::BM) || !vec_map(&m.lse, a.lse, (size_t)a.bh * a.n, S::VLEN) ||
+      !vec_map(&m.delta, a.delta, (size_t)a.bh * a.n, S::VLEN))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = flash_attn_bwd_dkv_wg_kernel<D>;
   cudaError_t err = set_smem(kernel, S::DKV_SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.n + S::BK - 1) / S::BK, a.bh);
-  kernel<<<grid, fa::THREADS_MMA, S::DKV_SMEM, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-      static_cast<const bf16*>(a.dout), a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
-      a.n, a.scale);
+  const dim3 grid((a.n + S::BM - 1) / S::BM, a.bh);
+  kernel<<<grid, 128, S::DKV_SMEM, a.stream>>>(m, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.n,
+                                                a.scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int dq_mma(const BwdArgs& a) {
-  using S = BwdMma<D>;
-  auto kernel = flash_attn_bwd_dq_mma_kernel<D>;
+int dq_wg(const BwdArgs& a) {
+  using S = BwdWg<D>;
+  WgMaps m = {};
+  if (encoder() == nullptr || !rows_map(&m.q, a.q, a.bh, a.n, D, S::BM) ||
+      !rows_map(&m.dout, a.dout, a.bh, a.n, D, S::BM) || !rows_map(&m.k, a.k, a.bh, a.n, D, S::BN) ||
+      !rows_map(&m.v, a.v, a.bh, a.n, D, S::BN))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = flash_attn_bwd_dq_wg_kernel<D>;
   cudaError_t err = set_smem(kernel, S::DQ_SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.n + S::BQ2 - 1) / S::BQ2, a.bh);
-  kernel<<<grid, fa::THREADS_MMA, S::DQ_SMEM, a.stream>>>(
+  const dim3 grid((a.n + S::BM - 1) / S::BM, a.bh);
+  kernel<<<grid, 128, S::DQ_SMEM, a.stream>>>(m, a.lse, a.delta, static_cast<bf16*>(a.dq), a.n, a.scale);
+  return (int)cudaGetLastError();
+}
+
+int dkv_512(const BwdArgs& a) {
+  using S = Bwd512;
+  cudaError_t err = set_smem(flash_attn_bwd_dkv_512_kernel, S::DKV_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.n + S::BR - 1) / S::BR, a.bh);
+  flash_attn_bwd_dkv_512_kernel<<<grid, S::THREADS, S::DKV_SMEM, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+      static_cast<const bf16*>(a.dout), a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.n,
+      a.scale);
+  return (int)cudaGetLastError();
+}
+
+int dq_512(const BwdArgs& a) {
+  using S = Bwd512;
+  cudaError_t err = set_smem(flash_attn_bwd_dq_512_kernel, S::DQ_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.n + S::BR - 1) / S::BR, a.bh);
+  flash_attn_bwd_dq_512_kernel<<<grid, S::THREADS, S::DQ_SMEM, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
       static_cast<const bf16*>(a.dout), a.lse, a.delta, static_cast<bf16*>(a.dq), a.n, a.scale);
   return (int)cudaGetLastError();
@@ -545,8 +1143,11 @@ int dq_fma(const BwdArgs& a) {
   return (int)cudaGetLastError();
 }
 
-// which: 0 dK/dV, 1 dQ. bf16 at D <= 128 on the tensor cores; float32,
-// and bf16 at D = 512, on float32 FMAs.
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// which: 0 dK/dV, 1 dQ. float32 on FMAs; bf16 at D <= 128 on wgmma with a
+// TMA ring, at D = 512 on mma.sync with a cp.async ring (16-byte aligned
+// inputs, B*H*n below 2^31).
 int dispatch(int which, const BwdArgs& a, int d, int dtype) {
   if (dtype == 0) {
     switch (d) {
@@ -558,11 +1159,15 @@ int dispatch(int which, const BwdArgs& a, int d, int dtype) {
     }
   }
   if (dtype == 1) {
+    if (!(aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && aligned16(a.dout) && aligned16(a.lse) &&
+          aligned16(a.delta)))
+      return (int)cudaErrorMisalignedAddress;
+    if ((long long)a.bh * a.n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     switch (d) {
-      case 32: return which == 0 ? dkv_mma<32>(a) : dq_mma<32>(a);
-      case 64: return which == 0 ? dkv_mma<64>(a) : dq_mma<64>(a);
-      case 128: return which == 0 ? dkv_mma<128>(a) : dq_mma<128>(a);
-      case 512: return which == 0 ? dkv_fma<512, bf16>(a) : dq_fma<512, bf16>(a);
+      case 32: return which == 0 ? dkv_wg<32>(a) : dq_wg<32>(a);
+      case 64: return which == 0 ? dkv_wg<64>(a) : dq_wg<64>(a);
+      case 128: return which == 0 ? dkv_wg<128>(a) : dq_wg<128>(a);
+      case 512: return which == 0 ? dkv_512(a) : dq_512(a);
       default: return (int)cudaErrorInvalidValue;
     }
   }

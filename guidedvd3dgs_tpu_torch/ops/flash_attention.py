@@ -112,6 +112,10 @@ def _bwd_args(q, k, v, do, lse, delta):
     b, h, n, d = _check(q, k, v, ("do", do))
     for name, t in (("lse", lse), ("delta", delta)):
         _build.check_cuda(name, t, torch.float32, q.device, (b, h, n))
+    if q.dtype == torch.bfloat16:  # the bf16 kernels copy 16-byte pieces (TMA, cp.async)
+        for name, t in (("q", q), ("k", k), ("v", v), ("do", do), ("lse", lse), ("delta", delta)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must start at a 16-byte aligned address for the bf16 kernels")
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr()), (b * h, n, d, _DTYPE_CODE[q.dtype])
 

@@ -24,6 +24,15 @@ L1's kernel forward with its plain backward (`chip_smoke.plain_backward`),
 over max |dL/dx| and in L2 norm over |dL/dx|.
 chip_smoke's GUIDED_STEP_TOL and GUIDED_GRAD_TOL must lie above the
 kernel rows and below the fault rows.
+
+Then 8c's bf16 check at each DDIM index of the schedule (three
+readings): the f32 step's dL/dx with L1's backward in bf16
+(`chip_smoke.bf16_backward`: the bf16 kernels) against the plain backward
+of the same bf16 inputs, with the kernels (twice) and with dQ or Delta
+zeroed; chip_smoke's GUIDED_GRAD_TOL_BF16 must lie above the kernel
+readings and below the fault readings. Beside it the same comparison for
+a whole bf16 step (the request's own type), where the step's own bf16
+rounding hides the faults.
 """
 
 from __future__ import annotations
@@ -50,13 +59,6 @@ def plain_forward(q, k, v, scale, with_lse):
     return fa.flash_attention_plain_lse(q, k, v, scale)
 
 
-def bf16_backward(real):
-    def bwd(q, k, v, o, lse, do, scale):
-        grads = real(*(t.to(torch.bfloat16) for t in (q, k, v, o)), lse, do.to(torch.bfloat16), scale)
-        return tuple(g.float() for g in grads)
-    return bwd
-
-
 VARIANTS = {
     "kernels": (),
     "kernels again": (),
@@ -64,7 +66,7 @@ VARIANTS = {
     "plain fwd, kernel bwd": (("_launch_fwd", plain_forward),),
     "fault: dQ zeroed": (("bwd_dq_kernel", lambda q, *rest: torch.zeros_like(q)),),
     "fault: Delta zeroed": (("attention_delta", lambda o, do: torch.zeros(o.shape[:-1], device=o.device)),),
-    "fault: bf16 backward": (("flash_attention_bwd", bf16_backward(fa.flash_attention_bwd)),),
+    "fault: bf16 backward": (("flash_attention_bwd", cs.bf16_backward()),),
 }
 
 
@@ -81,8 +83,8 @@ def main() -> None:
     bufs = resize_guidance(images, cs.GEN_H, cs.GEN_W, masks=masks)
     sched, pr, cond, uncond, x, step_noise, index = cs.guided_step_inputs(dev, params, mcfg, scfg, engine,
                                                                           renders)
-    step, grad = cs.f32_guided_step(params, mcfg, engine.guided_cfg, sched, pr, cond, uncond, bufs, x,
-                                    step_noise, index)
+    step, grad = cs.small_guided_step(params, mcfg, engine.guided_cfg, sched, pr, cond, uncond, bufs, x,
+                                      step_noise, index)
 
     want_x, want_p0, want_rho = step(plain=True)
     with cs.deterministic_cudnn(), cs.plain_backward():
@@ -106,6 +108,29 @@ def main() -> None:
               f"{sx:.4f}; pred_x0 {ep / sp:.4g} of max |pred_x0|; rho {float(rho):.7g} (plain "
               f"{float(want_rho):.7g}) | dL/dx against the kernel forward's with the plain backward "
               f"{eg / sg:.4g} of max |dL/dx| {sg:.4g}, in L2 norm {l2:.4g} of |dL/dx|", flush=True)
+
+    out["grad_tol_bf16"] = cs.GUIDED_GRAD_TOL_BF16
+    for idx in range(scfg.ddim_steps):
+        for label, dtype, reference in (
+                ("f32 step, L1 backward in bf16", cs.F32,
+                 mock.patch.object(fa, "flash_attention_bwd", cs.bf16_backward(plain=True))),
+                ("bf16 step", cs.BF16, cs.plain_backward())):
+            grad_i = cs.small_guided_step(params, mcfg, engine.guided_cfg, sched, pr, cond, uncond, bufs, x,
+                                          step_noise, idx, dtype=dtype)[1]
+            with cs.deterministic_cudnn(), reference:
+                want_i = grad_i().float()
+            for name in ("kernels", "kernels again", "fault: dQ zeroed", "fault: Delta zeroed"):
+                with contextlib.ExitStack() as stack:
+                    if dtype == cs.F32:
+                        stack.enter_context(mock.patch.object(fa, "flash_attention_bwd", cs.bf16_backward()))
+                    for attr, fn in VARIANTS[name]:
+                        stack.enter_context(mock.patch.object(fa, attr, fn))
+                    with cs.deterministic_cudnn():
+                        got_i = grad_i().float()
+                l2 = ((got_i - want_i).norm() / want_i.norm()).item()
+                out[f"{label}, index {idx}: {name}"] = {"dL_dx_l2": l2}
+                print(f"{label}, index {idx}, {name}: dL/dx against the plain backward's {l2:.4g} of |dL/dx| "
+                      f"{want_i.norm().item():.4g} (L2 norms)", flush=True)
     print(json.dumps(out))
 
 

@@ -193,6 +193,10 @@ def test_l1_rejects_what_it_does_not_take(dev):
 
 
 BWD_SHAPES = [(2, 3, 1200, 64), (1, 1, 300, 512), (3, 2, 77, 32), (1, 2, 200, 128)]
+# ragged lengths on both sides of the bf16 kernels' tile edges (64 rows at
+# D <= 128, 32 at D = 512), and several heads at D = 512
+BWD_SHAPES += [(1, 2, n, 64) for n in (1, 31, 33, 63, 65, 129, 1100)]
+BWD_SHAPES += [(1, 1, n, 512) for n in (1, 31, 33, 63, 65, 129)] + [(3, 1, 1100, 512)]
 
 
 def l1_inputs(dev, shape, dtype, seed):
@@ -229,13 +233,31 @@ def test_l1_bwd_matches_plain(dev, dtype, tol, shape):
         assert _build.LAUNCHES[name] == before[name] + 1
     want = flash_attention.flash_attention_bwd_plain(q, k, v, out, lse, do, scale)
     torch.cuda.synchronize()
+    # at n = 1 the softmax is 1, so dq and dk are 0 up to rounding: there
+    # every output is measured against the largest of the three
+    top = max(float(w.float().abs().max()) for w in want) if shape[2] == 1 else 0.0
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == q.shape and bool(torch.isfinite(g).all())
-        assert float((g.float() - w.float()).abs().max() / w.float().abs().max()) <= tol
+        assert float((g.float() - w.float()).abs().max()) / max(float(w.float().abs().max()), top) <= tol
 
     grads = []
     for fn in (flash_attention.flash_attention, flash_attention.flash_attention_plain_autograd):
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         grads.append(torch.autograd.grad(fn(*leaves, scale), leaves, do))
     for g, w in zip(*grads):
-        assert float((g.float() - w.float()).abs().max() / w.float().abs().max()) <= tol
+        assert float((g.float() - w.float()).abs().max()) / max(float(w.float().abs().max()), top) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 3, 1200, 64), (3, 1, 1100, 512), (3, 2, 77, 32), (1, 2, 200, 128)])
+def test_l1_bwd_is_deterministic(dev, dtype, shape):
+    """Two launches of the dK/dV and dQ kernels give bitwise-equal dq, dk,
+    dv: one owner sums each element in a fixed order, no atomics."""
+    q, k, v, do = l1_inputs(dev, shape, dtype, 11)
+    scale = shape[3] ** -0.5
+    out, lse = flash_attention.flash_attention_lse(q, k, v, scale)
+    first = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, scale)
+    second = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, scale)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
