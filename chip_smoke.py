@@ -42,10 +42,12 @@ and the exit code is non-zero; there is no CPU fallback):
               width: 25 frames, 320x448, UNet 320 channels, ViT-H-14
               towers, random weights from a seed)
      7a. kernel L1 (flash attention) against its plain version on the
-              card at the UNet's, the VAE's and a ragged shape, in float32
-              and bfloat16: max abs error against the stated tolerance,
-              median ms, bound, plain ms and the ms of
-              torch.nn.functional.scaled_dot_product_attention
+              card at the UNet's (one CFG branch and the batched pair), the
+              VAE's (25 frames, the decode chunk, one frame) and a ragged
+              shape, in float32 and bfloat16: max abs error against the
+              stated tolerance, median ms, bound, plain ms and the ms of
+              torch.nn.functional.scaled_dot_product_attention; for bf16
+              the ratio to it and the share of the bound
      7b. one request through `ViewCrafterEngine.generate(no_guidance=True)`
               in bfloat16 with GEN_STEPS DDIM steps (cut from the default
               50; every step is the same program): conditioning, ms per
@@ -53,7 +55,10 @@ and the exit code is non-zero; there is no CPU fallback):
               10 per step + 2, the frames finite in [0, 1]; one DDIM step
               traced by stage with the idle share
      7c. one DDIM step at full width in float32 through L1 and through
-              its plain version: the latents agree within STEP_TOL
+              its plain version: the latents agree within STEP_TOL; and
+              the same step with L1's forward in bf16 (the bf16 kernels
+              against the plain version of the same bf16 inputs) within
+              STEP_TOL_BF16 in L2 norm
   8. guided   generation under scene-grounding guidance (the same
               ViewCrafter at full width), which differentiates through L1
      8a. L1's backward (the dK/dV and dQ kernels) against its plain
@@ -87,7 +92,8 @@ and the exit code is non-zero; there is no CPU fallback):
 `python3 chip_smoke.py --generate-only STEPS` runs phases 1, 2 and 7b
 alone with STEPS DDIM steps; `--guided-only STEPS` phases 1, 2 and 8b
 (the 50-step requests of PERF.md); `--backward-only` phases 1, 2, 8a and
-8b-8c (L1's backward kernels and the guided step).
+8b-8c (L1's backward kernels and the guided step); `--forward-only`
+phases 1, 2, 7a and 7b-7c (L1's forward kernels and the DDIM request).
 The line before the last is the JSON kernel table (launches of K1-K6 from
 phase 5, of L1's forward from phase 7b, of its backward from phase 8b);
 the last line is {"ok": true, "device": {...}}.
@@ -238,16 +244,19 @@ DENSE_SELECT = 0.1
 CLI_ITERS = 2000
 # phase 7: the ViewCrafter request (configs/inference_pvd_1024.yaml widths,
 # the guidedvd engine size) and L1's shapes on its path: the UNet's level-0
-# spatial attention per CFG branch, the VAE's mid-block attention with the
-# 25 frames batched (encode in float32, decode in bfloat16), the per-frame
-# VAE shape of the JAX package, and a ragged tail
+# spatial attention per CFG branch and with the guided step's CFG pair
+# batched, the VAE's mid-block attention with the 25 frames batched (encode
+# in float32, decode in bfloat16) and at the guided step's decode chunk,
+# the per-frame VAE shape of the JAX package, and a ragged tail
 GEN_FRAMES, GEN_H, GEN_W = 25, 320, 448
 GEN_STEPS = 10  # of the default 50: every DDIM step is the same program
 BF16, F32 = torch.bfloat16, torch.float32
-L1_SHAPES = [((25, 5, 2240, 64), BF16), ((25, 5, 2240, 64), F32), ((25, 1, 2240, 512), F32),
-             ((25, 1, 2240, 512), BF16), ((1, 1, 2240, 512), F32), ((1, 1, 2240, 512), BF16),
-             ((2, 3, 1200, 64), F32)]
+DECODE_CHUNK = ddim_guidance.GuidedSampleConfig().decode_chunk
+L1_SHAPES = [((25, 5, 2240, 64), BF16), ((25, 5, 2240, 64), F32), ((50, 5, 2240, 64), BF16),
+             ((25, 1, 2240, 512), F32), ((25, 1, 2240, 512), BF16), ((DECODE_CHUNK, 1, 2240, 512), BF16),
+             ((1, 1, 2240, 512), F32), ((1, 1, 2240, 512), BF16), ((2, 3, 1200, 64), F32)]
 L1_MAIN = L1_SHAPES[0]  # the UNet's, ten launches per DDIM step of the bf16 request
+L1_VAE = L1_SHAPES[5]  # the decode chunk's: its times are extra fields of the JSON line
 # L1 against its plain version on unit-normal inputs: float32 (another sum
 # order); bfloat16 against the plain version of the same bf16 inputs, which
 # rounds the weights to bf16 before the second product
@@ -256,6 +265,14 @@ L1_TOL = {F32: 2e-5, BF16: 1e-2}
 # ten attentions differ by ~1e-6, carried through the UNet and the CFG
 # scale of 7.5 to latents of O(1)
 STEP_TOL = 1e-3
+# 7c's bf16 check: the same f32 step with L1's forward run in bf16
+# (`bf16_forward`: the bf16 kernels) against the plain version of the same
+# bf16 inputs, in L2 norm over |latent|. Read by
+# scripts/ddim_step_parity.py at DDIM indices 0, 5, 9 (H100): 4.135e-5,
+# 3.059e-5, 6.67e-6 (each twice identical), against 4.396e-4, 3.188e-4,
+# 7.032e-5 with one key tile skipped; the weights left unrounded read
+# 3.541e-5, 2.625e-5, 5.715e-6, inside the kernels' own rounding gap
+STEP_TOL_BF16 = 6e-5
 # 7b's and 8b's traces: the stage of each diffusion function (by its module name)
 STAGE_FNS = {"attention": "attention", "conv2d": "conv", "conv3d": "conv",
              "group_norm": "GroupNorm", "linear": "matmul", "conv1d_k1": "matmul"}
@@ -269,7 +286,6 @@ HOLE = (slice(120, 360), slice(0, 256))  # 240 x 256 of 480 x 640 = 0.2
 # L1's shapes in the guided step: the UNet's level-0 attention of one
 # branch (25; each branch's VJP runs alone) and with the CFG pair batched
 # (50, the pair's forward); the VAE's decode chunk; ragged
-DECODE_CHUNK = ddim_guidance.GuidedSampleConfig().decode_chunk
 L1_BWD_SHAPES = [((25, 5, 2240, 64), BF16), ((25, 5, 2240, 64), F32), ((50, 5, 2240, 64), BF16),
                  ((50, 5, 2240, 64), F32), ((DECODE_CHUNK, 1, 2240, 512), BF16),
                  ((DECODE_CHUNK, 1, 2240, 512), F32), ((2, 3, 1200, 64), F32)]
@@ -996,13 +1012,17 @@ def phase_l1(dev):
                      plain_ms=median_ms(lambda: flash_attention_plain(q, k, v, scale)),
                      library_ms=median_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)))
             res[(shape, dtype)] = r
+            ratio = (f", {r['ms'] / r['library_ms']:.2f}x sdpa's, at {r['bound'][0] / r['ms']:.1%} of the bound"
+                     if dtype == BF16 else "")
             rows.append(f"{shape} {str(dtype)[6:]}: err {err:.3g} (tol {L1_TOL[dtype]}), {r['ms']:.3f} ms "
                         f"vs plain {r['plain_ms']:.3f}, sdpa {r['library_ms']:.3f}, bound "
-                        f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+                        f"{r['bound'][0]:.4f} ms ({r['bound'][1]}){ratio}")
             del q, k, v, got, want
     log("phase 7a L1 vs plain (unit-normal inputs; median of 10, host clock with synchronize): "
         + " | ".join(rows))
-    return res[L1_MAIN]
+    vae = res[L1_VAE]
+    return dict(res[L1_MAIN], extra=dict(shape_d512=list(L1_VAE[0]), ms_d512=vae["ms"],
+                                         library_ms_d512=vae["library_ms"], bound_ms_d512=vae["bound"][0]))
 
 
 @contextlib.contextmanager
@@ -1185,12 +1205,9 @@ def phase_generate(dev, steps: int, trace_and_f32: bool = True) -> int:
         return launches["flash_attn_fwd"]
 
     # one DDIM step traced by stage, outside the counted run
+    cond, uncond, x, noise = ddim_step_inputs(dev, params, mcfg, scfg, engine, renders)
+    index = steps // 2
     with torch.no_grad():
-        cond, uncond = synthesis.build_conditioning(params, mcfg, scfg, renders * 2.0 - 1.0,
-                                                       generator=gen, text_pair=engine.text_pair)
-        x = torch.randn(cond.concat.shape, generator=gen, device=dev)
-        noise = torch.randn(x.shape, generator=gen, device=dev)
-        index = steps // 2
         one_step(params, mcfg, scfg, cond, uncond, x, index, noise)
         torch.cuda.synchronize()
         with labelled_stages(), torch.profiler.profile(activities=PROFILER_ACTIVITIES) as prof:
@@ -1202,23 +1219,84 @@ def phase_generate(dev, steps: int, trace_and_f32: bool = True) -> int:
         + "; ".join(f"{name[:70]} {ms:.3f}" for name, ms in top))
 
     # 7c: one float32 step through L1 and through its plain version
+    step32 = f32_step(params, mcfg, scfg, cond, uncond, x, noise)
+    before = _build.LAUNCHES["flash_attn_fwd"]
+    got = step32(index)
+    mid = _build.LAUNCHES["flash_attn_fwd"]
+    want = step32(index, plain=True)
+    # the bf16 check: the same step with L1's forward in bf16, the bf16
+    # kernels (twice) against the plain version of the same bf16 inputs
+    with mock.patch.object(fa, "_launch_fwd", bf16_forward()):
+        got16 = step32(index)
+        after16 = _build.LAUNCHES["flash_attn_fwd"]
+        again16 = step32(index)
+    with mock.patch.object(fa, "_launch_fwd", bf16_forward(plain=True)):
+        want16 = step32(index)
+    torch.cuda.synchronize()
+    # 10 kernel launches a kernel step, none a plain one
+    ran = (mid - before, after16 - mid, _build.LAUNCHES["flash_attn_fwd"] - after16)
+    if ran != (10, 10, 10):
+        raise AssertionError(f"7c: L1 launched {ran} times in (f32 kernel; f32 plain + bf16 kernel; bf16 "
+                             f"kernel + bf16 plain), expected 10 each")
+    err = (got - want).abs().max().item()
+    err16 = ((got16 - want16).norm() / want16.norm()).item()
+    if not (bool(torch.isfinite(got).all()) and err <= STEP_TOL
+            and bool(torch.isfinite(got16).all()) and err16 <= STEP_TOL_BF16):
+        raise AssertionError(f"7c: the f32 step through L1 differs from the plain chain by {err:.3g} (tol "
+                             f"{STEP_TOL}); with L1's forward in bf16 by {err16:.3g} in L2 (tol {STEP_TOL_BF16})")
+    log(f"phase 7c one f32 DDIM step (TF32 off) at index {index}, L1 vs its plain version: latent max abs "
+        f"diff {err:.3g} (tol {STEP_TOL}; max |latent| {got.abs().max().item():.3f}) | the same step with L1's "
+        f"forward in bf16, the bf16 kernels vs the plain version of the same bf16 inputs: {err16:.4g} of "
+        f"|latent| {want16.norm().item():.4g} (L2 norms; tol {STEP_TOL_BF16}); the kernels run twice "
+        f"{(got16 - again16).norm().item():.3g}")
+    return launches["flash_attn_fwd"]
+
+
+def ddim_step_inputs(dev, params, mcfg, scfg, engine, renders):
+    """The inputs of 7b's traced step and of 7c, from SEED + 12: the
+    request's conditioning (with its own encode noise), x_t and the step's
+    noise; returns (cond, uncond, x, noise)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 12)
+    with torch.no_grad():
+        cond, uncond = synthesis.build_conditioning(params, mcfg, scfg, renders * 2.0 - 1.0,
+                                                       generator=gen, text_pair=engine.text_pair)
+        x = torch.randn(cond.concat.shape, generator=gen, device=dev)
+        noise = torch.randn(x.shape, generator=gen, device=dev)
+    return cond, uncond, x, noise
+
+
+def f32_step(params, mcfg, scfg, cond, uncond, x, noise):
+    """7c's step: step(index, plain=False) -> x_prev of one DDIM step of
+    the bf16 request's inputs in float32 (the UNet's weights cast; run it
+    with TF32 off), without autograd."""
     mcfg32 = dataclasses.replace(mcfg, compute_dtype="float32")
     params32 = params._replace(unet={k: v.float() for k, v in params.unet.items()})
-    with torch.no_grad():
-        before = _build.LAUNCHES["flash_attn_fwd"]
-        got = one_step(params32, mcfg32, scfg, cond, uncond, x, index, noise)
-        mid = _build.LAUNCHES["flash_attn_fwd"]
-        want = one_step(params32, mcfg32, scfg, cond, uncond, x, index, noise, plain=True)
-        torch.cuda.synchronize()
-    if mid - before != 10 or _build.LAUNCHES["flash_attn_fwd"] != mid:
-        raise AssertionError(f"7c: L1 launched {mid - before} times through the kernel path "
-                             f"(expected 10), {_build.LAUNCHES['flash_attn_fwd'] - mid} through the plain one")
-    err = (got - want).abs().max().item()
-    if not (bool(torch.isfinite(got).all()) and err <= STEP_TOL):
-        raise AssertionError(f"7c: the f32 step through L1 differs from the plain chain by {err:.3g}")
-    log(f"phase 7c one f32 DDIM step (TF32 off) at index {index}, L1 vs its plain version: latent max abs "
-        f"diff {err:.3g} (tol {STEP_TOL}; max |latent| {got.abs().max().item():.3f})")
-    return launches["flash_attn_fwd"]
+
+    def step(index: int, plain: bool = False):
+        with torch.no_grad():
+            return one_step(params32, mcfg32, scfg, cond, uncond, x, index, noise, plain=plain)
+    return step
+
+
+def bf16_forward(plain: bool = False, fault=None):
+    """L1's forward in bfloat16, to patch in as `fa._launch_fwd`: q, k, v
+    rounded to bf16, the bf16 kernel (with `plain`, the plain version of the
+    same bf16 inputs; with `fault`, fault(q, k, v, scale) of them), the
+    output cast back. 7c's bf16 check: in the float32 step around it L1's
+    bf16 arithmetic is the only difference between the two."""
+    real = fa._launch_fwd
+
+    def fwd(q, k, v, scale, with_lse):
+        q, k, v = (t.to(BF16) for t in (q, k, v))
+        if fault is not None:
+            out, lse = fault(q, k, v, scale), None
+        elif plain:
+            out, lse = fa.flash_attention_plain_lse(q, k, v, scale)
+        else:
+            out, lse = real(q, k, v, scale, with_lse)
+        return out.float(), lse if with_lse else None
+    return fwd
 
 
 def l1_bwd_bounds(shape, dtype):
@@ -1562,6 +1640,8 @@ def main() -> None:
                         help="run phases 1, 2 and 8b alone, with STEPS guided DDIM steps")
     parser.add_argument("--backward-only", action="store_true",
                         help="run phases 1, 2, 8a and 8b-8c alone: L1's backward kernels and the guided step")
+    parser.add_argument("--forward-only", action="store_true",
+                        help="run phases 1, 2, 7a and 7b-7c alone: L1's forward kernels and the DDIM request")
     args = parser.parse_args()
     start = time.perf_counter()
     secs = {}
@@ -1583,6 +1663,11 @@ def main() -> None:
     if args.backward_only:
         run("8a", phase_l1_bwd, dev)
         run("8b-8c", phase_guided, dev, GUIDED_STEPS)
+        log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+        return
+    if args.forward_only:
+        run("7a", phase_l1, dev)
+        run("7b-7c", phase_generate, dev, GEN_STEPS)
         log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
         return
     res = run("3", phase_kernels, dev)

@@ -84,196 +84,24 @@
 
 #include "flash_attn.cuh"
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <math.h>
 
 namespace gvd {
 namespace {
 
-using bf16 = __nv_bfloat16;
+using fa::LOG2E;
 using fa::mma_bf16;
 using fa::pack_bf16;
-
-constexpr float LOG2E = 1.4426950408889634f;
-
-// ---- PTX: shared addresses, mbarriers, TMA, cp.async, ldmatrix, wgmma ----
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-// arrive once and expect `bytes` more from asynchronous copies
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-
-// wait until the barrier's phase `parity` has completed; a copy that never
-// lands traps (a launch failure) instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done, spins = 0;
-  do {
-    if (++spins == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int x, int y, int z) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
-      "[%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y), "r"(z)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar, int x) {
-  asm volatile(
-      "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x)
-      : "memory");
-}
-
-// 16 (4) bytes global -> shared, asynchronously; zeros where !ok
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8 and receives, of each matrix, row l / 4 and
-// columns 2 (l % 4), +1 (with .trans: rows 2 (l % 4), +1 of column l / 4)
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// wgmma shared-memory descriptor of a tile in the canonical swizzled
-// layout of span SW bytes (128 or 64): rows of SW bytes, 8-row groups SBO
-// = 8 SW apart. As a K-major operand the rows are M (N) and the k-steps
-// advance the start by 32 bytes inside the span; as an MN-major one the
-// rows are K and a k-step advances by 16 rows. LBO (the stride between
-// spans along MN) is unused: an operand never spans more than one.
-template <int SW>
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  constexpr uint64_t layout = SW == 128 ? 1 : 2;  // 128-byte or 64-byte swizzle
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(8 * SW >> 4) << 32) |
-         (layout << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-
-// keep the compiler from moving reads of wgmma accumulators above the wait
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (+)= A B, m64n64k16: A and B from shared memory, both K-major
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (+)= A B, m64n32k16: A and B from shared memory, both K-major
-__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (+)= A B, m64n64k16: A (bf16 pairs) from registers, B from shared memory MN-major
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-// d (+)= A B, m64n32k16: A (bf16 pairs) from registers, B from shared memory MN-major
-__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int accumulate) {
-  if constexpr (N == 64) wgmma_ss_n64(d, da, db, accumulate);
-  else wgmma_ss_n32(d, da, db, accumulate);
-}
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db, int accumulate) {
-  if constexpr (N == 64) wgmma_rs_n64(d, a, db, accumulate);
-  else wgmma_rs_n32(d, a, db, accumulate);
-}
+using fa::Slabs;
+using fa::tma_rows;
+using fa::wg_acc_rows;
+using fa::wg_rows_dot;
+using fa::wg_store;
 
 // ---- bf16, D <= 128: TMA ring and wgmma ----
 
 template <int D>
-struct BwdWg {
-  static constexpr int CW = D >= 64 ? 64 : 32;  // columns of a swizzled slab
-  static constexpr int SW = CW * 2;             // bytes of a slab row: the swizzle span
-  static constexpr int NS = D / CW;             // slabs of a row
+struct BwdWg : Slabs<D> {
   static constexpr int BM = 64;                 // rows the warpgroup owns
   static constexpr int BN = D <= 64 ? 64 : 32;  // rows of a streamed tile
   static constexpr int STAGES = 2;
@@ -284,7 +112,6 @@ struct BwdWg {
   // 128-byte aligned in shared memory
   static constexpr int VLEN = BN + 4;
   static constexpr int VEC = (VLEN * 4 + 127) / 128 * 128;
-  static constexpr int KSTEPS = CW / 16;        // wgmma k-steps inside a slab
   // dK/dV: K, V | Q, dO per stage | lse, Delta per stage | barriers (+1024 to align)
   static constexpr int DKV_BARS = 2 * OWN + STAGES * (2 * TILE + 2 * VEC);
   static constexpr int DKV_SMEM = 1024 + DKV_BARS + 8 * (1 + STAGES);
@@ -298,69 +125,6 @@ struct BwdWg {
 struct WgMaps {
   CUtensorMap q, k, v, dout, lse, delta;
 };
-
-// TMA of rows [r0, r0 + R) of one head into a tile of NS slabs
-template <int D, int R>
-__device__ __forceinline__ void tma_rows(unsigned char* dst, const CUtensorMap& map, uint64_t* bar, int r0,
-                                         int head) {
-  using S = BwdWg<D>;
-#pragma unroll
-  for (int s = 0; s < S::NS; ++s) tma_load_3d(dst + s * R * S::SW, &map, bar, s * S::CW, r0, head);
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t a = smem_u32(p);
-  return p + (((a + 1023u) & ~1023u) - a);
-}
-
-// S (+)= A B^T over the D head dims: A the owned tile, B a streamed one,
-// both K-major (rows of D dims). S: 64 x BN.
-template <int D>
-__device__ __forceinline__ void wg_rows_dot(float* s, const unsigned char* a, const unsigned char* b) {
-  using S = BwdWg<D>;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int slab = kk / S::KSTEPS, in = (kk % S::KSTEPS) * 2;  // 32 bytes = 2 descriptor units
-    wgmma_ss<S::BN>(s, smem_desc<S::SW>(a + slab * S::BM * S::SW) + in,
-                    smem_desc<S::SW>(b + slab * S::BN * S::SW) + in, kk > 0);
-  }
-}
-
-// acc[slab] += A T over the BN streamed rows: A (64 x BN) the bf16 register
-// fragments `a`, T the streamed tile read MN-major (BN x D)
-template <int D>
-__device__ __forceinline__ void wg_acc_rows(float (*acc)[BwdWg<D>::CW / 2], const uint32_t (*a)[4],
-                                            const unsigned char* t) {
-  using S = BwdWg<D>;
-#pragma unroll
-  for (int s = 0; s < S::NS; ++s) {
-#pragma unroll
-    for (int kk = 0; kk < S::BN / 16; ++kk)
-      wgmma_rs<S::CW>(acc[s], a[kk], smem_desc<S::SW>(t + s * S::BN * S::SW + kk * 16 * S::SW), 1);
-  }
-}
-
-// write a 64 x D accumulator (rows row0 + the thread's rows) times `mul`
-template <int D>
-__device__ __forceinline__ void wg_store(bf16* out, const float (*acc)[BwdWg<D>::CW / 2], int row0, int n,
-                                         float mul) {
-  using S = BwdWg<D>;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r = row0 + warp * 16 + (lane >> 2), c = (lane & 3) * 2;
-#pragma unroll
-  for (int s = 0; s < S::NS; ++s) {
-#pragma unroll
-    for (int i = 0; i < S::CW / 8; ++i) {
-      const int d = s * S::CW + i * 8 + c;
-      if (r < n)
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * D + d) =
-            __floats2bfloat162_rn(acc[s][i * 4 + 0] * mul, acc[s][i * 4 + 1] * mul);
-      if (r + 8 < n)
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(r + 8) * D + d) =
-            __floats2bfloat162_rn(acc[s][i * 4 + 2] * mul, acc[s][i * 4 + 3] * mul);
-    }
-  }
-}
 
 // dK/dV. The warpgroup owns 64 keys (K, V resident) and walks the queries:
 // S^T = K Q^T and dP^T = V dO^T (rows = keys), so that P^T and dS^T are
@@ -421,8 +185,8 @@ flash_attn_bwd_dkv_wg_kernel(const __grid_constant__ WgMaps maps, bf16* __restri
 
     float s[BN / 2], dp[BN / 2];
     wg_fence();
-    wg_rows_dot<D>(s, ks, qt);
-    wg_rows_dot<D>(dp, vs, ot);
+    wg_rows_dot<S>(s, ks, qt);
+    wg_rows_dot<S>(dp, vs, ot);
     wg_commit();
     wg_wait_all();
     fence_regs(s);
@@ -451,8 +215,8 @@ flash_attn_bwd_dkv_wg_kernel(const __grid_constant__ WgMaps maps, bf16* __restri
     }
     // dV += P^T dO and dK += dS^T Q (the scale at the end)
     wg_fence();
-    wg_acc_rows<D>(dva, pa, ot);
-    wg_acc_rows<D>(dka, dsa, qt);
+    wg_acc_rows<S>(dva, pa, ot);
+    wg_acc_rows<S>(dka, dsa, qt);
     wg_commit();
     wg_wait_all();
 #pragma unroll
@@ -465,8 +229,8 @@ flash_attn_bwd_dkv_wg_kernel(const __grid_constant__ WgMaps maps, bf16* __restri
   }
 
   const size_t base = (size_t)head * n * D;
-  wg_store<D>(dk + base, dka, k0, n, scale);
-  wg_store<D>(dv + base, dva, k0, n, 1.0f);
+  wg_store<S>(dk + base, dka, k0, n, scale);
+  wg_store<S>(dv + base, dva, k0, n, 1.0f);
 }
 
 // dQ. The warpgroup owns 64 queries (Q, dO resident) and walks the keys:
@@ -530,8 +294,8 @@ flash_attn_bwd_dq_wg_kernel(const __grid_constant__ WgMaps maps, const float* __
 
     float s[BN / 2], dp[BN / 2];
     wg_fence();
-    wg_rows_dot<D>(s, qs, kt);
-    wg_rows_dot<D>(dp, dos, vt);
+    wg_rows_dot<S>(s, qs, kt);
+    wg_rows_dot<S>(dp, dos, vt);
     wg_commit();
     wg_wait_all();
     fence_regs(s);
@@ -552,7 +316,7 @@ flash_attn_bwd_dq_wg_kernel(const __grid_constant__ WgMaps maps, const float* __
       dsa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p10 * (dp[nt * 4 + 2] - dl1), p11 * (dp[nt * 4 + 3] - dl1));
     }
     wg_fence();
-    wg_acc_rows<D>(dqa, dsa, kt);
+    wg_acc_rows<S>(dqa, dsa, kt);
     wg_commit();
     wg_wait_all();
 #pragma unroll
@@ -560,7 +324,7 @@ flash_attn_bwd_dq_wg_kernel(const __grid_constant__ WgMaps maps, const float* __
     __syncthreads();  // every warp is done with stage st
     if (tid == 0 && j + S::STAGES < ntiles) load_tile(st, k0 + S::STAGES * BN);
   }
-  wg_store<D>(dq + (size_t)head * n * D, dqa, q0, n, scale);
+  wg_store<S>(dq + (size_t)head * n * D, dqa, q0, n, scale);
 }
 
 // ---- bf16, D = 512: cp.async ring and mma.sync ----
@@ -1010,44 +774,6 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
-template <typename K>
-cudaError_t set_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-// cuTensorMapEncodeTiled, looked up at run time (the library links the CUDA runtime only)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// rows of a (bh, n, d) bf16 tensor: a box of one slab by `rows`, in the
-// slab's swizzle; rows past n (and heads past bh) read as zero
-bool rows_map(CUtensorMap* m, const void* base, int bh, int n, int d, int rows) {
-  const int cw = d >= 64 ? 64 : 32;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)n * d * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)cw, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encoder()(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, unit,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, cw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // a float32 vector of `len` values, boxes of `box_len`; past its end reads zero
 bool vec_map(CUtensorMap* m, const float* base, size_t len, int box_len) {  // box_len * 4: a multiple of 16
   const cuuint64_t dims[1] = {(cuuint64_t)len};
@@ -1142,8 +868,6 @@ int dq_fma(const BwdArgs& a) {
       static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.dq), a.n, a.scale);
   return (int)cudaGetLastError();
 }
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // which: 0 dK/dV, 1 dQ. float32 on FMAs; bf16 at D <= 128 on wgmma with a
 // TMA ring, at D = 512 on mma.sync with a cp.async ring (16-byte aligned

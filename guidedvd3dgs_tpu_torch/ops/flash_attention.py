@@ -82,8 +82,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more) -> tuple:
     return b, h, n, d
 
 
+def _check_aligned(*named) -> None:
+    """Raise unless each (name, tensor) starts at a 16-byte aligned address:
+    the bf16 kernels copy 16-byte pieces (TMA, cp.async)."""
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start at a 16-byte aligned address for the bf16 kernels")
+
+
 def _launch_fwd(q, k, v, scale: float, with_lse: bool):
     b, h, n, d = _check(q, k, v)
+    if q.dtype == torch.bfloat16:
+        _check_aligned(("q", q), ("k", k), ("v", v))
     out = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if with_lse else None
     _build.launch("flash_attn_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -112,10 +122,8 @@ def _bwd_args(q, k, v, do, lse, delta):
     b, h, n, d = _check(q, k, v, ("do", do))
     for name, t in (("lse", lse), ("delta", delta)):
         _build.check_cuda(name, t, torch.float32, q.device, (b, h, n))
-    if q.dtype == torch.bfloat16:  # the bf16 kernels copy 16-byte pieces (TMA, cp.async)
-        for name, t in (("q", q), ("k", k), ("v", v), ("do", do), ("lse", lse), ("delta", delta)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name} must start at a 16-byte aligned address for the bf16 kernels")
+    if q.dtype == torch.bfloat16:
+        _check_aligned(("q", q), ("k", k), ("v", v), ("do", do), ("lse", lse), ("delta", delta))
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr()), (b * h, n, d, _DTYPE_CODE[q.dtype])
 

@@ -155,8 +155,16 @@ def test_k6_matches_plain(dev):
     assert bool(((got - want).abs() <= bound).all())
 
 
+L1_SHAPES = [(2, 3, 1200, 64), (1, 1, 300, 512), (3, 2, 77, 32), (1, 2, 200, 128)]
+# ragged lengths on both sides of the bf16 kernels' tile edges (64 queries
+# a block; 64 keys a tile at D <= 128, 32 at D = 512), and several heads at
+# D = 512
+RAGGED = (1, 31, 33, 63, 65, 129, 1100)
+FWD_SHAPES = L1_SHAPES + [(1, 2, n, 64) for n in RAGGED] + [(1, 1, n, 512) for n in RAGGED] + [(3, 1, 1100, 512)]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("shape", [(2, 3, 1200, 64), (1, 1, 300, 512), (3, 2, 77, 32), (1, 2, 200, 128)])
+@pytest.mark.parametrize("shape", FWD_SHAPES)
 def test_l1_matches_plain(dev, dtype, tol, shape):
     gen = torch.Generator(device=dev)
     gen.manual_seed(shape[2])
@@ -169,6 +177,39 @@ def test_l1_matches_plain(dev, dtype, tol, shape):
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
     assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 3, 1200, 64), (3, 1, 1100, 512), (3, 2, 77, 32), (1, 2, 200, 128)])
+def test_l1_fwd_is_deterministic(dev, dtype, shape):
+    """Two launches of the forward give a bitwise-equal output and
+    log-sum-exp: one owner per row, keys in a fixed order, no atomics."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3))
+    scale = shape[3] ** -0.5
+    first = flash_attention.flash_attention_lse(q, k, v, scale)
+    second = flash_attention.flash_attention_lse(q, k, v, scale)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_l1_fwd_rejects_misaligned_bf16(dev):
+    """The bf16 kernels copy 16-byte pieces (TMA): a view one element past
+    an aligned start raises before any launch."""
+    shape = (1, 2, 64, 64)
+    base = torch.randn(1 + 2 * 64 * 64, device=dev).to(torch.bfloat16)
+    q = base[1:].view(shape)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    ok = torch.randn(shape, device=dev).to(torch.bfloat16)
+    before = _build.LAUNCHES["flash_attn_fwd"]
+    for args in ((q, ok, ok), (ok, q, ok), (ok, ok, q)):
+        with pytest.raises(ValueError):
+            flash_attention.flash_attention(*args, 0.125)
+        with pytest.raises(ValueError):
+            flash_attention.flash_attention_lse(*args, 0.125)
+    assert _build.LAUNCHES["flash_attn_fwd"] == before
 
 
 def test_l1_rejects_what_it_does_not_take(dev):
@@ -192,11 +233,9 @@ def test_l1_rejects_what_it_does_not_take(dev):
         assert t.grad.shape == q.shape and bool(torch.isfinite(t.grad).all())
 
 
-BWD_SHAPES = [(2, 3, 1200, 64), (1, 1, 300, 512), (3, 2, 77, 32), (1, 2, 200, 128)]
-# ragged lengths on both sides of the bf16 kernels' tile edges (64 rows at
-# D <= 128, 32 at D = 512), and several heads at D = 512
-BWD_SHAPES += [(1, 2, n, 64) for n in (1, 31, 33, 63, 65, 129, 1100)]
-BWD_SHAPES += [(1, 1, n, 512) for n in (1, 31, 33, 63, 65, 129)] + [(3, 1, 1100, 512)]
+# ragged lengths on both sides of the bf16 backward kernels' tile edges (64
+# rows at D <= 128, 32 at D = 512), and several heads at D = 512
+BWD_SHAPES = L1_SHAPES + [(1, 2, n, 64) for n in RAGGED] + [(1, 1, n, 512) for n in RAGGED[:-1]] + [(3, 1, 1100, 512)]
 
 
 def l1_inputs(dev, shape, dtype, seed):
