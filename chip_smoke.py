@@ -7,12 +7,16 @@ check them.
 Phases (each prints a line, phase 5 one per quantity; any failure raises
 and the exit code is non-zero; there is no CPU fallback):
   1. device   the card's name and power limit (nvidia-smi); TF32 off
-  2. build    nvcc builds the kernels from csrc/ into build/torch_kernels/
+  2. build    nvcc builds the kernels from csrc/ into build/torch_kernels/;
+              ptxas's registers, shared memory and stack of each kernel
   3. kernels  K1-K6 against their plain PyTorch versions on the card, on a
               200,000-Gaussian room at 640x480, SH degree 3: max abs error
-              against the stated tolerance, median ms of each, its bound
-              from the bytes and operations of this data, and for K6 the
-              one PyTorch call that computes the same (torch.segment_reduce)
+              against the stated tolerance, ms of each by CUDA events over
+              EVENT_LAUNCHES calls (the host-clock median beside it), the
+              plain version's median ms, its bound from the bytes and
+              operations of this data, for K6 the one PyTorch call that
+              computes the same (torch.segment_reduce), and the tiles'
+              instance counts and walks (max, p99, mean)
   4. render   a 1,000,000-Gaussian, SH degree 3 room at 640x480, hfov 90
               (the Replica camera), written in the colmap layout, rendered
               by `guidedvd3dgs_tpu_torch.render.main` and scored by
@@ -32,7 +36,9 @@ and the exit code is non-zero; there is no CPU fallback):
               one densify_and_prune whose threshold is placed so that a
               tenth of the Gaussians clone or split (the init cloud's
               event at step 40 is near-empty): its time, the Gaussians
-              before and after, the step time after it
+              before and after, the step time after it; and K5 and K2
+              alone at one train view of the room by CUDA events, with
+              their bounds from that view's counts and its tile statistics
   6. CLI      `guidedvd3dgs_tpu_torch.train_baseline` for 2000 iterations
               on the tool-default synthetic scene (scene.synthetic.
               make_scene), then the render and metrics CLIs on its
@@ -93,9 +99,13 @@ and the exit code is non-zero; there is no CPU fallback):
 alone with STEPS DDIM steps; `--guided-only STEPS` phases 1, 2 and 8b
 (the 50-step requests of PERF.md); `--backward-only` phases 1, 2, 8a and
 8b-8c (L1's backward kernels and the guided step); `--forward-only`
-phases 1, 2, 7a and 7b-7c (L1's forward kernels and the DDIM request).
+phases 1, 2, 7a and 7b-7c (L1's forward kernels and the DDIM request);
+`--gaussian-only` phases 1, 2, 3, 5 and 5b (the Gaussian kernels K1-K6
+and the trainer).
 The line before the last is the JSON kernel table (launches of K1-K6 from
-phase 5, of L1's forward from phase 7b, of its backward from phase 8b);
+phase 5, of L1's forward from phase 7b, of its backward from phase 8b; for
+K1-K6 `host_ms` beside `ms`, and for K5 and K2 `ms_dense` and
+`bound_ms_dense` from phase 5b's view);
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -108,6 +118,7 @@ import functools
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -229,6 +240,11 @@ STAGE_KERNELS = (("K1", "preprocess_fwd_kernel"), ("K3", "expand_kernel"),
                  ("K6", "segsum_kernel"), ("K2", "preprocess_bwd_kernel"),
                  ("Adam", "multi_tensor_apply"))
 PROFILE_REPS = 3
+# phase 3 and 5b's kernel times: CUDA events over EVENT_LAUNCHES calls,
+# queued behind a sleep of SLEEP_CYCLES (~11 ms at 1.755 GHz, longer than
+# the host takes to queue the calls)
+EVENT_LAUNCHES = 20
+SLEEP_CYCLES = 20_000_000
 # phase 5: steps of the full-width trainer, and the steps it traces
 TRAIN_ITERS = 60
 DENSIFY_AT = 40  # densify_from_iter 20, densification_interval 20, densify_until_iter 60
@@ -346,6 +362,23 @@ def median_ms(fn, runs: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def event_ms(fn, launches: int = EVENT_LAUNCHES, warmup: int = 2) -> float:
+    """Device ms per call of `fn` by CUDA events over `launches` calls after
+    a warm-up. The calls are queued behind a sleep kernel, so the host's
+    pace between them does not enter what the events read."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / launches
+
+
 def check_k4(name: str, got, want) -> float:
     """Hold one image output against its plain version (K4_TOL)."""
     atol, stop_atol = K4_TOL[name]
@@ -444,13 +477,45 @@ def phase_device():
     return dev
 
 
+def kernel_name(mangled: str) -> str:
+    """`name<i, ...>` of a mangled kernel: its identifier ending in
+    `kernel` and its integer template arguments."""
+    i = 0
+    while i < len(mangled):
+        m = re.match(r"\d+", mangled[i:])
+        if not m:
+            i += 1
+            continue
+        start = i + m.end()
+        ident = mangled[start:start + int(m.group())]
+        i = start + len(ident)
+        if ident.endswith("kernel"):
+            args = re.match(r"I((?:Li-?\d+E)+)", mangled[i:])
+            ints = re.findall(r"Li(-?\d+)E", args.group(1)) if args else []
+            return ident + (f"<{', '.join(ints)}>" if ints else "")
+    return mangled
+
+
+def ptxas_summary(build_log: str) -> list[str]:
+    """One line per kernel of `nvcc -Xptxas=-v` output: its name, then
+    ptxas's register, barrier, shared memory and stack line."""
+    out, name = [], None
+    for ln in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = kernel_name(m.group(1))
+        elif "Used" in ln and name is not None:
+            out.append(f"{name}: {ln.split(':', 1)[1].strip()}")
+            name = None
+    return out
+
+
 def phase_build():
     t0 = time.perf_counter()
     path, compile_s, build_log = _build.build()
     _build.library()
-    regs = [ln.split(":", 1)[1].strip() for ln in build_log.splitlines() if "Used" in ln]
     log(f"phase 2 build: {path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {compile_s:.1f} s) | ptxas: {'; '.join(regs)}")
+        f"(nvcc {compile_s:.1f} s) | ptxas: {'; '.join(ptxas_summary(build_log))}")
 
 
 def bound(n_bytes: float, n_flops: float, peak_flops: float = PEAK_F32_FLOPS):
@@ -463,11 +528,13 @@ def bound(n_bytes: float, n_flops: float, peak_flops: float = PEAK_F32_FLOPS):
 
 def evaluated_pairs(tab, binning, width: int, height: int):
     """(instance, pixel) pairs the blend evaluates on this data, by class:
-    (blended, walked but not blended). Each pixel inside the image walks
-    its tile's instances up to and including the one that stops it (the
-    plain version's closed form of K4's rule)."""
+    (blended, walked but not blended), and each tile's walk: the instances
+    up to its last pixel's stop, where K5's block leaves. Each pixel inside
+    the image walks its tile's instances up to and including the one that
+    stops it (the plain version's closed form of K4's rule)."""
     gx = binning.grid_x
     blended = walked_total = 0
+    walks = []
     with torch.no_grad():
         for t0, t1 in raster_tiles._tile_batches(binning.tile_count.tolist(),
                                                   raster_tiles.PLAIN_BATCH_ELEMS):
@@ -477,9 +544,19 @@ def evaluated_pairs(tab, binning, width: int, height: int):
             lin = torch.arange(raster_tiles.TILE_PIX, device=tab.device)
             inside = ((tids % gx)[:, None] * 16 + lin[None, :] % 16 < width) & \
                 ((tids // gx)[:, None] * 16 + lin[None, :] // 16 < height)
-            walked_total += int((walked.sum(1) * inside).sum())
+            per_pixel = walked.sum(1) * inside
+            walked_total += int(per_pixel.sum())
+            walks.append(per_pixel.amax(1))
             blended += int((q.include.sum(1) * inside).sum())
-    return blended, walked_total - blended
+    return blended, walked_total - blended, torch.cat(walks)
+
+
+def tile_stats(binning, walks) -> str:
+    """max, p99 and mean of the instances per tile and of the tiles' walks."""
+    def stats(x):
+        x = x.float()
+        return f"max {int(x.max())} p99 {float(torch.quantile(x, 0.99)):.0f} mean {float(x.mean()):.1f}"
+    return f"tile_count {stats(binning.tile_count)}; walk to the last pixel's stop {stats(walks)}"
 
 
 def check_rows(got, want, atol, rtol):
@@ -493,14 +570,87 @@ def check_rows(got, want, atol, rtol):
     return bad_rows.float().mean().item(), err.max().item()
 
 
-def phase_kernels(dev):
+def bwd_inputs(acts, cam, tab, binning, image, gen):
+    """K5's and K2's arguments for one view, from its K1 table, binning and
+    K4 image: seeded cotangents of the image (dC, 0.1 dD, dA) and of the
+    table's ten rows (none on culled rows, as the rasterizer hands them)."""
+    dev, h, w = tab.device, cam.height, cam.width
+    dC = torch.randn((3, h, w), generator=gen, device=dev)
+    dD = 0.1 * torch.randn((h, w), generator=gen, device=dev)
+    dA = torch.randn((h, w), generator=gen, device=dev)
+    visible = (preprocess_fused.visible_radii(tab) > 0).float()
+    cot = torch.randn((10, tab.shape[1]), generator=gen, device=dev) * visible
+    return (tab, binning, *image, dC, dD, dA, w, h), (*acts, cam, 3, 1.0, cot)
+
+
+def view_inputs(params, cam, bg, seed: int):
+    """One view's K5 and K2 arguments (bwd_inputs, cotangents from `seed`),
+    through the kernels K1, K3 and K4."""
+    acts = activations(params)
+    tab = preprocess_fused.preprocess_fused_fwd(*acts, cam, 3, 1.0)
+    binning = tiling.bin_gaussians(tab, preprocess_fused.visible_radii(tab), cam.width, cam.height)
+    image = raster_tiles._run_fwd(tab, binning, bg, cam.width, cam.height)
+    gen = torch.Generator(device=tab.device)
+    gen.manual_seed(seed)
+    return bwd_inputs(acts, cam, tab, binning, image, gen)
+
+
+def kernel_times(fn, plain_fn=None, library_fn=None) -> dict:
+    """ms of a kernel's wrapper by CUDA events (event_ms) with its
+    host-clock median beside it (`host_ms`), the plain version's host-clock
+    median and the library call's CUDA-event ms, where given."""
+    out = dict(ms=event_ms(fn), extra=dict(host_ms=median_ms(fn)))
+    if plain_fn is not None:
+        out["plain_ms"] = median_ms(plain_fn)
+    if library_fn is not None:
+        out["library_ms"] = event_ms(library_fn)
+    return out
+
+
+def kernel_check_view(dev):
+    """Phase 3's data: a 200,000-Gaussian room, one orbit view, a background."""
     rng = np.random.default_rng(SEED)
     params = params_from_numpy(synthetic.room_gaussians(N_KERNEL_CHECK, rng), dev)
     _, cams = synthetic.orbit(N_CAMS, WIDTH, HEIGHT, HFOV, rng)
-    cam = cams[7].raster_camera(dev)
+    return params, cams[7].raster_camera(dev), torch.tensor([0.1, 0.2, 0.3], device=dev)
+
+
+def dense_room(dev):
+    """Phase 5b's room: its ground truth (N_SCENE Gaussians), the orbit's
+    cameras, and the noisy model the trainer starts from (on the card)."""
+    rng = np.random.default_rng(SEED + 3)
+    gt = synthetic.room_gaussians(N_SCENE, rng)
+    _, pcams = synthetic.orbit(N_CAMS, WIDTH, HEIGHT, HFOV, rng)
+    return gt, pcams, params_from_numpy(noisy_model(gt, rng), dev)
+
+
+def dense_view(pcams, dev):
+    """The view of phase 5b's kernel timings: its first train view."""
+    return pcams[synthetic.split_ids(N_CAMS, 6)[0][0]].raster_camera(dev)
+
+
+def k5_bound(k5_args, blended: int, culled: int):
+    """K5's bound on one view: fields, owner and slot per binned instance,
+    10 f32 in per pixel, 40 B out per instance; the pairs' operations."""
+    binning, width, height = k5_args[1], k5_args[-2], k5_args[-1]
+    total, num_tiles, hw = binning.num_instances, binning.grid_x * binning.grid_y, width * height
+    return bound(total * 48 + num_tiles * 8 + hw * 40 + total * 40,
+                 K5_BLENDED_FLOPS * blended + WALKED_FLOPS * culled)
+
+
+def k2_bound(k2_args):
+    """K2's bound: the inputs read and the gradients (shaped like them)
+    written, 10 cotangents read; ~1000 operations per Gaussian (recompute
+    and reverse sweep)."""
+    acts, n = k2_args[:5], k2_args[0].shape[0]
+    n_in = sum(t.numel() for t in acts) * 4
+    return bound(2 * n_in + 10 * 4 * n, 1000 * n)
+
+
+def phase_kernels(dev):
+    params, cam, bg = kernel_check_view(dev)
     acts = activations(params)
     n = acts[0].shape[0]
-    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
     res = {}
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -521,8 +671,8 @@ def phase_kernels(dev):
     n_in = sum(t.numel() for t in acts) * 4
     res["preprocess_fwd"] = dict(
         max_abs_err=k1_err,
-        ms=median_ms(lambda: preprocess_fused.preprocess_fused_fwd(*acts, cam, 3, 1.0)),
-        plain_ms=median_ms(lambda: preprocess_fused.preprocess_table_plain(*acts, cam, 3, 1.0)),
+        **kernel_times(lambda: preprocess_fused.preprocess_fused_fwd(*acts, cam, 3, 1.0),
+                       lambda: preprocess_fused.preprocess_table_plain(*acts, cam, 3, 1.0)),
         # ~600 operations per Gaussian at SH 3 (transform, cov3D, EWA, conic, 48 SH products)
         bound=bound(n_in + 16 * 4 * n, 600 * n),
     )
@@ -542,8 +692,8 @@ def phase_kernels(dev):
     num_tiles = k3_args[-2]
     res["expand"] = dict(
         max_abs_err=k3_err,
-        ms=median_ms(lambda: expand.expand_instances(*k3_args)),
-        plain_ms=median_ms(lambda: expand.expand_instances_plain(*k3_args)),
+        **kernel_times(lambda: expand.expand_instances(*k3_args),
+                       lambda: expand.expand_instances_plain(*k3_args)),
         # reads 7 table rows + 5 int rows per Gaussian, writes 12 B per
         # instance and the histogram; ~60 operations per instance (tile cull)
         bound=bound(n * 12 * 4 + total * 12 + num_tiles * 4, 60 * total),
@@ -556,23 +706,19 @@ def phase_kernels(dev):
     torch.cuda.synchronize()
     k4_errs = {nm: check_k4(nm, a, b) for nm, a, b in zip(("color", "depth", "alpha"), img_k, img_p)}
     k4_err = max(k4_errs.values())
-    blended, culled = evaluated_pairs(tab, binning, WIDTH, HEIGHT)
+    blended, culled, walks = evaluated_pairs(tab, binning, WIDTH, HEIGHT)
     hw = WIDTH * HEIGHT
     res["blend_fwd"] = dict(
         max_abs_err=k4_err,
-        ms=median_ms(lambda: raster_tiles._run_fwd(tab, binning, bg, WIDTH, HEIGHT)),
-        plain_ms=median_ms(lambda: raster_tiles.blend_fwd_plain(tab, binning, bg, WIDTH, HEIGHT)),
+        **kernel_times(lambda: raster_tiles._run_fwd(tab, binning, bg, WIDTH, HEIGHT),
+                       lambda: raster_tiles.blend_fwd_plain(tab, binning, bg, WIDTH, HEIGHT)),
         # 40 B of fields + 4 B id per binned instance, 5 f32 out per pixel
         bound=bound(total * 44 + num_tiles * 8 + hw * 20,
                     K4_BLENDED_FLOPS * blended + WALKED_FLOPS * culled),
     )
 
     # K5, on the kernel forward with seeded cotangents
-    color, depth, alpha = img_k
-    dC = torch.randn((3, HEIGHT, WIDTH), generator=gen, device=dev)
-    dD = 0.1 * torch.randn((HEIGHT, WIDTH), generator=gen, device=dev)
-    dA = torch.randn((HEIGHT, WIDTH), generator=gen, device=dev)
-    bwd_args = (tab, binning, color, depth, alpha, dC, dD, dA, WIDTH, HEIGHT)
+    bwd_args, k2_args = bwd_inputs(acts, cam, tab, binning, img_k, gen)
     gi_k = raster_tiles._run_bwd(*bwd_args)
     gi_p = raster_tiles.blend_bwd_plain(*bwd_args)
     torch.cuda.synchronize()
@@ -582,11 +728,9 @@ def phase_kernels(dev):
                              f"(allowed {K5_STOP_FRACTION}); max abs err {k5_err:.3g}")
     res["blend_bwd"] = dict(
         max_abs_err=k5_err,
-        ms=median_ms(lambda: raster_tiles._run_bwd(*bwd_args)),
-        plain_ms=median_ms(lambda: raster_tiles.blend_bwd_plain(*bwd_args)),
-        # fields + id + slot per binned instance, 10 f32 in per pixel, 40 B out per instance
-        bound=bound(total * 48 + num_tiles * 8 + hw * 40 + total * 40,
-                    K5_BLENDED_FLOPS * blended + WALKED_FLOPS * culled),
+        **kernel_times(lambda: raster_tiles._run_bwd(*bwd_args),
+                       lambda: raster_tiles.blend_bwd_plain(*bwd_args)),
+        bound=k5_bound(bwd_args, blended, culled),
     )
 
     # K6, on the kernel's per-instance gradients
@@ -601,16 +745,15 @@ def phase_kernels(dev):
         raise AssertionError(f"K6 differs from the float64 sums: max abs err {k6_diff.max().item():.3g}")
     res["segsum"] = dict(
         max_abs_err=k6_diff.max().item(),
-        ms=median_ms(lambda: segsum.segment_sum_sorted(gi_k, off, cnt)),
-        plain_ms=median_ms(lambda: segsum.segment_sum_sorted_plain(gi_k, off, cnt)),
-        library_ms=median_ms(lambda: torch.segment_reduce(gi_k, "sum", lengths=cnt, axis=0)),
+        **kernel_times(lambda: segsum.segment_sum_sorted(gi_k, off, cnt),
+                       lambda: segsum.segment_sum_sorted_plain(gi_k, off, cnt),
+                       lambda: torch.segment_reduce(gi_k, "sum", lengths=cnt, axis=0)),
         bound=bound(total * 40 + n * 48, total * 10),
     )
 
     # K2, on seeded cotangents (culled rows none, as the rasterizer hands them)
-    cot = torch.randn((10, n), generator=gen, device=dev) * (radii > 0).float()
-    g_k = preprocess_fused.preprocess_fused_bwd(*acts, cam, 3, 1.0, cot)
-    g_p = preprocess_fused.preprocess_fused_bwd_plain(*acts, cam, 3, 1.0, cot)
+    g_k = preprocess_fused.preprocess_fused_bwd(*k2_args)
+    g_p = preprocess_fused.preprocess_fused_bwd_plain(*k2_args)
     torch.cuda.synchronize()
     k2_errs = {}
     for nm, a, b in zip(("means", "scales", "rotations", "opacity", "shs"), g_k, g_p):
@@ -621,21 +764,20 @@ def phase_kernels(dev):
             raise AssertionError(f"K2 {nm}: max abs err / max |grad| {k2_errs[nm]:.3g} > {K2_TOL}")
     res["preprocess_bwd"] = dict(
         max_abs_err=max((a - b).abs().max().item() for a, b in zip(g_k, g_p)),
-        ms=median_ms(lambda: preprocess_fused.preprocess_fused_bwd(*acts, cam, 3, 1.0, cot)),
-        plain_ms=median_ms(lambda: preprocess_fused.preprocess_fused_bwd_plain(*acts, cam, 3, 1.0, cot)),
-        # reads the inputs and 10 cotangents, writes gradients shaped like
-        # the inputs; ~1000 operations per Gaussian (recompute + reverse sweep)
-        bound=bound(2 * n_in + 10 * 4 * n, 1000 * n),
+        **kernel_times(lambda: preprocess_fused.preprocess_fused_bwd(*k2_args),
+                       lambda: preprocess_fused.preprocess_fused_bwd_plain(*k2_args)),
+        bound=k2_bound(k2_args),
     )
 
     def t(name):
         r = res[name]
-        lib = f", library {r['library_ms']:.3f} ms" if "library_ms" in r else ""
-        return (f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms{lib}, bound {r['bound'][0]:.4f} ms "
-                f"({r['bound'][1]})")
+        lib = f", library {r['library_ms']:.4f} ms" if "library_ms" in r else ""
+        return (f"{r['ms']:.4f} ms (CUDA events; host clock {r['extra']['host_ms']:.3f}) vs plain "
+                f"{r['plain_ms']:.3f} ms{lib}, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
 
     log(f"phase 3 kernels vs plain (N={N_KERNEL_CHECK}, {WIDTH}x{HEIGHT}, SH 3; "
-        f"{total} instances; instance-pixel pairs walked {blended + culled}, blended {blended}): "
+        f"{total} instances; instance-pixel pairs walked {blended + culled}, blended {blended}; "
+        f"{tile_stats(binning, walks)}): "
         f"K1 max abs err {k1_err:.3g} (tol {K1_ATOL} + {K1_RTOL} rel; radius mismatches {rad_bad}) "
         f"{t('preprocess_fwd')} | K3 keys/owners/hist exact, {t('expand')} | "
         f"K4 max abs err " + ", ".join(f"{k} {v:.3g}" for k, v in k4_errs.items())
@@ -885,11 +1027,20 @@ def phase_train_dense(dev):
     DENSE_DENSIFY_AT) whose gradient threshold is placed so that a share
     DENSE_SELECT of the Gaussians seen reaches it: a full-size clone/split
     event with its two dist_knn3 at 1M, then steps at the grown size."""
-    rng = np.random.default_rng(SEED + 3)
-    gt = synthetic.room_gaussians(N_SCENE, rng)
-    _, pcams = synthetic.orbit(N_CAMS, WIDTH, HEIGHT, HFOV, rng)
+    gt, pcams, params = dense_room(dev)
     views = train_views(gt, pcams, dev)
-    state = G.GaussianState.fresh(params_from_numpy(noisy_model(gt, rng), dev))
+    # K5 and K2 alone at one view of the room, before the trainer starts
+    k5_args, k2_args = view_inputs(params, dense_view(pcams, dev), torch.zeros(3, device=dev), SEED + 3)
+    blended, culled, walks = evaluated_pairs(*k5_args[:2], WIDTH, HEIGHT)
+    dense = {"blend_bwd": dict(ms=event_ms(lambda: raster_tiles._run_bwd(*k5_args)),
+                               bound=k5_bound(k5_args, blended, culled)),
+             "preprocess_bwd": dict(ms=event_ms(lambda: preprocess_fused.preprocess_fused_bwd(*k2_args)),
+                                    bound=k2_bound(k2_args))}
+    view = (f"train view {synthetic.split_ids(N_CAMS, 6)[0][0]} of the room before the steps "
+            f"({params.xyz.shape[0]} Gaussians, {k5_args[1].num_instances} instances, pairs walked "
+            f"{blended + culled}, blended {blended}; {tile_stats(k5_args[1], walks)})")
+    del k5_args, k2_args
+    state = G.GaussianState.fresh(params)
     opt = OptimizationParams(iterations=DENSE_ITERS, densify_from_iter=DENSE_DENSIFY_AT // 2,
                              densification_interval=DENSE_DENSIFY_AT,
                              prune_from_iter=DENSE_DENSIFY_AT // 2, densify_until_iter=DENSE_ITERS)
@@ -936,9 +1087,13 @@ def phase_train_dense(dev):
         f"traced device ms/step over steps {DENSE_TRACE.start}-{DENSE_TRACE[-1]}: "
         + fmt_stages(dev_ms) + f", idle share {idle:.3f} (under the profiler); read-backs/step "
         f"{rbs:g}, host wait {rb_ms:.3f} ms/step",
+        f"K5 and K2 alone at {view}, CUDA events over {EVENT_LAUNCHES} launches: "
+        + " | ".join(f"{k} {dense[name]['ms']:.4f} ms, bound {dense[name]['bound'][0]:.4f} ms "
+                     f"({dense[name]['bound'][1]})" for k, name in (("K5", "blend_bwd"), ("K2", "preprocess_bwd"))),
     ]
     for line in lines:
         log("phase 5b " + line)
+    return dense
 
 
 def phase_cli(dev, work: Path):
@@ -1642,6 +1797,8 @@ def main() -> None:
                         help="run phases 1, 2, 8a and 8b-8c alone: L1's backward kernels and the guided step")
     parser.add_argument("--forward-only", action="store_true",
                         help="run phases 1, 2, 7a and 7b-7c alone: L1's forward kernels and the DDIM request")
+    parser.add_argument("--gaussian-only", action="store_true",
+                        help="run phases 1, 2, 3, 5 and 5b alone: the Gaussian kernels K1-K6 and the trainer")
     args = parser.parse_args()
     start = time.perf_counter()
     secs = {}
@@ -1671,13 +1828,18 @@ def main() -> None:
         log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
         return
     res = run("3", phase_kernels, dev)
+    if args.gaussian_only:
+        run("5", phase_train, dev)
+        run("5b", phase_train_dense, dev)
+        log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+        return
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=build_dir))
     try:
         run("4", phase_main, dev, work)
         launches = run("5", phase_train, dev)
-        run("5b", phase_train_dense, dev)
+        dense = run("5b", phase_train_dense, dev)
         run("6", phase_cli, dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1686,6 +1848,8 @@ def main() -> None:
     res.update(run("8a", phase_l1_bwd, dev))
     guided = run("8b-8c", phase_guided, dev, GUIDED_STEPS)
     launches.update({name: guided[name] for name in L1_BWD_KERNELS})
+    for name, d in dense.items():
+        res[name]["extra"].update(ms_dense=d["ms"], bound_ms_dense=d["bound"][0])
     log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
         + f"; total {time.perf_counter() - start:.1f}")
     table = [

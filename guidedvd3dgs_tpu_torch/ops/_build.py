@@ -42,7 +42,7 @@ SIGNATURES = {
     "preprocess_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     "expand": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "blend_fwd": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "blend_bwd": [_P, _I] + [_P] * 10 + [_I] * 4 + [_P, _P],
+    "blend_bwd": [_P, _I] + [_P] * 11 + [_I] * 4 + [_P, _P],
     "segsum": [_P, _P, _P, _I, _P, _P],
     "preprocess_bwd": [_P] * 6 + [_I] * 4 + [_F, _I, _I] + [_P] * 5 + [_P],
     "flash_attn_fwd": [_P] * 5 + [_I] * 4 + [_F, _P],
@@ -87,10 +87,12 @@ def library_path() -> Path:
 def build() -> tuple[Path, float, str]:
     """Compile the kernels if the library for the current sources is
     missing: one nvcc per source, all started together, then one link.
-    Returns (path, seconds spent compiling, compiler output)."""
+    Returns (path, seconds spent compiling, compiler output: that of the
+    build that made the library, if it was built before)."""
     path = library_path()
     if path.exists():
-        return path, 0.0, ""
+        log = path.with_suffix(".log")
+        return path, 0.0, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     srcs, _ = _sources()
     tag = f"{path.stem}.{os.getpid()}"

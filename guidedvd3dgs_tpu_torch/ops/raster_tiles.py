@@ -259,12 +259,14 @@ def _run_bwd(tab: torch.Tensor, binning: TileBinning, color, depth, alpha, dC, d
     # instances the blend never reaches (culled, or past every pixel's stop)
     # keep this zero
     grad = torch.zeros((m, segsum.NF), dtype=torch.float32, device=dev)
+    # the block of a tile walks its list alone: the longest lists start first
+    order = torch.argsort(binning.tile_count, descending=True, stable=True).to(torch.int32)
     _build.launch(
         "blend_bwd",
         tab.data_ptr(), n, binning.inst_gauss.data_ptr(), binning.perm.data_ptr(),
-        binning.tile_start.data_ptr(), binning.tile_count.data_ptr(), color.data_ptr(),
-        depth.data_ptr(), alpha.data_ptr(), dC.data_ptr(), dD.data_ptr(), dA.data_ptr(),
-        gx, gy, width, height, grad.data_ptr(), _build.stream_of(tab),
+        binning.tile_start.data_ptr(), binning.tile_count.data_ptr(), order.data_ptr(),
+        color.data_ptr(), depth.data_ptr(), alpha.data_ptr(), dC.data_ptr(), dD.data_ptr(),
+        dA.data_ptr(), gx, gy, width, height, grad.data_ptr(), _build.stream_of(tab),
     )
     return grad
 

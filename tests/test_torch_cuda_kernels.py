@@ -7,7 +7,9 @@ histogram exact; K4 color/alpha atol 2e-5, depth atol 2e-4, rtol 1e-4;
 K2 max abs error over max |grad| of each output 1e-4 (hand-derived against
 autograd); K5 rows within 1e-4 of the field's max |grad| + 1e-4 relative,
 all but 1e-4 of them (a pixel may stop one instance apart, as in K4); K6
-within count * 2^-23 * sum |terms| of the float64 sums; L1 (flash
+within count * 2^-23 * sum |terms| of the float64 sums. K2 and K5 give
+bitwise-equal outputs on two launches, and K2 on rows that start past a
+16-byte boundary those of aligned copies. L1 (flash
 attention) within 2e-5 of its plain version in float32 and 1e-2 in
 bfloat16 (the plain version from the same bf16 inputs) on unit-normal
 inputs (other sum orders; the plain version rounds the weights to bf16);
@@ -106,7 +108,8 @@ def test_k4_matches_plain(dev, opaque):
     assert float(out.color.std()) > 0.01
 
 
-@pytest.mark.parametrize("sh_degree,active", [(3, 3), (3, 1), (1, None)])
+# every sh_degree instance of K2's template, each with k_total = 16
+@pytest.mark.parametrize("sh_degree,active", [(3, 3), (3, 1), (1, None), (0, None), (2, None)])
 def test_k2_matches_plain(dev, sh_degree, active):
     acts, cam = scene(30000, 10 + sh_degree, dev)
     acts[3] = acts[3].reshape(-1)
@@ -121,8 +124,36 @@ def test_k2_matches_plain(dev, sh_degree, active):
         assert float((g - w).abs().max() / w.abs().max().clamp(min=1e-30)) <= 1e-4
 
 
-def bwd_case(dev, opaque):
-    acts, cam = scene(30000, 7, dev, opaque)
+def test_k2_is_deterministic(dev):
+    """Two launches give bitwise-equal gradients: one thread owns each
+    Gaussian's rows, no atomics."""
+    acts, cam = scene(30000, 12, dev)
+    cot = torch.randn((10, acts[0].shape[0]), device=dev)
+    first = preprocess_fused.preprocess_fused_bwd(*acts, cam, 3, 1.0, cot)
+    second = preprocess_fused.preprocess_fused_bwd(*acts, cam, 3, 1.0, cot)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_k2_unaligned_rows(dev):
+    """K2 copies its block's rows into shared memory a float at a time and
+    stores them from the first 16-byte boundary on: views that start one
+    row in (12 bytes for means and scales) give the gradients of aligned
+    copies, bitwise."""
+    acts, cam = scene(30001, 13, dev)
+    views = [t[1:] for t in acts]
+    assert all(t.is_contiguous() for t in views) and views[0].data_ptr() % 16
+    cot = torch.randn((10, 30000), device=dev)
+    got = preprocess_fused.preprocess_fused_bwd(*views, cam, 3, 1.0, cot)
+    want = preprocess_fused.preprocess_fused_bwd(*[t.clone() for t in views], cam, 3, 1.0, cot)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def bwd_case(dev, opaque, n=30000):
+    acts, cam = scene(n, 7, dev, opaque)
     bg = torch.tensor([0.2, 0.4, 0.6], device=dev)
     tab = preprocess_fused.preprocess_fused_fwd(*acts, cam, 3, 1.0)
     binning = tiling.bin_gaussians(tab, preprocess_fused.visible_radii(tab), W, H)
@@ -132,9 +163,7 @@ def bwd_case(dev, opaque):
     return (tab, binning, color, depth, alpha, *cot, W, H), binning
 
 
-@pytest.mark.parametrize("opaque", [False, True])
-def test_k5_matches_plain(dev, opaque):
-    args, binning = bwd_case(dev, opaque)
+def check_k5(args, binning):
     got = raster_tiles._run_bwd(*args)
     want = raster_tiles.blend_bwd_plain(*args)
     assert got.shape == (binning.num_instances, 10) and bool(torch.isfinite(got).all())
@@ -142,6 +171,40 @@ def test_k5_matches_plain(dev, opaque):
     bad = (err > 1e-4 * want.abs().amax(0, keepdim=True) + 1e-4 * want.abs()).any(1)
     assert float(bad.float().mean()) <= 1e-4
     assert float(want.abs().max()) > 0
+
+
+@pytest.mark.parametrize("opaque", [False, True])
+def test_k5_matches_plain(dev, opaque):
+    check_k5(*bwd_case(dev, opaque))
+
+
+def test_k5_crowded_tiles_match_plain(dev):
+    """An opaque crowd: tiles of many 256-instance rounds, whose pixels all
+    stop inside the first round's 64-instance sub-rounds, so that blocks
+    leave long before the end of their lists (the sparser scene of
+    test_k5_matches_plain walks into second rounds)."""
+    args, binning = bwd_case(dev, True, n=60000)
+    assert int(binning.tile_count.max()) > 4 * 256
+    stops = []
+    for t0, t1 in raster_tiles._tile_batches(binning.tile_count.tolist(), raster_tiles.PLAIN_BATCH_ELEMS):
+        q = raster_tiles.tile_batch(args[0], binning, t0, t1)
+        stops.append((torch.cumsum(q.trigger.int(), dim=1) == 0).sum(1))  # (tiles, pixels)
+    stops = torch.cat(stops)
+    stopped = stops < binning.tile_count[:, None].long()
+    assert bool((stopped & (stops % 64 != 63)).any())  # inside a sub-round
+    assert bool((stops.amax(1) < binning.tile_count.long() - 256).any())  # a block leaves early
+    check_k5(args, binning)
+
+
+@pytest.mark.parametrize("opaque", [False, True])
+def test_k5_is_deterministic(dev, opaque):
+    """Two launches give bitwise-equal rows: each instance's sums are
+    formed by one block in a fixed order, no atomics."""
+    args, _ = bwd_case(dev, opaque)
+    first = raster_tiles._run_bwd(*args)
+    second = raster_tiles._run_bwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_k6_matches_plain(dev):
