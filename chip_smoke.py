@@ -36,9 +36,10 @@ and the exit code is non-zero; there is no CPU fallback):
               one densify_and_prune whose threshold is placed so that a
               tenth of the Gaussians clone or split (the init cloud's
               event at step 40 is near-empty): its time, the Gaussians
-              before and after, the step time after it; and K5 and K2
-              alone at one train view of the room by CUDA events, with
-              their bounds from that view's counts and its tile statistics
+              before and after, the step time after it; and K3, K4, K5
+              and K2 alone at one train view of the room by CUDA events,
+              with their bounds from that view's counts and its tile
+              statistics
   6. CLI      `guidedvd3dgs_tpu_torch.train_baseline` for 2000 iterations
               on the tool-default synthetic scene (scene.synthetic.
               make_scene), then the render and metrics CLIs on its
@@ -104,7 +105,7 @@ phases 1, 2, 7a and 7b-7c (L1's forward kernels and the DDIM request);
 and the trainer).
 The line before the last is the JSON kernel table (launches of K1-K6 from
 phase 5, of L1's forward from phase 7b, of its backward from phase 8b; for
-K1-K6 `host_ms` beside `ms`, and for K5 and K2 `ms_dense` and
+K1-K6 `host_ms` beside `ms`, and for K3, K4, K5 and K2 `ms_dense` and
 `bound_ms_dense` from phase 5b's view);
 the last line is {"ok": true, "device": {...}}.
 """
@@ -629,6 +630,26 @@ def dense_view(pcams, dev):
     return pcams[synthetic.split_ids(N_CAMS, 6)[0][0]].raster_camera(dev)
 
 
+def k3_bound(k3_args):
+    """K3's bound on one view: the count read for every Gaussian, the other
+    11 rows (7 of the table, rect x, y, w and the offset) only for the
+    Gaussians in view (count > 0; no slot needs the others), 12 B per
+    instance and the histogram written; ~60 operations per instance (the
+    tile cull)."""
+    count, num_tiles, total = k3_args[4], k3_args[-2], k3_args[-1]
+    in_view = int((count > 0).sum())
+    return bound(count.numel() * 4 + in_view * 11 * 4 + total * 12 + num_tiles * 4, 60 * total)
+
+
+def k4_bound(binning, width: int, height: int, blended: int, culled: int):
+    """K4's bound on one view: 40 B of fields + 4 B id per binned instance,
+    the tiles' start, count and order, 5 f32 out per pixel; the pairs'
+    operations."""
+    total, num_tiles = binning.num_instances, binning.grid_x * binning.grid_y
+    return bound(total * 44 + num_tiles * 12 + width * height * 20,
+                 K4_BLENDED_FLOPS * blended + WALKED_FLOPS * culled)
+
+
 def k5_bound(k5_args, blended: int, culled: int):
     """K5's bound on one view: fields, owner and slot per binned instance,
     10 f32 in per pixel, 40 B out per instance; the pairs' operations."""
@@ -689,14 +710,11 @@ def phase_kernels(dev):
         if not torch.equal(a, b):
             raise AssertionError(f"K3 {nm} differ from the plain version")
     k3_err = 0.0  # bit-exact, checked above
-    num_tiles = k3_args[-2]
     res["expand"] = dict(
         max_abs_err=k3_err,
         **kernel_times(lambda: expand.expand_instances(*k3_args),
                        lambda: expand.expand_instances_plain(*k3_args)),
-        # reads 7 table rows + 5 int rows per Gaussian, writes 12 B per
-        # instance and the histogram; ~60 operations per instance (tile cull)
-        bound=bound(n * 12 * 4 + total * 12 + num_tiles * 4, 60 * total),
+        bound=k3_bound(k3_args),
     )
 
     # K4, on the kernel binning
@@ -707,14 +725,11 @@ def phase_kernels(dev):
     k4_errs = {nm: check_k4(nm, a, b) for nm, a, b in zip(("color", "depth", "alpha"), img_k, img_p)}
     k4_err = max(k4_errs.values())
     blended, culled, walks = evaluated_pairs(tab, binning, WIDTH, HEIGHT)
-    hw = WIDTH * HEIGHT
     res["blend_fwd"] = dict(
         max_abs_err=k4_err,
         **kernel_times(lambda: raster_tiles._run_fwd(tab, binning, bg, WIDTH, HEIGHT),
                        lambda: raster_tiles.blend_fwd_plain(tab, binning, bg, WIDTH, HEIGHT)),
-        # 40 B of fields + 4 B id per binned instance, 5 f32 out per pixel
-        bound=bound(total * 44 + num_tiles * 8 + hw * 20,
-                    K4_BLENDED_FLOPS * blended + WALKED_FLOPS * culled),
+        bound=k4_bound(binning, WIDTH, HEIGHT, blended, culled),
     )
 
     # K5, on the kernel forward with seeded cotangents
@@ -1029,17 +1044,24 @@ def phase_train_dense(dev):
     event with its two dist_knn3 at 1M, then steps at the grown size."""
     gt, pcams, params = dense_room(dev)
     views = train_views(gt, pcams, dev)
-    # K5 and K2 alone at one view of the room, before the trainer starts
-    k5_args, k2_args = view_inputs(params, dense_view(pcams, dev), torch.zeros(3, device=dev), SEED + 3)
-    blended, culled, walks = evaluated_pairs(*k5_args[:2], WIDTH, HEIGHT)
-    dense = {"blend_bwd": dict(ms=event_ms(lambda: raster_tiles._run_bwd(*k5_args)),
+    # K3, K4, K5 and K2 alone at one view of the room, before the trainer starts
+    bg = torch.zeros(3, device=dev)
+    k5_args, k2_args = view_inputs(params, dense_view(pcams, dev), bg, SEED + 3)
+    tab, binning = k5_args[:2]
+    k3_args = (tab, *tiling.expand_inputs(tab, preprocess_fused.visible_radii(tab), WIDTH, HEIGHT))
+    blended, culled, walks = evaluated_pairs(tab, binning, WIDTH, HEIGHT)
+    dense = {"expand": dict(ms=event_ms(lambda: expand.expand_instances(*k3_args)),
+                            bound=k3_bound(k3_args)),
+             "blend_fwd": dict(ms=event_ms(lambda: raster_tiles._run_fwd(tab, binning, bg, WIDTH, HEIGHT)),
+                               bound=k4_bound(binning, WIDTH, HEIGHT, blended, culled)),
+             "blend_bwd": dict(ms=event_ms(lambda: raster_tiles._run_bwd(*k5_args)),
                                bound=k5_bound(k5_args, blended, culled)),
              "preprocess_bwd": dict(ms=event_ms(lambda: preprocess_fused.preprocess_fused_bwd(*k2_args)),
                                     bound=k2_bound(k2_args))}
     view = (f"train view {synthetic.split_ids(N_CAMS, 6)[0][0]} of the room before the steps "
             f"({params.xyz.shape[0]} Gaussians, {k5_args[1].num_instances} instances, pairs walked "
             f"{blended + culled}, blended {blended}; {tile_stats(k5_args[1], walks)})")
-    del k5_args, k2_args
+    del k5_args, k2_args, k3_args, tab, binning
     state = G.GaussianState.fresh(params)
     opt = OptimizationParams(iterations=DENSE_ITERS, densify_from_iter=DENSE_DENSIFY_AT // 2,
                              densification_interval=DENSE_DENSIFY_AT,
@@ -1087,9 +1109,11 @@ def phase_train_dense(dev):
         f"traced device ms/step over steps {DENSE_TRACE.start}-{DENSE_TRACE[-1]}: "
         + fmt_stages(dev_ms) + f", idle share {idle:.3f} (under the profiler); read-backs/step "
         f"{rbs:g}, host wait {rb_ms:.3f} ms/step",
-        f"K5 and K2 alone at {view}, CUDA events over {EVENT_LAUNCHES} launches: "
+        f"K3, K4, K5 and K2 alone at {view}, CUDA events over {EVENT_LAUNCHES} launches: "
         + " | ".join(f"{k} {dense[name]['ms']:.4f} ms, bound {dense[name]['bound'][0]:.4f} ms "
-                     f"({dense[name]['bound'][1]})" for k, name in (("K5", "blend_bwd"), ("K2", "preprocess_bwd"))),
+                     f"({dense[name]['bound'][1]})"
+                     for k, name in (("K3", "expand"), ("K4", "blend_fwd"), ("K5", "blend_bwd"),
+                                     ("K2", "preprocess_bwd"))),
     ]
     for line in lines:
         log("phase 5b " + line)

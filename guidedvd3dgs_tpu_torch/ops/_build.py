@@ -40,8 +40,8 @@ _F = ctypes.c_float
 # C signature of every kernel entry point (the trailing pointer is the stream)
 SIGNATURES = {
     "preprocess_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
-    "expand": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
-    "blend_fwd": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "expand": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "blend_fwd": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "blend_bwd": [_P, _I] + [_P] * 11 + [_I] * 4 + [_P, _P],
     "segsum": [_P, _P, _P, _I, _P, _P],
     "preprocess_bwd": [_P] * 6 + [_I] * 4 + [_F, _I, _I] + [_P] * 5 + [_P],

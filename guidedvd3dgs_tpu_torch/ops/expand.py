@@ -109,7 +109,7 @@ def expand_instances(
     _build.launch(
         "expand",
         tab.data_ptr(), n, rect_min_x.data_ptr(), rect_min_y.data_ptr(), rect_w.data_ptr(),
-        count.data_ptr(), offsets.data_ptr(), gx, num_tiles,
+        count.data_ptr(), offsets.data_ptr(), gx, num_tiles, total,
         keys.data_ptr(), owners.data_ptr(), hist.data_ptr(), _build.stream_of(tab),
     )
     return keys, owners, hist

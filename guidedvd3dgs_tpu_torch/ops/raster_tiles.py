@@ -215,6 +215,7 @@ def _run_fwd(tab: torch.Tensor, binning: TileBinning, bg: torch.Tensor, width: i
     _build.check_cuda("inst_gauss", binning.inst_gauss, torch.int32, dev, (binning.num_instances,))
     _build.check_cuda("tile_start", binning.tile_start, torch.int32, dev, (num_tiles,))
     _build.check_cuda("tile_count", binning.tile_count, torch.int32, dev, (num_tiles,))
+    _build.check_cuda("tile_order", binning.tile_order, torch.int32, dev, (num_tiles,))
     _build.check_cuda("bg", bg, torch.float32, dev, (3,))
     if gx != (width + TILE - 1) // TILE or gy != (height + TILE - 1) // TILE:
         raise ValueError(f"binning grid {gx}x{gy} does not cover {width}x{height}")
@@ -224,7 +225,8 @@ def _run_fwd(tab: torch.Tensor, binning: TileBinning, bg: torch.Tensor, width: i
     _build.launch(
         "blend_fwd",
         tab.data_ptr(), n, binning.inst_gauss.data_ptr(), binning.tile_start.data_ptr(),
-        binning.tile_count.data_ptr(), bg.data_ptr(), gx, gy, width, height,
+        binning.tile_count.data_ptr(), binning.tile_order.data_ptr(), bg.data_ptr(), gx, gy,
+        width, height,
         color.data_ptr(), depth.data_ptr(), alpha.data_ptr(), _build.stream_of(tab),
     )
     return color, depth, alpha
@@ -250,6 +252,7 @@ def _run_bwd(tab: torch.Tensor, binning: TileBinning, color, depth, alpha, dC, d
     _build.check_cuda("perm", binning.perm, torch.int32, dev, (m,))
     _build.check_cuda("tile_start", binning.tile_start, torch.int32, dev, (num_tiles,))
     _build.check_cuda("tile_count", binning.tile_count, torch.int32, dev, (num_tiles,))
+    _build.check_cuda("tile_order", binning.tile_order, torch.int32, dev, (num_tiles,))
     for name, t, shape in (("color", color, (3, height, width)), ("depth", depth, (height, width)),
                            ("alpha", alpha, (height, width)), ("dC", dC, (3, height, width)),
                            ("dD", dD, (height, width)), ("dA", dA, (height, width))):
@@ -259,12 +262,11 @@ def _run_bwd(tab: torch.Tensor, binning: TileBinning, color, depth, alpha, dC, d
     # instances the blend never reaches (culled, or past every pixel's stop)
     # keep this zero
     grad = torch.zeros((m, segsum.NF), dtype=torch.float32, device=dev)
-    # the block of a tile walks its list alone: the longest lists start first
-    order = torch.argsort(binning.tile_count, descending=True, stable=True).to(torch.int32)
     _build.launch(
         "blend_bwd",
         tab.data_ptr(), n, binning.inst_gauss.data_ptr(), binning.perm.data_ptr(),
-        binning.tile_start.data_ptr(), binning.tile_count.data_ptr(), order.data_ptr(),
+        binning.tile_start.data_ptr(), binning.tile_count.data_ptr(),
+        binning.tile_order.data_ptr(),
         color.data_ptr(), depth.data_ptr(), alpha.data_ptr(), dC.data_ptr(), dD.data_ptr(),
         dA.data_ptr(), gx, gy, width, height, grad.data_ptr(), _build.stream_of(tab),
     )

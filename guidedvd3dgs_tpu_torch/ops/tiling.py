@@ -11,7 +11,10 @@ rasterizer_impl.cu of the CUDA original:
   4. one stable `torch.sort` of the 64-bit keys `tile << 32 | depth bits`
      (depth is positive past the near clip, so its f32 bits sort in order;
      equal keys keep Gaussian order);
-  5. per-tile start and count from the histogram.
+  5. per-tile start and count from the histogram, and the tiles in the
+     order the blend kernels K4 and K5 start them: the longest lists
+     first (a block walks its tile alone, so a long list that starts late
+     sets the kernel's end).
 None of the TPU packing, padding or capacity machinery is needed here.
 
 The binning also keeps what the backward needs to reduce per-instance
@@ -44,6 +47,7 @@ class TileBinning(NamedTuple):
     perm: torch.Tensor  # (M,) int32 expansion slot of each sorted instance
     offsets: torch.Tensor  # (N,) int32 first expansion slot of each Gaussian
     count: torch.Tensor  # (N,) int32 expansion slots of each Gaussian
+    tile_order: torch.Tensor  # (num_tiles,) int32 the tiles by instance count, longest first
 
 
 def _to_i32(x: torch.Tensor) -> torch.Tensor:
@@ -104,5 +108,6 @@ def bin_gaussians(
     _, perm = torch.sort(keys, stable=True)
     inst_gauss = owners[perm]
     tile_start = (torch.cumsum(hist, 0, dtype=torch.int32) - hist).to(torch.int32)
+    tile_order = torch.argsort(hist, descending=True, stable=True).to(torch.int32)
     return TileBinning(inst_gauss, tile_start, hist, total, gx, num_tiles // gx,
-                       perm.to(torch.int32), offsets, count)
+                       perm.to(torch.int32), offsets, count, tile_order)

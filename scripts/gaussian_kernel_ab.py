@@ -1,36 +1,46 @@
 #!/usr/bin/env python3
-"""K5 (the tile blend backward) and K2 (the preprocess backward) of this
-tree against another version of their sources, in turns, on one NVIDIA GPU.
+"""The Gaussian kernels K3 (instance expansion), K4 (tile blend forward),
+K5 (tile blend backward) and K2 (preprocess backward) of this tree against
+another version of their sources, in turns, on one NVIDIA GPU.
 
     python3 scripts/gaussian_kernel_ab.py OLD_DIR [--variants NAME,...] [--side NAME=DIR ...]
 
-OLD_DIR holds the other version's `blend_bwd.cu`, `preprocess_bwd.cu`,
-`common.cuh` and `errors.cu`; for the parent commit, in a directory that
-.gitignore lists:
+OLD_DIR holds the other version's `expand.cu`, `blend_fwd.cu`,
+`blend_bwd.cu`, `preprocess_bwd.cu`, `common.cuh` and `errors.cu`; for
+the parent commit, in a directory that .gitignore lists:
 
-    mkdir -p build/ab_old && for f in blend_bwd.cu preprocess_bwd.cu common.cuh errors.cu; do
+    mkdir -p build/ab_old && for f in expand.cu blend_fwd.cu blend_bwd.cu preprocess_bwd.cu common.cuh errors.cu; do
       git show HEAD~1:guidedvd3dgs_tpu_torch/csrc/$f > build/ab_old/$f; done
 
-Each side's two kernels are built with the package's nvcc flags into a
+Each side's kernels are built with the package's nvcc flags into a
 library of its own under build/ab/ (all compiles started together): "old"
 from OLD_DIR, "new" from this tree's csrc/, each chosen entry of VARIANTS
-(all by default) from this tree's source with one text substitution, and
-each --side from a directory of other sources (files it lacks are taken
-from csrc/). On phase 3's data of
-chip_smoke.py (200,000 Gaussians, one 640x480 view) and on one view of
-phase 5b's trained-density room (1,000,000 Gaussians), each side's C entry
-is called with the same arguments and preallocated outputs, and the script
-prints:
+(all by default) from this tree's sources with its text substitutions or
+with one source replaced by a file of scripts/ab_variants/, and each
+--side from a directory of other sources (files it lacks are taken from
+csrc/). On phase 3's data of chip_smoke.py (200,000 Gaussians,
+one 640x480 view) and on one view of phase 5b's trained-density room
+(1,000,000 Gaussians), each side's C entries are called with the same
+arguments and preallocated outputs (an old K4 without the tile order, an
+old K3 without the instance total, as their signatures were), and the
+script prints:
 
-- whether every side's K5 rows and K2 gradients are bitwise equal to
-  "new"'s;
-- each side's ms by CUDA events over 20 launches, queued behind a sleep,
-  in turns (old, new, variants..., variants..., new, old);
-- the tail: each side's K5 with only the tile of the longest walk left,
-  that tile's latency on an otherwise idle card, against the whole kernel;
-  and "new"'s K5 without that tile and without the 1% of longest walks;
-- tile_count and walk statistics of each view, and ptxas's registers,
-  shared memory and stack of every side's kernels.
+- whether every side's K3 keys, owners and histogram, K4 color, depth and
+  alpha, K5 rows and K2 gradients are bitwise equal to "new"'s;
+- each side's ms of each kernel by CUDA events over 20 launches, queued
+  behind a sleep, in turns (old, new, variants..., variants..., new, old);
+  K3's calls include the zeroing of its histogram, as the wrapper's do;
+- the tail: each side's K4 and K5 with only the tile of the longest walk
+  left, that tile's latency on an otherwise idle card, against the whole
+  kernel; and "new"'s K5 without that tile and without the 1% of longest
+  walks;
+- what K4's gather costs: "old"'s and "new"'s K4 on a copy of the table
+  gathered beforehand into instance order (the same fields, so the same
+  walk and bits, read from consecutive addresses);
+- tile_count and walk statistics of each view, K3's windows there (the
+  spans of Gaussian indices their owners cover, the Gaussians in view,
+  the longest run out of view), and ptxas's registers, shared memory and
+  stack of every side's kernels.
 
 The last line is a JSON object of every reading.
 """
@@ -51,24 +61,85 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
-from guidedvd3dgs_tpu_torch.ops import _build, preprocess_fused  # noqa: E402
+from guidedvd3dgs_tpu_torch.ops import _build, preprocess_fused, tiling  # noqa: E402
 
-SOURCES = ("blend_bwd.cu", "preprocess_bwd.cu", "errors.cu")
-# name: (source, text in this tree's source, its replacement); the
-# "no_" ones are ablations that drop a part of the work to time the rest
-# (their outputs are wrong, and the bitwise check says so)
+SOURCES = ("expand.cu", "blend_fwd.cu", "blend_bwd.cu", "preprocess_bwd.cu", "errors.cu")
+# the kernels of each side, by the key of its readings and its C entry
+KERNELS = {"K3": "expand", "K4": "blend_fwd", "K5": "blend_bwd", "K2": "preprocess_bwd"}
+# K4 taking its tiles from an atomic counter in the order of tile_order: a
+# grid of the blocks resident at once, each block taking tiles until none
+# is left; the last block to finish resets the counter for the next launch
+K4_PERSISTENT = (
+    ("__global__ void __launch_bounds__(TILE_PIX, K4_MIN_BLOCKS)",
+     "__device__ int g_next_tile = 0, g_left = 0;\n__global__ void __launch_bounds__(TILE_PIX, K4_MIN_BLOCKS)"),
+    ("const float* __restrict__ bg, int gx,", "const float* __restrict__ bg, int gx, int num_tiles,"),
+    ("  const int t = tile_order[blockIdx.x];",
+     "  __shared__ int s_i;\n  for (;;) {\n  __syncthreads();\n"
+     "  if (threadIdx.x == 0) s_i = atomicAdd(&g_next_tile, 1);\n  __syncthreads();\n"
+     "  if (s_i >= num_tiles) break;\n  const int t = tile_order[s_i];"),
+    ("    out_alpha[q] = acc_a;\n  }\n}",
+     "    out_alpha[q] = acc_a;\n  }\n  }\n"
+     "  if (threadIdx.x == 0 && atomicAdd(&g_left, 1) == (int)gridDim.x - 1) {\n"
+     "    g_next_tile = 0;\n    g_left = 0;\n  }\n}"),
+    ("    gvd::blend_fwd_kernel<<<num_tiles, gvd::TILE_PIX, 0, stream>>>(\n"
+     "        tab, n, inst_gauss, tile_start, tile_count, tile_order, bg, gx, width,",
+     "    int dev = 0, sms = 0, per_sm = 0;\n    cudaGetDevice(&dev);\n"
+     "    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);\n"
+     "    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gvd::blend_fwd_kernel, gvd::TILE_PIX, 0);\n"
+     "    const int grid = sms * per_sm < num_tiles ? sms * per_sm : num_tiles;\n"
+     "    gvd::blend_fwd_kernel<<<grid, gvd::TILE_PIX, 0, stream>>>(\n"
+     "        tab, n, inst_gauss, tile_start, tile_count, tile_order, bg, gx, num_tiles, width,"),
+)
+# K4 written over arrays of PP pixels a thread, at PP = 2
+TWO_PIXELS = ROOT / "scripts" / "ab_variants" / "blend_fwd_two_pixels.cu"
+# K4's scalar stop test as the array form has it: a separate all_done, set
+# at the end of each step of U instances
+K4_ALL_DONE = (
+    ("    if (__syncthreads_count(done) == TILE_PIX) break;",
+     "    bool all_done = done;\n    if (__syncthreads_count(all_done) == TILE_PIX) break;"),
+    ("    for (int k = 0; k < nb && !done; k += U) {", "    for (int k = 0; k < nb && !all_done; k += U) {"),
+    ("        T = test_t;\n      }\n    }\n", "        T = test_t;\n      }\n      all_done = done;\n    }\n"),
+)
+K4_NO_MIN_BLOCKS = (("__launch_bounds__(TILE_PIX, K4_MIN_BLOCKS)", "__launch_bounds__(TILE_PIX)"),)
+# name: (source, ((text in this tree's source, its replacement), ...)[, a
+# file that takes the source's place before the substitutions]); the "no_"
+# ones are ablations that drop a part of the work to time the rest (their
+# outputs are wrong, and the bitwise check says so)
 VARIANTS = {
-    "k5_row_order": ("blend_bwd.cu", "const int t = tile_order[blockIdx.x];", "const int t = blockIdx.x;"),
-    "k5_sub32": ("blend_bwd.cu", "constexpr int SUB = 64;", "constexpr int SUB = 32;"),
-    "k5_min4blocks": ("blend_bwd.cu", "__launch_bounds__(TILE_PIX)", "__launch_bounds__(TILE_PIX, 4)"),
-    "k5_no_sums": ("blend_bwd.cu", "sum = warp_sums2(s, lane);",
-                   "for (int f = 0; f < 2 * NS; ++f) sum += s[f];"),
-    "k2_256threads": ("preprocess_bwd.cu", "constexpr int K2_THREADS = 128;",
-                      "constexpr int K2_THREADS = 256;"),
-    "k2_64threads": ("preprocess_bwd.cu", "constexpr int K2_THREADS = 128;",
-                     "constexpr int K2_THREADS = 64;"),
-    "k2_min4blocks": ("preprocess_bwd.cu", "constexpr int K2_MIN_BLOCKS = 3;", "constexpr int K2_MIN_BLOCKS = 4;"),
-    "k2_no_sweep": ("preprocess_bwd.cu", "    grad_one<D>(s_mean", "    if (i < 0) grad_one<D>(s_mean"),
+    "k4_two_pixels": ("blend_fwd.cu", (), TWO_PIXELS),
+    "k4_pp1": ("blend_fwd.cu", (("constexpr int PP = 2;", "constexpr int PP = 1;"),), TWO_PIXELS),
+    "k4_break": ("blend_fwd.cu", K4_NO_MIN_BLOCKS + (
+        ("if (done || !(power[u] <= 0.0f)", "if (!(power[u] <= 0.0f)"),
+        ("          done = true;\n          continue;", "          done = true;\n          break;"))),
+    "k4_ids_all": ("blend_fwd.cu", K4_NO_MIN_BLOCKS + (
+        ("    if (lin < ROUND) id = base + lin < cnt", "    id = base + lin < cnt"),)),
+    "k4_alldone1": ("blend_fwd.cu", (("constexpr int K4_MIN_BLOCKS = 5;", "constexpr int K4_MIN_BLOCKS = 1;"),)
+                    + K4_ALL_DONE),
+    "k4_alldone5": ("blend_fwd.cu", K4_ALL_DONE),
+    "k4_u1": ("blend_fwd.cu", (("constexpr int U = 4;", "constexpr int U = 1;"),)),
+    "k4_u2": ("blend_fwd.cu", (("constexpr int U = 4;", "constexpr int U = 2;"),)),
+    "k4_u8": ("blend_fwd.cu", (("constexpr int U = 4;", "constexpr int U = 8;"),)),
+    "k4_round256": ("blend_fwd.cu", (("constexpr int ROUND = 128;", "constexpr int ROUND = 256;"),)),
+    "k4_min8blocks": ("blend_fwd.cu", (("constexpr int K4_MIN_BLOCKS = 5;", "constexpr int K4_MIN_BLOCKS = 8;"),)),
+    "k4_row_order": ("blend_fwd.cu", (("const int t = tile_order[blockIdx.x];", "const int t = blockIdx.x;"),)),
+    "k4_persistent": ("blend_fwd.cu", K4_PERSISTENT),
+    "k3_sample_always": ("expand.cu", (("      if (b - a < SCAN_MAX) {", "      if (false) {"),)),
+    "k3_global_hist": ("expand.cu", (("const bool shared_hist = num_tiles <= gvd::HIST_CAP;",
+                                      "const bool shared_hist = false;"),)),
+    "k3_scan_to_4096": ("expand.cu", (("constexpr int SCAN_ITERS = 4;", "constexpr int SCAN_ITERS = 8;"),)),
+    "k3_min2blocks": ("expand.cu", (("constexpr int K3_MIN_BLOCKS = 3;", "constexpr int K3_MIN_BLOCKS = 2;"),)),
+    "k3_min4blocks": ("expand.cu", (("constexpr int K3_MIN_BLOCKS = 3;", "constexpr int K3_MIN_BLOCKS = 4;"),)),
+    "k3_256threads": ("expand.cu", (("constexpr int K3_THREADS = 512;", "constexpr int K3_THREADS = 256;"),
+                                    ("constexpr int K3_MIN_BLOCKS = 3;", "constexpr int K3_MIN_BLOCKS = 6;"))),
+    "k5_row_order": ("blend_bwd.cu", (("const int t = tile_order[blockIdx.x];", "const int t = blockIdx.x;"),)),
+    "k5_sub32": ("blend_bwd.cu", (("constexpr int SUB = 64;", "constexpr int SUB = 32;"),)),
+    "k5_min4blocks": ("blend_bwd.cu", (("__launch_bounds__(TILE_PIX)", "__launch_bounds__(TILE_PIX, 4)"),)),
+    "k5_no_sums": ("blend_bwd.cu", (("sum = warp_sums2(s, lane);",
+                                     "for (int f = 0; f < 2 * NS; ++f) sum += s[f];"),)),
+    "k2_256threads": ("preprocess_bwd.cu", (("constexpr int K2_THREADS = 128;", "constexpr int K2_THREADS = 256;"),)),
+    "k2_64threads": ("preprocess_bwd.cu", (("constexpr int K2_THREADS = 128;", "constexpr int K2_THREADS = 64;"),)),
+    "k2_min4blocks": ("preprocess_bwd.cu", (("constexpr int K2_MIN_BLOCKS = 3;", "constexpr int K2_MIN_BLOCKS = 4;"),)),
+    "k2_no_sweep": ("preprocess_bwd.cu", (("    grad_one<D>(s_mean", "    if (i < 0) grad_one<D>(s_mean"),)),
 }
 OUT = ROOT / "build" / "ab"
 
@@ -89,11 +160,13 @@ def prepare(old_dir: Path, variants: list[str], sides: list[str]) -> dict[str, P
                                       if (old_dir / f).exists()}),
             "new": _build.CSRC}
     for name in variants:
-        src, text, repl = VARIANTS[name]
-        body = (_build.CSRC / src).read_text()
-        if body.count(text) != 1:
-            raise RuntimeError(f"variant {name}: {text!r} is not in {src} once")
-        dirs[name] = source_dir(name, {src: body.replace(text, repl)})
+        src, subs, *base = VARIANTS[name]
+        body = (base[0] if base else _build.CSRC / src).read_text()
+        for text, repl in subs:
+            if body.count(text) != 1:
+                raise RuntimeError(f"variant {name}: {text!r} is not in {src} once")
+            body = body.replace(text, repl)
+        dirs[name] = source_dir(name, {src: body})
     for side in sides:
         name, path = side.split("=", 1)
         path = Path(path).resolve()
@@ -132,42 +205,74 @@ def build_all(dirs: dict[str, Path]) -> dict[str, tuple[Path, str]]:
 
 
 def load(path: Path, src_dir: Path) -> ctypes.CDLL:
-    """The side's library; `lib.tile_order` says whether its K5 takes the
-    order of its tiles (an argument after tile_count)."""
+    """The side's library. `lib.k5_order` and `lib.k4_order` say whether
+    its K5 and K4 take the order of their tiles (an argument after
+    tile_count), `lib.k3_total` whether its K3 takes the instance total (an
+    argument after num_tiles)."""
     lib = ctypes.CDLL(str(path))
-    lib.tile_order = "tile_order" in (src_dir / "blend_bwd.cu").read_text()
-    for name in ("blend_bwd", "preprocess_bwd"):
-        fn = getattr(lib, f"gvd_{name}")
+    lib.k5_order = "tile_order" in (src_dir / "blend_bwd.cu").read_text()
+    lib.k4_order = "tile_order" in (src_dir / "blend_fwd.cu").read_text()
+    lib.k3_total = "int total" in (src_dir / "expand.cu").read_text()
+    for name in KERNELS.values():
         argtypes = list(_build.SIGNATURES[name])
-        if name == "blend_bwd" and not lib.tile_order:
+        if name == "blend_bwd" and not lib.k5_order:
             del argtypes[6]
+        if name == "blend_fwd" and not lib.k4_order:
+            del argtypes[5]
+        if name == "expand" and not lib.k3_total:
+            del argtypes[9]
+        fn = getattr(lib, f"gvd_{name}")
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
 
 
-def calls(lib, k5_args, k2_args, tile_count=None):
-    """(k5, k2, outputs): closures that launch `lib`'s K5 and K2 on the
-    arguments of chip_smoke.bwd_inputs, into outputs allocated here (K5's
-    rows zeroed once: the kernel writes the rows it reaches and no other;
-    its tiles in the order the package's wrapper gives them)."""
+def calls(lib, k3_args, k5_args, k2_args, tile_count=None, fields=None):
+    """({kernel: closure}, {kernel: outputs}): closures that launch `lib`'s
+    K3, K4, K5 and K2 on the arguments of tiling.expand_inputs and
+    chip_smoke.bwd_inputs, into outputs allocated here (K3's histogram
+    zeroed in each call; K5's rows zeroed once: the kernel writes the rows
+    it reaches and no other; K4's and K5's tiles in the order the binning
+    gives them, or by `tile_count` in its place). `fields`: K4's table and
+    owner ids in place of K1's table and the binning's."""
     tab, binning, color, depth, alpha, dC, dD, dA, w, h = k5_args
+    k4_tab, k4_ids = fields or (tab, binning.inst_gauss)
+    dev = tab.device
     counts = binning.tile_count if tile_count is None else tile_count
-    order = [torch.argsort(counts, descending=True, stable=True).to(torch.int32)] if lib.tile_order else []
-    grad = torch.zeros((binning.num_instances, 10), device=tab.device)
+    order = binning.tile_order if tile_count is None else \
+        torch.argsort(counts, descending=True, stable=True).to(torch.int32)
+    _, rmx, rmy, rw, count, offsets, gx, num_tiles, total = k3_args
+    keys = torch.empty((total,), dtype=torch.int64, device=dev)
+    owners = torch.empty((total,), dtype=torch.int32, device=dev)
+    hist = torch.zeros((num_tiles,), dtype=torch.int32, device=dev)
+    img = (torch.empty((3, h, w), device=dev), torch.empty((h, w), device=dev), torch.empty((h, w), device=dev))
+    grad = torch.zeros((binning.num_instances, 10), device=dev)
     means, scales, rots, opac, shs, cam, sh_degree, sm, cot = k2_args
     camc = preprocess_fused.cam_consts(cam)
     g = [torch.empty_like(t) for t in (means, scales, rots, opac, shs)]
+    bg = torch.zeros(3, device=dev)
     stream = _build.stream_of(tab)
+    n = tab.shape[1]
 
     def check(rc, name):
         if rc != 0:
             raise RuntimeError(f"{name} failed to launch: CUDA error {rc}")
 
+    def k3():
+        hist.zero_()
+        check(lib.gvd_expand(tab.data_ptr(), n, rmx.data_ptr(), rmy.data_ptr(), rw.data_ptr(), count.data_ptr(),
+                             offsets.data_ptr(), gx, num_tiles, *([total] if lib.k3_total else []),
+                             keys.data_ptr(), owners.data_ptr(), hist.data_ptr(), stream), "K3")
+
+    def k4():
+        check(lib.gvd_blend_fwd(k4_tab.data_ptr(), k4_tab.shape[1], k4_ids.data_ptr(), binning.tile_start.data_ptr(),
+                                counts.data_ptr(), *([order.data_ptr()] if lib.k4_order else []), bg.data_ptr(),
+                                binning.grid_x, binning.grid_y, w, h, *[t.data_ptr() for t in img], stream), "K4")
+
     def k5():
-        check(lib.gvd_blend_bwd(tab.data_ptr(), tab.shape[1], binning.inst_gauss.data_ptr(),
+        check(lib.gvd_blend_bwd(tab.data_ptr(), n, binning.inst_gauss.data_ptr(),
                                 binning.perm.data_ptr(), binning.tile_start.data_ptr(), counts.data_ptr(),
-                                *[t.data_ptr() for t in order], color.data_ptr(), depth.data_ptr(),
+                                *([order.data_ptr()] if lib.k5_order else []), color.data_ptr(), depth.data_ptr(),
                                 alpha.data_ptr(), dC.data_ptr(), dD.data_ptr(), dA.data_ptr(), binning.grid_x,
                                 binning.grid_y, w, h, grad.data_ptr(), stream), "K5")
 
@@ -177,7 +282,26 @@ def calls(lib, k5_args, k2_args, tile_count=None):
                                      sh_degree, sm, cam.width, cam.height, *[t.data_ptr() for t in g],
                                      stream), "K2")
 
-    return k5, k2, (grad, g)
+    return {"K3": k3, "K4": k4, "K5": k5, "K2": k2}, {"K3": (keys, owners, hist), "K4": img, "K5": (grad,),
+                                                      "K2": g}
+
+
+def owner_spans(k3_args, window: int = 512) -> dict:
+    """K3's slot windows on one view: the Gaussians in view, and over the
+    windows of `window` slots the span of Gaussian indices from a window's
+    first owner to the next window's (K3 scans a span below 2,048 and
+    samples a longer one), and the longest run of Gaussians out of view."""
+    count, total = k3_args[4].long(), k3_args[-1]
+    ends = torch.cumsum(count, 0)
+    starts = torch.arange(0, total, window, device=count.device)
+    first = torch.searchsorted(ends, starts, right=True)
+    nxt = torch.searchsorted(ends, torch.clamp(starts + window, max=total - 1), right=True)
+    span = (nxt - first).float()
+    seen = torch.nonzero(count > 0).flatten()
+    edges = torch.cat([seen.new_tensor([-1]), seen, seen.new_tensor([count.numel()])])
+    return dict(in_view=int(seen.numel()), windows=int(span.numel()), span_median=float(span.median()),
+                spans_from_2048=int((span >= 2048).sum()), spans_from_8192=int((span >= 8192).sum()),
+                span_max=int(span.max()), longest_run_out_of_view=int((torch.diff(edges) - 1).max()))
 
 
 def main() -> None:
@@ -194,7 +318,8 @@ def main() -> None:
     libs = build_all(dirs)
     result = {"ptxas": {}, "views": {}}
     for side, (_, log) in libs.items():
-        lines = [ln for ln in cs.ptxas_summary(log) if "bwd_kernel" in ln and "flash" not in ln]
+        lines = [ln for ln in cs.ptxas_summary(log)
+                 if any(f"{name}_kernel" in ln for name in KERNELS.values())]
         result["ptxas"][side] = lines
         print(f"ptxas {side}: " + "; ".join(lines), flush=True)
     loaded = {side: load(path, dirs[side]) for side, (path, _) in libs.items()}
@@ -210,49 +335,68 @@ def main() -> None:
     del dense
     for view, (k5_args, k2_args) in views.items():
         tab, binning = k5_args[:2]
+        k3_args = (tab, *tiling.expand_inputs(tab, preprocess_fused.visible_radii(tab), cs.WIDTH, cs.HEIGHT))
         blended, culled, walks = cs.evaluated_pairs(tab, binning, cs.WIDTH, cs.HEIGHT)
-        runs = {side: calls(lib, k5_args, k2_args) for side, lib in loaded.items()}
-        for k5, k2, _ in runs.values():
-            k5()
-            k2()
+        runs = {side: calls(lib, k3_args, k5_args, k2_args) for side, lib in loaded.items()}
+        for fns, _ in runs.values():
+            for fn in fns.values():
+                fn()
         torch.cuda.synchronize()
-        ref_grad, ref_g = runs["new"][2]
-        equal = {side: {"K5": bool(torch.equal(grad, ref_grad)),
-                        "K2": all(torch.equal(a, b) for a, b in zip(g, ref_g))}
-                 for side, (_, _, (grad, g)) in runs.items()}
-        ms = {side: {"K5": [], "K2": []} for side in sides}
+        ref = runs["new"][1]
+        equal = {side: {k: all(torch.equal(a, b) for a, b in zip(outs[k], ref[k])) for k in KERNELS}
+                 for side, (_, outs) in runs.items()}
+        ms = {side: {k: [] for k in KERNELS} for side in sides}
         for side in turns:
-            k5, k2, _ = runs[side]
-            ms[side]["K5"].append(cs.event_ms(k5))
-            ms[side]["K2"].append(cs.event_ms(k2))
+            for k, fn in runs[side][0].items():
+                ms[side][k].append(cs.event_ms(fn))
         heavy = int(walks.argmax())
         alone = torch.zeros_like(binning.tile_count)
         alone[heavy] = binning.tile_count[heavy]
-        tail_ms = {side: cs.event_ms(calls(lib, k5_args, k2_args, tile_count=alone)[0])
-                   for side, lib in loaded.items()}
+        tail_ms = {}
+        for side, lib in loaded.items():
+            fns = calls(lib, k3_args, k5_args, k2_args, tile_count=alone)[0]
+            tail_ms[side] = {k: cs.event_ms(fns[k]) for k in ("K4", "K5")}
         without = {}
         for name, drop in (("longest", walks == walks.max()),
                            ("longest 1%", walks >= torch.quantile(walks.float(), 0.99))):
             counts = torch.where(drop.to(binning.tile_count.device), 0, binning.tile_count)
-            without[name] = (int(drop.sum()), cs.event_ms(calls(loaded["new"], k5_args, k2_args,
-                                                                 tile_count=counts)[0]))
-        k5_bound, k2_bound = cs.k5_bound(k5_args, blended, culled), cs.k2_bound(k2_args)
+            without[name] = (int(drop.sum()), cs.event_ms(calls(loaded["new"], k3_args, k5_args, k2_args,
+                                                                 tile_count=counts)[0]["K5"]))
+        # K4 on a table gathered beforehand into instance order (rows of
+        # M, owner i of instance i): its copies read consecutive addresses,
+        # and its outputs stay bitwise the same
+        m = binning.num_instances
+        gathered_tab = torch.zeros((16, m), device=tab.device)
+        gathered_tab[:10] = tab[:10, binning.inst_gauss.long()]
+        fields = (gathered_tab, torch.arange(m, dtype=torch.int32, device=tab.device))
+        gathered = {}
+        for side in ("old", "new"):
+            fns, outs = calls(loaded[side], k3_args, k5_args, k2_args, fields=fields)
+            gathered[side] = (cs.event_ms(fns["K4"]), all(torch.equal(a, b) for a, b in zip(outs["K4"], ref["K4"])))
+        del gathered_tab, fields
+        bounds = {"K3": cs.k3_bound(k3_args), "K4": cs.k4_bound(binning, cs.WIDTH, cs.HEIGHT, blended, culled),
+                  "K5": cs.k5_bound(k5_args, blended, culled), "K2": cs.k2_bound(k2_args)}
         stats = cs.tile_stats(binning, walks)
+        spans = owner_spans(k3_args)
         result["views"][view] = dict(
             gaussians=tab.shape[1], instances=binning.num_instances, blended=blended, walked=blended + culled,
-            tiles=stats, bitwise_equal_to_new=equal, ms=ms, k5_bound=k5_bound, k2_bound=k2_bound,
+            tiles=stats, k3_windows=spans, bitwise_equal_to_new=equal, ms=ms, bounds=bounds,
             tail=dict(tile=heavy, tile_count=int(binning.tile_count[heavy]), walk=int(walks[heavy]),
-                      ms=tail_ms, new_without=without))
+                      ms=tail_ms, new_k5_without=without), k4_gathered_table=gathered)
         print(f"{view} ({tab.shape[1]} Gaussians, {binning.num_instances} instances, pairs walked "
-              f"{blended + culled}, blended {blended}; {stats}): bitwise equal to new {equal} | "
+              f"{blended + culled}, blended {blended}; {stats}; K3 windows {spans}): bitwise equal to new {equal} | "
               f"CUDA events over {cs.EVENT_LAUNCHES} launches, turns {' '.join(turns)}: "
-              + " | ".join(f"{side} K5 {' / '.join(f'{t:.4f}' for t in ms[side]['K5'])} ms, "
-                           f"K2 {' / '.join(f'{t:.4f}' for t in ms[side]['K2'])} ms" for side in sides)
-              + f" | bounds K5 {k5_bound[0]:.4f} ms ({k5_bound[1]}), K2 {k2_bound[0]:.4f} ms ({k2_bound[1]})"
-              f" | K5 on tile {heavy} alone (count {int(binning.tile_count[heavy])}, walk "
-              f"{int(walks[heavy])}): " + ", ".join(f"{side} {t:.4f} ms" for side, t in tail_ms.items())
+              + " | ".join(f"{side} " + ", ".join(f"{k} {' / '.join(f'{t:.4f}' for t in ms[side][k])}"
+                                                  for k in KERNELS) + " ms" for side in sides)
+              + " | bounds " + ", ".join(f"{k} {b[0]:.4f} ms ({b[1]})" for k, b in bounds.items())
+              + f" | on tile {heavy} alone (count {int(binning.tile_count[heavy])}, walk "
+              f"{int(walks[heavy])}): " + ", ".join(f"{side} K4 {t['K4']:.4f} K5 {t['K5']:.4f} ms"
+                                                    for side, t in tail_ms.items())
               + " | new K5 without " + ", ".join(f"the {name} ({n} tiles) {t:.4f} ms"
-                                                 for name, (n, t) in without.items()), flush=True)
+                                                 for name, (n, t) in without.items())
+              + " | K4 on the table gathered into instance order: " + ", ".join(
+                  f"{side} {t:.4f} ms (bitwise equal to new {eq})" for side, (t, eq) in gathered.items()),
+              flush=True)
         del runs
     print(json.dumps(result))
 

@@ -3,7 +3,10 @@
 Needs an NVIDIA GPU and nvcc; skips itself elsewhere. The plain versions
 run on the same CUDA tensors. Tolerances: K1 rows atol/rtol 1e-5 (the same
 f32 formulas op by op), visibility exact, radius exact; K3 keys, owners and
-histogram exact; K4 color/alpha atol 2e-5, depth atol 2e-4, rtol 1e-4;
+histogram exact (also at the edges of its slot windows and past its
+shared histogram); K4 color/alpha atol 2e-5, depth atol 2e-4, rtol 1e-4
+(also on long lists, empty tiles and ragged images), and K4 bitwise
+equal on a second launch and under another tile order;
 K2 max abs error over max |grad| of each output 1e-4 (hand-derived against
 autograd); K5 rows within 1e-4 of the field's max |grad| + 1e-4 relative,
 all but 1e-4 of them (a pixel may stop one instance apart, as in K4); K6
@@ -46,9 +49,11 @@ def dev():
     return torch.device("cuda:0")
 
 
-def scene(n, seed, dev, opaque=False):
+def scene(n, seed, dev, opaque=False, width=W, height=H, left=False):
     rng = np.random.default_rng(seed)
     means = rng.normal(scale=1.2, size=(n, 3)).astype(np.float32)
+    if left:  # the right part of the image stays empty
+        means[:, 0] = -np.abs(means[:, 0]) - 0.3
     means[:20, 2] = -4.5  # behind the camera
     scales = np.exp(rng.uniform(-4.0, -1.5, (n, 3))).astype(np.float32)
     rots = rng.normal(size=(n, 4)).astype(np.float32)
@@ -58,8 +63,8 @@ def scene(n, seed, dev, opaque=False):
         op = np.clip(op * 4.0, 0.0, 0.999).astype(np.float32)
     shs = (rng.normal(size=(n, 16, 3)) * 0.3).astype(np.float32)
     shs[:, 0] = rng.uniform(-1.5, 1.5, (n, 3))
-    cam = PseudoCamera(R=np.eye(3), T=np.array([0.1, -0.1, 4.0]), FoVx=1.2, FoVy=1.2 * H / W,
-                       width=W, height=H).raster_camera(dev)
+    cam = PseudoCamera(R=np.eye(3), T=np.array([0.1, -0.1, 4.0]), FoVx=1.2, FoVy=1.2 * height / width,
+                       width=width, height=height).raster_camera(dev)
     return [torch.from_numpy(a).to(dev) for a in (means, scales, rots, op, shs)], cam
 
 
@@ -106,6 +111,155 @@ def test_k4_matches_plain(dev, opaque):
     torch.testing.assert_close(out.alpha, a, atol=2e-5, rtol=1e-4)
     torch.testing.assert_close(out.depth, d, atol=2e-4, rtol=1e-4)
     assert float(out.color.std()) > 0.01
+
+
+# K3 takes windows of this many instance slots, and builds its histogram in
+# shared memory up to this many tiles (csrc/expand.cu)
+K3_WINDOW, K3_HIST_CAP = 512, 12288
+
+
+def k3_synthetic(dev, seed, gx, gy, n, zero_frac=0.3, max_wh=8, whole=False, land=0.3, long_runs=0.0):
+    """K3's arguments for n Gaussians on a gx x gy tile grid with random
+    rectangles (count = w h, or 0 for a share zero_frac of them) and
+    random conics near them. With probability `land` a Gaussian's count
+    ends its instances exactly at a multiple of K3_WINDOW, and a run of
+    zero-count Gaussians follows every such boundary; with probability
+    `long_runs` a run of 3,000-9,000 zero-count Gaussians follows a
+    Gaussian (as Gaussians out of view do in a scene). `whole`: one
+    Gaussian's rectangle is the whole grid."""
+    rng = np.random.default_rng(seed)
+    rects = []
+    cum = 0
+    while len(rects) < n:
+        if rng.random() < long_runs:
+            rects += [(int(rng.integers(0, gx)), int(rng.integers(0, gy)), 1, 0)] * int(rng.integers(3000, 9000))
+        if cum > 0 and cum % K3_WINDOW == 0:
+            rects += [(int(rng.integers(0, gx)), int(rng.integers(0, gy)), 1, 0)] * int(rng.integers(1, 40))
+        if whole and len(rects) >= 37 and not any(r[2] * r[3] == gx * gy for r in rects):
+            rects.append((0, 0, gx, gy))
+        elif rng.random() < land and (fac := [(w, (K3_WINDOW - cum % K3_WINDOW) // w) for w in range(1, gx + 1)
+                                              if (K3_WINDOW - cum % K3_WINDOW) % w == 0
+                                              and (K3_WINDOW - cum % K3_WINDOW) // w <= gy]):
+            w, h = fac[int(rng.integers(len(fac)))]
+            rects.append((int(rng.integers(0, gx - w + 1)), int(rng.integers(0, gy - h + 1)), w, h))
+        elif rng.random() < zero_frac:
+            rects.append((int(rng.integers(0, gx)), int(rng.integers(0, gy)), 1, 0))
+        else:
+            w, h = int(rng.integers(1, min(max_wh, gx) + 1)), int(rng.integers(1, min(max_wh, gy) + 1))
+            rects.append((int(rng.integers(0, gx - w + 1)), int(rng.integers(0, gy - h + 1)), w, h))
+        cum += rects[-1][2] * rects[-1][3]
+    rmx, rmy, rw, rh = (np.array(c, np.int32) for c in zip(*rects))
+    count = rw * rh
+    n = len(count)
+    tab = np.zeros((16, n), np.float32)
+    tab[0] = (rmx + rw * 0.5 + rng.normal(0, 1, n)) * 16
+    tab[1] = (rmy + rh * 0.5 + rng.normal(0, 1, n)) * 16
+    a, c = np.exp(rng.uniform(-7, -2, n)), np.exp(rng.uniform(-7, -2, n))
+    tab[2], tab[4], tab[3] = a, c, rng.uniform(-0.9, 0.9, n) * np.sqrt(a * c)
+    tab[5] = rng.uniform(0.0, 1.0, n)
+    tab[9] = rng.uniform(0.3, 20.0, n)
+    offsets = (np.cumsum(count) - count).astype(np.int32)
+    ints = [torch.from_numpy(x).to(dev) for x in (rmx, rmy, rw, count, offsets)]
+    return (torch.from_numpy(tab).to(dev), *ints, gx, gx * gy, int(count.sum()))
+
+
+def check_k3(args):
+    before = _build.LAUNCHES["expand"]
+    got = expand.expand_instances(*args)
+    assert _build.LAUNCHES["expand"] == before + 1
+    want = expand.expand_instances_plain(*args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    return want[2]
+
+
+@pytest.mark.parametrize("case", ["whole_image", "zero_runs", "long_zero_runs", "ragged_total", "tiny_total",
+                                  "large_grid"])
+def test_k3_edge_cases_match_plain(dev, case):
+    """K3's slot windows and owner search at their edges, bitwise against
+    the plain version: a Gaussian whose rectangle covers the whole image
+    (its slots span several windows, so windows start inside it); runs of
+    zero-count Gaussians at window and block boundaries, and runs longer
+    than a window scans (its owners then found by binary search); a total
+    that is not a multiple of the window, or smaller than one; and a grid
+    of 65,536 tiles (4096x4096), past the shared histogram."""
+    if case == "whole_image":
+        args = k3_synthetic(dev, 21, 40, 30, 3000, whole=True)
+        assert int(args[4].max()) == 1200 > 2 * K3_WINDOW
+    elif case == "zero_runs":
+        args = k3_synthetic(dev, 22, 40, 30, 9000, zero_frac=0.9, land=0.5)
+        count, offsets = args[4], args[5]
+        at_boundary = (count == 0) & (offsets % K3_WINDOW == 0) & (offsets > 0)
+        assert int(at_boundary.sum()) > 100
+    elif case == "long_zero_runs":
+        args = k3_synthetic(dev, 26, 40, 30, 60000, long_runs=0.01, whole=True)
+        count = args[4].cpu().numpy()
+        runs = np.diff(np.flatnonzero(np.diff(np.r_[1, count, 1] == 0)))[::2]
+        assert int(runs.max()) > 4 * K3_WINDOW and int((runs > 4 * K3_WINDOW).sum()) > 3
+    elif case == "ragged_total":
+        args = k3_synthetic(dev, 23, 40, 30, 5000, land=0.0)
+        assert args[-1] % K3_WINDOW != 0 and args[-1] > 20 * K3_WINDOW
+    elif case == "tiny_total":
+        args = k3_synthetic(dev, 24, 40, 30, 3, zero_frac=0.0, max_wh=3, land=0.0)
+        assert args[-1] < K3_WINDOW
+    else:
+        args = k3_synthetic(dev, 25, 256, 256, 3000, max_wh=20, whole=True)
+        assert args[-2] == 65536 > K3_HIST_CAP
+    kept = int(check_k3(args).sum())
+    assert 0 < kept < args[-1] or case == "tiny_total"  # instances kept and culled
+
+
+def k4_case(dev, seed, width=W, height=H, **kw):
+    acts, cam = scene(60000, seed, dev, width=width, height=height, **kw)
+    tab = preprocess_fused.preprocess_fused_fwd(*acts, cam, 3, 1.0)
+    binning = tiling.bin_gaussians(tab, preprocess_fused.visible_radii(tab), width, height)
+    return tab, binning, torch.tensor([0.2, 0.4, 0.6], device=dev)
+
+
+def check_k4(tab, binning, bg, width, height):
+    before = _build.LAUNCHES["blend_fwd"]
+    got = raster_tiles._run_fwd(tab, binning, bg, width, height)
+    assert _build.LAUNCHES["blend_fwd"] == before + 1
+    c, d, a = raster_tiles.blend_fwd_plain(tab, binning, bg, width, height)
+    torch.testing.assert_close(got[0], c, atol=2e-5, rtol=1e-4)
+    torch.testing.assert_close(got[1], d, atol=2e-4, rtol=1e-4)
+    torch.testing.assert_close(got[2], a, atol=2e-5, rtol=1e-4)
+    return got
+
+
+def test_k4_long_lists_and_empty_tiles_match_plain(dev):
+    """Tiles whose lists take several 256-instance rounds (each round's
+    fields copied while the last is walked) beside empty tiles."""
+    tab, binning, bg = k4_case(dev, 31, left=True)
+    assert int(binning.tile_count.max()) > 3 * 256
+    assert int((binning.tile_count == 0).sum()) > 0
+    check_k4(tab, binning, bg, W, H)
+
+
+@pytest.mark.parametrize("width,height", [(97, 61), (33, 250)])
+def test_k4_ragged_image_matches_plain(dev, width, height):
+    """Width and height that are not multiples of 16: the edge tiles'
+    pixels outside the image count as done and are not written."""
+    tab, binning, bg = k4_case(dev, 32, width, height)
+    color, depth, alpha = check_k4(tab, binning, bg, width, height)
+    assert color.shape == (3, height, width) and depth.shape == alpha.shape == (height, width)
+    assert float(alpha.max()) > 0.5
+
+
+def test_k4_is_deterministic_and_order_free(dev):
+    """Repeat launches give the same bits, and so does the identity tile
+    order in place of the binning's (a tile's pixels depend on its list
+    alone)."""
+    tab, binning, bg = k4_case(dev, 33, opaque=True)
+    first = raster_tiles._run_fwd(tab, binning, bg, W, H)
+    second = raster_tiles._run_fwd(tab, binning, bg, W, H)
+    num_tiles = binning.grid_x * binning.grid_y
+    ident = binning._replace(tile_order=torch.arange(num_tiles, dtype=torch.int32, device=dev))
+    assert not torch.equal(ident.tile_order, binning.tile_order)
+    third = raster_tiles._run_fwd(tab, ident, bg, W, H)
+    torch.cuda.synchronize()
+    for a, b, c in zip(first, second, third):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 # every sh_degree instance of K2's template, each with k_total = 16

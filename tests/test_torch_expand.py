@@ -17,7 +17,7 @@ import torch
 from guidedvd3dgs_tpu.ops import raster_tiles as jax_raster_tiles
 from guidedvd3dgs_tpu.ops import tiling as jax_tiling
 from guidedvd3dgs_tpu.ops.projection import preprocess_gaussians as jax_preprocess
-from guidedvd3dgs_tpu_torch.ops import expand, tiling
+from guidedvd3dgs_tpu_torch.ops import expand, raster_tiles, tiling
 
 from helpers import make_camera
 
@@ -132,3 +132,45 @@ def test_expand_plain_keys_and_owners():
     depth_bits = (keys & 0xFFFFFFFF).to(torch.int32).view(torch.float32)
     assert depth_bits.tolist() == [3.0, 3.0, 2.0, 2.0, 2.0]
     assert hist.tolist() == [1, 1, 0, 1, 1, 1]
+
+
+@pytest.mark.parametrize("n,seed", [(150, 3), (500, 4)])
+def test_binning_tile_order(n, seed):
+    """`tile_order`, the order in which the blend kernels start their
+    tiles, is a permutation of the tiles with counts that do not increase,
+    and tiles of equal count keep tile order (a stable argsort)."""
+    cam = make_camera(height=H, width=W).raster_camera()
+    proc = jax_preprocess(*map(jnp.asarray, depth_separated_scene(n, seed)), cam)
+    tab, radii = table_from_reference(proc)
+    port = tiling.bin_gaussians(tab, radii, W, H)
+    order = port.tile_order
+    num_tiles = port.grid_x * port.grid_y
+    assert order.dtype == torch.int32 and order.shape == (num_tiles,)
+    assert sorted(order.tolist()) == list(range(num_tiles))
+    counts = port.tile_count[order.long()]
+    assert bool((counts[1:] <= counts[:-1]).all())
+    ties = counts[1:] == counts[:-1]
+    assert bool(ties.any()) and bool((order[1:][ties] > order[:-1][ties]).all())
+    assert int(counts[0]) == int(port.tile_count.max()) > int(counts[-1])
+
+
+def test_blend_ignores_tile_order():
+    """The blend forward and backward (CPU path: their plain versions) take
+    the binning with its tile order and give the same bits under the
+    identity order: a tile's pixels depend on its own list alone."""
+    cam = make_camera(height=H, width=W).raster_camera()
+    proc = jax_preprocess(*map(jnp.asarray, depth_separated_scene(800, 5)), cam)
+    tab, radii = table_from_reference(proc)
+    port = tiling.bin_gaussians(tab, radii, W, H)
+    ident = port._replace(tile_order=torch.arange(port.grid_x * port.grid_y, dtype=torch.int32))
+    assert not torch.equal(ident.tile_order, port.tile_order)
+    bg = torch.tensor([0.2, 0.4, 0.6])
+    fwd = raster_tiles._run_fwd(tab, port, bg, W, H)
+    for a, b in zip(fwd, raster_tiles._run_fwd(tab, ident, bg, W, H)):
+        assert torch.equal(a, b)
+    gen = torch.Generator().manual_seed(0)
+    cot = (torch.randn((3, H, W), generator=gen), torch.randn((H, W), generator=gen),
+           torch.randn((H, W), generator=gen))
+    grads = [raster_tiles._run_bwd(tab, b, *fwd, *cot, W, H) for b in (port, ident)]
+    assert grads[0].shape == (port.num_instances, 10) and float(grads[0].abs().max()) > 0
+    assert torch.equal(grads[0], grads[1])
