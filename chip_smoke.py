@@ -16,7 +16,15 @@ and the exit code is non-zero; there is no CPU fallback):
               plain version's median ms, its bound from the bytes and
               operations of this data, for K6 the one PyTorch call that
               computes the same (torch.segment_reduce), and the tiles'
-              instance counts and walks (max, p99, mean)
+              instance counts and walks (max, p99, mean). K1 reads the SH
+              pair (features_dc, features_rest) in place; its full table
+              is held to the plain version, and as the tile rasterizer
+              calls it (rows 6-8 of the Gaussians without a tile skipped,
+              a screen offset) to that table bitwise; it is timed as the
+              rasterizer calls it, against the bound of the bytes it needs
+              (the SH of the Gaussians in a tile only), with the all-rows
+              bound and the full table's ms beside it. K2 with the SH
+              pair is held bitwise to K2 with one SH tensor
   4. render   a 1,000,000-Gaussian, SH degree 3 room at 640x480, hfov 90
               (the Replica camera), written in the colmap layout, rendered
               by `guidedvd3dgs_tpu_torch.render.main` and scored by
@@ -36,10 +44,13 @@ and the exit code is non-zero; there is no CPU fallback):
               one densify_and_prune whose threshold is placed so that a
               tenth of the Gaussians clone or split (the init cloud's
               event at step 40 is near-empty): its time, the Gaussians
-              before and after, the step time after it; and K3, K4, K5
-              and K2 alone at one train view of the room by CUDA events,
-              with their bounds from that view's counts and its tile
-              statistics
+              before and after, the step time after it; and K1 (as the
+              rasterizer calls it, and its full table), K3, K4, K5, K6 and
+              K2 alone at one train view of the room by CUDA events, with
+              their bounds from that view's counts and its tile
+              statistics. Phases 4, 5 and 5b's traces count torch.cat's
+              kernels and the CatBackward nodes (phases 5 and 5b fail on
+              one: the SH reaches K1 and K2 unconcatenated)
   6. CLI      `guidedvd3dgs_tpu_torch.train_baseline` for 2000 iterations
               on the tool-default synthetic scene (scene.synthetic.
               make_scene), then the render and metrics CLIs on its
@@ -105,8 +116,9 @@ phases 1, 2, 7a and 7b-7c (L1's forward kernels and the DDIM request);
 and the trainer).
 The line before the last is the JSON kernel table (launches of K1-K6 from
 phase 5, of L1's forward from phase 7b, of its backward from phase 8b; for
-K1-K6 `host_ms` beside `ms`, and for K3, K4, K5 and K2 `ms_dense` and
-`bound_ms_dense` from phase 5b's view);
+K1-K6 `host_ms` beside `ms` and `ms_dense` and `bound_ms_dense` from
+phase 5b's view; for K1 also `ms_full_table`, `bound_ms_all_rows` and
+their `_dense` twins);
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -344,10 +356,12 @@ def log(msg: str) -> None:
 
 
 def activations(params):
+    """The rasterizer's inputs: means, scales, rotations, opacities and the
+    SH as the model holds it, (features_dc, features_rest)."""
     with torch.no_grad():
         return (params.xyz.detach().contiguous(), params.get_scaling.contiguous(),
                 params.get_rotation.contiguous(), params.get_opacity.contiguous(),
-                params.get_features.contiguous())
+                (params.features_dc.detach().contiguous(), params.features_rest.detach().contiguous()))
 
 
 def median_ms(fn, runs: int = 10, warmup: int = 2) -> float:
@@ -408,9 +422,12 @@ def trace_summary(prof, units: int):
     """From a torch.profiler trace of `units` views or steps: the device ms
     per unit of each stage (by kernel name), the device's idle share of the
     traced span (first event to last device event; the profiler's own host
-    cost widens the gaps), and the host ms per unit and count per unit of
-    the read-backs (`aten::_local_scalar_dense`)."""
+    cost widens the gaps), the host ms per unit and count per unit of the
+    read-backs (`aten::_local_scalar_dense`), and the concatenations: the
+    count and device ms per unit of torch.cat's kernels with the longest
+    one's us, and the CatBackward nodes (a split of a gradient) per unit."""
     stage_us, spans, readback_us, readbacks = {}, [], 0.0, 0
+    cat_us, cat_longest, cats, cat_backward = 0.0, 0.0, 0, 0
     first, last = math.inf, -math.inf
     for evt in prof.events():
         start, end = evt.time_range.start, evt.time_range.end
@@ -421,11 +438,24 @@ def trace_summary(prof, units: int):
             stage_us[stage] = stage_us.get(stage, 0.0) + (end - start)
             spans.append((start, end))
             last = max(last, end)
+            if "catarraybatchedcopy" in name:
+                cats += 1
+                cat_us += end - start
+                cat_longest = max(cat_longest, end - start)
         elif evt.name == "aten::_local_scalar_dense":
             readback_us += end - start
             readbacks += 1
+        elif "CatBackward" in evt.name:
+            cat_backward += 1
     ms = {k: v / 1e3 / units for k, v in stage_us.items()}
-    return ms, idle_share(spans, first, last), readback_us / 1e3 / units, readbacks / units
+    concat = dict(kernels=cats / units, ms=cat_us / 1e3 / units, longest_us=cat_longest,
+                  cat_backward=cat_backward / units)
+    return ms, idle_share(spans, first, last), readback_us / 1e3 / units, readbacks / units, concat
+
+
+def fmt_concat(concat: dict, unit: str) -> str:
+    return (f"torch.cat kernels/{unit} {concat['kernels']:g} ({concat['ms']:.4f} ms, the longest "
+            f"{concat['longest_us']:.1f} us), CatBackward/{unit} {concat['cat_backward']:g}")
 
 
 def idle_share(spans, first: float, last: float) -> float:
@@ -586,9 +616,9 @@ def bwd_inputs(acts, cam, tab, binning, image, gen):
 
 def view_inputs(params, cam, bg, seed: int):
     """One view's K5 and K2 arguments (bwd_inputs, cotangents from `seed`),
-    through the kernels K1, K3 and K4."""
+    through the kernels K1 (as the tile rasterizer calls it), K3 and K4."""
     acts = activations(params)
-    tab = preprocess_fused.preprocess_fused_fwd(*acts, cam, 3, 1.0)
+    tab = preprocess_fused.preprocess_fused_fwd(*acts, cam, 3, 1.0, skip_unbinned=True)
     binning = tiling.bin_gaussians(tab, preprocess_fused.visible_radii(tab), cam.width, cam.height)
     image = raster_tiles._run_fwd(tab, binning, bg, cam.width, cam.height)
     gen = torch.Generator(device=tab.device)
@@ -630,6 +660,27 @@ def dense_view(pcams, dev):
     return pcams[synthetic.split_ids(N_CAMS, 6)[0][0]].raster_camera(dev)
 
 
+def k1_bounds(acts, binned: int) -> dict:
+    """K1's two bounds on one view: the geometry (means, scales, rotations,
+    opacity: 44 B) read and the 16 rows (64 B) written for every Gaussian,
+    and the SH rows (16 coefficients at degree 3: 192 B) read only for the
+    `binned` Gaussians, those a tile holds (`needed`: what the tile
+    rasterizer's K1 reads), or for every Gaussian (`all_rows`: the full
+    table's); ~600 operations per Gaussian at SH 3 (transform, cov3D, EWA,
+    conic, tile count, 48 SH products)."""
+    n, sh_bytes = acts[0].shape[0], 16 * 3 * 4
+    base = n * (11 * 4 + 16 * 4)
+    return dict(needed=bound(base + binned * sh_bytes, 600 * n),
+                all_rows=bound(base + n * sh_bytes, 600 * n))
+
+
+def k6_bound(grad, binning):
+    """K6's bound on one view: 40 B read per instance slot, the offset and
+    count read and 40 B written per Gaussian; one add per value."""
+    total, n = grad.shape[0], binning.offsets.numel()
+    return bound(total * 40 + n * 48, total * 10)
+
+
 def k3_bound(k3_args):
     """K3's bound on one view: the count read for every Gaussian, the other
     11 rows (7 of the table, rect x, y, w and the offset) only for the
@@ -663,7 +714,7 @@ def k2_bound(k2_args):
     """K2's bound: the inputs read and the gradients (shaped like them)
     written, 10 cotangents read; ~1000 operations per Gaussian (recompute
     and reverse sweep)."""
-    acts, n = k2_args[:5], k2_args[0].shape[0]
+    acts, n = k2_args[:4] + tuple(k2_args[4]), k2_args[0].shape[0]
     n_in = sum(t.numel() for t in acts) * 4
     return bound(2 * n_in + 10 * 4 * n, 1000 * n)
 
@@ -676,9 +727,15 @@ def phase_kernels(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
 
-    # K1
+    # K1: the full table (the JAX kernel's) against the plain version, then
+    # as the tile rasterizer calls it (rows 6-8 of the Gaussians without a
+    # tile skipped, a screen offset) against the full table, bitwise
     tab_k = preprocess_fused.preprocess_fused_fwd(*acts, cam, 3, 1.0)
     tab_p = preprocess_fused.preprocess_table_plain(*acts, cam, 3, 1.0)
+    screen_off = 0.01 * torch.randn((n, 2), generator=torch.Generator(device=dev).manual_seed(SEED + 9),
+                                    device=dev)
+    tab_s = preprocess_fused.preprocess_fused_fwd(*acts, cam, 3, 1.0, means2d_offset=screen_off,
+                                                  skip_unbinned=True)
     torch.cuda.synchronize()
     d = (tab_k[K1_ROWS] - tab_p[K1_ROWS]).abs()
     if not bool((d <= K1_ATOL + K1_RTOL * tab_p[K1_ROWS].abs()).all()):
@@ -689,14 +746,27 @@ def phase_kernels(dev):
     if rad_bad > max(10, N_KERNEL_CHECK // 10000):
         raise AssertionError(f"K1 radius differs on {rad_bad} Gaussians")
     k1_err = d.max().item()
-    n_in = sum(t.numel() for t in acts) * 4
+    want = tab_k.clone()
+    want[0] = want[0] + screen_off[:, 0] * (0.5 * cam.width)
+    want[1] = want[1] + screen_off[:, 1] * (0.5 * cam.height)
+    binned = tiling.tile_rects(want[0], want[1], preprocess_fused.visible_radii(want), want[12], want[13],
+                               cam.width, cam.height)[4] > 0
+    want[6:9, ~binned] = 0.0
+    if not torch.equal(tab_s, want):
+        raise AssertionError("K1 with the skip and the offset differs from its full table plus the offset "
+                             "(rows 6-8 zero where no tile) in bits")
+    n_binned = int(binned.sum())
+    k1_bounds_v = k1_bounds(acts, n_binned)
     res["preprocess_fwd"] = dict(
         max_abs_err=k1_err,
-        **kernel_times(lambda: preprocess_fused.preprocess_fused_fwd(*acts, cam, 3, 1.0),
-                       lambda: preprocess_fused.preprocess_table_plain(*acts, cam, 3, 1.0)),
-        # ~600 operations per Gaussian at SH 3 (transform, cov3D, EWA, conic, 48 SH products)
-        bound=bound(n_in + 16 * 4 * n, 600 * n),
+        **kernel_times(lambda: preprocess_fused.preprocess_fused_fwd(*acts, cam, 3, 1.0, skip_unbinned=True),
+                       lambda: preprocess_fused.preprocess_table_plain(*acts, cam, 3, 1.0,
+                                                                       skip_unbinned=True)),
+        bound=k1_bounds_v["needed"],
     )
+    res["preprocess_fwd"]["extra"].update(
+        ms_full_table=event_ms(lambda: preprocess_fused.preprocess_fused_fwd(*acts, cam, 3, 1.0)),
+        bound_ms_all_rows=k1_bounds_v["all_rows"][0])
 
     # K3, on the kernel table
     tab = tab_k
@@ -763,15 +833,23 @@ def phase_kernels(dev):
         **kernel_times(lambda: segsum.segment_sum_sorted(gi_k, off, cnt),
                        lambda: segsum.segment_sum_sorted_plain(gi_k, off, cnt),
                        lambda: torch.segment_reduce(gi_k, "sum", lengths=cnt, axis=0)),
-        bound=bound(total * 40 + n * 48, total * 10),
+        bound=k6_bound(gi_k, binning),
     )
 
-    # K2, on seeded cotangents (culled rows none, as the rasterizer hands them)
+    # K2, on seeded cotangents (culled rows none, as the rasterizer hands
+    # them), with the SH pair; and with the SH as one tensor, bitwise alike
     g_k = preprocess_fused.preprocess_fused_bwd(*k2_args)
     g_p = preprocess_fused.preprocess_fused_bwd_plain(*k2_args)
+    cat_args = list(k2_args)
+    cat_args[4] = torch.cat(k2_args[4], dim=1)
+    g_cat = preprocess_fused.preprocess_fused_bwd(*cat_args)
     torch.cuda.synchronize()
+    g_k, g_p = g_k[:4] + g_k[4], g_p[:4] + g_p[4]
+    if not all(torch.equal(a, b) for a, b in zip(g_k[:4] + (torch.cat(g_k[4:], 1),), g_cat)):
+        raise AssertionError("K2 with the SH as one tensor differs from K2 with the pair in bits")
     k2_errs = {}
-    for nm, a, b in zip(("means", "scales", "rotations", "opacity", "shs"), g_k, g_p):
+    for nm, a, b in zip(("means", "scales", "rotations", "opacity", "features_dc", "features_rest"),
+                        g_k, g_p):
         if not bool(torch.isfinite(a).all()):
             raise AssertionError(f"K2 {nm}: non-finite gradients")
         k2_errs[nm] = ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
@@ -790,18 +868,22 @@ def phase_kernels(dev):
         return (f"{r['ms']:.4f} ms (CUDA events; host clock {r['extra']['host_ms']:.3f}) vs plain "
                 f"{r['plain_ms']:.3f} ms{lib}, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
 
-    log(f"phase 3 kernels vs plain (N={N_KERNEL_CHECK}, {WIDTH}x{HEIGHT}, SH 3; "
-        f"{total} instances; instance-pixel pairs walked {blended + culled}, blended {blended}; "
+    k1 = res["preprocess_fwd"]["extra"]
+    log(f"phase 3 kernels vs plain (N={N_KERNEL_CHECK}, {WIDTH}x{HEIGHT}, SH 3; {n_binned} Gaussians in a "
+        f"tile; {total} instances; instance-pixel pairs walked {blended + culled}, blended {blended}; "
         f"{tile_stats(binning, walks)}): "
-        f"K1 max abs err {k1_err:.3g} (tol {K1_ATOL} + {K1_RTOL} rel; radius mismatches {rad_bad}) "
-        f"{t('preprocess_fwd')} | K3 keys/owners/hist exact, {t('expand')} | "
+        f"K1 full table max abs err {k1_err:.3g} (tol {K1_ATOL} + {K1_RTOL} rel; radius mismatches "
+        f"{rad_bad}), with the skip and an offset bitwise the full table's (rows 6-8 zero where no tile); "
+        f"as the rasterizer calls it {t('preprocess_fwd')} (needed bytes: the SH of the Gaussians in a "
+        f"tile), all-rows bound {k1['bound_ms_all_rows']:.4f} ms, the full table "
+        f"{k1['ms_full_table']:.4f} ms | K3 keys/owners/hist exact, {t('expand')} | "
         f"K4 max abs err " + ", ".join(f"{k} {v:.3g}" for k, v in k4_errs.items())
         + f" (tol (atol, stop atol) {K4_TOL}, rtol {K4_RTOL}) {t('blend_fwd')} | "
         f"K5 max abs err {k5_err:.3g}, rows outside {K5_ATOL} max|g| + {K5_RTOL} |g|: {k5_bad:.3g} "
         f"(allowed {K5_STOP_FRACTION}) {t('blend_bwd')} | "
         f"K6 max abs err {res['segsum']['max_abs_err']:.3g} (tol count 2^-23 sum|g|) {t('segsum')} | "
         f"K2 max abs err / max |grad| " + ", ".join(f"{k} {v:.3g}" for k, v in k2_errs.items())
-        + f" (tol {K2_TOL}) {t('preprocess_bwd')}")
+        + f" (tol {K2_TOL}; the SH as one tensor bitwise alike) {t('preprocess_bwd')}")
     return res
 
 
@@ -863,7 +945,7 @@ def phase_main(dev, work: Path):
             raise AssertionError("render is (nearly) constant")
         instances.append(ref.num_instances)
     # where the device time goes: one trace of eval_render over the views
-    dev_ms, idle, readback_ms, readbacks = profile_views(params, test_cams, bg, PROFILE_REPS)
+    dev_ms, idle, readback_ms, readbacks, concat = profile_views(params, test_cams, bg, PROFILE_REPS)
 
     # one full-size view against the chain of plain versions
     (c_p, d_p, a_p), total_p = plain_chain(params, test_cams[0], bg)
@@ -878,7 +960,7 @@ def phase_main(dev, work: Path):
         f"{int(statistics.median(instances))} (min {min(instances)}, max {max(instances)}) | "
         f"render ms/view median {statistics.median(whole):.3f} | traced device ms/view "
         + fmt_stages(dev_ms) + f", idle share {idle:.3f} (under the profiler) | "
-        f"read-backs/view {readbacks:g}, host wait {readback_ms:.3f} ms/view | "
+        f"read-backs/view {readbacks:g}, host wait {readback_ms:.3f} ms/view; {fmt_concat(concat, 'view')} | "
         f"render CLI {render_cli_s:.1f} s | launches {launches} | "
         f"plain chain max abs err {chain_err:.3g}")
     return launches
@@ -953,6 +1035,14 @@ def run_steps(trainer, iters: int, trace: range):
     return step_ms, losses, instances, prof
 
 
+def check_no_sh_split(concat: dict) -> None:
+    """A training step hands K1 and K2 the SH in place: no gradient is split
+    after a concatenation."""
+    if concat["cat_backward"]:
+        raise AssertionError(f"{concat['cat_backward']:g} CatBackward nodes a step: a concatenation "
+                             "is differentiated on the training step")
+
+
 def check_launches(iters: int) -> dict:
     launches = dict(_build.LAUNCHES)
     if any(launches[n] != iters for n in GAUSSIAN_KERNELS) or any(
@@ -1011,7 +1101,8 @@ def phase_train(dev):
         raise AssertionError(f"the loss did not fall: step 1 {first}, step {TRAIN_ITERS} {last}; "
                              f"first epoch mean {epoch_first}, last {epoch_last}")
     untraced = [ms for it, ms in step_ms.items() if it not in TRACE_STEPS and it != DENSIFY_AT]
-    dev_ms, idle, rb_ms, rbs = trace_summary(prof, len(TRACE_STEPS))
+    dev_ms, idle, rb_ms, rbs, concat = trace_summary(prof, len(TRACE_STEPS))
+    check_no_sh_split(concat)
     lines = [
         f"trainer ({N_SCENE} Gaussians from a noisy room cloud, SH 3 from step 1, {WIDTH}x{HEIGHT} "
         f"hfov {HFOV}, 6 train views, {TRAIN_ITERS} steps): create_from_pcd {init_ms:.1f} ms; "
@@ -1028,7 +1119,7 @@ def phase_train(dev):
         f"launches {launches}",
         f"traced device ms/step over steps {TRACE_STEPS.start}-{TRACE_STEPS[-1]}: "
         + fmt_stages(dev_ms) + f", idle share {idle:.3f} (under the profiler); read-backs/step "
-        f"{rbs:g}, host wait {rb_ms:.3f} ms/step",
+        f"{rbs:g}, host wait {rb_ms:.3f} ms/step; {fmt_concat(concat, 'step')}",
     ]
     for line in lines:
         log("phase 5 " + line)
@@ -1044,24 +1135,37 @@ def phase_train_dense(dev):
     event with its two dist_knn3 at 1M, then steps at the grown size."""
     gt, pcams, params = dense_room(dev)
     views = train_views(gt, pcams, dev)
-    # K3, K4, K5 and K2 alone at one view of the room, before the trainer starts
+    # K1, K3, K4, K5, K6 and K2 alone at one view of the room, before the
+    # trainer starts (K1 as the tile rasterizer calls it, and its full table)
     bg = torch.zeros(3, device=dev)
-    k5_args, k2_args = view_inputs(params, dense_view(pcams, dev), bg, SEED + 3)
+    cam = dense_view(pcams, dev)
+    k5_args, k2_args = view_inputs(params, cam, bg, SEED + 3)
     tab, binning = k5_args[:2]
     k3_args = (tab, *tiling.expand_inputs(tab, preprocess_fused.visible_radii(tab), WIDTH, HEIGHT))
     blended, culled, walks = evaluated_pairs(tab, binning, WIDTH, HEIGHT)
-    dense = {"expand": dict(ms=event_ms(lambda: expand.expand_instances(*k3_args)),
+    acts = k2_args[:5]
+    k1_b = k1_bounds(acts, int((k3_args[4] > 0).sum()))
+    grad_inst = raster_tiles._run_bwd(*k5_args)
+    dense = {"preprocess_fwd": dict(ms=event_ms(lambda: preprocess_fused.preprocess_fused_fwd(
+                 *acts, cam, 3, 1.0, skip_unbinned=True)), bound=k1_b["needed"],
+                 ms_full_table=event_ms(lambda: preprocess_fused.preprocess_fused_fwd(*acts, cam, 3, 1.0)),
+                 bound_all_rows=k1_b["all_rows"]),
+             "expand": dict(ms=event_ms(lambda: expand.expand_instances(*k3_args)),
                             bound=k3_bound(k3_args)),
              "blend_fwd": dict(ms=event_ms(lambda: raster_tiles._run_fwd(tab, binning, bg, WIDTH, HEIGHT)),
                                bound=k4_bound(binning, WIDTH, HEIGHT, blended, culled)),
              "blend_bwd": dict(ms=event_ms(lambda: raster_tiles._run_bwd(*k5_args)),
                                bound=k5_bound(k5_args, blended, culled)),
+             "segsum": dict(ms=event_ms(lambda: segsum.segment_sum_sorted(grad_inst, binning.offsets,
+                                                                          binning.count)),
+                            bound=k6_bound(grad_inst, binning)),
              "preprocess_bwd": dict(ms=event_ms(lambda: preprocess_fused.preprocess_fused_bwd(*k2_args)),
                                     bound=k2_bound(k2_args))}
     view = (f"train view {synthetic.split_ids(N_CAMS, 6)[0][0]} of the room before the steps "
-            f"({params.xyz.shape[0]} Gaussians, {k5_args[1].num_instances} instances, pairs walked "
+            f"({params.xyz.shape[0]} Gaussians, {int((k3_args[4] > 0).sum())} in a tile, "
+            f"{k5_args[1].num_instances} instances, pairs walked "
             f"{blended + culled}, blended {blended}; {tile_stats(k5_args[1], walks)})")
-    del k5_args, k2_args, k3_args, tab, binning
+    del k5_args, k2_args, k3_args, tab, binning, acts, grad_inst
     state = G.GaussianState.fresh(params)
     opt = OptimizationParams(iterations=DENSE_ITERS, densify_from_iter=DENSE_DENSIFY_AT // 2,
                              densification_interval=DENSE_DENSIFY_AT,
@@ -1090,7 +1194,8 @@ def phase_train_dense(dev):
         raise AssertionError(f"non-finite losses: {[float(v) for v in losses]}")
     before = [step_ms[it] for it in range(2, DENSE_TRACE.start)]
     after = [step_ms[it] for it in range(DENSE_DENSIFY_AT + 1, DENSE_ITERS + 1)]
-    dev_ms, idle, rb_ms, rbs = trace_summary(prof, len(DENSE_TRACE))
+    dev_ms, idle, rb_ms, rbs, concat = trace_summary(prof, len(DENSE_TRACE))
+    check_no_sh_split(concat)
     lines = [
         f"trained density ({N_SCENE} Gaussians of the noisy ground-truth room, SH 3, {WIDTH}x{HEIGHT}, "
         f"6 train views, {DENSE_ITERS} steps): instances/view median "
@@ -1108,12 +1213,15 @@ def phase_train_dense(dev):
         f"(from a near-exact start); launches {launches}",
         f"traced device ms/step over steps {DENSE_TRACE.start}-{DENSE_TRACE[-1]}: "
         + fmt_stages(dev_ms) + f", idle share {idle:.3f} (under the profiler); read-backs/step "
-        f"{rbs:g}, host wait {rb_ms:.3f} ms/step",
-        f"K3, K4, K5 and K2 alone at {view}, CUDA events over {EVENT_LAUNCHES} launches: "
+        f"{rbs:g}, host wait {rb_ms:.3f} ms/step; {fmt_concat(concat, 'step')}",
+        f"K1, K3, K4, K5, K6 and K2 alone at {view}, CUDA events over {EVENT_LAUNCHES} launches: "
         + " | ".join(f"{k} {dense[name]['ms']:.4f} ms, bound {dense[name]['bound'][0]:.4f} ms "
                      f"({dense[name]['bound'][1]})"
-                     for k, name in (("K3", "expand"), ("K4", "blend_fwd"), ("K5", "blend_bwd"),
-                                     ("K2", "preprocess_bwd"))),
+                     for k, name in (("K1", "preprocess_fwd"), ("K3", "expand"), ("K4", "blend_fwd"),
+                                     ("K5", "blend_bwd"), ("K6", "segsum"), ("K2", "preprocess_bwd")))
+        + f" | K1 (needed bytes: the SH of the Gaussians in a tile) all-rows bound "
+        f"{dense['preprocess_fwd']['bound_all_rows'][0]:.4f} ms, its full table "
+        f"{dense['preprocess_fwd']['ms_full_table']:.4f} ms",
     ]
     for line in lines:
         log("phase 5b " + line)
@@ -1874,6 +1982,8 @@ def main() -> None:
     launches.update({name: guided[name] for name in L1_BWD_KERNELS})
     for name, d in dense.items():
         res[name]["extra"].update(ms_dense=d["ms"], bound_ms_dense=d["bound"][0])
+    res["preprocess_fwd"]["extra"].update(ms_full_table_dense=dense["preprocess_fwd"]["ms_full_table"],
+                                          bound_ms_all_rows_dense=dense["preprocess_fwd"]["bound_all_rows"][0])
     log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
         + f"; total {time.perf_counter() - start:.1f}")
     table = [

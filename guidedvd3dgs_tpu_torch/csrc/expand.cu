@@ -52,9 +52,6 @@
 // per Gaussian kernel before it (IEEE, -fmad=false), so keys, owners and
 // histogram are bitwise equal to it and to the plain version.
 
-#include <algorithm>
-#include <mutex>
-
 #include "common.cuh"
 
 namespace gvd {
@@ -278,46 +275,6 @@ __global__ void __launch_bounds__(K3_THREADS, K3_MIN_BLOCKS)
 }  // namespace
 }  // namespace gvd
 
-// The blocks of K3 resident at once on the current device with `smem`
-// bytes of dynamic shared memory. The runtime's queries cost about as
-// much host time as K3's launch, so each (device, smem) is asked once and
-// kept (the shared histogram's size follows the image size, so a process
-// sees few of them).
-static cudaError_t resident_blocks(int smem, int64_t* out) {
-  struct Entry {
-    int dev, smem;
-    int64_t blocks;
-  };
-  constexpr int CAP = 32;
-  static std::mutex mu;
-  static Entry cache[CAP];
-  static int used = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < std::min(used, CAP); ++i) {
-    if (cache[i].dev == dev && cache[i].smem == smem) {
-      *out = cache[i].blocks;
-      return cudaSuccess;
-    }
-  }
-  const auto kernel = gvd::expand_kernel;
-  // the largest size any launch asks for, so that no later launch needs
-  // the attribute set again
-  const int smem_max = (int)(2 * sizeof(gvd::Staged)) + gvd::HIST_CAP * (int)sizeof(int);
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, gvd::K3_THREADS, smem);
-  if (err != cudaSuccess) return err;
-  *out = sms * per_sm > 0 ? (int64_t)sms * per_sm : 1;
-  cache[used++ % CAP] = Entry{dev, smem, *out};
-  return cudaSuccess;
-}
-
 // total: the sum of count (the number of slots); hist must be zeroed
 GVD_API int gvd_expand(const float* tab, int n, const int* rect_min_x, const int* rect_min_y,
                        const int* rect_w, const int* count, const int* offsets, int gx,
@@ -328,8 +285,10 @@ GVD_API int gvd_expand(const float* tab, int n, const int* rect_min_x, const int
   const int threads = gvd::K3_THREADS;
   const int smem = (int)(2 * sizeof(gvd::Staged)) + (shared_hist ? num_tiles * (int)sizeof(int) : 0);
   // as many blocks as are resident at once, each taking a range of slots
+  // (the shared histogram's size follows the image size: a process sees
+  // few of them)
   int64_t resident = 1;
-  const cudaError_t err = resident_blocks(smem, &resident);
+  const cudaError_t err = gvd::resident_blocks((const void*)gvd::expand_kernel, threads, smem, &resident);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;

@@ -5,7 +5,11 @@
 // projection.preprocess_field_rows traced inside the kernel. Given the
 // cotangents of the 10 render fields (mx2d, my2d, conic a/b/c, opacity,
 // r/g/b, depth) it returns the gradients of the post-activation means
-// (N,3), scales (N,3), rotations (N,4), opacity (N) and SH (N,K,3). Like
+// (N,3), scales (N,3), rotations (N,4), opacity (N) and SH (N,K,3), the
+// SH read and its gradient written as band 0 (features_dc, (N,1,3)) and
+// bands 1..K-1 (features_rest, (N,K-1,3)), each a pointer and a row stride
+// on the way in (a concatenated (N,K,3) tensor is the same rows at
+// pointers shs and shs + 3, stride 3K), two contiguous tensors out. Like
 // the TPU kernel it keeps no residuals: each thread recomputes its
 // Gaussian's forward (K1's formulas, op by op) and then runs the reverse
 // sweep written out by hand. It follows the autodiff semantics of the
@@ -40,24 +44,26 @@
 //     active_degree, k_total and scale_modifier stay runtime arguments,
 //     and coefficients (sh_degree + 1)^2 .. k_total - 1 get zeros;
 //   - a slab of K2_THREADS consecutive Gaussians is staged whole: the
-//     block copies its contiguous rows of rotations, means, scales and SH
-//     into shared memory (consecutive floats, coalesced), each thread
+//     block copies its rows of rotations, means, scales and SH (band 0
+//     and the rest from their two sources into one shared row) into
+//     shared memory (slab.cuh: consecutive floats, coalesced), each thread
 //     reads its rows there (row strides odd, or 16 bytes read as one
 //     vector, so without bank conflicts) and writes its gradient rows over
-//     them, and the block stores the slab with 16-byte stores. The
+//     them, and the block stores the slab with 16-byte stores (the SH
+//     gradient's band 0 and the rest to their two outputs). The
 //     cotangents (10, N) and the opacity gradient (N) are rows already and
 //     stay direct, coalesced;
 //   - a block's copy and its sweep would otherwise take turns (the sweep
 //     is latency-bound): each block walks slabs blockIdx.x, + gridDim.x,
 //     ..., with two buffers, and the next slab's rows arrive by cp.async
 //     while this slab is swept. The grid is the number of blocks resident
-//     at once (3 of 128 an SM, by the two buffers' shared memory), so the
-//     launch bounds leave a thread up to 168 registers and nothing spills;
+//     at once (3 of 128 an SM, by the two buffers' shared memory; asked of
+//     the runtime once per device and shared memory size), so the launch
+//     bounds leave a thread up to 168 registers and nothing spills;
 //   - each thread's arithmetic is the unstaged kernel's, in the same
 //     order (IEEE, -fmad=false), so the gradients are bitwise equal to it.
 
-#include "common.cuh"
-#include "hopper.cuh"
+#include "slab.cuh"
 
 namespace gvd {
 namespace {
@@ -82,76 +88,6 @@ constexpr int K2_THREADS = 128;
 constexpr int K2_MIN_BLOCKS = 3;
 
 __device__ __forceinline__ bool inside(float x, float lo, float hi) { return x >= lo && x <= hi; }
-
-// Row stride in shared memory of a row of w floats read one float at a
-// time: odd, so the 32 lanes of a warp reading one column hit 32 banks.
-__host__ __device__ inline int odd_stride(int w) { return w | 1; }
-
-// Floats before the first 16-byte boundary at or after p, at most len.
-__device__ __forceinline__ int head_floats(const float* p, int len) {
-  return min(len, (int)(((16u - ((unsigned)(uintptr_t)p & 15u)) & 15u) >> 2));
-}
-
-// result[u] = a[(u + r) & 3]
-__device__ __forceinline__ float4 rotl4(float4 a, int r) {
-  const float4 b = (r & 1) ? make_float4(a.y, a.z, a.w, a.x) : a;
-  return (r & 2) ? make_float4(b.z, b.w, b.x, b.y) : b;
-}
-
-// The row and column of float e0 = head + 4 threadIdx.x in rows of w, and
-// the rows and columns a thread's next vector lies further on.
-struct SlabWalk {
-  int r, c, dr, dc;
-  __device__ SlabWalk(int head, int w) {
-    const int e0 = head + 4 * (int)threadIdx.x, step = 4 * (int)blockDim.x;
-    r = e0 / w, c = e0 - r * w, dr = step / w, dc = step - dr * w;
-  }
-  __device__ void next(int w) {
-    r += dr, c += dc;
-    if (c >= w) c -= w, ++r;
-  }
-  // shared index of float u (0-3) of the current vector, rows of stride ss
-  __device__ int index(int u, int w, int ss) const {
-    const int cu = c + u;
-    return cu >= w ? (r + 1) * ss + cu - w : r * ss + cu;
-  }
-};
-
-// Start the asynchronous copy of the len floats at src (rows of w floats)
-// into shared memory rows of stride ss: the block's threads copy
-// consecutive floats (4 bytes each, so any alignment; a warp's 32 copies
-// are one coalesced 128-byte read), each walking its rows and columns.
-__device__ void fetch_rows(const float* __restrict__ src, float* dst, int len, int w, int ss) {
-  const int step = blockDim.x, dr = step / w, dc = step - dr * w;
-  int r = threadIdx.x / w, c = threadIdx.x - r * w;
-  for (int e = threadIdx.x; e < len; e += step) {
-    cp_async4(dst + r * ss + c, src + e, true);
-    r += dr, c += dc;
-    if (c >= w) c -= w, ++r;
-  }
-}
-
-// Shared rows of stride ss (rows of w >= 3 floats) to the len floats at
-// dst, with the block's threads: 16-byte stores from the first aligned
-// float on, single floats before and after. A lane gathers the four
-// floats of its vector in an order rotated by (lane / 8) % 4, so the 32
-// lanes of each 4-byte shared read hit 32 banks.
-__device__ void store_slab(const float* src, float* __restrict__ dst, int len, int w, int ss) {
-  const int head = head_floats(dst, len);
-  const int nvec = (len - head) >> 2;
-  const int rot = (threadIdx.x >> 3) & 3;
-  for (int e = threadIdx.x; e < head; e += blockDim.x) dst[e] = src[(e / w) * ss + e % w];
-  float4* v = reinterpret_cast<float4*>(dst + head);
-  SlabWalk pos(head, w);
-  for (int q = threadIdx.x; q < nvec; q += blockDim.x, pos.next(w)) {
-    float xs[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) xs[u] = src[pos.index((u + rot) & 3, w, ss)];
-    v[q] = rotl4(make_float4(xs[0], xs[1], xs[2], xs[3]), (4 - rot) & 3);
-  }
-  for (int e = head + 4 * nvec + threadIdx.x; e < len; e += blockDim.x)
-    dst[e] = src[(e / w) * ss + e % w];
-}
 
 // Shared floats of one Gaussian: rotation (4, read as one vector), mean and
 // scale (3 each), SH row (odd stride of 3 k_total floats).
@@ -458,24 +394,28 @@ __device__ __forceinline__ void grad_one(float* mean, float* scale, float4* rot,
 template <int D>
 __global__ void __launch_bounds__(K2_THREADS, K2_MIN_BLOCKS)
     preprocess_bwd_kernel(const float* __restrict__ means, const float* __restrict__ scales,
-                          const float* __restrict__ rots, const float* __restrict__ shs,
+                          const float* __restrict__ rots, const float* __restrict__ sh_dc,
+                          int dc_stride, const float* __restrict__ sh_rest, int rest_stride,
                           const float* __restrict__ cam, const float* __restrict__ cot, int n,
                           int k_total, int active_degree, float scale_modifier, int width,
                           int height, float* __restrict__ g_means, float* __restrict__ g_scales,
                           float* __restrict__ g_rots, float* __restrict__ g_opac,
-                          float* __restrict__ g_shs) {
+                          float* __restrict__ g_dc, float* __restrict__ g_rest) {
   extern __shared__ float4 smem4[];
-  const int kw = 3 * k_total, ssh = odd_stride(kw);
+  const int kw = 3 * k_total, ssh = odd_stride(kw), rw = kw - 3;
   const int nslab = (n + K2_THREADS - 1) / K2_THREADS;
   // a buffer: the rows of rotations, means, scales, SH (stride ssh)
   const int buf_floats = K2_THREADS * smem_floats_per_row(k_total);
   float* const bufs = reinterpret_cast<float*>(smem4);
   auto fetch = [&](int slab, float* b) {
     const int i0 = slab * K2_THREADS, rows = min(K2_THREADS, n - i0);
-    fetch_rows(rots + 4 * (size_t)i0, b, 4 * rows, 4, 4);
-    fetch_rows(means + 3 * (size_t)i0, b + 4 * K2_THREADS, 3 * rows, 3, 3);
-    fetch_rows(scales + 3 * (size_t)i0, b + 7 * K2_THREADS, 3 * rows, 3, 3);
-    fetch_rows(shs + (size_t)i0 * kw, b + 10 * K2_THREADS, rows * kw, kw, ssh);
+    fetch_rows(rots + 4 * (size_t)i0, 4, b, rows, 4, 4);
+    fetch_rows(means + 3 * (size_t)i0, 3, b + 4 * K2_THREADS, rows, 3, 3);
+    fetch_rows(scales + 3 * (size_t)i0, 3, b + 7 * K2_THREADS, rows, 3, 3);
+    fetch_rows(sh_dc + (size_t)i0 * dc_stride, dc_stride, b + 10 * K2_THREADS, rows, 3, ssh);
+    if (rw > 0)
+      fetch_rows(sh_rest + (size_t)i0 * rest_stride, rest_stride, b + 10 * K2_THREADS + 3, rows, rw,
+                 ssh);
   };
   int it = 0;
   if (blockIdx.x < nslab) fetch(blockIdx.x, bufs);
@@ -503,7 +443,8 @@ __global__ void __launch_bounds__(K2_THREADS, K2_MIN_BLOCKS)
     store_slab(s_rot, g_rots + 4 * (size_t)i0, 4 * rows, 4, 4);
     store_slab(s_mean, g_means + 3 * (size_t)i0, 3 * rows, 3, 3);
     store_slab(s_scale, g_scales + 3 * (size_t)i0, 3 * rows, 3, 3);
-    store_slab(s_sh, g_shs + (size_t)i0 * kw, rows * kw, kw, ssh);
+    store_slab(s_sh, g_dc + 3 * (size_t)i0, rows * 3, 3, ssh);
+    if (rw > 0) store_slab(s_sh + 3, g_rest + (size_t)i0 * rw, rows * rw, rw, ssh);
     __syncthreads();  // before this buffer takes the slab after next
   }
 }
@@ -511,12 +452,16 @@ __global__ void __launch_bounds__(K2_THREADS, K2_MIN_BLOCKS)
 }  // namespace
 }  // namespace gvd
 
+// SH rows: band 0 at sh_dc, bands 1..k_total-1 at sh_rest, dc_stride and
+// rest_stride floats from one Gaussian's row to the next; the SH gradient
+// goes to g_dc (n, 1, 3) and g_rest (n, k_total - 1, 3), contiguous
 GVD_API int gvd_preprocess_bwd(const float* means, const float* scales, const float* rots,
-                               const float* shs, const float* cam, const float* cot, int n,
+                               const float* sh_dc, int dc_stride, const float* sh_rest,
+                               int rest_stride, const float* cam, const float* cot, int n,
                                int k_total, int sh_degree, int active_degree,
                                float scale_modifier, int width, int height, float* g_means,
-                               float* g_scales, float* g_rots, float* g_opac, float* g_shs,
-                               cudaStream_t stream) {
+                               float* g_scales, float* g_rots, float* g_opac, float* g_dc,
+                               float* g_rest, cudaStream_t stream) {
   if (n <= 0) return (int)cudaGetLastError();
   decltype(&gvd::preprocess_bwd_kernel<0>) kernel;
   switch (sh_degree) {
@@ -528,23 +473,18 @@ GVD_API int gvd_preprocess_bwd(const float* means, const float* scales, const fl
   }
   const int threads = gvd::K2_THREADS;
   const int smem = 2 * threads * gvd::smem_floats_per_row(k_total) * (int)sizeof(float);
-  // as many blocks as are resident at once, each walking its slabs
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  // a k_total past the card's 227 KB of shared memory fails here
-  if (err == cudaSuccess && smem > 48 * 1024)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  // as many blocks as are resident at once, each walking its slabs (a
+  // k_total past the card's 227 KB of shared memory fails here)
+  int64_t resident = 1;
+  const cudaError_t err = gvd::resident_blocks((const void*)kernel, threads, smem, &resident);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;
   }
   const int nslab = (n + threads - 1) / threads;
-  const int resident = sms * per_sm > 0 ? sms * per_sm : 1;
-  kernel<<<nslab < resident ? nslab : resident, threads, smem, stream>>>(
-      means, scales, rots, shs, cam, cot, n, k_total, active_degree, scale_modifier, width,
-      height, g_means, g_scales, g_rots, g_opac, g_shs);
+  kernel<<<nslab < resident ? nslab : (int)resident, threads, smem, stream>>>(
+      means, scales, rots, sh_dc, dc_stride, sh_rest, rest_stride, cam, cot, n, k_total,
+      active_degree, scale_modifier, width, height, g_means, g_scales, g_rots, g_opac, g_dc,
+      g_rest);
   return (int)cudaGetLastError();
 }

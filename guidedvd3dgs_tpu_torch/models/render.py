@@ -68,7 +68,8 @@ def render_gaussians(
         xyz, f_dc, f_rest, scaling, rotation, opacity = (
             _confidence_grad_scale(t, conf) for t in (xyz, f_dc, f_rest, scaling, rotation, opacity)
         )
-    shs = None if override_color is not None else torch.cat([f_dc, f_rest], dim=1)
+    # the SH as the model holds it: the tile rasterizer reads both in place
+    shs = None if override_color is not None else (f_dc, f_rest)
     n = torch.linalg.norm(rotation, dim=-1, keepdim=True)
     out = rasterize(
         xyz,

@@ -16,16 +16,31 @@ cotangents of rows 0-9 to the gradients of the five inputs; its kernel is
 csrc/preprocess_bwd.cu (it recomputes the forward and keeps no
 residuals), its plain version torch.autograd through the same
 preprocess_field_rows.
+
+The SH (`shs`) is one (N, K, 3) tensor or the model's pair
+(features_dc (N, 1, 3), features_rest (N, K - 1, 3)). The kernels read
+either in place (band 0 and the rest as two row sources, each a pointer
+and a row stride) and K2 writes the SH gradient in the form it was given;
+the plain versions concatenate the pair.
+
+The tile rasterizer asks K1 for two things the JAX kernel leaves to its
+caller: the screen offset of densification added to rows 0-1
+(`means2d_offset`), and, with `skip_unbinned`, rows 6-8 (the colour) only
+for the Gaussians that ops/tiling.py::tile_rects gives a tile, 0 for the
+others, whose SH is then not read (no later kernel reads their colour).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 
 from guidedvd3dgs_tpu_torch.ops import _build
 from guidedvd3dgs_tpu_torch.ops.projection import RasterCamera, preprocess_field_rows
+
+# (N, K, 3), or (features_dc (N, 1, 3), features_rest (N, K - 1, 3))
+SH = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 NUM_ROWS = 16
 # row layout of the table, shared by the binning and the blend
@@ -63,19 +78,61 @@ def visible_radii(tab: torch.Tensor) -> torch.Tensor:
     return torch.where(visible, tab[ROW_RADIUS], torch.zeros_like(tab[0])).to(torch.int32)
 
 
+def concat_sh(shs: SH) -> torch.Tensor:
+    """The SH as one (N, K, 3) tensor."""
+    return shs if isinstance(shs, torch.Tensor) else torch.cat(list(shs), dim=1)
+
+
+def _sh_rows(shs: SH, dev: torch.device, n: int, need: int):
+    """K1's and K2's SH arguments: (pointer, row stride) of band 0 and of
+    bands 1.., and K. A (N, K, 3) tensor is its own two sources (band 0 at
+    shs, the rest 3 floats on, both rows of 3K); each source must be f32
+    on `dev` with contiguous 3-float coefficients."""
+    if isinstance(shs, torch.Tensor):
+        parts = (shs[:, :1], shs[:, 1:])
+        _build.check_cuda("shs", shs, torch.float32, dev, (n, None, 3))
+    else:
+        parts = tuple(shs)
+    k_total = parts[0].shape[1] + parts[1].shape[1]
+    if k_total < need:
+        raise ValueError(f"SH has {k_total} coefficients, {need} needed")
+    args = []
+    for name, t, k in zip(("features_dc", "features_rest"), parts, (1, k_total - 1)):
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 on {dev}, got {t.dtype} on {t.device}")
+        if t.dim() != 3 or tuple(t.shape) != (n, k, 3):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(n, k, 3)}")
+        if k and (t.stride(2) != 1 or (k > 1 and t.stride(1) != 3) or t.stride(0) < 3 * k):
+            raise ValueError(f"{name} needs rows of contiguous coefficients, strides {t.stride()}")
+        args += [t.data_ptr(), t.stride(0) if k else 0]
+    return args, k_total
+
+
 def preprocess_table_plain(
-    means3d, scales, rotations, opacities, shs, cam: RasterCamera,
+    means3d, scales, rotations, opacities, shs: SH, cam: RasterCamera,
     sh_degree: int, scale_modifier: float, active_degree: Optional[int] = None,
+    means2d_offset: Optional[torch.Tensor] = None, skip_unbinned: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version of K1."""
     fields10, radius, visible, ext_x, ext_y = preprocess_field_rows(
-        means3d, scales, rotations, opacities, shs, cam, sh_degree, scale_modifier,
+        means3d, scales, rotations, opacities, concat_sh(shs), cam, sh_degree, scale_modifier,
         active_degree=active_degree,
     )
     zeros = torch.zeros_like(radius)
-    return torch.stack(
+    tab = torch.stack(
         list(fields10) + [radius, visible.to(radius.dtype), ext_x, ext_y, zeros, zeros]
     )
+    if means2d_offset is not None:
+        # the screen-space hook of densification: means2d + offset * (W/2, H/2)
+        tab[F_MX] = tab[F_MX] + means2d_offset[:, 0] * (0.5 * cam.width)
+        tab[F_MY] = tab[F_MY] + means2d_offset[:, 1] * (0.5 * cam.height)
+    if skip_unbinned:
+        from guidedvd3dgs_tpu_torch.ops.tiling import tile_rects  # tiling imports this module
+
+        count = tile_rects(tab[F_MX], tab[F_MY], visible_radii(tab), tab[ROW_EXT_X],
+                           tab[ROW_EXT_Y], cam.width, cam.height)[4]
+        tab[F_R:F_D, count == 0] = 0.0
+    return tab
 
 
 def preprocess_fused_fwd(
@@ -83,20 +140,24 @@ def preprocess_fused_fwd(
     scales: torch.Tensor,
     rotations: torch.Tensor,
     opacities: torch.Tensor,
-    shs: torch.Tensor,
+    shs: SH,
     cam: RasterCamera,
     sh_degree: int,
     scale_modifier: float,
     active_degree: Optional[int] = None,
+    means2d_offset: Optional[torch.Tensor] = None,
+    skip_unbinned: bool = False,
 ) -> torch.Tensor:
     """(16, N) preprocess table. Inputs post-activation: means/scales
-    (N, 3), rotations (N, 4), opacities (N,) or (N, 1), shs (N, K, 3) with
-    K >= (sh_degree + 1)**2. CPU tensors take the plain version; CUDA
-    tensors launch kernel K1."""
+    (N, 3), rotations (N, 4), opacities (N,) or (N, 1), SH (N, K, 3) or
+    its (features_dc, features_rest) pair with K >= (sh_degree + 1)**2;
+    `means2d_offset` (N, 2) is added to rows 0-1 times (W/2, H/2); with
+    `skip_unbinned`, rows 6-8 are 0 for the Gaussians without a tile.
+    CPU tensors take the plain version; CUDA tensors launch kernel K1."""
     if means3d.device.type == "cpu":
         return preprocess_table_plain(
             means3d, scales, rotations, opacities, shs, cam, sh_degree,
-            scale_modifier, active_degree,
+            scale_modifier, active_degree, means2d_offset, skip_unbinned,
         )
     if means3d.device.type != "cuda":
         raise ValueError(f"no preprocess kernel for device {means3d.device}")
@@ -110,9 +171,9 @@ def preprocess_fused_fwd(
     _build.check_cuda("opacities", opacities, torch.float32, dev)
     if opacities.numel() != n:
         raise ValueError(f"opacities has {opacities.numel()} values for {n} Gaussians")
-    _build.check_cuda("shs", shs, torch.float32, dev, (n, None, 3))
-    if shs.shape[1] < (sh_degree + 1) ** 2:
-        raise ValueError(f"shs has {shs.shape[1]} coefficients, degree {sh_degree} needs more")
+    sh_args, _ = _sh_rows(shs, dev, n, (sh_degree + 1) ** 2)
+    if means2d_offset is not None:
+        _build.check_cuda("means2d_offset", means2d_offset, torch.float32, dev, (n, 2))
     if cam.device != dev:
         raise ValueError(f"camera on {cam.device}, Gaussians on {dev}")
     camc = cam_consts(cam)
@@ -121,26 +182,32 @@ def preprocess_fused_fwd(
     _build.launch(
         "preprocess_fwd",
         means3d.data_ptr(), scales.data_ptr(), rotations.data_ptr(), opacities.data_ptr(),
-        shs.data_ptr(), camc.data_ptr(), out.data_ptr(),
-        n, shs.shape[1], sh_degree, act, float(scale_modifier), cam.width, cam.height,
+        *sh_args, camc.data_ptr(),
+        None if means2d_offset is None else means2d_offset.data_ptr(), out.data_ptr(),
+        n, sh_degree, act, float(scale_modifier), cam.width, cam.height, int(skip_unbinned),
         _build.stream_of(out),
     )
     return out
 
 
 def preprocess_fused_bwd_plain(
-    means3d, scales, rotations, opacities, shs, cam: RasterCamera,
+    means3d, scales, rotations, opacities, shs: SH, cam: RasterCamera,
     sh_degree: int, scale_modifier: float, cot10: torch.Tensor,
     active_degree: Optional[int] = None,
 ):
     """Plain PyTorch version of K2: torch.autograd.grad of the ten field
-    rows of preprocess_field_rows against the cotangent rows."""
-    prims = [t.detach().requires_grad_(True) for t in (means3d, scales, rotations, opacities, shs)]
+    rows of preprocess_field_rows against the cotangent rows. The SH
+    gradient comes in the form the SH was given (a tensor or a pair)."""
+    pair = not isinstance(shs, torch.Tensor)
+    sh_in = list(shs) if pair else [shs]
+    prims = [t.detach().requires_grad_(True) for t in [means3d, scales, rotations, opacities] + sh_in]
     with torch.enable_grad():
         fields10, *_ = preprocess_field_rows(
-            *prims, cam, sh_degree, scale_modifier, active_degree=active_degree
+            *prims[:4], concat_sh(prims[4:] if pair else prims[4]), cam, sh_degree, scale_modifier,
+            active_degree=active_degree,
         )
-        return torch.autograd.grad(fields10, prims, grad_outputs=tuple(cot10[:10]))
+        grads = torch.autograd.grad(fields10, prims, grad_outputs=tuple(cot10[:10]))
+    return grads[:4] + ((tuple(grads[4:]),) if pair else grads[4:])
 
 
 def preprocess_fused_bwd(
@@ -148,7 +215,7 @@ def preprocess_fused_bwd(
     scales: torch.Tensor,
     rotations: torch.Tensor,
     opacities: torch.Tensor,
-    shs: torch.Tensor,
+    shs: SH,
     cam: RasterCamera,
     sh_degree: int,
     scale_modifier: float,
@@ -157,8 +224,9 @@ def preprocess_fused_bwd(
 ):
     """VJP of the preprocess: cot10 is the (>= 10, N) cotangent of table
     rows 0-9 (rows past 10 are ignored). Returns the gradients of (means3d,
-    scales, rotations, opacities, shs), shaped like them. CPU tensors take
-    the plain version; CUDA tensors launch kernel K2."""
+    scales, rotations, opacities, shs), shaped like them (the SH's as a
+    (features_dc, features_rest) pair where the SH was given so). CPU
+    tensors take the plain version; CUDA tensors launch kernel K2."""
     if means3d.device.type == "cpu":
         return preprocess_fused_bwd_plain(
             means3d, scales, rotations, opacities, shs, cam, sh_degree, scale_modifier,
@@ -176,9 +244,7 @@ def preprocess_fused_bwd(
     _build.check_cuda("opacities", opacities, torch.float32, dev)
     if opacities.numel() != n:
         raise ValueError(f"opacities has {opacities.numel()} values for {n} Gaussians")
-    _build.check_cuda("shs", shs, torch.float32, dev, (n, None, 3))
-    if shs.shape[1] < (sh_degree + 1) ** 2:
-        raise ValueError(f"shs has {shs.shape[1]} coefficients, degree {sh_degree} needs more")
+    sh_args, k_total = _sh_rows(shs, dev, n, (sh_degree + 1) ** 2)
     cot = cot10[:10].contiguous()
     _build.check_cuda("cot10", cot, torch.float32, dev, (10, n))
     if cam.device != dev:
@@ -188,14 +254,16 @@ def preprocess_fused_bwd(
     g_scales = torch.empty_like(scales)
     g_rots = torch.empty_like(rotations)
     g_opac = torch.empty_like(opacities)
-    g_shs = torch.empty_like(shs)
+    g_dc = torch.empty((n, 1, 3), dtype=torch.float32, device=dev)
+    g_rest = torch.empty((n, k_total - 1, 3), dtype=torch.float32, device=dev)
     act = sh_degree if active_degree is None else int(active_degree)
     _build.launch(
         "preprocess_bwd",
-        means3d.data_ptr(), scales.data_ptr(), rotations.data_ptr(), shs.data_ptr(),
-        camc.data_ptr(), cot.data_ptr(), n, shs.shape[1], sh_degree, act,
+        means3d.data_ptr(), scales.data_ptr(), rotations.data_ptr(), *sh_args,
+        camc.data_ptr(), cot.data_ptr(), n, k_total, sh_degree, act,
         float(scale_modifier), cam.width, cam.height,
         g_means.data_ptr(), g_scales.data_ptr(), g_rots.data_ptr(), g_opac.data_ptr(),
-        g_shs.data_ptr(), _build.stream_of(g_means),
+        g_dc.data_ptr(), g_rest.data_ptr(), _build.stream_of(g_means),
     )
+    g_shs = torch.cat([g_dc, g_rest], dim=1) if isinstance(shs, torch.Tensor) else (g_dc, g_rest)
     return g_means, g_scales, g_rots, g_opac, g_shs

@@ -26,6 +26,12 @@ Saved for the backward, as the reference keeps them: the post-activation
 inputs (K2 recomputes the preprocess), the binning with K1's table (the
 port's instances carry owner ids, not field copies, so the table is the
 binning's field store) and the forward color, depth and alpha.
+
+The SH reaches K1 and K2 as the model holds it, band 0 (features_dc) and
+bands 1.. (features_rest) apart, and its gradient leaves K2 the same way:
+no concatenation in front of K1, no split of the gradient after K2. K1
+adds the screen offset to its mean rows and leaves the colour of the
+Gaussians without a tile at 0 (no kernel of the chain reads it).
 """
 
 from __future__ import annotations
@@ -280,30 +286,30 @@ def _reduce_per_gaussian(grad_inst: torch.Tensor, binning: TileBinning) -> torch
 
 
 class _RasterizeTiles(torch.autograd.Function):
-    """K1 -> binning -> K4 forward; K5 -> K6 -> K2 backward."""
+    """K1 -> binning -> K4 forward; K5 -> K6 -> K2 backward. The SH is the
+    pair (sh_dc (N, 1, 3), sh_rest (N, K - 1, 3))."""
 
     @staticmethod
-    def forward(ctx, means3d, scales, rotations, opacities, shs, means2d_offset, cfg):
+    def forward(ctx, means3d, scales, rotations, opacities, sh_dc, sh_rest, means2d_offset, cfg):
         cam, bg, sh_degree, scale_modifier, active_degree = cfg
+        # the screen offset (means2d + offset * (W/2, H/2)) is added by K1
         tab = preprocess_fused.preprocess_fused_fwd(
-            means3d, scales, rotations, opacities, shs, cam, sh_degree, scale_modifier,
-            active_degree=active_degree,
+            means3d, scales, rotations, opacities, (sh_dc, sh_rest), cam, sh_degree,
+            scale_modifier, active_degree=active_degree, means2d_offset=means2d_offset,
+            skip_unbinned=True,
         )
-        if means2d_offset is not None:
-            # the screen-space hook of densification: means2d + offset * (W/2, H/2)
-            tab[0] = tab[0] + means2d_offset[:, 0] * (0.5 * cam.width)
-            tab[1] = tab[1] + means2d_offset[:, 1] * (0.5 * cam.height)
         radii = preprocess_fused.visible_radii(tab)
         binning = tiling.bin_gaussians(tab, radii, cam.width, cam.height)
         color, depth, alpha = _run_fwd(tab, binning, bg, cam.width, cam.height)
-        ctx.save_for_backward(means3d, scales, rotations, opacities, shs, color, depth, alpha)
+        ctx.save_for_backward(means3d, scales, rotations, opacities, sh_dc, sh_rest, color, depth,
+                              alpha)
         ctx.tab, ctx.binning, ctx.cfg = tab, binning, cfg
         ctx.mark_non_differentiable(radii)
         return color, depth, alpha, radii, binning.num_instances
 
     @staticmethod
     def backward(ctx, d_color, d_depth, d_alpha, _d_radii, _d_num):
-        means3d, scales, rotations, opacities, shs, color, depth, alpha = ctx.saved_tensors
+        means3d, scales, rotations, opacities, sh_dc, sh_rest, color, depth, alpha = ctx.saved_tensors
         cam, _bg, sh_degree, scale_modifier, active_degree = ctx.cfg
 
         def cot(g, like):
@@ -312,15 +318,15 @@ class _RasterizeTiles(torch.autograd.Function):
         grad_inst = _run_bwd(ctx.tab, ctx.binning, color, depth, alpha, cot(d_color, color),
                              cot(d_depth, depth), cot(d_alpha, alpha), cam.width, cam.height)
         acc = _reduce_per_gaussian(grad_inst, ctx.binning)
-        g_means, g_scales, g_rots, g_opac, g_shs = preprocess_fused.preprocess_fused_bwd(
-            means3d, scales, rotations, opacities, shs, cam, sh_degree, scale_modifier, acc,
-            active_degree=active_degree,
+        g_means, g_scales, g_rots, g_opac, (g_dc, g_rest) = preprocess_fused.preprocess_fused_bwd(
+            means3d, scales, rotations, opacities, (sh_dc, sh_rest), cam, sh_degree,
+            scale_modifier, acc, active_degree=active_degree,
         )
         g_off = None
-        if ctx.needs_input_grad[5]:
+        if ctx.needs_input_grad[6]:
             # the offset is additive on the mean rows: the same rows, rescaled
             g_off = torch.stack([acc[0] * (0.5 * cam.width), acc[1] * (0.5 * cam.height)], dim=-1)
-        return g_means, g_scales, g_rots, g_opac, g_shs, g_off, None
+        return g_means, g_scales, g_rots, g_opac, g_dc, g_rest, g_off, None
 
 
 def rasterize_tiles(
@@ -328,7 +334,7 @@ def rasterize_tiles(
     scales: torch.Tensor,
     rotations: torch.Tensor,
     opacities: torch.Tensor,
-    shs: Optional[torch.Tensor],
+    shs: Optional[preprocess_fused.SH],
     cam: RasterCamera,
     bg: torch.Tensor,
     sh_degree: int = 3,
@@ -339,19 +345,22 @@ def rasterize_tiles(
     active_degree: Optional[int] = None,
 ) -> RenderOutput:
     """Render through K1 -> binning (K3 + sort) -> K4, differentiable
-    through K5 -> K6 -> K2. Inputs are post-activation; `means2d_offset`
-    (N, 2), usually zeros that require grad, is added to the screen means
-    scaled by (W/2, H/2), and its gradient is the viewspace gradient that
-    densification reads. CUDA tensors run the kernels, CPU tensors their
-    plain versions."""
+    through K5 -> K6 -> K2. Inputs are post-activation; `shs` is one
+    (N, K, 3) tensor or the pair (features_dc (N, 1, 3), features_rest
+    (N, K - 1, 3)), which K1 and K2 read and write in place (a tensor is
+    passed as its two slices); `means2d_offset` (N, 2), usually zeros that
+    require grad, is added to the screen means scaled by (W/2, H/2), and
+    its gradient is the viewspace gradient that densification reads. CUDA
+    tensors run the kernels, CPU tensors their plain versions."""
     if colors_precomp is not None or cov3d_precomp is not None:
         raise NotImplementedError(
             "precomputed colors / cov3D are not supported by the tile rasterizer yet"
         )
     if shs is None:
         raise ValueError("the tile rasterizer needs SH features")
+    sh_dc, sh_rest = (shs[:, :1], shs[:, 1:]) if isinstance(shs, torch.Tensor) else shs
     cfg = (cam, bg, sh_degree, float(scale_modifier), active_degree)
     color, depth, alpha, radii, num_instances = _RasterizeTiles.apply(
-        means3d, scales, rotations, opacities, shs, means2d_offset, cfg
+        means3d, scales, rotations, opacities, sh_dc, sh_rest, means2d_offset, cfg
     )
     return RenderOutput(color, depth, alpha, radii, radii > 0, 0, num_instances)

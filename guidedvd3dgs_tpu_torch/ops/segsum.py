@@ -6,7 +6,10 @@ reference sorts the per-instance gradients by owner and sums each owner's
 run; here no sort is needed: Gaussian g's instances own the contiguous
 expansion slots [offsets[g], offsets[g] + count[g]) (K3's layout, kept in
 ops/tiling.py::TileBinning), and the tile backward writes each instance's
-10 gradients to its slot. The CUDA kernel is csrc/segsum.cu.
+10 gradients to its slot. The CUDA kernel is csrc/segsum.cu: one warp
+sums a Gaussian's slots in a fixed order (lane l adds slots l, l + 32, ...
+in order, then the 32 lane sums are added in lane order), the same bits in
+every run; the plain version sums in float64.
 """
 
 from __future__ import annotations
@@ -47,6 +50,8 @@ def segment_sum_sorted(grad: torch.Tensor, offsets: torch.Tensor,
     _build.check_cuda("grad", grad, torch.float32, dev, (None, NF))
     _build.check_cuda("offsets", offsets, torch.int32, dev, (n,))
     _build.check_cuda("count", count, torch.int32, dev, (n,))
+    if grad.data_ptr() % 8:
+        raise ValueError("grad must start at an 8-byte boundary (its rows are read 8 bytes at a time)")
     out = torch.empty((NF, n), dtype=torch.float32, device=dev)
     _build.launch("segsum", grad.data_ptr(), offsets.data_ptr(), count.data_ptr(), n,
                   out.data_ptr(), _build.stream_of(grad))

@@ -10,9 +10,14 @@ equal on a second launch and under another tile order;
 K2 max abs error over max |grad| of each output 1e-4 (hand-derived against
 autograd); K5 rows within 1e-4 of the field's max |grad| + 1e-4 relative,
 all but 1e-4 of them (a pixel may stop one instance apart, as in K4); K6
-within count * 2^-23 * sum |terms| of the float64 sums. K2 and K5 give
+within count * 2^-23 * sum |terms| of the float64 sums, and bitwise its
+own order of additions (a warp's lane sums added in lane order). K2 and K5 give
 bitwise-equal outputs on two launches, and K2 on rows that start past a
-16-byte boundary those of aligned copies. L1 (flash
+16-byte boundary those of aligned copies. K1 from the SH pair
+(features_dc, features_rest) is bitwise K1 from one (N, K, 3) tensor, and
+with the skip and a screen offset bitwise that table plus the offset,
+rows 6-8 zero where no tile; K2 with the SH pair is bitwise K2 with one
+tensor. L1 (flash
 attention) within 2e-5 of its plain version in float32 and 1e-2 in
 bfloat16 (the plain version from the same bf16 inputs) on unit-normal
 inputs (other sum orders; the plain version rounds the weights to bf16);
@@ -87,6 +92,72 @@ def test_k1_rejects_what_it_does_not_take(dev):
         preprocess_fused.preprocess_fused_fwd(acts[0].double(), *acts[1:], cam, 3, 1.0)
     with pytest.raises(ValueError):
         preprocess_fused.preprocess_fused_fwd(acts[0].t().contiguous().t(), *acts[1:], cam, 3, 1.0)
+
+
+def sh_of(n, k_total, seed, dev):
+    """(N, K, 3) SH of K coefficients (band 0 in [-1.5, 1.5])."""
+    rng = np.random.default_rng(seed)
+    shs = (rng.normal(size=(n, k_total, 3)) * 0.3).astype(np.float32)
+    shs[:, 0] = rng.uniform(-1.5, 1.5, (n, 3))
+    return torch.from_numpy(shs).to(dev)
+
+
+# every (sh_degree, active_degree) pair, K = (sh_degree + 1)^2 or 2 more
+# (odd K among them: 1, 3, 9, 11)
+@pytest.mark.parametrize("sh_degree,active", [(d, a) for d in range(4) for a in range(d + 1)])
+def test_k1_sh_sources_and_skip(dev, sh_degree, active):
+    """K1 reads the SH from one (N, K, 3) tensor, from the pair of
+    contiguous tensors (features_dc, features_rest) and from the pair as
+    slices of one tensor: the same table, bitwise, within the stated
+    tolerance of the plain version. With the skip and a screen offset it is
+    that table plus the offset, bitwise, with rows 6-8 zero exactly where
+    ops/tiling.py::tile_rects counts no tile."""
+    k_total = (sh_degree + 1) ** 2 + (2 if active % 2 else 0)
+    acts, cam = scene(30000, 30 + 4 * sh_degree + active, dev)
+    shs = sh_of(30000, k_total, sh_degree, dev)
+    pair = (shs[:, :1].contiguous(), shs[:, 1:].contiguous())
+    before = _build.LAUNCHES["preprocess_fwd"]
+    full = preprocess_fused.preprocess_fused_fwd(*acts[:4], shs, cam, sh_degree, 0.9, active)
+    from_pair = preprocess_fused.preprocess_fused_fwd(*acts[:4], pair, cam, sh_degree, 0.9, active)
+    from_slices = preprocess_fused.preprocess_fused_fwd(*acts[:4], (shs[:, :1], shs[:, 1:]), cam, sh_degree,
+                                                        0.9, active)
+    off = 0.02 * torch.randn((30000, 2), generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    skip = preprocess_fused.preprocess_fused_fwd(*acts[:4], pair, cam, sh_degree, 0.9, active,
+                                                 means2d_offset=off, skip_unbinned=True)
+    assert _build.LAUNCHES["preprocess_fwd"] == before + 4
+    assert torch.equal(full, from_pair) and torch.equal(full, from_slices)
+    plain = preprocess_fused.preprocess_table_plain(*acts[:4], shs, cam, sh_degree, 0.9, active)
+    rows = list(range(10)) + [12, 13]
+    torch.testing.assert_close(full[rows], plain[rows], atol=1e-5, rtol=1e-5)
+    # the radius, a ceil, may flip where 3 sqrt(lambda1) lands within
+    # rounding of an integer: phase 3's allowance of chip_smoke.py
+    assert torch.equal(full[11], plain[11]) and int((full[10] != plain[10]).sum()) <= 10
+    want = full.clone()
+    want[0] = want[0] + off[:, 0] * (0.5 * cam.width)
+    want[1] = want[1] + off[:, 1] * (0.5 * cam.height)
+    count = tiling.tile_rects(want[0], want[1], preprocess_fused.visible_radii(want), want[12], want[13],
+                              cam.width, cam.height)[4]
+    want[6:9, count == 0] = 0.0
+    assert torch.equal(skip, want)
+    assert 0 < int((count > 0).sum()) < 30000 and bool((full[6:9, count == 0] > 0).any())
+
+
+# every sh_degree instance of K2's template, K = (sh_degree + 1)^2 or more
+@pytest.mark.parametrize("sh_degree,k_total", [(3, 16), (2, 11), (1, 4), (0, 1), (0, 4)])
+def test_k2_sh_pair_matches_one_tensor(dev, sh_degree, k_total):
+    """K2 reading the SH from the pair (features_dc, features_rest), as
+    contiguous tensors or as slices of one tensor, and writing its SH
+    gradient to the pair: bitwise K2 on the one (N, K, 3) tensor."""
+    acts, cam = scene(30001, 40 + sh_degree, dev)
+    shs = sh_of(30001, k_total, k_total, dev)
+    cot = torch.randn((10, 30001), device=dev)
+    one = preprocess_fused.preprocess_fused_bwd(*acts[:4], shs, cam, sh_degree, 0.9, cot)
+    for pair in ((shs[:, :1].contiguous(), shs[:, 1:].contiguous()), (shs[:, :1], shs[:, 1:])):
+        got = preprocess_fused.preprocess_fused_bwd(*acts[:4], pair, cam, sh_degree, 0.9, cot)
+        torch.cuda.synchronize()
+        assert got[4][0].shape == (30001, 1, 3) and got[4][1].shape == (30001, k_total - 1, 3)
+        for a, b in zip(one[:4] + (one[4],), got[:4] + (torch.cat(got[4], 1),)):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -370,6 +441,88 @@ def test_k6_matches_plain(dev):
         grad.abs(), binning.offsets, binning.count) + 1e-30
     assert got.shape == want.shape
     assert bool(((got - want).abs() <= bound).all())
+
+
+# K6 owns this many Gaussians a block (csrc/segsum.cu)
+K6_GAUSS = 128
+
+
+def k6_synthetic(dev, seed, n=6000):
+    """K6's arguments: random counts (0-40, a fifth of them 1), Gaussians
+    of 300-3,000 slots (many rounds of a warp's 64 rows), zero-count runs
+    across block edges and one over four whole blocks, rows of 10 random
+    floats; the total is no multiple of 64."""
+    rng = np.random.default_rng(seed)
+    count = rng.integers(0, 41, n)
+    count[rng.random(n) < 0.5] = 0
+    count[rng.random(n) < 0.2] = 1
+    count[rng.choice(n, 12, replace=False)] = rng.integers(300, 3000, 12)
+    for edge in range(K6_GAUSS, n, 5 * K6_GAUSS):
+        count[edge - int(rng.integers(1, 30)):edge + int(rng.integers(1, 30))] = 0
+    count[4 * K6_GAUSS:8 * K6_GAUSS] = 0
+    count[-1] = 7
+    if count.sum() % 64 == 0:
+        count[-1] += 1
+    offsets = np.cumsum(count) - count
+    grad = torch.from_numpy(rng.normal(size=(int(count.sum()), 10)).astype(np.float32)).to(dev)
+    return grad, *(torch.from_numpy(a.astype(np.int32)).to(dev) for a in (offsets, count))
+
+
+def k6_in_order(grad, offsets, count):
+    """The kernel's order of additions, in float32: for a Gaussian with
+    slots, 32 lane sums (lane l: slots l, l + 32, ... in order), then the
+    lane sums added in lane order."""
+    dev = grad.device
+    out = torch.zeros((10, offsets.numel()), device=dev)
+    rows_of = lambda s: grad[torch.clamp(s, max=grad.shape[0] - 1).long()]  # noqa: E731
+    g = torch.nonzero(count > 0).flatten()
+    lo, c = offsets[g].long(), count[g].long()
+    lanes = torch.arange(32, device=dev)
+    part = torch.zeros((g.numel(), 32, 10), device=dev)
+    for j in range(0, int(c.max()), 32):
+        s = lo[:, None] + lanes[None, :] + j
+        part = torch.where((s < (lo + c)[:, None])[..., None], part + rows_of(s), part)
+    total = part[:, 0]
+    for lane in range(1, 32):
+        total = total + part[:, lane]
+    out[:, g] = total.t()
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k6_long_segments_and_zero_runs(dev, seed):
+    """K6 on Gaussians of many rounds of a warp's rows, zero-count runs
+    across block edges and over whole blocks, and a last block ending
+    inside a round: bitwise the kernel's order of additions (so the same
+    bits on two launches), and within count 2^-23 sum |g| of the float64
+    sums."""
+    grad, offsets, count = k6_synthetic(dev, seed)
+    before = _build.LAUNCHES["segsum"]
+    first = segsum.segment_sum_sorted(grad, offsets, count)
+    second = segsum.segment_sum_sorted(grad, offsets, count)
+    assert _build.LAUNCHES["segsum"] == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, k6_in_order(grad, offsets, count))
+    want = segsum.segment_sum_sorted_plain(grad, offsets, count)
+    bound = count.float() * 2.0 ** -23 * segsum.segment_sum_sorted_plain(grad.abs(), offsets, count) + 1e-30
+    assert bool(((first - want).abs() <= bound).all())
+    assert not first[:, 4 * K6_GAUSS:8 * K6_GAUSS].any()
+
+
+def test_k6_unaligned_rows(dev):
+    """Rows that start 8 bytes past a 16-byte boundary (a view one row in)
+    give the sums of an aligned copy, bitwise; a start off an 8-byte
+    boundary is refused."""
+    grad, offsets, count = k6_synthetic(dev, 2)
+    padded = torch.cat([torch.zeros((1, 10), device=dev), grad])[1:]
+    assert padded.is_contiguous() and padded.data_ptr() % 16
+    got = segsum.segment_sum_sorted(padded, offsets, count)
+    torch.cuda.synchronize()
+    assert torch.equal(got, segsum.segment_sum_sorted(grad, offsets, count))
+    odd = torch.zeros(grad.numel() + 1, device=dev)[1:].view(-1, 10)
+    with pytest.raises(ValueError):
+        segsum.segment_sum_sorted(odd, offsets, count)
 
 
 L1_SHAPES = [(2, 3, 1200, 64), (1, 1, 300, 512), (3, 2, 77, 32), (1, 2, 200, 128)]

@@ -22,7 +22,7 @@ from guidedvd3dgs_tpu.ops.projection import preprocess_gaussians as jax_preproce
 from guidedvd3dgs_tpu.utils.graphics import getProjectionMatrix, getWorld2View2
 from guidedvd3dgs_tpu.utils.sh import eval_sh as jax_eval_sh
 from guidedvd3dgs_tpu_torch.convert import raster_camera_from_numpy
-from guidedvd3dgs_tpu_torch.ops import preprocess_fused
+from guidedvd3dgs_tpu_torch.ops import preprocess_fused, tiling
 from guidedvd3dgs_tpu_torch.utils.sh import RGB2SH, SH2RGB, eval_sh
 
 torch.set_num_threads(2)
@@ -126,6 +126,62 @@ def test_k1_plain_matches_reference_xla_preprocess(sh_degree):
     ref[13] = np.asarray(proc.ext_y)
     radii = np.asarray(proc.radii)
     ref[10] = np.where(vis, radii, port[10])  # the reference masks radius by visibility
+    _compare_tables(port, ref)
+
+
+def edge_scene(n=2000, seed=5):
+    """make_scene's Gaussians spread past every edge of make_cam's 96x64
+    view (screen x from about -100 to 200), a few behind the camera."""
+    means, scales, rots, opac, shs = make_scene(n, seed)
+    rng = np.random.default_rng(seed)
+    means[10:, :2] = rng.uniform(-3.5, 3.5, (n - 10, 2)).astype(np.float32)
+    scales[10:] = np.exp(rng.uniform(-4.0, -1.0, (n - 10, 3))).astype(np.float32)
+    return means, scales, rots, opac, shs
+
+
+@pytest.mark.parametrize("sh_degree,active_degree", [(3, None), (2, 1), (0, None)])
+def test_k1_plain_skip_zeroes_only_unbinned_colour(sh_degree, active_degree):
+    """With skip_unbinned (and the SH as the model's pair) K1's plain
+    version equals the full table on every row, rows 6-8 aside: those are
+    exactly 0 where ops/tiling.py::tile_rects counts no tile and unchanged
+    elsewhere. The view has Gaussians past each image edge, with and
+    without a tile, and behind the camera."""
+    cam = raster_camera_from_numpy(make_cam())
+    means, scales, rots, opac, shs = map(torch.from_numpy, edge_scene())
+    full = preprocess_fused.preprocess_table_plain(means, scales, rots, opac, shs, cam, sh_degree, 0.9,
+                                                   active_degree)
+    pair = (shs[:, :1].clone(), shs[:, 1:].clone())
+    skip = preprocess_fused.preprocess_fused_fwd(means, scales, rots, opac, pair, cam, sh_degree, 0.9,
+                                                 active_degree, skip_unbinned=True)
+    count = tiling.tile_rects(full[0], full[1], preprocess_fused.visible_radii(full), full[12], full[13],
+                              cam.width, cam.height)[4]
+    binned = count > 0
+    rgb = slice(preprocess_fused.F_R, preprocess_fused.F_D)
+    others = [r for r in range(preprocess_fused.NUM_ROWS) if r not in range(6, 9)]
+    assert torch.equal(skip[others], full[others])
+    assert torch.equal(skip[rgb][:, binned], full[rgb][:, binned])
+    assert not skip[rgb][:, ~binned].any()
+    assert bool((full[rgb][:, ~binned] > 0).any())  # the skip changed something
+    x, y, w, h = full[0], full[1], cam.width, cam.height
+    for outside in (x < 0, x >= w, y < 0, y >= h):  # every edge: Gaussians with and without a tile
+        assert bool((outside & binned).any()) and bool((outside & ~binned).any())
+    assert bool((full[11] == 0).any())  # behind the camera
+
+
+def test_k1_plain_offset_adds_to_reference_rows():
+    """K1 with means2d_offset: the reference kernel's rows 0-1 plus the
+    offset times (W/2, H/2), the other rows the reference's."""
+    jcam = make_cam()
+    arrays = make_scene(seed=6)
+    ref = np.array(jpp.preprocess_fused_fwd(*map(jnp.asarray, arrays), jcam, 3, 1.0))
+    off = np.random.default_rng(6).normal(scale=0.05, size=(arrays[0].shape[0], 2)).astype(np.float32)
+    ref[0] = ref[0] + off[:, 0] * np.float32(0.5 * jcam.width)
+    ref[1] = ref[1] + off[:, 1] * np.float32(0.5 * jcam.height)
+    port = preprocess_fused.preprocess_fused_fwd(
+        *map(torch.from_numpy, arrays), raster_camera_from_numpy(jcam), 3, 1.0,
+        means2d_offset=torch.from_numpy(off),
+    ).numpy()
+    assert np.abs(off[:, 0] * 0.5 * jcam.width).max() > 1.0  # the offset moves the means
     _compare_tables(port, ref)
 
 

@@ -105,3 +105,62 @@ def test_tiles_refuse_what_needs_a_backward():
         assert raster_tiles.rasterize_tiles(*t, rc, bg).color.shape == (3, H, W)
     with pytest.raises(NotImplementedError):
         raster_tiles.rasterize_tiles(*t, rc, bg, colors_precomp=torch.zeros(50, 3))
+
+
+def test_render_sh_pair_matches_concatenated():
+    """render_gaussians hands the tile rasterizer the model's SH as the
+    pair (features_dc, features_rest), which K1 and K2 read and write in
+    place: the same image, and the same gradients of features_dc,
+    features_rest and the screen offset, as the SH concatenated into one
+    (N, 16, 3) tensor in front of the rasterizer."""
+    from guidedvd3dgs_tpu_torch.models.gaussians import GaussianParams
+    from guidedvd3dgs_tpu_torch.models.render import render_gaussians
+
+    xyz, log_scales, rots, opac_logit, sh = random_gaussians(n=400, seed=11)
+    sh[:, 1:] = np.random.default_rng(11).normal(scale=0.3, size=sh[:, 1:].shape)
+    cam = raster_camera_from_numpy(make_camera(height=H, width=W).raster_camera())
+    bg = torch.from_numpy(BG)
+    rng = np.random.default_rng(12)
+    w_img = torch.from_numpy(rng.normal(size=(5, H, W)).astype(np.float32))
+
+    def run(pair: bool):
+        params = GaussianParams(*(torch.from_numpy(np.ascontiguousarray(a, np.float32)) for a in
+                                  (xyz, sh[:, :1], sh[:, 1:], log_scales, rots, opac_logit)))
+        off = torch.zeros((400, 2), requires_grad=True)
+        if pair:
+            out = render_gaussians(params, cam, bg, 3, means2d_offset=off)
+        else:
+            n = torch.linalg.norm(params.rotation, dim=-1, keepdim=True)
+            out = rasterize(params.xyz, torch.exp(params.scaling), params.rotation / torch.clamp(n, min=1e-12),
+                            torch.sigmoid(params.opacity),
+                            torch.cat([params.features_dc, params.features_rest], dim=1), cam, bg,
+                            means2d_offset=off)
+        img = torch.cat([out.color, out.depth[None], out.alpha[None]])
+        (img * w_img).sum().backward()
+        return img, params.features_dc.grad, params.features_rest.grad, off.grad, params.xyz.grad
+
+    got, want = run(True), run(False)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert float(got[1].abs().max()) > 0 and float(got[2].abs().max()) > 0
+
+
+@pytest.mark.parametrize("sh_grad", [True, False])
+def test_offset_gradient_whatever_else_requires_one(sh_grad):
+    """The screen offset's gradient (densification's viewspace gradient)
+    comes out whether or not the SH pair requires a gradient, and is the
+    same either way."""
+    cam, parts = setup(300, 5)
+    rc = raster_camera_from_numpy(cam)
+    t = [torch.from_numpy(p) for p in parts]
+    sh = t[4]
+    pair = (sh[:, :1].clone().requires_grad_(sh_grad), sh[:, 1:].clone().requires_grad_(sh_grad))
+    off = torch.zeros((300, 2), requires_grad=True)
+    out = raster_tiles.rasterize_tiles(*t[:4], pair, rc, torch.from_numpy(BG), means2d_offset=off)
+    out.color.sum().backward()
+    assert off.grad is not None and float(off.grad.abs().max()) > 0
+    assert (pair[0].grad is not None) == sh_grad
+    off_ref = torch.zeros((300, 2), requires_grad=True)
+    ref = raster_tiles.rasterize_tiles(*t[:4], sh, rc, torch.from_numpy(BG), means2d_offset=off_ref)
+    ref.color.sum().backward()
+    assert torch.equal(off.grad, off_ref.grad)
