@@ -51,11 +51,31 @@ and the exit code is non-zero; there is no CPU fallback):
               statistics. Phases 4, 5 and 5b's traces count torch.cat's
               kernels and the CatBackward nodes (phases 5 and 5b fail on
               one: the SH reaches K1 and K2 unconcatenated)
+  5c. guided trainer  `train.guided.GuidedTrainer` on phase 5b's room:
+              the noisy room frozen as the baseline, the oracle engine
+              rendering the ground truth from the npz that make_scene's
+              writer writes, a 1M-point cloud of the room; the trajectory
+              pool (its seconds and frames), one diffusion event of 25
+              frames (pc_render, frozen, generate seconds; the splat's
+              device ms traced alone), then 24 guided steps that each take
+              a pseudo view (train view + pseudo view, one backward): host
+              ms per step, 10 steps traced by stage with the idle share and
+              the torch.cat kernels (no CatBackward, at most 6 a step);
+              K1-K6 launched twice a step, K1, K3, K4 once more a frozen or
+              oracle frame, exactly; every loss finite, pseudo_l1 > 0
   6. CLI      `guidedvd3dgs_tpu_torch.train_baseline` for 2000 iterations
               on the tool-default synthetic scene (scene.synthetic.
               make_scene), then the render and metrics CLIs on its
               iteration-0 and iteration-2000 models: test PSNR must gain
               at least 2 dB
+  6b. guided CLI  `guidedvd3dgs_tpu_torch.train_guidedvd` for 2000
+              iterations on that scene with the oracle engine (its
+              gt_gaussians.npz) and phase 6's model as the frozen baseline,
+              pseudo views between iterations 200 and 1900, an event every
+              260 (8); the render and metrics CLIs on it: at least 7 events,
+              a pseudo stack of 24, the CLI's launch counts exactly, and a
+              test PSNR not below phase 6's at 2000 (printed with SSIM and
+              the margin)
   7. generate the video-diffusion generation path (ViewCrafter at full
               width: 25 frames, 320x448, UNet 320 channels, ViT-H-14
               towers, random weights from a seed)
@@ -113,9 +133,11 @@ alone with STEPS DDIM steps; `--guided-only STEPS` phases 1, 2 and 8b
 8b-8c (L1's backward kernels and the guided step); `--forward-only`
 phases 1, 2, 7a and 7b-7c (L1's forward kernels and the DDIM request);
 `--gaussian-only` phases 1, 2, 3, 5 and 5b (the Gaussian kernels K1-K6
-and the trainer).
-The line before the last is the JSON kernel table (launches of K1-K6 from
-phase 5, of L1's forward from phase 7b, of its backward from phase 8b; for
+and the trainer); `--guided-trainer-only` phases 1, 2 and 5c (the guided
+trainer).
+The line before the last is the JSON kernel table (launches of K1-K6
+summed over phases 4, 5, 5b, 5c, 6 and 6b, each phase's count in
+`launches_by_phase`, of L1's forward from phase 7b, of its backward from phase 8b; for
 K1-K6 `host_ms` beside `ms` and `ms_dense` and `bound_ms_dense` from
 phase 5b's view; for K1 also `ms_full_table`, `bound_ms_all_rows` and
 their `_dense` twins);
@@ -151,6 +173,7 @@ sys.path.insert(0, str(ROOT))
 from guidedvd3dgs_tpu_torch import metrics as port_metrics  # noqa: E402
 from guidedvd3dgs_tpu_torch import render as port_render  # noqa: E402
 from guidedvd3dgs_tpu_torch import train_baseline as port_train_cli  # noqa: E402
+from guidedvd3dgs_tpu_torch import train_guidedvd as port_guided_cli  # noqa: E402
 from guidedvd3dgs_tpu_torch.config import (  # noqa: E402
     ModelParams,
     OptimizationParams,
@@ -178,7 +201,14 @@ from guidedvd3dgs_tpu_torch.scene import cameras, dataset_readers, synthetic  # 
 from guidedvd3dgs_tpu_torch.scene.ply import load_gaussian_ply  # noqa: E402
 from guidedvd3dgs_tpu_torch.scene.scene import Scene  # noqa: E402
 from guidedvd3dgs_tpu_torch.train.baseline import BaselineTrainer  # noqa: E402
-from guidedvd3dgs_tpu_torch.train.guided import ViewCrafterEngine, resize_renders  # noqa: E402
+from guidedvd3dgs_tpu_torch.train.guided import (  # noqa: E402
+    FrozenRenderer,
+    GuidedTrainer,
+    OracleDiffusionEngine,
+    ViewCrafterEngine,
+    resize_renders,
+)
+from guidedvd3dgs_tpu_torch.utils.sh import SH2RGB  # noqa: E402
 
 SEED = 20261016
 WIDTH, HEIGHT, HFOV = 640, 480, 90.0
@@ -269,8 +299,20 @@ DENSE_ITERS = 24
 DENSE_DENSIFY_AT = 20  # densify_from_iter 10, densification_interval 20, densify_until_iter 24
 DENSE_TRACE = range(10, 20)
 DENSE_SELECT = 0.1
-# phase 6: iterations of the CLI run on the tool-default synthetic scene
+# phase 5c: the guided trainer on phase 5b's room: one diffusion event of
+# EVENT_FRAMES frames (the oracle engine), then GUIDED_TRAINER_STEPS steps
+# that each take a pseudo view, GUIDED_TRACE of them traced
+EVENT_FRAMES = 25
+GUIDED_TRAINER_STEPS = 24
+GUIDED_TRACE = range(8, 18)  # iterations; the steps are iterations 2-25
+# torch.cat kernels a guided step may launch: the baseline step's 3 (phases
+# 5 and 5b) for each of its two renders
+GUIDED_CAT_KERNELS = 6
+# phase 6: iterations of the CLI run on the tool-default synthetic scene;
+# 6b: the guided CLI on it with the oracle, pseudo views between these
 CLI_ITERS = 2000
+CLI_PSEUDO = (200, 1900)
+CLI_MIN_EVENTS = 7  # of the 8 the schedule fires (a view without a trajectory skips one)
 # phase 7: the ViewCrafter request (configs/inference_pvd_1024.yaml widths,
 # the guidedvd engine size) and L1's shapes on its path: the UNet's level-0
 # spatial attention per CFG branch and with the guided step's CFG pair
@@ -1014,13 +1056,14 @@ def time_densify(trainer, events: list, prepare=None) -> None:
     trainer.densify = run
 
 
-def run_steps(trainer, iters: int, trace: range):
-    """Steps 1..iters, each timed on the host clock (synchronised), with a
-    torch.profiler trace over the steps of `trace`. Returns ({step: ms},
-    losses, instances per step, the profiler)."""
+def run_steps(trainer, iters: int, trace: range, first: int = 1, on_step=None):
+    """Steps first..iters, each timed on the host clock (synchronised), with
+    a torch.profiler trace over the steps of `trace`; `on_step(it)` runs
+    after each step, outside its time. Returns ({step: ms}, losses,
+    instances per step, the profiler)."""
     prof = torch.profiler.profile(activities=PROFILER_ACTIVITIES)
     step_ms, losses, instances = {}, [], []
-    for it in range(1, iters + 1):
+    for it in range(first, iters + 1):
         if it == trace.start:
             prof.start()
         torch.cuda.synchronize()
@@ -1032,6 +1075,8 @@ def run_steps(trainer, iters: int, trace: range):
             prof.stop()
         losses.append(st.loss)
         instances.append(st.num_instances)
+        if on_step is not None:
+            on_step(it)
     return step_ms, losses, instances, prof
 
 
@@ -1225,7 +1270,121 @@ def phase_train_dense(dev):
     ]
     for line in lines:
         log("phase 5b " + line)
-    return dense
+    return dense, launches
+
+
+def guidance_intrinsic(cam) -> np.ndarray:
+    """K at the train resolution from a camera's field of view, as the
+    guided CLI builds it."""
+    w, h = cam.image_width, cam.image_height
+    fx, fy = w / (2 * math.tan(cam.FoVx / 2)), h / (2 * math.tan(cam.FoVy / 2))
+    return np.array([[fx, 0, w / 2], [0, fy, h / 2], [0, 0, 1]])
+
+
+def count_renders(renderer: FrozenRenderer, counter: dict, key: str) -> None:
+    """Count the renderer's frames under `key`."""
+    render = renderer.render
+
+    def counted(*args, **kwargs):
+        counter[key] = counter.get(key, 0) + 1
+        return render(*args, **kwargs)
+
+    renderer.render = counted
+
+
+def phase_guided_trainer(dev, work: Path):
+    """The guided trainer at full width on phase 5b's room: the frozen
+    renderer is the noisy room (1M Gaussians), the oracle engine renders the
+    ground-truth room from the npz that make_scene's writer writes, the
+    point cloud is a 1M-point noisy cloud of the room. It builds the
+    trajectory pool, runs one diffusion event of EVENT_FRAMES frames, then
+    GUIDED_TRAINER_STEPS steps that each take a pseudo view (train view +
+    pseudo view, one backward), GUIDED_TRACE of them traced by stage."""
+    gt, pcams, params = dense_room(dev)
+    views = train_views(gt, pcams, dev)
+    npz = work / "gt_gaussians.npz"
+    synthetic.write_gt_npz(str(npz), gt)
+    rng = np.random.default_rng(SEED + 5)
+    cols = np.clip(SH2RGB(gt["features_dc"][:, 0]), 0, 1).astype(np.float32)
+    pcd_pts, pcd_cols = synthetic.init_cloud(gt["xyz"], cols, N_SCENE, rng)
+    frozen = FrozenRenderer(params, 3)
+    engine = OracleDiffusionEngine(str(npz), EVENT_FRAMES, HEIGHT, WIDTH, device=dev)
+    state = G.GaussianState.fresh(G.GaussianParams(**{k: v.clone() for k, v in params.tensors().items()}))
+    last = GUIDED_TRAINER_STEPS + 1
+    # pseudo views from the first step, no event inside the steps, the
+    # statistics on and no densification (phase 5b times that)
+    opt = OptimizationParams(iterations=10 * last, start_sample_pseudo=0, end_sample_pseudo=10 * last,
+                             guidance_vd_iter=10 * last, densify_from_iter=10 * last,
+                             densify_until_iter=10 * last)
+    trainer = GuidedTrainer(views, state, opt, PipelineParams(), ModelParams(), frozen, engine,
+                            pcd_pts, pcd_cols, guidance_intrinsic(views.cams[0]))
+    frames = {}
+    count_renders(frozen, frames, "frozen")
+    count_renders(engine.renderer, frames, "oracle")
+
+    # the main path of this slice
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.init_trajectory_pool()
+    torch.cuda.synchronize()
+    pool_s = time.perf_counter() - t0
+    pool_frames = frames["frozen"]
+    pool_sizes = {v: len(e) for v, e in trainer.trajectory_pool.items()}
+    trainer.run_diffusion_event(1)
+    if trainer.events_run != 1 or len(trainer.pseudo_stack) != EVENT_FRAMES - 1:
+        raise AssertionError(f"event: {trainer.events_run} run, stack {len(trainer.pseudo_stack)}")
+    event = dict(trainer.event_phase_s)
+    pseudo_l1 = []
+    step_ms, losses, instances, prof = run_steps(
+        trainer, last, GUIDED_TRACE, first=2,
+        on_step=lambda it: pseudo_l1.append(float(trainer.last_metrics["pseudo_l1"])))
+    launches = dict(_build.LAUNCHES)
+    steps = GUIDED_TRAINER_STEPS
+    renders = frames["frozen"] + frames["oracle"]
+    want = {n: 2 * steps + (renders if n in FORWARD_KERNELS else 0) for n in GAUSSIAN_KERNELS}
+    if any(launches[n] != want[n] for n in GAUSSIAN_KERNELS) or any(
+            launches[n] for n in ("flash_attn_fwd",) + L1_BWD_KERNELS):
+        raise AssertionError(f"launches {launches}, expected {want}: each of K1-K6 twice a guided step, "
+                             f"K1, K3, K4 once more a frozen or oracle frame ({renders})")
+    if not all(math.isfinite(float(v)) for v in losses) or not all(p > 0.0 for p in pseudo_l1):
+        raise AssertionError(f"losses {[float(v) for v in losses]}, pseudo_l1 {pseudo_l1}")
+    dev_ms, idle, rb_ms, rbs, concat = trace_summary(prof, len(GUIDED_TRACE))
+    check_no_sh_split(concat)
+    if concat["kernels"] > GUIDED_CAT_KERNELS:
+        raise AssertionError(f"{concat['kernels']:g} torch.cat kernels a guided step "
+                             f"(at most {GUIDED_CAT_KERNELS}: the baseline step's three a render)")
+    untraced = [ms for it, ms in step_ms.items() if it not in GUIDED_TRACE and it > 2]
+    # the splat of one event's trajectory alone, traced: its device ms
+    traj = trainer.trajectory_pool[0][0].traj_c2ws
+    trainer.pc_render_along(traj, 0)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=PROFILER_ACTIVITIES) as sprof:
+        trainer.pc_render_along(traj, 0)
+        torch.cuda.synchronize()
+    splat_ms = sum(trace_summary(sprof, 1)[0].values())
+    event_s = sum(event.values())
+    lines = [
+        f"guided trainer (phase 5b's room: frozen = the noisy room, {N_SCENE} Gaussians SH 3, oracle = "
+        f"the ground truth from {npz.name}, {pcd_pts.shape[0]}-point cloud, {WIDTH}x{HEIGHT}, 6 train "
+        f"views): trajectory pool {pool_s:.3f} s ({pool_frames} frozen frames; entries per view "
+        f"{pool_sizes})",
+        f"one diffusion event of {EVENT_FRAMES} frames {event_s:.3f} s: pc_render {event['pc_render']:.3f} s, "
+        f"frozen {event['frozen']:.3f} s, generate (oracle) {event['generate']:.3f} s; the splat alone "
+        f"{splat_ms:.3f} device ms an event (traced), {splat_ms / 1e3 / event_s:.4f} of the event",
+        f"{steps} guided steps (train view + pseudo view): step ms median "
+        f"{statistics.median(untraced):.3f} (host clock, synchronised, {len(untraced)} untraced steps); "
+        f"instances (larger render) median {int(statistics.median(instances))}",
+        f"loss step 2 {float(losses[0]):.5f} -> step {last} {float(losses[-1]):.5f}; pseudo_l1 "
+        f"{pseudo_l1[0]:.5f} -> {pseudo_l1[-1]:.5f} (all > 0); launches {launches} "
+        f"(frozen frames {frames['frozen']}, oracle frames {frames['oracle']})",
+        f"traced device ms/step over iterations {GUIDED_TRACE.start}-{GUIDED_TRACE[-1]}: "
+        + fmt_stages(dev_ms) + f", splat 0 (events only), idle share {idle:.3f} (under the profiler); "
+        f"read-backs/step {rbs:g}, host wait {rb_ms:.3f} ms/step; {fmt_concat(concat, 'step')}",
+    ]
+    for line in lines:
+        log("phase 5c " + line)
+    return launches
 
 
 def phase_cli(dev, work: Path):
@@ -1268,6 +1427,59 @@ def phase_cli(dev, work: Path):
         f"({train_s / CLI_ITERS * 1e3:.2f} ms/iteration with the test evaluation and the save) | "
         f"Gaussians at {CLI_ITERS}: {n_final['xyz'].shape[0]} | test PSNR {p0:.4f} -> {p1:.4f} dB, "
         f"SSIM {s0:.5f} -> {s1:.5f} (iteration 0 -> {CLI_ITERS}) | launches {launches}")
+    return src, mdl, (p1, s1), launches
+
+
+def phase_guided_cli(dev, work: Path, src: Path, base: Path, base_scores):
+    """The guided CLI with the oracle on phase 6's scene, its 2000-iteration
+    baseline as the frozen renderer, pseudo views between CLI_PSEUDO, an
+    event every 260 iterations (the default); then the render and metrics
+    CLIs. Its test PSNR must not be lower than the baseline's."""
+    mdl = work / "synthetic_guided"
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    trainer = port_guided_cli.main([
+        "-s", str(src), "-m", str(mdl), "--dataset", "colmap", "--n_views", "6", "--eval",
+        "--iterations", str(CLI_ITERS), "--test_iterations", str(CLI_ITERS),
+        "--save_iterations", str(CLI_ITERS), "--baseline_path", str(base),
+        "--baseline_iteration", str(CLI_ITERS), "--oracle_gt_npz", str(src / "gt_gaussians.npz"),
+        "--start_sample_pseudo", str(CLI_PSEUDO[0]), "--end_sample_pseudo", str(CLI_PSEUDO[1]),
+        "--device", dev.type,
+    ])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    timing = json.loads((mdl / "timing_summary.json").read_text())
+    events = trainer.events_run
+    if events < CLI_MIN_EVENTS or len(trainer.pseudo_stack) != EVENT_FRAMES - 1:
+        raise AssertionError(f"{events} events, a pseudo stack of {len(trainer.pseudo_stack)}")
+    # every step renders the train view; the steps strictly inside
+    # CLI_PSEUDO (the first event comes after step 1) a pseudo view too
+    pseudo_steps = CLI_PSEUDO[1] - CLI_PSEUDO[0] - 1
+    backward = CLI_ITERS + pseudo_steps
+    # K1, K3, K4 also render: the centre depth of each train view and its 3
+    # scales x 20 pool candidates, the frozen and the oracle frames of each
+    # event, the test and train views of the evaluation at CLI_ITERS
+    n_train, n_test = len(trainer.train_cams), len(trainer.scene.getTestCameras())
+    forward = backward + n_train * (1 + 3 * 20) + 2 * EVENT_FRAMES * events + n_test + n_train
+    want = {n: forward if n in FORWARD_KERNELS else backward for n in GAUSSIAN_KERNELS}
+    if any(launches[n] != want[n] for n in GAUSSIAN_KERNELS):
+        raise AssertionError(f"guided CLI launches {launches}, expected {want}")
+    port_render.main(["-m", str(mdl), "--skip_train", "--iteration", str(CLI_ITERS), "--device", dev.type])
+    port_metrics.evaluate([str(mdl)], device=dev.type)
+    res = json.loads((mdl / "results.json").read_text())[f"ours_{CLI_ITERS}"]
+    p, s = res["PSNR"], res["SSIM"]
+    if not (math.isfinite(p) and math.isfinite(s) and p >= base_scores[0]):
+        raise AssertionError(f"guided test PSNR {p} below the baseline's {base_scores[0]} at {CLI_ITERS}")
+    log(f"phase 6b guided CLI (oracle engine, phase 6's scene and its {CLI_ITERS}-iteration baseline as "
+        f"the frozen renderer, pseudo views in {CLI_PSEUDO}, an event every 260): train_guidedvd "
+        f"{CLI_ITERS} iterations {train_s:.1f} s (events {timing['event_s']:.3f} s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in timing["event_phase_s"].items())
+        + f"; training {timing['train_s']:.3f} s) | events {events}, pseudo stack "
+        f"{len(trainer.pseudo_stack)}, all-time stack {len(trainer.pseudo_stack_alltime)} | test PSNR "
+        f"{p:.4f} dB SSIM {s:.5f} against the baseline's {base_scores[0]:.4f} / {base_scores[1]:.5f} at "
+        f"{CLI_ITERS} (margin {p - base_scores[0]:+.4f} dB) | launches {launches}")
+    return launches
 
 
 def l1_bound(shape, dtype):
@@ -1931,6 +2143,8 @@ def main() -> None:
                         help="run phases 1, 2, 7a and 7b-7c alone: L1's forward kernels and the DDIM request")
     parser.add_argument("--gaussian-only", action="store_true",
                         help="run phases 1, 2, 3, 5 and 5b alone: the Gaussian kernels K1-K6 and the trainer")
+    parser.add_argument("--guided-trainer-only", action="store_true",
+                        help="run phases 1, 2 and 5c alone: the guided trainer at full width")
     args = parser.parse_args()
     start = time.perf_counter()
     secs = {}
@@ -1959,22 +2173,32 @@ def main() -> None:
         run("7b-7c", phase_generate, dev, GEN_STEPS)
         log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
         return
-    res = run("3", phase_kernels, dev)
-    if args.gaussian_only:
-        run("5", phase_train, dev)
-        run("5b", phase_train_dense, dev)
-        log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
-        return
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=build_dir))
     try:
-        run("4", phase_main, dev, work)
-        launches = run("5", phase_train, dev)
-        dense = run("5b", phase_train_dense, dev)
-        run("6", phase_cli, dev, work)
+        if args.guided_trainer_only:
+            run("5c", phase_guided_trainer, dev, work)
+            log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+            return
+        res = run("3", phase_kernels, dev)
+        if args.gaussian_only:
+            run("5", phase_train, dev)
+            run("5b", phase_train_dense, dev)
+            log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+            return
+        # K1-K6's launches on every path that runs them, by phase
+        by_phase = {"4": run("4", phase_main, dev, work), "5": run("5", phase_train, dev)}
+        dense, by_phase["5b"] = run("5b", phase_train_dense, dev)
+        by_phase["5c"] = run("5c", phase_guided_trainer, dev, work)
+        cli_src, base, base_scores, by_phase["6"] = run("6", phase_cli, dev, work)
+        by_phase["6b"] = run("6b", phase_guided_cli, dev, work, cli_src, base, base_scores)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    launches = {name: sum(ph.get(name, 0) for ph in by_phase.values()) for name in GAUSSIAN_KERNELS}
+    for name in GAUSSIAN_KERNELS:
+        res[name].setdefault("extra", {})["launches_by_phase"] = {k: ph.get(name, 0)
+                                                                  for k, ph in by_phase.items()}
     res["flash_attn_fwd"] = run("7a", phase_l1, dev)
     launches["flash_attn_fwd"] = run("7b-7c", phase_generate, dev, GEN_STEPS)
     res.update(run("8a", phase_l1_bwd, dev))

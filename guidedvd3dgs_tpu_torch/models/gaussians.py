@@ -12,10 +12,11 @@ removal is stable, so the two states can be compared row by row.
     (eps 1e-15, one shared step, per-group learning rates; not
     torch.optim, whose state would not follow densification), the
     confidence and the densification statistics.
-  * `create_from_pcd`, `adam_step`, `add_densification_stats`,
-    `update_max_radii`, `densify_and_clone`, `densify_and_split`,
-    `proximity`, `densify_and_prune`, `reset_opacity`: the reference's
-    operations, updating the state in place (and returning it).
+  * `create_from_pcd`, `adam_step`, `add_densification_stats` (and its
+    train + pseudo view form), `update_max_radii`, `densify_and_clone`,
+    `densify_and_split`, `proximity`, `densify_and_prune`, `reset_opacity`:
+    the reference's operations, updating the state in place (and
+    returning it).
 """
 
 from __future__ import annotations
@@ -218,6 +219,19 @@ def add_densification_stats(state: GaussianState, viewspace_grad: torch.Tensor,
     state.xyz_gradient_accum += torch.where(f, gnorm, torch.zeros_like(gnorm))
     state.denom += f.to(state.denom.dtype)
     return state
+
+
+@torch.no_grad()
+def add_densification_stats_with_novel_pose(
+    state: GaussianState, viewspace_grad: torch.Tensor, update_filter: torch.Tensor,
+    viewspace_grad_novel: torch.Tensor, update_filter_novel: torch.Tensor,
+    novel_pose_scale: float = 1.0,
+) -> GaussianState:
+    """The train and pseudo views' statistics in one: the norm of the sum of
+    their viewspace gradients, counted where either view sees the Gaussian
+    (reference gaussian_model.py:530-544)."""
+    g = viewspace_grad + viewspace_grad_novel / novel_pose_scale
+    return add_densification_stats(state, g, update_filter | update_filter_novel)
 
 
 @torch.no_grad()

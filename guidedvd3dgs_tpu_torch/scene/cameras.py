@@ -83,7 +83,10 @@ class Camera:
 
 @dataclasses.dataclass
 class PseudoCamera:
-    """Camera without a ground-truth image (novel or path views)."""
+    """Camera without a ground-truth image (novel or path views); the
+    guided trainer's pseudo views carry the generated frame as `pseudo_gt`
+    (3, H, W) and the event's mask of unobserved pixels (1, H, W), tensors
+    on its device."""
 
     R: np.ndarray
     T: np.ndarray
@@ -91,6 +94,8 @@ class PseudoCamera:
     FoVy: float
     width: int
     height: int
+    pseudo_gt: Optional[torch.Tensor] = None
+    mask: Optional[torch.Tensor] = None
     trans: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(3))
     scale: float = 1.0
 

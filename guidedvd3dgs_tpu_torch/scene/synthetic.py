@@ -13,8 +13,10 @@ ground-truth images differ, because the port renders them itself.
 
 Writes what the readers take: `<source>/images/*.png`,
 `<source>/sparse/0/{cameras,images,points3D}.txt` + `points3D.ply`,
-`<source>/train_test_split_<n>.json`; `write_scene` also writes a trained
-model directory (`cfg_args.json`, `point_cloud/iteration_<it>/`).
+`<source>/train_test_split_<n>.json` and, from `make_scene`, the
+ground-truth Gaussians `<source>/gt_gaussians.npz` (the tool's keys);
+`write_scene` also writes a trained model directory (`cfg_args.json`,
+`point_cloud/iteration_<it>/`).
 """
 
 from __future__ import annotations
@@ -127,6 +129,20 @@ def gt_arrays(pts: np.ndarray, cols: np.ndarray, rng) -> dict:
     }
 
 
+# the tool's names of the ground-truth npz keys, by the names gt_arrays uses
+GT_NPZ_KEYS = {"xyz": "xyz", "f_dc": "features_dc", "f_rest": "features_rest",
+               "scaling": "scaling", "rotation": "rotation", "opacity": "opacity"}
+
+
+def write_gt_npz(path: str, gt: dict) -> None:
+    """Write ground-truth Gaussians (gt_arrays' names) as the tool's
+    `gt_gaussians.npz`: keys xyz, f_dc (N, 1, 3), f_rest (N, 15, 3),
+    scaling, rotation, opacity. The oracle engine of the guided trainer
+    reads it."""
+    with open(path, "wb") as f:
+        np.savez(f, **{k: np.asarray(gt[name], np.float32) for k, name in GT_NPZ_KEYS.items()})
+
+
 def room_gaussians(n: int, rng: np.random.Generator) -> dict:
     """The ground-truth Gaussians of a room of `n` surface points."""
     return gt_arrays(*sample_room(rng, n), rng)
@@ -225,6 +241,7 @@ def make_scene(
     train_ids, test_ids = split_ids(n_cams, n_train)
     write_source(out, c2ws, cams, images, train_ids, test_ids, init_pts,
                  (init_cols * 255).astype(np.uint8))
+    write_gt_npz(os.path.join(out, "gt_gaussians.npz"), gt)
     return dict(gt=gt, c2ws=c2ws, init_pts=init_pts, init_cols=init_cols,
                 train_ids=train_ids, test_ids=test_ids)
 

@@ -1,19 +1,51 @@
-"""The diffusion engine of the guided trainer.
+"""The guided trainer (train_guidedvd) and its diffusion engines.
 
-Counterpart of the engine half of `guidedvd3dgs_tpu/train/guided.py`
-(:181-205 the DiffusionEngine protocol, :297-602 ViewCrafterEngine;
-reference utils/viewcrafter_wrapper.py:550-573 run_video_diffusion):
-generation with scene-grounding guidance, or without it (the reference's
---no_guidance). The trainer around it is not ported yet. Every weight stays
-resident on the device.
+Counterpart of `guidedvd3dgs_tpu/train/guided.py`'s per-step path
+(reference train_guidedvd.py:48-636), with the same semantics:
+  * `FrozenRenderer`: the frozen baseline renders rgb / alpha / depth for
+    any w2c + K (reference utils/easy_renderer.py:15-78), frame by frame
+    with exactly sized buffers (the reference groups five frames into one
+    batched chain of a fixed capacity);
+  * the trajectory pool (Eq. 7): per train view and each of 3 centre
+    scales, a (phi, theta) grid of candidates rendered by the frozen
+    model; the alpha < 0.7 mask eroded by 5; the largest unobserved areas
+    below 0.1 H W kept (3, 2, 1 per scale), each interpolated into a
+    trajectory (reference :121-298);
+  * per iteration: the train view's loss plus `pseudo_cam_weight` times a
+    pseudo view's L1 [+ SSIM], the pseudo view drawn half the time from
+    the all-time stack (reference :343-381); the densification statistics
+    of both views in one (:403-416);
+  * every `guidance_vd_iter` iterations a diffusion event: the scene's
+    point cloud splatted along a pooled trajectory, the frozen model
+    rendered along it, the engine's video, and a new pseudo stack of its
+    frames but the first, a fifth of them promoted to the all-time stack
+    (reference :431-636).
+The engines: `ViewCrafterEngine` (the ViewCrafter stack with guidance,
+reference utils/viewcrafter_wrapper.py:550-573; not yet driven by the
+trainer), `MockDiffusionEngine` (the frozen renders with the holes filled
+by the point-cloud render) and `OracleDiffusionEngine` (renders of known
+ground-truth Gaussians: a perfect prior for validation runs).
+Not carried from the reference: its lax.scan chunk trainer and device
+pseudo-frame pool, pipelined events, exact guided checkpoints (a
+checkpoint is the plain training state), the depth-lift appends, the
+two-renderer and training-Gaussian guidance variants and the per-event
+video artifacts.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Protocol
+import copy
+import json
+import os
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Protocol
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from guidedvd3dgs_tpu_torch.convert import params_from_numpy
 
 from guidedvd3dgs_tpu_torch.diffusion.model import DiffusionParams, LatentDiffusionConfig
 from guidedvd3dgs_tpu_torch.diffusion.samplers.ddim_guidance import GuidedSampleConfig
@@ -23,7 +55,21 @@ from guidedvd3dgs_tpu_torch.diffusion.synthesis import (
     encode_text_pair,
     image_guided_synthesis,
 )
-from guidedvd3dgs_tpu_torch.guidance.loss_guidance import make_guidance_fn, resize_guidance
+from guidedvd3dgs_tpu_torch.guidance import morphology as morph
+from guidedvd3dgs_tpu_torch.guidance import pose_math as pm
+from guidedvd3dgs_tpu_torch.guidance.loss_guidance import (
+    guidance_weight_schedule,
+    make_guidance_fn,
+    resize_guidance,
+)
+from guidedvd3dgs_tpu_torch.models import gaussians as G
+from guidedvd3dgs_tpu_torch.models.render import render_gaussians, render_state
+from guidedvd3dgs_tpu_torch.ops.point_splat import splat_points_world, visible_points_mask
+from guidedvd3dgs_tpu_torch.ops.projection import RasterCamera
+from guidedvd3dgs_tpu_torch.scene.cameras import PseudoCamera, camera_from_w2c_K
+from guidedvd3dgs_tpu_torch.scene.synthetic import GT_NPZ_KEYS
+from guidedvd3dgs_tpu_torch.train.baseline import BaselineTrainer, StepStats, lrs_for
+from guidedvd3dgs_tpu_torch.utils.losses import l1_loss, psnr, ssim
 
 
 def resize_renders(video: torch.Tensor, height: int, width: int) -> torch.Tensor:
@@ -102,3 +148,509 @@ class ViewCrafterEngine:
                                         scale_guidance_weight=scale_guidance_weight,
                                         text_pair=self.text_pair)
         return torch.clamp((frames + 1.0) / 2.0, 0.0, 1.0).permute(0, 3, 1, 2)
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the device, so a host clock reads the work queued before."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+# ----------------------------------------------------------------------------
+# frozen renderer and the weightless engines
+# ----------------------------------------------------------------------------
+
+
+class FrozenRenderer:
+    """Renders frozen Gaussian parameters for guidance, under no_grad, on
+    the parameters' device (reference utils/easy_renderer.py:15-78)."""
+
+    def __init__(self, params: G.GaussianParams, sh_degree: int, bg=None, backend: str = "auto"):
+        self.params = params
+        self.sh_degree = sh_degree
+        self.device = params.xyz.device
+        self.bg = torch.tensor(bg if bg is not None else [0.0, 0.0, 0.0], dtype=torch.float32,
+                               device=self.device)
+        self.backend = backend
+
+    @torch.no_grad()
+    def render(self, w2c: np.ndarray, K: np.ndarray, height: int, width: int):
+        """(color (3, H, W), alpha (H, W), depth (H, W)) of an OpenCV w2c."""
+        cam = camera_from_w2c_K(np.asarray(w2c), np.asarray(K), height, width)
+        r = render_gaussians(self.params, cam.raster_camera(self.device), self.bg, self.sh_degree,
+                             backend=self.backend)
+        return r.color, r.alpha, r.depth
+
+    def render_many(self, w2cs: np.ndarray, K: np.ndarray, height: int, width: int):
+        """The frames of a (T, 4, 4) trajectory: (color (T, 3, H, W),
+        alpha (T, H, W), depth (T, H, W))."""
+        frames = [self.render(w, K, height, width) for w in w2cs]
+        return tuple(torch.stack(x) for x in zip(*frames))
+
+
+class MockDiffusionEngine:
+    """Weightless stand-in: the guidance renders where the mask says
+    observed, the point-cloud render in the holes. Runs the guided trainer
+    end to end without a diffusion model."""
+
+    def __init__(self, video_length: int = 25, height: int = 320, width: int = 448):
+        self.video_length, self.height, self.width = video_length, height, width
+
+    @torch.no_grad()
+    def generate(self, pc_renders, guidance_images, guidance_masks, guidance_depths,
+                 generator: Optional[torch.Generator] = None, no_guidance: bool = False,
+                 scale_guidance_weight: float = 1.0) -> torch.Tensor:
+        pc = resize_renders(pc_renders, guidance_images.shape[2], guidance_images.shape[3])
+        pc = pc.permute(0, 3, 1, 2)
+        m = guidance_masks  # the observed mask
+        return torch.clamp(guidance_images * m + pc * (1 - m), 0.0, 1.0)
+
+
+class OracleDiffusionEngine:
+    """Validation engine: the video is rendered from known ground-truth
+    Gaussians (a `gt_gaussians.npz` of the synthetic scene), a perfect
+    prior. The trainer hands it the event's trajectory by
+    `set_trajectory`; `generate` renders it at the engine's size."""
+
+    def __init__(self, gt_npz: str, video_length: int = 25, height: int = 320, width: int = 448,
+                 sh_degree: int = 3, backend: str = "auto", device="cuda"):
+        z = np.load(gt_npz)
+        params = params_from_numpy({name: z[k] for k, name in GT_NPZ_KEYS.items()}, device)
+        self.renderer = FrozenRenderer(params, sh_degree, backend=backend)
+        self.video_length, self.height, self.width = video_length, height, width
+        self._w2cs = None
+        self._K = None
+
+    def set_trajectory(self, w2cs: np.ndarray, K: np.ndarray) -> None:
+        self._w2cs, self._K = np.asarray(w2cs), np.asarray(K)
+
+    def generate(self, pc_renders, guidance_images, guidance_masks, guidance_depths,
+                 generator: Optional[torch.Generator] = None, no_guidance: bool = False,
+                 scale_guidance_weight: float = 1.0) -> torch.Tensor:
+        if self._w2cs is None:
+            raise RuntimeError("OracleDiffusionEngine: set_trajectory was not called")
+        rgb, _, _ = self.renderer.render_many(self._w2cs, self._K, self.height, self.width)
+        return torch.clamp(rgb, 0.0, 1.0)
+
+
+# ----------------------------------------------------------------------------
+# trajectory pool
+# ----------------------------------------------------------------------------
+
+
+@dataclass
+class TrajEntry:
+    cand_idx: int
+    traj_c2ws: np.ndarray  # (T, 4, 4) world frame
+    center_scale: float
+    scale_idx: int
+    obj_c2w: np.ndarray  # (1, 4, 4) the source pose in the object frame
+    transform_back: np.ndarray  # (4, 4)
+
+
+def select_topk_candidates(areas: np.ndarray, mask_thresh: float, top_k: int) -> np.ndarray:
+    """The candidates whose unobserved area is below the threshold, the
+    top_k largest areas of them in descending order, ties in index order
+    (reference train_guidedvd.py:175-179)."""
+    ok = np.nonzero(areas < mask_thresh)[0]
+    order = np.argsort(-areas[ok], kind="stable")[:top_k]
+    return ok[order]
+
+
+def build_trajectory_pool(
+    frozen: FrozenRenderer,
+    train_c2ws: np.ndarray,  # (V, 4, 4)
+    intrinsic: np.ndarray,  # (3, 3)
+    center_depths: np.ndarray,  # (V,) depth at each view's centre pixel
+    height: int,
+    width: int,
+    center_scale: float = 1.0,
+    elevation: float = 5.0,
+    video_length: int = 25,
+) -> Dict[int, List[TrajEntry]]:
+    """Eq. 7's pool: per view, 3 radius scales x (5 phi x 4 or 5 theta)
+    candidates, keeping the (3, 2, 1) best of each scale."""
+    d_phi = [-30, -15, 0, 15, 30]
+    d_theta = [-30, -15, 0, 15, 30] if center_scale != 1 else [-15, -7.5, 0, 7.5]
+    mask_thresh = 0.1 * height * width
+    scales = [(center_scale, 3, 1), (center_scale / 3.0, 2, 2), (center_scale / 10.0, 1, 3)]
+    pool: Dict[int, List[TrajEntry]] = {}
+    for v in range(train_c2ws.shape[0]):
+        pool[v] = []
+        for cs, top_k, scale_idx in scales:
+            radius = float(center_depths[v]) * cs
+            obj_poses, back = pm.world_to_obj(train_c2ws[v][None], -1, radius, elevation)
+            cands, offsets = pm.candidate_pose_grid(obj_poses, back, d_phi, d_theta)
+            w2cs = np.stack([np.linalg.inv(c) for c in cands])
+            _, alphas, _ = frozen.render_many(w2cs, intrinsic, height, width)
+            areas = morph.erode((alphas < 0.7).to(torch.float32), 5).sum(dim=(1, 2)).cpu().numpy()
+            for j in select_topk_candidates(areas, mask_thresh, top_k):
+                ph, th, dr = offsets[j]
+                traj = back[None] @ pm.interpolate_trajectory(obj_poses, ph, th, dr, frames=video_length)
+                pool[v].append(TrajEntry(int(j), traj, cs, scale_idx, obj_poses, back))
+    return pool
+
+
+# ----------------------------------------------------------------------------
+# the guided step
+# ----------------------------------------------------------------------------
+
+
+def train_step_guided(
+    state: G.GaussianState,
+    cam: RasterCamera,
+    gt_image: torch.Tensor,
+    pseudo_cam: Optional[RasterCamera],
+    pseudo_gt: Optional[torch.Tensor],
+    pseudo_weight: float,
+    bg: torch.Tensor,
+    lrs: G.LearningRates,
+    sh_degree: int,
+    lambda_dssim: float,
+    use_confidence: bool = False,
+    backend: str = "auto",
+    pseudo_ssim: bool = False,
+    apply_adam: bool = True,
+    update_stats: bool = True,
+) -> dict:
+    """One step on the train view and, when `pseudo_cam` is given, a pseudo
+    view, updating `state` in place (reference train_guidedvd.py:330-416):
+    loss = (1 - l) L1 + l (1 - SSIM) of the train view + pseudo_weight *
+    the pseudo view's L1 (its (1 - l) L1 + l (1 - SSIM) with pseudo_ssim).
+    Each render has its own zero screen offset for the densification
+    statistics; one backward pass. Returns the metrics (loss, l1,
+    pseudo_l1, psnr as device tensors; num_instances, the larger render's)."""
+    dev = state.device
+
+    def render(c, offset):
+        return render_state(state, c, bg, sh_degree, means2d_offset=offset,
+                            use_confidence=use_confidence, backend=backend)
+
+    offset = torch.zeros((state.num_gaussians, 2), device=dev, requires_grad=True)
+    r = render(cam, offset)
+    ll1 = l1_loss(r.color, gt_image)
+    loss = (1.0 - lambda_dssim) * ll1 + lambda_dssim * (1.0 - ssim(r.color, gt_image))
+    rp, pl1 = None, torch.zeros((), device=dev)
+    if pseudo_cam is not None:
+        offset_p = torch.zeros((state.num_gaussians, 2), device=dev, requires_grad=True)
+        rp = render(pseudo_cam, offset_p)
+        pl1 = l1_loss(rp.color, pseudo_gt)
+        if pseudo_ssim:
+            ploss = (1.0 - lambda_dssim) * pl1 + lambda_dssim * (1.0 - ssim(rp.color, pseudo_gt))
+        else:
+            ploss = pl1
+        loss = loss + pseudo_weight * ploss
+    state.params.zero_grad(set_to_none=True)
+    loss.backward()
+    if update_stats:
+        G.update_max_radii(state, r.radii, r.visibility_filter)
+        if rp is not None:
+            G.update_max_radii(state, rp.radii, rp.visibility_filter)
+            G.add_densification_stats_with_novel_pose(state, offset.grad, r.visibility_filter,
+                                                      offset_p.grad, rp.visibility_filter)
+        else:
+            G.add_densification_stats(state, offset.grad, r.visibility_filter)
+    if apply_adam:
+        G.adam_step(state, {n: getattr(state.params, n).grad for n in G.PARAM_NAMES}, lrs)
+    num_instances = r.num_instances
+    if rp is not None and rp.num_instances is not None:
+        num_instances = max(num_instances, rp.num_instances)
+    with torch.no_grad():
+        return {"loss": loss.detach(), "l1": ll1.detach(), "pseudo_l1": pl1.detach(),
+                "psnr": psnr(r.color, gt_image)[0, 0], "num_instances": num_instances}
+
+
+# ----------------------------------------------------------------------------
+# trainer
+# ----------------------------------------------------------------------------
+
+
+class GuidedTrainer(BaselineTrainer):
+    """train_guidedvd.py:48-636 around `train_step_guided`, per step.
+
+    Host draws follow the reference's streams in its order: the train
+    views from `random.Random(seed)` (BaselineTrainer), the pool
+    shuffles, event views, pseudo views and promotions from
+    `np.random.default_rng(seed)`. A checkpoint is the plain training
+    state (BaselineTrainer.write_checkpoint), as the reference's per-step
+    path writes; resuming rebuilds the pool."""
+
+    def __init__(self, scene, state: G.GaussianState, opt, pipe, model_params,
+                 frozen: FrozenRenderer, engine: DiffusionEngine, pcd_points: np.ndarray,
+                 pcd_colors: np.ndarray, guidance_intrinsic: np.ndarray, background=None,
+                 seed: int = 1, elevation: float = 5.0, hybrid_traj: bool = False):
+        super().__init__(scene, state, opt, pipe, model_params, background)
+        self.frozen = frozen
+        self.engine = engine
+        self.pcd_points = torch.from_numpy(np.ascontiguousarray(pcd_points, np.float32)).to(self.device)
+        self.pcd_colors = torch.from_numpy(np.ascontiguousarray(pcd_colors, np.float32)).to(self.device)
+        self.intrinsic = np.asarray(guidance_intrinsic)
+        self.elevation = elevation
+        self.rng_np = np.random.default_rng(seed)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self.train_cams = list(scene.getTrainCameras())
+        self.H = self.train_cams[0].image_height
+        self.W = self.train_cams[0].image_width
+        # guided runs hold the SH degree at its maximum (reference :327-329)
+        self.active_sh_degree = self.max_sh_degree
+        self.pseudo_stack: List[PseudoCamera] = []
+        self.pseudo_stack_alltime: List[PseudoCamera] = []
+        self.trajectory_pool: Dict[int, List[TrajEntry]] = {}
+        self.trajectory_pool_shuffle: Dict[int, List[TrajEntry]] = {}
+        self.vd_indices: List[int] = []
+        self.events_run = 0
+        # the hybrid-traj variant: the first epoch of events takes the loop2
+        # preset, then the pool (train_scannetpp_guidedvd_hybrid_traj.py:318)
+        self.hybrid_traj = hybrid_traj
+        self.txt_traj_warmup = hybrid_traj
+        self.event_phase_s = {"pc_render": 0.0, "frozen": 0.0, "generate": 0.0}
+        self._visible = {}  # source view -> (N,) bool of the points it sees
+        self.last_metrics = None
+
+    # -- setup ---------------------------------------------------------------
+
+    def init_view_geometry(self) -> None:
+        """Each train view's c2w and the frozen model's depth at its centre
+        pixel."""
+        c2ws, depths = [], []
+        for cam in self.train_cams:
+            w2c = np.asarray(cam.world_view_transform).T  # stored transposed
+            c2ws.append(np.linalg.inv(w2c))
+            _, _, depth = self.frozen.render(w2c, self.intrinsic, self.H, self.W)
+            depths.append(float(depth[self.H // 2, self.W // 2]))
+        self.train_c2ws = np.stack(c2ws)
+        self.center_depths = np.asarray(depths)
+
+    def init_trajectory_pool(self) -> None:
+        self.init_view_geometry()
+        self.trajectory_pool = build_trajectory_pool(
+            self.frozen, self.train_c2ws, self.intrinsic, self.center_depths, self.H, self.W,
+            center_scale=self.opt.guidance_vc_center_scale, elevation=self.elevation,
+            video_length=self.engine.video_length,
+        )
+        self.trajectory_pool_shuffle = {k: self._shuffled(v) for k, v in self.trajectory_pool.items()}
+
+    def _shuffled(self, entries):
+        out = list(entries)
+        self.rng_np.shuffle(out)
+        return out
+
+    def _next_view(self) -> int:
+        if not self.vd_indices:
+            idx = np.arange(len(self.train_cams))
+            self.rng_np.shuffle(idx)
+            self.vd_indices = idx.tolist()
+            if self.events_run > 0:
+                self.txt_traj_warmup = False  # the warm-up covers one epoch of views
+        return self.vd_indices.pop()
+
+    def _txt_trajectory(self, view: int, preset: str = "loop2") -> np.ndarray:
+        """A preset trajectory anchored at the view (reference
+        viewcrafter_wrapper.py:469-548, the txt path)."""
+        radius = float(self.center_depths[view]) * self.opt.guidance_vc_center_scale
+        obj_poses, back = pm.world_to_obj(self.train_c2ws[view][None], -1, radius, self.elevation)
+        phis, thetas, rs = pm.TRAJ_PRESETS[preset]
+        return back[None] @ pm.traj_from_txt(obj_poses, phis, thetas, rs, frames=self.engine.video_length)
+
+    # -- diffusion event -------------------------------------------------------
+
+    def pc_render_along(self, traj_c2ws: np.ndarray, view_idx: int) -> torch.Tensor:
+        """(T, H, W, 3): the point cloud splatted along the trajectory, frame
+        0 replaced by the real train image (reference viewcrafter_wrapper.py:
+        469-548). By default only the points seen from the source view are
+        splatted (the reference's pc_render_single_view); the mask is
+        computed once per view."""
+        w2cs = torch.from_numpy(np.stack([np.linalg.inv(c) for c in traj_c2ws]).astype(np.float32))
+        w2cs = w2cs.to(self.device)
+        K = torch.from_numpy(np.asarray(self.intrinsic, np.float32))
+        visible = None
+        if not getattr(self.opt, "guidance_pc_render_all_views", False):
+            visible = self._visible.get(view_idx)
+            if visible is None:
+                visible = self._visible[view_idx] = visible_points_mask(
+                    self.pcd_points, w2cs[0], K, self.H, self.W)
+        with torch.no_grad():
+            frames = torch.stack([
+                splat_points_world(self.pcd_points, self.pcd_colors, w2c, K, self.H, self.W,
+                                   point_mask=visible).image
+                for w2c in w2cs
+            ])
+        frames[0] = self.camera_on_device(self.train_cams[view_idx])[1].permute(1, 2, 0)
+        return frames
+
+    def run_diffusion_event(self, iteration: int) -> None:
+        """One event, synchronously (reference train_guidedvd.py:431-636)."""
+        pending = self.submit_diffusion_event(iteration)
+        if pending is not None:
+            self.finalize_diffusion_event(pending)
+
+    def _event_trajectory(self, view: int) -> Optional[np.ndarray]:
+        opt = self.opt
+        if self.txt_traj_warmup:
+            return self._txt_trajectory(view)
+        if not getattr(opt, "use_trajectory_pool", True):
+            # the txt-preset mode (reference train_guidedvd.py:434-452)
+            preset = "loop2"
+            if getattr(opt, "guidance_random_traj", False):
+                r = self.rng_np.random()
+                if getattr(opt, "guidance_no_wave_traj", False):
+                    preset = "loop2" if r < 0.5 else "loop1"
+                else:
+                    preset = "loop2" if r < 0.33 else ("loop1" if r < 0.66 else "wave1")
+            return self._txt_trajectory(view, preset)
+        if not self.trajectory_pool_shuffle.get(view):
+            self.trajectory_pool_shuffle[view] = self._shuffled(self.trajectory_pool[view])
+        if not self.trajectory_pool_shuffle[view]:
+            return None  # no valid trajectory for this view
+        return self.trajectory_pool_shuffle[view].pop().traj_c2ws
+
+    def submit_diffusion_event(self, iteration: int):
+        """Render the event's inputs and generate its video. Returns the
+        record `finalize_diffusion_event` takes, or None when the view has
+        no trajectory. Each phase's seconds (device included) add to
+        `event_phase_s`."""
+        view = self._next_view()
+        traj = self._event_trajectory(view)
+        if traj is None:
+            return None
+        _sync(self.device)
+        t = time.perf_counter()
+        pc_renders = self.pc_render_along(traj, view)
+        _sync(self.device)
+        t_pc = time.perf_counter() - t
+
+        t = time.perf_counter()
+        w2cs = np.stack([np.linalg.inv(traj[i]) for i in range(traj.shape[0])])
+        rgb, alpha, depth = self.frozen.render_many(w2cs, self.intrinsic, self.H, self.W)
+        gs_rgb = torch.clamp(rgb, 0, 1)  # (T, 3, H, W)
+        gs_alpha = (torch.clamp(alpha, 0, 1) < 0.9).to(torch.float32)[:, None]  # unobserved
+        gs_depth = depth[:, None]
+        _sync(self.device)
+        t_frozen = time.perf_counter() - t
+
+        t = time.perf_counter()
+        sw = guidance_weight_schedule(iteration) if getattr(self.opt, "scale_guidance_weight", False) else 1.0
+        if hasattr(self.engine, "set_trajectory"):
+            self.engine.set_trajectory(w2cs, self.intrinsic)
+        video = self.engine.generate(pc_renders, gs_rgb, 1.0 - gs_alpha, gs_depth,
+                                     generator=self.generator,
+                                     no_guidance=getattr(self.opt, "no_guidance", False),
+                                     scale_guidance_weight=sw)  # (T, 3, h, w) in [0, 1]
+        if video.shape[2:] != (self.H, self.W):
+            # back to the train resolution (reference train_guidedvd.py:557-559)
+            video = resize_renders(video.permute(0, 2, 3, 1), self.H, self.W).permute(0, 3, 1, 2)
+        _sync(self.device)
+        t_gen = time.perf_counter() - t
+        print(f"  [event it{iteration}] pc_render {t_pc:.3f}s frozen x{traj.shape[0]} {t_frozen:.3f}s "
+              f"generate {t_gen:.3f}s", flush=True)
+        for k, v in (("pc_render", t_pc), ("frozen", t_frozen), ("generate", t_gen)):
+            self.event_phase_s[k] += v
+        return iteration, view, traj, video, gs_alpha
+
+    def finalize_diffusion_event(self, pending) -> None:
+        """Rebuild the pseudo stacks from an event's video: every frame but
+        the first, a fifth of them also to the all-time stack (reference
+        train_guidedvd.py:557-636)."""
+        _, view, traj, video, gs_alpha = pending
+        fovx, fovy = self.train_cams[view].FoVx, self.train_cams[view].FoVy
+        self.pseudo_stack = []
+        for i in range(1, traj.shape[0]):  # frame 0 is the conditioning image
+            w2c = np.linalg.inv(traj[i])
+            cam = PseudoCamera(R=w2c[:3, :3].T, T=w2c[:3, 3], FoVx=fovx, FoVy=fovy, width=self.W,
+                               height=self.H, pseudo_gt=video[i], mask=gs_alpha[i])
+            self.pseudo_stack.append(cam)
+            if self.rng_np.random() > 0.8:
+                # the all-time stack outlives the event: own copies of the
+                # frame, so the whole video is not kept for it
+                alt = copy.copy(cam)
+                alt.pseudo_gt, alt.mask = video[i].clone(), gs_alpha[i].clone()
+                self.pseudo_stack_alltime.append(alt)
+        self.events_run += 1
+
+    # -- per-iteration step ----------------------------------------------------
+
+    def _pick_pseudo(self, iteration: int) -> Optional[PseudoCamera]:
+        opt = self.opt
+        if iteration % opt.sample_pseudo_interval != 0:
+            return None
+        if not (opt.start_sample_pseudo < iteration < opt.end_sample_pseudo):
+            return None
+        if not self.pseudo_stack and not self.pseudo_stack_alltime:
+            return None
+        if self.rng_np.random() > 0.5 and self.pseudo_stack_alltime:
+            stack = self.pseudo_stack_alltime
+        else:
+            stack = self.pseudo_stack or self.pseudo_stack_alltime
+        return stack[self.rng_np.integers(0, len(stack))]
+
+    def _pseudo_weight(self, iteration: int) -> float:
+        opt = self.opt
+        w = opt.pseudo_cam_weight
+        if getattr(opt, "pseudo_cam_weight_decay", False):
+            interval = max(opt.guidance_vd_iter, 1)
+            frac = np.clip((iteration % interval) / interval, 0, 1)
+            w = opt.pseudo_cam_weight_start * (1 - frac) + frac * opt.pseudo_cam_weight_end
+        return float(w)
+
+    def step(self, iteration: int) -> StepStats:
+        opt = self.opt
+        rc, gt = self.camera_on_device(self.pick_camera())
+        pseudo = self._pick_pseudo(iteration)
+        do_densify = (
+            iteration < opt.densify_until_iter
+            and iteration > opt.densify_from_iter
+            and iteration % opt.densification_interval == 0
+        )
+        metrics = train_step_guided(
+            self.state, rc, gt,
+            None if pseudo is None else pseudo.raster_camera(self.device),
+            None if pseudo is None else pseudo.pseudo_gt,
+            0.0 if pseudo is None else self._pseudo_weight(iteration),
+            self.bg, lrs_for(opt, self.xyz_lr), self.active_sh_degree, opt.lambda_dssim,
+            use_confidence=getattr(self.pipe, "use_confidence", False), backend=self.backend,
+            pseudo_ssim=getattr(opt, "pseudo_cam_ssim", False),
+            apply_adam=(iteration < opt.iterations) and not do_densify,
+            update_stats=iteration < opt.densify_until_iter,
+        )
+        if do_densify:
+            self.densify(iteration)
+        self.xyz_lr = self.xyz_sched(iteration)
+        if iteration % opt.opacity_reset_interval == 0:
+            G.reset_opacity(self.state)
+        # a diffusion event after the step (reference :431)
+        if (iteration - 1) % opt.guidance_vd_iter == 0 and iteration < opt.end_sample_pseudo:
+            self.run_diffusion_event(iteration)
+        self.ema_loss = 0.4 * metrics["loss"] + 0.6 * self.ema_loss
+        self.last_metrics = metrics
+        return StepStats(loss=metrics["loss"], l1=metrics["l1"], psnr=metrics["psnr"],
+                         num_active=self.state.num_gaussians, num_instances=metrics["num_instances"])
+
+    def train(self, iterations=None, start_iteration=0, **kwargs):
+        """BaselineTrainer.train, then `<model>/timing_summary.json`: the
+        run's seconds split into events (by phase) and training."""
+        t0 = time.perf_counter()
+        out = super().train(iterations, start_iteration=start_iteration, **kwargs)
+        _sync(self.device)
+        total_s = time.perf_counter() - t0
+        self.write_timing_summary((iterations or self.opt.iterations) - start_iteration, total_s)
+        return out
+
+    def write_timing_summary(self, iterations: int, total_s: float) -> None:
+        mp = getattr(self.model_params, "model_path", "") or ""
+        if not mp:
+            return
+        event_s = sum(self.event_phase_s.values())
+        summary = {
+            "iterations": iterations,
+            "total_s": total_s,
+            "train_s": total_s - event_s,
+            "event_s": event_s,
+            "events_run": self.events_run,
+            "it_per_s": iterations / max(total_s, 1e-9),
+            "train_res": [self.H, self.W],
+            "event_phase_s": dict(self.event_phase_s),
+            "engine": type(self.engine).__name__,
+        }
+        with open(os.path.join(mp, "timing_summary.json"), "w") as f:
+            json.dump(summary, f, indent=1)

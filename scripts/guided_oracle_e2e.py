@@ -1,0 +1,224 @@
+"""The oracle-guided acceptance run of the port on the tool-default scene.
+
+    python scripts/guided_oracle_e2e.py --out build/e2e [--iterations 10000] [--device cuda]
+
+For each of two versions of the tool-default synthetic scene (624x352, 60
+cameras, 6 train views, 150,000 ground-truth Gaussians): the images as the
+reference's tool renders them (`scripts/synthetic_reference_gt.py`: without
+the instances its renderer drops) and the exact images (`make_scene`), it
+trains the port's baseline (`train_baseline`, --iterations), then the
+oracle-guided run on it (`train_guidedvd --oracle_gt_npz`, the reference's
+flags otherwise: events every 260 iterations, pseudo views between 2000
+and 9500), and scores both with the render and metrics CLIs. It prints the
+test PSNR / SSIM of each (and the PSNR of each test view), the guided run's split between training and
+events (`timing_summary.json`), and the capacity count: every frame of
+every pool trajectory (the trajectories an event draws from), in the
+groups of five the reference's frozen renderer binds into one batched
+chain, against that chain's fixed capacity of max(4 N 5, 16384) slots
+(N = the state's rows: the oracle's ground truth, the frozen baseline's
+power-of-two capacity), each Gaussian taking max(tiles, 1) slots. A group
+above its capacity is a group whose reference render dropped instances.
+A third run (`reference_capacity`) trains the guided model on the
+reference's images again, from the same baseline, with the oracle's
+frames rendered as the reference's oracle renders them: each group of
+five frames one chain of that capacity, slots given frame by frame in
+Gaussian order, the Gaussians past the capacity dropped (whole, where the
+reference keeps a straddling Gaussian's first slots). `--runs` picks the
+runs. The last line is one JSON object of these numbers; it is also
+written to `<out>/guided_e2e.json`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import math
+import shutil
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from guidedvd3dgs_tpu_torch import metrics as port_metrics  # noqa: E402
+from guidedvd3dgs_tpu_torch import render as port_render  # noqa: E402
+from guidedvd3dgs_tpu_torch import train_baseline as port_train_cli  # noqa: E402
+from guidedvd3dgs_tpu_torch import train_guidedvd as port_guided_cli  # noqa: E402
+from guidedvd3dgs_tpu_torch.models.gaussians import GaussianParams  # noqa: E402
+from guidedvd3dgs_tpu_torch.render import resolve_device  # noqa: E402
+from guidedvd3dgs_tpu_torch.scene import synthetic  # noqa: E402
+from guidedvd3dgs_tpu_torch.scene.cameras import camera_from_w2c_K  # noqa: E402
+
+GROUP = 5  # frames the reference's FrozenRenderer.render_many binds into one chain
+QUANTUM = 512
+
+
+def _reference_gt():
+    spec = importlib.util.spec_from_file_location("synthetic_reference_gt",
+                                                  ROOT / "scripts" / "synthetic_reference_gt.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def chain_capacity(rows: int) -> int:
+    return -(-max(4 * rows * GROUP, 1 << 14) // QUANTUM) * QUANTUM
+
+
+def pow2_capacity(n: int) -> int:
+    """The reference's state capacity of a loaded model (default_capacity)."""
+    return 1 << max(10, int(np.ceil(np.log2(max(n, 1) * 4))))
+
+
+def capacity_count(trainer, params, rows: int, ref) -> dict:
+    """Slots each GROUP-frame group of every pool trajectory takes (padding
+    rows beyond the params' own take one slot a frame) against
+    chain_capacity(rows)."""
+    cap = chain_capacity(rows)
+    pad = rows - params.xyz.shape[0]
+    demand = []
+    for entries in trainer.trajectory_pool.values():
+        for e in entries:
+            slots = []
+            for c2w in e.traj_c2ws:
+                cam = camera_from_w2c_K(np.linalg.inv(c2w), trainer.intrinsic, trainer.H, trainer.W)
+                count = ref.tile_counts(params, cam.raster_camera(params.xyz.device), trainer.W, trainer.H)
+                slots.append(int(torch.clamp(count, min=1).sum()) + pad)
+            demand += [sum(slots[i:i + GROUP]) for i in range(0, len(slots), GROUP)]
+    demand = np.asarray(demand)
+    return dict(rows=rows, capacity=cap, groups=int(demand.size), groups_over=int((demand > cap).sum()),
+                max_slots=int(demand.max()), max_share=float(demand.max() / cap),
+                slots_over=int(np.clip(demand - cap, 0, None).sum()))
+
+
+class ReferenceCapacityOracle:
+    """An oracle engine whose frames drop what the reference's oracle drops
+    (module docstring)."""
+
+    def __init__(self, oracle, ref):
+        self.oracle, self.ref = oracle, ref
+        self.video_length, self.height, self.width = oracle.video_length, oracle.height, oracle.width
+        self.renderer = oracle.renderer
+        self.dropped = []  # instances the reference drops, per group
+
+    def set_trajectory(self, w2cs, K):
+        self.oracle.set_trajectory(w2cs, K)
+
+    def generate(self, *args, **kwargs):
+        params, dev = self.renderer.params, self.renderer.device
+        n = params.xyz.shape[0]
+        w2cs, K = self.oracle._w2cs, self.oracle._K
+        frames = []
+        for g0 in range(0, len(w2cs), GROUP):
+            group = w2cs[g0:g0 + GROUP]
+            cams = [camera_from_w2c_K(w, K, self.height, self.width).raster_camera(dev) for w in group]
+            counts = torch.cat([self.ref.tile_counts(params, c, self.width, self.height) for c in cams])
+            kept, dropped, _ = self.ref.reference_drop(counts, chain_capacity(n))
+            self.dropped.append(dropped)
+            for j, w in enumerate(group):
+                keep = kept[j * n:(j + 1) * n]
+                sub = GaussianParams(**{k: v[keep] for k, v in params.tensors().items()})
+                frozen = type(self.renderer)(sub, self.renderer.sh_degree, backend=self.renderer.backend)
+                frames.append(frozen.render(w, K, self.height, self.width)[0])
+        return torch.clamp(torch.stack(frames), 0.0, 1.0)
+
+
+def run_scene(name: str, src: Path, out: Path, iters: int, dev, ref, base: Path = None,
+              reference_capacity: bool = False) -> dict:
+    """Train the baseline (unless `base` is given), then the guided run on
+    it; score both."""
+    guided = out / f"{name}_guided"
+    common = ["-s", str(src), "--dataset", "colmap", "--n_views", "6", "--eval",
+              "--iterations", str(iters), "--test_iterations", str(iters),
+              "--save_iterations", str(iters), "--device", dev.type]
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    base_s = None
+    if base is None:
+        base = out / f"{name}_baseline"
+        t0 = time.perf_counter()
+        port_train_cli.main(common + ["-m", str(base)])
+        sync()
+        base_s = time.perf_counter() - t0
+    build_engine = port_guided_cli.build_engine
+    if reference_capacity:
+        port_guided_cli.build_engine = lambda *a: ReferenceCapacityOracle(build_engine(*a), ref)
+    t0 = time.perf_counter()
+    try:
+        trainer = port_guided_cli.main(common + [
+            "-m", str(guided), "--baseline_path", str(base), "--baseline_iteration", str(iters),
+            "--oracle_gt_npz", str(src / "gt_gaussians.npz")])
+    finally:
+        port_guided_cli.build_engine = build_engine
+    sync()
+    guided_s = time.perf_counter() - t0
+    scores = {}
+    for mdl in (base, guided):
+        port_render.main(["-m", str(mdl), "--skip_train", "--device", dev.type])
+        port_metrics.evaluate([str(mdl)], device=dev.type)
+        res = json.loads((mdl / "results.json").read_text())[f"ours_{iters}"]
+        per_view = json.loads((mdl / "per_view.json").read_text())[f"ours_{iters}"]["PSNR"]
+        scores[mdl.name] = {"PSNR": res["PSNR"], "SSIM": res["SSIM"],
+                            "PSNR_per_view": [per_view[k] for k in sorted(per_view)]}
+    frozen_n = trainer.frozen.params.xyz.shape[0]
+    out_rec = dict(
+        scene=name, iterations=iters, baseline_s=base_s, guided_s=guided_s, scores=scores,
+        timing=json.loads((guided / "timing_summary.json").read_text()),
+        events_run=trainer.events_run, gaussians=trainer.state.num_gaussians,
+        capacity_oracle=capacity_count(trainer, trainer.engine.renderer.params,
+                                       trainer.engine.renderer.params.xyz.shape[0], ref),
+        capacity_frozen=capacity_count(trainer, trainer.frozen.params, pow2_capacity(frozen_n), ref),
+    )
+    if reference_capacity:
+        out_rec["oracle_dropped_per_group"] = trainer.engine.dropped
+    print(f"[{name}] " + json.dumps(out_rec), flush=True)
+    return out_rec
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--iterations", type=int, default=10_000)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--runs", default="reference,exact,reference_capacity")
+    a = ap.parse_args(argv)
+    runs = a.runs.split(",")
+    dev = resolve_device(a.device)
+    out = Path(a.out)
+    if out.exists():
+        shutil.rmtree(out)
+    out.mkdir(parents=True)
+    ref = _reference_gt()
+    s_ref, s_exact = out / "scene_reference", out / "scene_exact"
+    records = []
+    if "reference" in runs or "reference_capacity" in runs:
+        ref.main(["--out", str(s_ref), "--device", dev.type])
+        records.append(run_scene("reference", s_ref, out, a.iterations, dev, ref))
+    if "exact" in runs:
+        synthetic.make_scene(str(s_exact), device=dev)
+        records.append(run_scene("exact", s_exact, out, a.iterations, dev, ref))
+    if "reference_capacity" in runs:
+        records.append(run_scene("reference_capacity", s_ref, out, a.iterations, dev, ref,
+                                 base=out / "reference_baseline", reference_capacity=True))
+    for r in records:
+        b = r["scores"].get(f"{r['scene']}_baseline") or r["scores"]["reference_baseline"]
+        g = r["scores"][f"{r['scene']}_guided"]
+        t = r["timing"]
+        print(f"{r['scene']} images: baseline PSNR {b['PSNR']:.4f} SSIM {b['SSIM']:.5f}; oracle-guided "
+              f"PSNR {g['PSNR']:.4f} SSIM {g['SSIM']:.5f}; guided run {t['total_s']:.3f} s = training "
+              f"{t['train_s']:.3f} + events {t['event_s']:.3f} ({t['events_run']} events: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in t["event_phase_s"].items())
+              + f"); capacity: oracle {r['capacity_oracle']}, frozen {r['capacity_frozen']}", flush=True)
+        if not (math.isfinite(g["PSNR"]) and math.isfinite(b["PSNR"])):
+            raise AssertionError(f"non-finite scores: {r['scores']}")
+    line = json.dumps({"guided_e2e": records})
+    (out / "guided_e2e.json").write_text(line)
+    print(line)
+
+
+if __name__ == "__main__":
+    main()
