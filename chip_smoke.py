@@ -63,6 +63,20 @@ and the exit code is non-zero; there is no CPU fallback):
               the torch.cat kernels (no CatBackward, at most 6 a step);
               K1-K6 launched twice a step, K1, K3, K4 once more a frozen or
               oracle frame, exactly; every loss finite, pseudo_l1 > 0
+  5d. ViewCrafter-guided trainer  the same trainer and room with the
+              ViewCrafterEngine in place of the oracle (random bf16 weights,
+              25x320x448, GUIDED_STEPS guided DDIM steps of the default 50)
+              and the VGG19 pseudo term on random_vgg19 weights: one event
+              with its artifacts and the video store in the work dir, a
+              second on the same pool entry read from the store (no engine
+              call), 24 guided steps, 10 traced: the event's seconds by
+              phase, the guided DDIM step's ms in the trainer (beside 8b's),
+              the card's peak with the trainer live, the step's host and
+              device ms and the VGG term's share (beside 5c's step), K1-K6
+              and L1 launched exactly (L1 20 S + 2 / 15 S / 15 S in the
+              event), every loss finite, pseudo_l1 and the VGG term > 0, the
+              frames finite in [0, 1], the artifacts and the store present;
+              a 10k-run projection from these parts
   6. CLI      `guidedvd3dgs_tpu_torch.train_baseline` for 2000 iterations
               on the tool-default synthetic scene (scene.synthetic.
               make_scene), then the render and metrics CLIs on its
@@ -76,6 +90,16 @@ and the exit code is non-zero; there is no CPU fallback):
               a pseudo stack of 24, the CLI's launch counts exactly, and a
               test PSNR not below phase 6's at 2000 (printed with SSIM and
               the margin)
+  6c. ViewCrafter CLI  the same random weights written as a ViewCrafter
+              checkpoint (sub-model and CLIP prefixes, framestride_embed,
+              bf16, ~5.1 GB, deleted at the end) and a random VGG19 as a
+              torchvision state dict; `train_guidedvd --viewcrafter_ckpt
+              --pseudo_cam_lpips --vgg19_weights --guidance_save_videos
+              --guidance_ddim_steps 3` on phase 6's scene and baseline for
+              30 iterations with two events: the engine's width by the
+              rule, 2 events, a pseudo stack of 24, 2 stored videos, L1's
+              launches exactly; the render and metrics CLIs on the result;
+              the checkpoint's write and load seconds
   7. generate the video-diffusion generation path (ViewCrafter at full
               width: 25 frames, 320x448, UNet 320 channels, ViT-H-14
               towers, random weights from a seed)
@@ -134,10 +158,12 @@ alone with STEPS DDIM steps; `--guided-only STEPS` phases 1, 2 and 8b
 phases 1, 2, 7a and 7b-7c (L1's forward kernels and the DDIM request);
 `--gaussian-only` phases 1, 2, 3, 5 and 5b (the Gaussian kernels K1-K6
 and the trainer); `--guided-trainer-only` phases 1, 2 and 5c (the guided
-trainer).
-The line before the last is the JSON kernel table (launches of K1-K6
-summed over phases 4, 5, 5b, 5c, 6 and 6b, each phase's count in
-`launches_by_phase`, of L1's forward from phase 7b, of its backward from phase 8b; for
+trainer); `--vc-trainer-only STEPS` phases 1, 2 and 5d with STEPS guided
+DDIM steps (50: a real event's time).
+The line before the last is the JSON kernel table (each kernel's launches
+summed over the phases that drive a path: K1-K6 over 4, 5, 5b, 5c, 5d, 6,
+6b and 6c, L1's forward over 5d, 6c, 7b and 8b, its backward over 5d, 6c and
+8b; each phase's count in `launches_by_phase`; for
 K1-K6 `host_ms` beside `ms` and `ms_dense` and `bound_ms_dense` from
 phase 5b's view; for K1 also `ms_full_table`, `bound_ms_all_rows` and
 their `_dense` twins);
@@ -209,6 +235,7 @@ from guidedvd3dgs_tpu_torch.train.guided import (  # noqa: E402
     resize_renders,
 )
 from guidedvd3dgs_tpu_torch.utils.sh import SH2RGB  # noqa: E402
+from guidedvd3dgs_tpu_torch.utils.vgg_loss import make_vgg_loss_fn, random_vgg19  # noqa: E402
 
 SEED = 20261016
 WIDTH, HEIGHT, HFOV = 640, 480, 90.0
@@ -313,6 +340,9 @@ GUIDED_CAT_KERNELS = 6
 CLI_ITERS = 2000
 CLI_PSEUDO = (200, 1900)
 CLI_MIN_EVENTS = 7  # of the 8 the schedule fires (a view without a trajectory skips one)
+# 6c: the guided CLI with a ViewCrafter checkpoint on that scene: events at
+# iterations 1 and 1 + VC_CLI_EVERY, each of VC_CLI_STEPS guided steps
+VC_CLI_ITERS, VC_CLI_EVERY, VC_CLI_STEPS = 30, 15, 3
 # phase 7: the ViewCrafter request (configs/inference_pvd_1024.yaml widths,
 # the guidedvd engine size) and L1's shapes on its path: the UNet's level-0
 # spatial attention per CFG branch and with the guided step's CFG pair
@@ -1384,6 +1414,243 @@ def phase_guided_trainer(dev, work: Path):
     ]
     for line in lines:
         log("phase 5c " + line)
+    return launches, dict(host_ms=statistics.median(untraced), device_ms=sum(dev_ms.values()))
+
+
+def vc_trainer_launches(ucfg, steps: int, renders: int, train_steps: int) -> dict:
+    """K1-K6 and L1's launches of phase 5d: K1-K6 twice a guided step, K1,
+    K3, K4 once more a frozen frame; one guided request of `steps` guided
+    steps (L1's forward 20 a step and 2 for the VAE's encode and decode,
+    each backward kernel 15 a step)."""
+    fwd, bwd = guided_launches(ucfg, steps, GEN_FRAMES, ddim_guidance.GuidedSampleConfig().decode_chunk)
+    want = {n: 2 * train_steps + (renders if n in FORWARD_KERNELS else 0) for n in GAUSSIAN_KERNELS}
+    want.update(flash_attn_fwd=fwd + 2, flash_attn_bwd_dkv=bwd, flash_attn_bwd_dq=bwd)
+    return want
+
+
+def artifact_frames(path: Path) -> int:
+    """Frames of one event video: an mp4 (counted as its frame count is not
+    read: 1) or a directory of PNG frames."""
+    if path.with_suffix(".mp4").exists():
+        return 1
+    return len(list(path.glob("*.png")))
+
+
+def phase_vc_trainer(dev, work: Path, steps: int, c5=None):
+    """5d: the guided trainer with the ViewCrafter engine at full width on
+    phase 5b's room (phase 5c's set-up, the engine in place of the oracle):
+    random bf16 weights, 25x320x448, `steps` guided DDIM steps, the VGG19
+    pseudo term on random weights; one event with its artifacts and the
+    video store, a second on the same pool entry read from the store (no
+    engine call), then GUIDED_TRAINER_STEPS steps, GUIDED_TRACE of them
+    traced. `c5`: phase 5c's step readings, printed beside. Returns the
+    launches and readings."""
+    gt, pcams, params = dense_room(dev)
+    views = train_views(gt, pcams, dev)
+    rng = np.random.default_rng(SEED + 5)
+    cols = np.clip(SH2RGB(gt["features_dc"][:, 0]), 0, 1).astype(np.float32)
+    pcd_pts, pcd_cols = synthetic.init_cloud(gt["xyz"], cols, N_SCENE, rng)
+    frozen = FrozenRenderer(params, 3)
+    last = GUIDED_TRAINER_STEPS + 1
+    opt = OptimizationParams(iterations=10 * last, start_sample_pseudo=0, end_sample_pseudo=10 * last,
+                             guidance_vd_iter=10 * last, densify_from_iter=10 * last,
+                             densify_until_iter=10 * last, guidance_ddim_steps=steps)
+    width = port_guided_cli.engine_width(opt, HEIGHT, WIDTH)
+    gparams, _ = gen_params(dev)
+    mcfg = LatentDiffusionConfig(compute_dtype="bfloat16")
+    engine = ViewCrafterEngine(gparams, mcfg, synthesis.SynthesisConfig(ddim_steps=steps),
+                               video_length=EVENT_FRAMES, height=GEN_H, width=width)
+    vgg_fn = make_vgg_loss_fn(random_init=True)
+    if vgg_fn is None or width != GEN_W:
+        raise AssertionError(f"VGG term {vgg_fn}, engine width {width} (expected {GEN_W})")
+    state = G.GaussianState.fresh(G.GaussianParams(**{k: v.clone() for k, v in params.tensors().items()}))
+    mdl = work / "vc_trainer"
+    trainer = GuidedTrainer(views, state, opt, PipelineParams(), ModelParams(model_path=str(mdl)), frozen, engine,
+                            pcd_pts, pcd_cols, guidance_intrinsic(views.cams[0]), vgg_loss_fn=vgg_fn)
+    frames = {}
+    count_renders(frozen, frames, "frozen")
+    calls = []
+    generate = engine.generate
+    engine.generate = lambda *a, **k: calls.append(1) or generate(*a, **k)
+
+    # the main path of this slice
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.init_trajectory_pool()
+    torch.cuda.synchronize()
+    pool_s = time.perf_counter() - t0
+    step_ms = []
+    with timed(ddim_guidance, "guided_step", step_ms):
+        trainer.run_diffusion_event(1)
+    event1 = dict(trainer.event_phase_s)
+    l1_event = {n: _build.LAUNCHES[n] for n in ("flash_attn_fwd",) + L1_BWD_KERNELS}
+    video = torch.stack([c.pseudo_gt for c in trainer.pseudo_stack])
+    if trainer.events_run != 1 or len(trainer.pseudo_stack) != EVENT_FRAMES - 1 or len(calls) != 1 \
+            or video.dtype != torch.float32 or not bool(torch.isfinite(video).all()) \
+            or float(video.min()) < 0.0 or float(video.max()) > 1.0:
+        raise AssertionError(f"event 1: {trainer.events_run} run, stack {len(trainer.pseudo_stack)}, engine calls "
+                             f"{len(calls)}, frames {video.dtype} in [{float(video.min())}, {float(video.max())}]")
+    # the second event on the same pool entry, read from the store
+    sidx, view, cidx = trainer._cur_video_key
+    store = trainer._video_file_path()
+    entry = next(e for e in trainer.trajectory_pool[view] if e.cand_idx == cidx and e.scale_idx == sidx)
+    trainer.trajectory_pool_shuffle[view], trainer.vd_indices = [entry], [view]
+    trainer.opt.guidance_videos_from_file = True
+    trainer.run_diffusion_event(2)
+    reused = torch.stack([c.pseudo_gt for c in trainer.pseudo_stack])
+    event2 = {k: v - event1[k] for k, v in trainer.event_phase_s.items()}
+    if trainer.events_run != 2 or len(calls) != 1 or not torch.equal(reused, video):
+        raise AssertionError(f"event 2 from {store}: {trainer.events_run} run, engine calls {len(calls)}, "
+                             f"frames equal {torch.equal(reused, video)}")
+    pseudo_l1, pseudo_vgg = [], []
+
+    def on_step(it):
+        pseudo_l1.append(float(trainer.last_metrics["pseudo_l1"]))
+        pseudo_vgg.append(float(trainer.last_metrics["pseudo_vgg"]))
+
+    step_host, losses, instances, prof = run_steps(trainer, last, GUIDED_TRACE, first=2, on_step=on_step)
+    trainer.artifact_writer.drain()
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = dict(_build.LAUNCHES)
+    want = vc_trainer_launches(mcfg.unet, steps, frames["frozen"], GUIDED_TRAINER_STEPS)
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}: K1-K6 twice a guided step, K1, K3, K4 once "
+                             f"more a frozen frame ({frames['frozen']}), L1 in event 1 only")
+    if not all(math.isfinite(float(v)) for v in losses) or not all(p > 0.0 for p in pseudo_l1) \
+            or not all(v > 0.0 for v in pseudo_vgg):
+        raise AssertionError(f"losses {[float(v) for v in losses]}, pseudo_l1 {pseudo_l1}, "
+                             f"pseudo_vgg {pseudo_vgg}")
+    if peak_gb >= 80.0:
+        raise AssertionError(f"peak {peak_gb:.2f} GB")
+    event_dir = mdl / "diffusion_events" / "train_iter1"
+    arts = {name: artifact_frames(event_dir / name)
+            for name in ("render0", "gs_render", "gs_render_alpha", "gs_render_depth", "diffusion0")}
+    stored = sorted(mdl.glob("video_files_scale*/*/*.npz"))
+    if any(n not in (1, EVENT_FRAMES) for n in arts.values()) or [str(p) for p in stored] != [store]:
+        raise AssertionError(f"artifacts {arts} (frames of each), store {stored}")
+    dev_ms, idle, rb_ms, rbs, concat = trace_summary(prof, len(GUIDED_TRACE))
+    check_no_sh_split(concat)
+    untraced = [ms for it, ms in step_host.items() if it not in GUIDED_TRACE and it > 2]
+    # the VGG term alone on the pseudo view's shapes: forward and backward
+    rp = torch.rand((3, HEIGHT, WIDTH), device=dev, requires_grad=True)
+    pgt = torch.rand((3, HEIGHT, WIDTH), device=dev)
+    vgg_ms = event_ms(lambda: vgg_fn(rp[None], pgt[None]).backward(), launches=5)
+    host_ms, device_ms = statistics.median(untraced), sum(dev_ms.values())
+    step_med = statistics.median(step_ms)
+    # a projection, not a run: a 10k-iteration run of 37 events at 50 guided
+    # steps, from this event's parts and this phase's step time
+    gen_rest = event1["generate"] - sum(step_ms) / 1e3
+    event_50 = event1["pc_render"] + event1["frozen"] + event1["artifacts"] + gen_rest + 50 * step_med / 1e3
+    c5_txt = "phase 5c not run in this call"
+    if c5:
+        c5_txt = (f"phase 5c (the same room, the oracle, no VGG term) in this call: host ms {c5['host_ms']:.3f}, "
+                  f"traced device ms {c5['device_ms']:.3f}")
+    lines = [
+        f"ViewCrafter-guided trainer (phase 5b's room: frozen = the noisy room, {N_SCENE} Gaussians SH 3; "
+        f"engine {EVENT_FRAMES}x{GEN_H}x{width} bf16, random weights, {steps} guided DDIM steps of the default "
+        f"50; VGG19 pseudo term on random_vgg19 weights; {WIDTH}x{HEIGHT}, 6 train views): pool {pool_s:.3f} s",
+        "event 1 s: " + ", ".join(f"{k} {v:.3f}" for k, v in event1.items())
+        + f" (total {sum(event1.values()):.3f}); guided DDIM step in the trainer ms median {step_med:.1f} "
+        f"(first {step_ms[0]:.1f}, min {min(step_ms):.1f}); the rest of generate {gen_rest:.3f} s "
+        f"(conditioning, decode, resize and copy)",
+        "event 2 (the same pool entry from the store, no engine call) s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in event2.items()) + f"; store {Path(store).name} "
+        f"{Path(store).stat().st_size / 1e6:.1f} MB; artifacts (frames, 1 = an mp4) {arts}",
+        f"peak allocated over the phase (engine weights, trainer state, stacks): {peak_gb:.2f} GB of 80",
+        f"{GUIDED_TRAINER_STEPS} guided steps (train view + pseudo view + VGG term): host ms median "
+        f"{host_ms:.3f} ({len(untraced)} untraced steps); traced device ms/step {fmt_stages(dev_ms)}, idle share "
+        f"{idle:.3f} (under the profiler), read-backs/step {rbs:g}; the VGG term alone (forward + backward at "
+        f"{WIDTH}x{HEIGHT} -> 224, CUDA events) {vgg_ms:.3f} ms = {vgg_ms / device_ms:.3f} of the traced step; "
+        + c5_txt,
+        f"loss step 2 {float(losses[0]):.5f} -> step {last} {float(losses[-1]):.5f}; pseudo_l1 {pseudo_l1[0]:.5f} "
+        f"-> {pseudo_l1[-1]:.5f}, pseudo_vgg {pseudo_vgg[0]:.5f} -> {pseudo_vgg[-1]:.5f} (all > 0); "
+        f"launches {launches} (expected exactly; frozen frames {frames['frozen']}; L1 in event 1 {l1_event})",
+        f"projection (not a run): a 50-step event {event_50:.1f} s; a 10k-iteration run of 37 events "
+        f"{(37 * event_50 + 10_000 * host_ms / 1e3) / 60:.1f} min on one card",
+    ]
+    for line in lines:
+        log("phase 5d " + line)
+    return launches, dict(step_ms=step_med)
+
+
+def vc_checkpoint(params, path: Path) -> None:
+    """The parameters as a ViewCrafter checkpoint: the sub-models under the
+    checkpoint's prefixes (the CLIP towers' open_clip prefixes included),
+    the UNet's fps embedding under its checkpoint name framestride_embed,
+    Lightning's state_dict nesting; bf16 as given."""
+    prefixes = {"unet": "model.diffusion_model.", "vae": "first_stage_model.",
+                "clip_text": "cond_stage_model.model.", "clip_image": "embedder.model.visual.",
+                "resampler": "image_proj_model."}
+    sd = {}
+    for part, prefix in prefixes.items():
+        for k, v in getattr(params, part).items():
+            sd[prefix + k.replace("fps_embedding", "framestride_embed")] = v.cpu()
+    torch.save({"state_dict": sd}, path)
+
+
+def phase_vc_cli(dev, work: Path, src: Path, base: Path):
+    """6c: the guided CLI with --viewcrafter_ckpt on phase 6's scene and
+    baseline: the random parameters written as a ViewCrafter checkpoint, a
+    random VGG19 as a torchvision state dict, VC_CLI_ITERS iterations with
+    two events of VC_CLI_STEPS guided steps; then the render and metrics
+    CLIs. The checkpoint is deleted at the end."""
+    t_phase = time.perf_counter()
+    gparams, _ = gen_params(dev)
+    ckpt, vgg_path, mdl = work / "viewcrafter.ckpt", work / "vgg19.pth", work / "synthetic_vc"
+    try:
+        t0 = time.perf_counter()
+        vc_checkpoint(gparams, ckpt)
+        write_s = time.perf_counter() - t0
+        ckpt_gb = ckpt.stat().st_size / 1e9
+        torch.save(random_vgg19(SEED), vgg_path)
+        load_ms = []
+        _build.reset_launches()
+        with timed(port_guided_cli, "load_viewcrafter_checkpoint", load_ms):
+            t0 = time.perf_counter()
+            trainer = port_guided_cli.main([
+                "-s", str(src), "-m", str(mdl), "--dataset", "colmap", "--n_views", "6", "--eval",
+                "--iterations", str(VC_CLI_ITERS), "--test_iterations", str(VC_CLI_ITERS),
+                "--save_iterations", str(VC_CLI_ITERS), "--baseline_path", str(base),
+                "--baseline_iteration", str(CLI_ITERS), "--viewcrafter_ckpt", str(ckpt), "--pseudo_cam_lpips",
+                "--vgg19_weights", str(vgg_path), "--guidance_save_videos",
+                "--guidance_ddim_steps", str(VC_CLI_STEPS), "--guidance_vd_iter", str(VC_CLI_EVERY),
+                "--start_sample_pseudo", "2", "--end_sample_pseudo", str(VC_CLI_ITERS - 2), "--device", dev.type,
+            ])
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+    finally:
+        ckpt.unlink(missing_ok=True)
+    launches = dict(_build.LAUNCHES)
+    engine = trainer.engine
+    want_w = port_guided_cli.engine_width(trainer.opt, trainer.H, trainer.W)
+    stored = sorted(mdl.glob("video_files_scale*/*/*.npz"))
+    fwd, bwd = guided_launches(engine.mcfg.unet, VC_CLI_STEPS, GEN_FRAMES, engine.guided_cfg.decode_chunk)
+    l1_want = {"flash_attn_fwd": 2 * (fwd + 2), "flash_attn_bwd_dkv": 2 * bwd, "flash_attn_bwd_dq": 2 * bwd}
+    if not isinstance(engine, ViewCrafterEngine) or (engine.height, engine.width) != (GEN_H, want_w) \
+            or trainer.events_run != 2 or len(trainer.pseudo_stack) != EVENT_FRAMES - 1 or len(stored) != 2 \
+            or trainer.vgg_loss_fn is None or any(launches[n] != v for n, v in l1_want.items()):
+        raise AssertionError(f"engine {type(engine).__name__} {engine.height}x{engine.width} (rule: {want_w}), "
+                             f"events {trainer.events_run}, stack {len(trainer.pseudo_stack)}, store {stored}, "
+                             f"VGG {trainer.vgg_loss_fn}, launches {launches} (L1 expected {l1_want})")
+    port_render.main(["-m", str(mdl), "--skip_train", "--iteration", str(VC_CLI_ITERS), "--device", dev.type])
+    port_metrics.evaluate([str(mdl)], device=dev.type)
+    res = json.loads((mdl / "results.json").read_text())[f"ours_{VC_CLI_ITERS}"]
+    if not (math.isfinite(res["PSNR"]) and math.isfinite(res["SSIM"])):
+        raise AssertionError(f"scores {res}")
+    timing = json.loads((mdl / "timing_summary.json").read_text())
+    log(f"phase 6c ViewCrafter CLI (phase 6's scene {trainer.W}x{trainer.H} and its {CLI_ITERS}-iteration "
+        f"baseline; "
+        f"the random bf16 weights as a ViewCrafter checkpoint of {ckpt_gb:.2f} GB, written in {write_s:.1f} s; "
+        f"a random VGG19 in the torchvision layout): checkpoint load {load_ms[0] / 1e3:.1f} s | train_guidedvd "
+        f"{VC_CLI_ITERS} iterations {train_s:.1f} s (events {timing['event_s']:.3f} s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in timing["event_phase_s"].items())
+        + f") | engine {engine.video_length}x{engine.height}x{engine.width} on {engine.device}, "
+        f"{VC_CLI_STEPS} guided steps | events {trainer.events_run}, pseudo stack {len(trainer.pseudo_stack)}, "
+        f"store {len(stored)} npz | test PSNR {res['PSNR']:.4f} SSIM {res['SSIM']:.5f} (random weights: a "
+        f"reading) | launches {launches} | phase {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -1990,10 +2257,10 @@ def small_guided_step(params, mcfg, gcfg, sched, pr, cond, uncond, bufs, x, step
     return step, grad
 
 
-def phase_guided(dev, steps: int, trace_and_f32: bool = True) -> dict:
+def phase_guided(dev, steps: int, trace_and_f32: bool = True):
     """8b (and 8c): one full-width guided request of `steps` guided DDIM
     steps through the engine a user calls, in bfloat16. Returns L1's
-    launches in it."""
+    launches in it and the median ms of its guided steps."""
     mcfg = LatentDiffusionConfig(compute_dtype="bfloat16")
     scfg = synthesis.SynthesisConfig(ddim_steps=steps)
     params, _ = gen_params(dev)
@@ -2055,7 +2322,7 @@ def phase_guided(dev, steps: int, trace_and_f32: bool = True) -> dict:
         f"rho per step {', '.join(f'{r:.4g}' for r in rhos)} | masked L2 to the guidance: guided "
         f"{l2_guided:.6f}, unguided with the same noise {l2_unguided:.6f}")
     if not trace_and_f32:
-        return launches
+        return launches, med(step_ms)
 
     # one guided step traced by stage, outside the counted run
     sched, pr, cond, uncond, x, step_noise, index = guided_step_inputs(dev, params, mcfg, scfg, engine, renders)
@@ -2128,7 +2395,7 @@ def phase_guided(dev, steps: int, trace_and_f32: bool = True) -> dict:
         f"twice {grerun:.3g} | the same dL/dx with L1's backward in bf16, the bf16 kernels vs the plain "
         f"backward of the same bf16 inputs: {gerr16:.4g} of |dL/dx| {g16_plain.norm().item():.4g} (tol "
         f"{GUIDED_GRAD_TOL_BF16}); the kernels run twice {rerun16:.3g}")
-    return launches
+    return launches, med(step_ms)
 
 
 def main() -> None:
@@ -2145,6 +2412,8 @@ def main() -> None:
                         help="run phases 1, 2, 3, 5 and 5b alone: the Gaussian kernels K1-K6 and the trainer")
     parser.add_argument("--guided-trainer-only", action="store_true",
                         help="run phases 1, 2 and 5c alone: the guided trainer at full width")
+    parser.add_argument("--vc-trainer-only", type=int, metavar="STEPS", default=None,
+                        help="run phases 1, 2 and 5d alone, with STEPS guided DDIM steps in the event")
     args = parser.parse_args()
     start = time.perf_counter()
     secs = {}
@@ -2181,29 +2450,36 @@ def main() -> None:
             run("5c", phase_guided_trainer, dev, work)
             log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
             return
+        if args.vc_trainer_only is not None:
+            run("5d", phase_vc_trainer, dev, work, args.vc_trainer_only)
+            log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+            return
         res = run("3", phase_kernels, dev)
         if args.gaussian_only:
             run("5", phase_train, dev)
             run("5b", phase_train_dense, dev)
             log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
             return
-        # K1-K6's launches on every path that runs them, by phase
+        # every kernel's launches on every path that runs it, by phase
         by_phase = {"4": run("4", phase_main, dev, work), "5": run("5", phase_train, dev)}
         dense, by_phase["5b"] = run("5b", phase_train_dense, dev)
-        by_phase["5c"] = run("5c", phase_guided_trainer, dev, work)
+        by_phase["5c"], c5 = run("5c", phase_guided_trainer, dev, work)
+        by_phase["5d"], vc = run("5d", phase_vc_trainer, dev, work, GUIDED_STEPS, c5)
         cli_src, base, base_scores, by_phase["6"] = run("6", phase_cli, dev, work)
         by_phase["6b"] = run("6b", phase_guided_cli, dev, work, cli_src, base, base_scores)
+        by_phase["6c"] = run("6c", phase_vc_cli, dev, work, cli_src, base)
+        res["flash_attn_fwd"] = run("7a", phase_l1, dev)
+        by_phase["7b"] = {"flash_attn_fwd": run("7b-7c", phase_generate, dev, GEN_STEPS)}
+        res.update(run("8a", phase_l1_bwd, dev))
+        by_phase["8b"], step_8b = run("8b-8c", phase_guided, dev, GUIDED_STEPS)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    launches = {name: sum(ph.get(name, 0) for ph in by_phase.values()) for name in GAUSSIAN_KERNELS}
-    for name in GAUSSIAN_KERNELS:
-        res[name].setdefault("extra", {})["launches_by_phase"] = {k: ph.get(name, 0)
-                                                                  for k, ph in by_phase.items()}
-    res["flash_attn_fwd"] = run("7a", phase_l1, dev)
-    launches["flash_attn_fwd"] = run("7b-7c", phase_generate, dev, GEN_STEPS)
-    res.update(run("8a", phase_l1_bwd, dev))
-    guided = run("8b-8c", phase_guided, dev, GUIDED_STEPS)
-    launches.update({name: guided[name] for name in L1_BWD_KERNELS})
+    log(f"phase 5d vs 8b: a guided DDIM step ({GUIDED_STEPS}-step request, 25x320x448 bf16) "
+        f"{vc['step_ms']:.1f} ms inside the trainer (5d), {step_8b:.1f} ms alone (8b), in this call")
+    launches = {name: sum(ph.get(name, 0) for ph in by_phase.values()) for name in KERNELS}
+    for name in KERNELS:
+        res[name].setdefault("extra", {})["launches_by_phase"] = {k: ph[name] for k, ph in by_phase.items()
+                                                                  if ph.get(name)}
     for name, d in dense.items():
         res[name]["extra"].update(ms_dense=d["ms"], bound_ms_dense=d["bound"][0])
     res["preprocess_fwd"]["extra"].update(ms_full_table_dense=dense["preprocess_fwd"]["ms_full_table"],

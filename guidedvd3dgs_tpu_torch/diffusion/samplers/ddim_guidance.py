@@ -186,15 +186,14 @@ def guided_ddim_sample(params: DiffusionParams, mcfg: LatentDiffusionConfig, sch
                        guidance_fn: GuidanceFn, scfg: GuidedSampleConfig = GuidedSampleConfig(),
                        scale_guidance_weight: float = 1.0, noise: Optional[torch.Tensor] = None,
                        generator: Optional[torch.Generator] = None,
-                       return_trace: bool = False) -> torch.Tensor:
+                       return_trace: bool = False):
     """The guided reverse process (reference ddim_guidance.py:136-202,
     :205-363): x_0 latents (1, T, h, w, 4). `noise`: (draws, *x_T.shape) in
     the loop's order, S * (2 recur_steps - 1) draws (each step's eta noise,
     and between two repeats of a step its re-noise); else each draw is
-    standard normal from `generator`."""
-    if return_trace:
-        raise NotImplementedError("the per-step pred_x0 videos need the mp4 writer "
-                                  "(ROADMAP queue 4)")
+    standard normal from `generator`. With `return_trace`, (x_0, the
+    pred_x0 latents of each step (S, T, h, w, 4)), the reference's
+    save_pred_x0 (:330-331)."""
     s = pr.num_steps
     draws = s * (2 * scfg.recur_steps - 1)
     if noise is not None and noise.shape[0] != draws:
@@ -206,15 +205,17 @@ def guided_ddim_sample(params: DiffusionParams, mcfg: LatentDiffusionConfig, sch
             return next(injected)
         return torch.randn(x_T.shape, generator=generator, dtype=x_T.dtype, device=x_T.device)
 
-    x = x_T
+    x, trace = x_T, []
     for i in range(s):
         index = s - 1 - i
         for r in range(scfg.recur_steps):
-            x_prev, _, _ = guided_step(params, mcfg, sched, pr, cond, uncond, scfg, guidance_fn,
-                                       scale_guidance_weight, x, index, draw())
+            x_prev, pred_x0, _ = guided_step(params, mcfg, sched, pr, cond, uncond, scfg, guidance_fn,
+                                             scale_guidance_weight, x, index, draw())
             if r + 1 < scfg.recur_steps:
                 # time travel: re-noise x_prev back to t (reference :360)
                 beta_t = pr.alphas[index] / pr.alphas_prev[index]
                 x = torch.sqrt(beta_t) * x_prev + torch.sqrt(1.0 - beta_t) * draw()
         x = x_prev
-    return x
+        if return_trace:
+            trace.append(pred_x0[0])
+    return (x, torch.stack(trace)) if return_trace else x

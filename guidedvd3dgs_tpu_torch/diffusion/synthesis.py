@@ -112,11 +112,13 @@ def sample_from_conditioning(params: DiffusionParams, mcfg: LatentDiffusionConfi
                              generator: Optional[torch.Generator] = None,
                              guidance_fn: Optional[GuidanceFn] = None,
                              guided_cfg: GuidedSampleConfig = GuidedSampleConfig(),
-                             scale_guidance_weight: float = 1.0) -> torch.Tensor:
+                             scale_guidance_weight: float = 1.0, pred_x0_trace: bool = False):
     """Sampling and decode from prebuilt conditioning: the generated video
     (T, H, W, 3) in [-1, 1]. With `guidance_fn`, the guided sampler with
     `guided_cfg` (its CFG scale and rescale taken from `scfg`, as JAX
-    synthesis.py:236-238)."""
+    synthesis.py:236-238). With `pred_x0_trace`, (video, the guided
+    sampler's per-step pred_x0 latents (S, T, h, w, 4), or None without
+    guidance)."""
     _check_config(scfg)
     dev = cond.concat.device
     sched = mcfg.schedule(dev)
@@ -130,7 +132,10 @@ def sample_from_conditioning(params: DiffusionParams, mcfg: LatentDiffusionConfi
         gcfg = dataclasses.replace(guided_cfg, cfg_scale=scfg.cfg_scale,
                                    guidance_rescale=scfg.guidance_rescale)
         x0 = guided_ddim_sample(params, mcfg, sched, pr, cond, uncond, x_T, guidance_fn, gcfg,
-                                scale_guidance_weight, noise=noise.steps, generator=generator)
+                                scale_guidance_weight, noise=noise.steps, generator=generator,
+                                return_trace=pred_x0_trace)
+        if pred_x0_trace:
+            x0, trace = x0
     else:
         def ap_c(x, ts):
             return apply_model(params, mcfg, x, ts, cond)
@@ -141,8 +146,10 @@ def sample_from_conditioning(params: DiffusionParams, mcfg: LatentDiffusionConfi
         with torch.no_grad():
             x0 = ddim_sample(sched, pr, ap_c, ap_u, x_T, noise=noise.steps, generator=generator,
                              cfg_scale=scfg.cfg_scale, guidance_rescale=scfg.guidance_rescale)
+        trace = None
     with torch.no_grad():
-        return decode_video_frames(params, mcfg, x0[0])
+        frames = decode_video_frames(params, mcfg, x0[0])
+    return (frames, trace) if pred_x0_trace else frames
 
 
 def image_guided_synthesis(params: DiffusionParams, mcfg: LatentDiffusionConfig,
@@ -152,9 +159,11 @@ def image_guided_synthesis(params: DiffusionParams, mcfg: LatentDiffusionConfig,
                            guidance_fn: Optional[GuidanceFn] = None,
                            guided_cfg: GuidedSampleConfig = GuidedSampleConfig(),
                            scale_guidance_weight: float = 1.0,
-                           text_pair: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+                           text_pair: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                           pred_x0_trace: bool = False):
     """The generated video (T, H, W, 3) in [-1, 1] from renders `video`
-    (T, H, W, 3) in [-1, 1], guided by `guidance_fn` when given.
+    (T, H, W, 3) in [-1, 1], guided by `guidance_fn` when given; with
+    `pred_x0_trace`, (video, trace) as sample_from_conditioning.
     multiple_cond_cfg raises NotImplementedError."""
     _check_config(scfg)
     with torch.no_grad():
@@ -162,4 +171,5 @@ def image_guided_synthesis(params: DiffusionParams, mcfg: LatentDiffusionConfig,
                                           generator=generator, text_pair=text_pair)
     return sample_from_conditioning(params, mcfg, scfg, cond, uncond, noise=noise, generator=generator,
                                     guidance_fn=guidance_fn, guided_cfg=guided_cfg,
-                                    scale_guidance_weight=scale_guidance_weight)
+                                    scale_guidance_weight=scale_guidance_weight,
+                                    pred_x0_trace=pred_x0_trace)

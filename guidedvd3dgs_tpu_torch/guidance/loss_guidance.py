@@ -8,9 +8,11 @@ DDIM step and frame the masked reconstruction loss
     L = w_recon * (x_hat0 - guide)^2 * mask    (summed, not averaged: the
         sampler divides each frame's gradient by its mask's numel)
 
-optionally mixed 0.8 / 0.2 with the per-pixel SSIM. The guidance function
-takes a batch of decoded frames (the sampler decodes `decode_chunk` frames
-at once) and returns each frame's summed loss and numel.
+optionally mixed 0.8 / 0.2 with the per-pixel SSIM, plus numel * 0.001
+times a perceptual term `lpips_fn` (in the CLI the VGG loss of
+utils/vgg_loss.py, as in the reference's). The guidance function takes a
+batch of decoded frames (the sampler decodes `decode_chunk` frames at once)
+and returns each frame's summed loss and numel.
 """
 
 from __future__ import annotations
@@ -52,18 +54,20 @@ def resize_guidance(images: torch.Tensor, height: int, width: int,
 # guidance_fn(decoded frames (c, H, W, 3) in [-1, 1], ddim_index, frame
 # indices (c,)) -> (summed loss per frame (c,), numel per frame (c,))
 GuidanceFn = Callable[[torch.Tensor, int, torch.Tensor], tuple]
+# lpips_fn(frames (c, H, W, 3), guidance (c, H, W, 3), mask (c, H, W, 3),
+# all in [0, 1]) -> (c,): each frame's loss on its own, as the JAX
+# package's per-frame call (one mean over the chunk would hand every frame
+# the chunk's mean)
+LpipsFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 def make_guidance_fn(buffers: GuidanceBuffers, w_recon: float = 0.5, ssim_guidance: bool = False,
-                     lpips_fn: Optional[Callable] = None, recon_loss: str = "l2") -> GuidanceFn:
+                     lpips_fn: Optional[LpipsFn] = None, recon_loss: str = "l2") -> GuidanceFn:
     """The sampler's GuidanceFn (reference viewcrafter_wrapper.py:123-165;
     `recon_loss` is the --guidance_recon_loss flag, "l2" the reference's
     behaviour)."""
     if recon_loss not in ("l1", "l2"):
         raise ValueError(f"recon_loss must be 'l1' or 'l2', got {recon_loss!r}")
-    if lpips_fn is not None:
-        raise NotImplementedError("the LPIPS guidance term comes with LPIPS itself "
-                                  "(ROADMAP queue 4, metrics/lpips.py)")
     recon_fn = torch.abs if recon_loss == "l1" else torch.square
 
     def guidance_fn(frames: torch.Tensor, ddim_index: int, frame_idx: torch.Tensor):
@@ -77,6 +81,9 @@ def make_guidance_fn(buffers: GuidanceBuffers, w_recon: float = 0.5, ssim_guidan
             sm = 1.0 - ssim_noavg(d.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2),
                                   mask=mask.permute(0, 3, 1, 2))
             loss = 0.8 * loss + 0.2 * sm.sum(dim=(1, 2, 3))
+        if lpips_fn is not None:
+            # reference viewcrafter_wrapper.py:158-160
+            loss = loss + numel * lpips_fn(d, g, mask) * 0.001
         return loss, numel
 
     return guidance_fn

@@ -21,15 +21,23 @@ Counterpart of `guidedvd3dgs_tpu/train/guided.py`'s per-step path
     frames but the first, a fifth of them promoted to the all-time stack
     (reference :431-636).
 The engines: `ViewCrafterEngine` (the ViewCrafter stack with guidance,
-reference utils/viewcrafter_wrapper.py:550-573; not yet driven by the
-trainer), `MockDiffusionEngine` (the frozen renders with the holes filled
-by the point-cloud render) and `OracleDiffusionEngine` (renders of known
-ground-truth Gaussians: a perfect prior for validation runs).
+reference utils/viewcrafter_wrapper.py:550-573, driven by the trainer as
+the reference's), `MockDiffusionEngine` (the frozen renders with the holes
+filled by the point-cloud render) and `OracleDiffusionEngine` (renders of
+known ground-truth Gaussians: a perfect prior for validation runs).
+Around each event, as the JAX package: the per-event videos (render0,
+gs_render, its alpha and depth, diffusion0, the engine's per-step pred_x0
+with save_pred_x0) under `<model>/diffusion_events/train_iter<N>/`, written
+by a background writer drained at the end of `train`; the generated video
+stored at the train resolution under `<model>/video_files_scale<s>/<view>/
+<cand>.npz` (guidance_save_videos) and read back instead of generating
+(guidance_videos_from_file); the two-renderer variant (`frozen_mask` picks
+the pool and supplies the mask) and guidance_with_training_gs (the
+guidance renders of the current training Gaussians); the VGG perceptual
+pseudo term (`vgg_loss_fn`).
 Not carried from the reference: its lax.scan chunk trainer and device
 pseudo-frame pool, pipelined events, exact guided checkpoints (a
-checkpoint is the plain training state), the depth-lift appends, the
-two-renderer and training-Gaussian guidance variants and the per-event
-video artifacts.
+checkpoint is the plain training state) and the depth-lift appends.
 """
 
 from __future__ import annotations
@@ -39,7 +47,8 @@ import json
 import os
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Protocol
+from types import SimpleNamespace
+from typing import Callable, Dict, List, Optional, Protocol
 
 import numpy as np
 import torch
@@ -47,7 +56,7 @@ import torch.nn.functional as F
 
 from guidedvd3dgs_tpu_torch.convert import params_from_numpy
 
-from guidedvd3dgs_tpu_torch.diffusion.model import DiffusionParams, LatentDiffusionConfig
+from guidedvd3dgs_tpu_torch.diffusion.model import DiffusionParams, LatentDiffusionConfig, decode_video_frames
 from guidedvd3dgs_tpu_torch.diffusion.samplers.ddim_guidance import GuidedSampleConfig
 from guidedvd3dgs_tpu_torch.diffusion.synthesis import (
     SynthesisConfig,
@@ -70,6 +79,7 @@ from guidedvd3dgs_tpu_torch.scene.cameras import PseudoCamera, camera_from_w2c_K
 from guidedvd3dgs_tpu_torch.scene.synthetic import GT_NPZ_KEYS
 from guidedvd3dgs_tpu_torch.train.baseline import BaselineTrainer, StepStats, lrs_for
 from guidedvd3dgs_tpu_torch.utils.losses import l1_loss, psnr, ssim
+from guidedvd3dgs_tpu_torch.utils.video import AsyncArtifactWriter, save_video, video_u8
 
 
 def resize_renders(video: torch.Tensor, height: int, width: int) -> torch.Tensor:
@@ -103,7 +113,11 @@ class ViewCrafterEngine:
     device the engine runs on; the prompt's text embeddings are computed
     once here (the prompt is fixed). `guided_cfg` configures the guided
     sampler; `w_recon`, `ssim_guidance`, `recon_loss` and `lpips_fn` the
-    guidance loss (reference LossGuidance, viewcrafter_wrapper.py:47-99)."""
+    guidance loss (reference LossGuidance, viewcrafter_wrapper.py:47-99).
+    `verbose` prints each request's settings. While `save_pred_x0_dir` is
+    set, a guided request also writes each DDIM step's pred_x0 as a video
+    there (reference LossGuidance.save_pred_x0, viewcrafter_wrapper.py:
+    174-192), through `artifact_writer` when one is set."""
 
     def __init__(self, params: DiffusionParams, mcfg: LatentDiffusionConfig, scfg: SynthesisConfig,
                  guided_cfg: Optional[GuidedSampleConfig] = None, video_length: int = 25,
@@ -117,6 +131,9 @@ class ViewCrafterEngine:
         # in the guidance-weight warmup mode the reference drops the alpha
         # mask and applies the loss everywhere (viewcrafter_wrapper.py:147-151)
         self.scale_weight_mode = False
+        self.verbose = False
+        self.save_pred_x0_dir: Optional[str] = None
+        self.artifact_writer: Optional[AsyncArtifactWriter] = None
         self.device = params.unet["out.2.weight"].device
         with torch.no_grad():
             self.text_pair = encode_text_pair(params, scfg, self.device)
@@ -142,12 +159,35 @@ class ViewCrafterEngine:
                                       depths=as_dev(guidance_depths))
             guidance_fn = make_guidance_fn(buffers, w_recon=self.w_recon, ssim_guidance=self.ssim_guidance,
                                            lpips_fn=self.lpips_fn, recon_loss=self.recon_loss)
+        if self.verbose:
+            print(f"  [engine] {self.height}x{self.width}x{video.shape[0]} recon={self.recon_loss} "
+                  f"w_recon={self.w_recon} ssim={self.ssim_guidance} lpips={self.lpips_fn is not None} "
+                  f"guided={not no_guidance} sw={scale_guidance_weight}", flush=True)
+        want_trace = bool(self.save_pred_x0_dir) and not no_guidance
         frames = image_guided_synthesis(self.params, self.mcfg, self.scfg, video * 2.0 - 1.0,
                                         generator=generator, noise=noise, guidance_fn=guidance_fn,
                                         guided_cfg=self.guided_cfg,
                                         scale_guidance_weight=scale_guidance_weight,
-                                        text_pair=self.text_pair)
+                                        text_pair=self.text_pair, pred_x0_trace=want_trace)
+        if want_trace:
+            frames, trace = frames
+            self._save_pred_x0_videos(trace)
         return torch.clamp((frames + 1.0) / 2.0, 0.0, 1.0).permute(0, 3, 1, 2)
+
+    def _save_pred_x0_videos(self, trace: torch.Tensor) -> None:
+        """Decode the (S, T, h, w, 4) pred_x0 latents and write one video a
+        DDIM step, named by the sampler's descending index as the reference
+        (pred_x0_step<index>)."""
+        s = trace.shape[0]
+        for i in range(s):
+            with torch.no_grad():
+                frames = decode_video_frames(self.params, self.mcfg, trace[i])
+            u8 = video_u8((frames + 1.0) / 2.0)
+            path = os.path.join(self.save_pred_x0_dir, f"pred_x0_step{s - 1 - i:03d}.mp4")
+            if self.artifact_writer is not None:
+                self.artifact_writer.submit(save_video, u8, path)
+            else:
+                save_video(u8, path)
 
 
 def _sync(device: torch.device) -> None:
@@ -186,6 +226,21 @@ class FrozenRenderer:
         alpha (T, H, W), depth (T, H, W))."""
         frames = [self.render(w, K, height, width) for w in w2cs]
         return tuple(torch.stack(x) for x in zip(*frames))
+
+
+class LiveRenderer(FrozenRenderer):
+    """The training Gaussians as they are at each call (the reference's
+    guidance_with_training_gs, train_guidedvd.py:493-517): `state` is the
+    trainer's state itself, rendered from detached copies of its
+    parameters under no_grad, so no training graph or gradient is held."""
+
+    def __init__(self, state: G.GaussianState, sh_degree: int, bg=None, backend: str = "auto"):
+        super().__init__(state.params, sh_degree, bg, backend)
+        self.state = state
+
+    def render(self, w2c: np.ndarray, K: np.ndarray, height: int, width: int):
+        self.params = SimpleNamespace(**self.state.params.tensors())  # the six, detached
+        return super().render(w2c, K, height, width)
 
 
 class MockDiffusionEngine:
@@ -312,14 +367,19 @@ def train_step_guided(
     pseudo_ssim: bool = False,
     apply_adam: bool = True,
     update_stats: bool = True,
+    vgg_loss_fn: Optional[Callable] = None,
+    pseudo_cam_lpips_weight: float = 0.1,
 ) -> dict:
     """One step on the train view and, when `pseudo_cam` is given, a pseudo
     view, updating `state` in place (reference train_guidedvd.py:330-416):
     loss = (1 - l) L1 + l (1 - SSIM) of the train view + pseudo_weight *
-    the pseudo view's L1 (its (1 - l) L1 + l (1 - SSIM) with pseudo_ssim).
-    Each render has its own zero screen offset for the densification
+    the pseudo view's L1 (its (1 - l) L1 + l (1 - SSIM) with pseudo_ssim),
+    plus pseudo_cam_lpips_weight times the perceptual `vgg_loss_fn` of the
+    clamped render and pseudo ground truth when given (:368-371). Each
+    render has its own zero screen offset for the densification
     statistics; one backward pass. Returns the metrics (loss, l1,
-    pseudo_l1, psnr as device tensors; num_instances, the larger render's)."""
+    pseudo_l1, pseudo_vgg, psnr as device tensors; num_instances, the
+    larger render's)."""
     dev = state.device
 
     def render(c, offset):
@@ -330,7 +390,7 @@ def train_step_guided(
     r = render(cam, offset)
     ll1 = l1_loss(r.color, gt_image)
     loss = (1.0 - lambda_dssim) * ll1 + lambda_dssim * (1.0 - ssim(r.color, gt_image))
-    rp, pl1 = None, torch.zeros((), device=dev)
+    rp, pl1, pvgg = None, torch.zeros((), device=dev), torch.zeros((), device=dev)
     if pseudo_cam is not None:
         offset_p = torch.zeros((state.num_gaussians, 2), device=dev, requires_grad=True)
         rp = render(pseudo_cam, offset_p)
@@ -339,6 +399,9 @@ def train_step_guided(
             ploss = (1.0 - lambda_dssim) * pl1 + lambda_dssim * (1.0 - ssim(rp.color, pseudo_gt))
         else:
             ploss = pl1
+        if vgg_loss_fn is not None:
+            pvgg = vgg_loss_fn(torch.clamp(rp.color, 0, 1)[None], torch.clamp(pseudo_gt, 0, 1)[None])
+            ploss = ploss + pseudo_cam_lpips_weight * pvgg
         loss = loss + pseudo_weight * ploss
     state.params.zero_grad(set_to_none=True)
     loss.backward()
@@ -357,7 +420,8 @@ def train_step_guided(
         num_instances = max(num_instances, rp.num_instances)
     with torch.no_grad():
         return {"loss": loss.detach(), "l1": ll1.detach(), "pseudo_l1": pl1.detach(),
-                "psnr": psnr(r.color, gt_image)[0, 0], "num_instances": num_instances}
+                "pseudo_vgg": pvgg.detach(), "psnr": psnr(r.color, gt_image)[0, 0],
+                "num_instances": num_instances}
 
 
 # ----------------------------------------------------------------------------
@@ -373,15 +437,21 @@ class GuidedTrainer(BaselineTrainer):
     shuffles, event views, pseudo views and promotions from
     `np.random.default_rng(seed)`. A checkpoint is the plain training
     state (BaselineTrainer.write_checkpoint), as the reference's per-step
-    path writes; resuming rebuilds the pool."""
+    path writes; resuming rebuilds the pool. `vgg_loss_fn` adds the
+    perceptual pseudo term; `frozen_mask`, a second frozen renderer, picks
+    the pool's candidates and supplies each event's mask (the two-renderer
+    variant, reference train_replica_guidedvd_tworenderer.py:60-74)."""
 
     def __init__(self, scene, state: G.GaussianState, opt, pipe, model_params,
                  frozen: FrozenRenderer, engine: DiffusionEngine, pcd_points: np.ndarray,
                  pcd_colors: np.ndarray, guidance_intrinsic: np.ndarray, background=None,
-                 seed: int = 1, elevation: float = 5.0, hybrid_traj: bool = False):
+                 seed: int = 1, elevation: float = 5.0, hybrid_traj: bool = False,
+                 vgg_loss_fn: Optional[Callable] = None, frozen_mask: Optional[FrozenRenderer] = None):
         super().__init__(scene, state, opt, pipe, model_params, background)
         self.frozen = frozen
+        self.frozen_mask = frozen_mask
         self.engine = engine
+        self.vgg_loss_fn = vgg_loss_fn
         self.pcd_points = torch.from_numpy(np.ascontiguousarray(pcd_points, np.float32)).to(self.device)
         self.pcd_colors = torch.from_numpy(np.ascontiguousarray(pcd_colors, np.float32)).to(self.device)
         self.intrinsic = np.asarray(guidance_intrinsic)
@@ -404,8 +474,11 @@ class GuidedTrainer(BaselineTrainer):
         # preset, then the pool (train_scannetpp_guidedvd_hybrid_traj.py:318)
         self.hybrid_traj = hybrid_traj
         self.txt_traj_warmup = hybrid_traj
-        self.event_phase_s = {"pc_render": 0.0, "frozen": 0.0, "generate": 0.0}
+        self.event_phase_s = {"pc_render": 0.0, "frozen": 0.0, "artifacts": 0.0, "generate": 0.0}
         self._visible = {}  # source view -> (N,) bool of the points it sees
+        self._live_renderer: Optional[LiveRenderer] = None
+        self._cur_video_key = None  # (scale_idx, view, cand_idx) of the event's pool entry
+        self.artifact_writer = AsyncArtifactWriter()
         self.last_metrics = None
 
     # -- setup ---------------------------------------------------------------
@@ -425,7 +498,8 @@ class GuidedTrainer(BaselineTrainer):
     def init_trajectory_pool(self) -> None:
         self.init_view_geometry()
         self.trajectory_pool = build_trajectory_pool(
-            self.frozen, self.train_c2ws, self.intrinsic, self.center_depths, self.H, self.W,
+            self.frozen_mask or self.frozen, self.train_c2ws, self.intrinsic, self.center_depths,
+            self.H, self.W,
             center_scale=self.opt.guidance_vc_center_scale, elevation=self.elevation,
             video_length=self.engine.video_length,
         )
@@ -485,6 +559,63 @@ class GuidedTrainer(BaselineTrainer):
         if pending is not None:
             self.finalize_diffusion_event(pending)
 
+    def _event_dir(self, iteration: int) -> str:
+        """The event's artifact directory (reference LossGuidance.
+        update_save_dir, viewcrafter_wrapper.py:167-171); "" when there is
+        no model path or `save_event_artifacts` is off."""
+        mp = getattr(self.model_params, "model_path", "") or ""
+        if not mp or not getattr(self.opt, "save_event_artifacts", True):
+            return ""
+        d = os.path.join(mp, "diffusion_events", f"train_iter{iteration}")
+        os.makedirs(d, exist_ok=True)
+        return d
+
+    def _video_file_path(self, key="cur") -> Optional[str]:
+        """The stored video of a pool entry (scale_idx, view, cand_idx):
+        `<model>/video_files_scale{s}/{view}/{cand}.npz` (the reference's
+        video_files_scale layout, train_guidedvd.py:562-566, and the JAX
+        package's npz), or None."""
+        if key == "cur":
+            key = self._cur_video_key
+        mp = getattr(self.model_params, "model_path", "") or ""
+        if key is None or not mp:
+            return None
+        s, v, c = key
+        return os.path.join(mp, f"video_files_scale{s}", str(v), f"{c}.npz")
+
+    def _guidance_renders(self, iteration: int, w2cs: np.ndarray):
+        """(rgb, alpha, depth) of the event's frames: the frozen baseline's;
+        the alpha of `frozen_mask` where there is one; from
+        guidance_with_training_gs_startiter on with guidance_with_training_gs,
+        rgb and depth of the current training Gaussians, and their alpha too
+        with guidance_with_training_gs_decide_mask (reference :493-524)."""
+        opt = self.opt
+        args = (w2cs, self.intrinsic, self.H, self.W)
+        if getattr(opt, "guidance_with_training_gs", False) and \
+                iteration >= getattr(opt, "guidance_with_training_gs_startiter", 0):
+            if self._live_renderer is None:
+                self._live_renderer = LiveRenderer(self.state, self.max_sh_degree, backend=self.frozen.backend)
+            self._live_renderer.state = self.state
+            rgb, alpha, depth = self._live_renderer.render_many(*args)
+            if not getattr(opt, "guidance_with_training_gs_decide_mask", False):
+                _, alpha, _ = (self.frozen_mask or self.frozen).render_many(*args)
+        else:
+            rgb, alpha, depth = self.frozen.render_many(*args)
+            if self.frozen_mask is not None:
+                _, alpha, _ = self.frozen_mask.render_many(*args)
+        return rgb, alpha, depth
+
+    def _save_event_artifacts(self, event_dir: str, pc_renders, gs_rgb, gs_alpha, gs_depth) -> None:
+        """The event's input videos (reference train_guidedvd.py:531-542):
+        the point-cloud renders, the guidance renders, the unobserved mask
+        and the observed depth normalised to [0, 1]; quantised on the
+        device, encoded by the background writer."""
+        d = gs_depth[:, 0] * (1.0 - gs_alpha[:, 0])
+        dn = (d - d.min()) / torch.clamp(d.max() - d.min(), min=1e-8)
+        for name, frames in (("render0", pc_renders), ("gs_render", gs_rgb),
+                             ("gs_render_alpha", gs_alpha[:, 0]), ("gs_render_depth", dn)):
+            self.artifact_writer.submit(save_video, video_u8(frames), os.path.join(event_dir, f"{name}.mp4"))
+
     def _event_trajectory(self, view: int) -> Optional[np.ndarray]:
         opt = self.opt
         if self.txt_traj_warmup:
@@ -503,14 +634,20 @@ class GuidedTrainer(BaselineTrainer):
             self.trajectory_pool_shuffle[view] = self._shuffled(self.trajectory_pool[view])
         if not self.trajectory_pool_shuffle[view]:
             return None  # no valid trajectory for this view
-        return self.trajectory_pool_shuffle[view].pop().traj_c2ws
+        entry = self.trajectory_pool_shuffle[view].pop()
+        self._cur_video_key = (entry.scale_idx, view, entry.cand_idx)
+        return entry.traj_c2ws
 
     def submit_diffusion_event(self, iteration: int):
-        """Render the event's inputs and generate its video. Returns the
-        record `finalize_diffusion_event` takes, or None when the view has
-        no trajectory. Each phase's seconds (device included) add to
+        """Render the event's inputs, write its artifacts and generate its
+        video, or read it from the store with guidance_videos_from_file
+        (reference train_guidedvd.py:431-559). Returns the record
+        `finalize_diffusion_event` takes, or None when the view has no
+        trajectory. Each phase's seconds (device included) add to
         `event_phase_s`."""
+        opt = self.opt
         view = self._next_view()
+        self._cur_video_key = None
         traj = self._event_trajectory(view)
         if traj is None:
             return None
@@ -522,7 +659,7 @@ class GuidedTrainer(BaselineTrainer):
 
         t = time.perf_counter()
         w2cs = np.stack([np.linalg.inv(traj[i]) for i in range(traj.shape[0])])
-        rgb, alpha, depth = self.frozen.render_many(w2cs, self.intrinsic, self.H, self.W)
+        rgb, alpha, depth = self._guidance_renders(iteration, w2cs)
         gs_rgb = torch.clamp(rgb, 0, 1)  # (T, 3, H, W)
         gs_alpha = (torch.clamp(alpha, 0, 1) < 0.9).to(torch.float32)[:, None]  # unobserved
         gs_depth = depth[:, None]
@@ -530,29 +667,60 @@ class GuidedTrainer(BaselineTrainer):
         t_frozen = time.perf_counter() - t
 
         t = time.perf_counter()
-        sw = guidance_weight_schedule(iteration) if getattr(self.opt, "scale_guidance_weight", False) else 1.0
+        event_dir = self._event_dir(iteration)
+        if event_dir:
+            self._save_event_artifacts(event_dir, pc_renders, gs_rgb, gs_alpha, gs_depth)
+        t_art = time.perf_counter() - t
+
+        t = time.perf_counter()
+        sw = guidance_weight_schedule(iteration) if getattr(opt, "scale_guidance_weight", False) else 1.0
         if hasattr(self.engine, "set_trajectory"):
             self.engine.set_trajectory(w2cs, self.intrinsic)
-        video = self.engine.generate(pc_renders, gs_rgb, 1.0 - gs_alpha, gs_depth,
-                                     generator=self.generator,
-                                     no_guidance=getattr(self.opt, "no_guidance", False),
-                                     scale_guidance_weight=sw)  # (T, 3, h, w) in [0, 1]
-        if video.shape[2:] != (self.H, self.W):
-            # back to the train resolution (reference train_guidedvd.py:557-559)
-            video = resize_renders(video.permute(0, 2, 3, 1), self.H, self.W).permute(0, 3, 1, 2)
+        if hasattr(self.engine, "save_pred_x0_dir"):
+            # the per-DDIM-step pred_x0 videos into the event's directory
+            self.engine.save_pred_x0_dir = event_dir if event_dir and getattr(opt, "save_pred_x0", False) \
+                else None
+            self.engine.artifact_writer = self.artifact_writer
+        vf = self._video_file_path() if getattr(opt, "guidance_videos_from_file", False) else None
+        if vf is not None and os.path.exists(vf):
+            # a stored video instead of a request (reference --guidance_videos_from_file)
+            video = torch.from_numpy(np.load(vf)["video"]).to(self.device)
+            print(f"  [event it{iteration}] video from file {vf}", flush=True)
+        else:
+            video = self.engine.generate(pc_renders, gs_rgb, 1.0 - gs_alpha, gs_depth,
+                                         generator=self.generator,
+                                         no_guidance=getattr(opt, "no_guidance", False),
+                                         scale_guidance_weight=sw)  # (T, 3, h, w) in [0, 1]
+            # the engine may run on another card and in bf16: the pseudo
+            # ground truth is float32 on the trainer's
+            video = video.to(self.device, torch.float32)
+            if video.shape[2:] != (self.H, self.W):
+                # back to the train resolution (reference train_guidedvd.py:557-559)
+                video = resize_renders(video.permute(0, 2, 3, 1), self.H, self.W).permute(0, 3, 1, 2)
         _sync(self.device)
         t_gen = time.perf_counter() - t
         print(f"  [event it{iteration}] pc_render {t_pc:.3f}s frozen x{traj.shape[0]} {t_frozen:.3f}s "
-              f"generate {t_gen:.3f}s", flush=True)
-        for k, v in (("pc_render", t_pc), ("frozen", t_frozen), ("generate", t_gen)):
+              f"artifacts {t_art:.3f}s generate {t_gen:.3f}s", flush=True)
+        for k, v in (("pc_render", t_pc), ("frozen", t_frozen), ("artifacts", t_art), ("generate", t_gen)):
             self.event_phase_s[k] += v
-        return iteration, view, traj, video, gs_alpha
+        return iteration, view, traj, video, gs_alpha, event_dir, self._cur_video_key
 
     def finalize_diffusion_event(self, pending) -> None:
-        """Rebuild the pseudo stacks from an event's video: every frame but
-        the first, a fifth of them also to the all-time stack (reference
-        train_guidedvd.py:557-636)."""
-        _, view, traj, video, gs_alpha = pending
+        """Write the event's video (diffusion0 with the artifacts; the store
+        with guidance_save_videos, synchronously, so that a later event of
+        this run may read it) and rebuild the pseudo stacks from it: every
+        frame but the first, a fifth of them also to the all-time stack
+        (reference train_guidedvd.py:557-636)."""
+        _, view, traj, video, gs_alpha, event_dir, video_key = pending
+        if event_dir:
+            self.artifact_writer.submit(save_video, video_u8(video), os.path.join(event_dir, "diffusion0.mp4"))
+        if getattr(self.opt, "guidance_save_videos", False):
+            vf = self._video_file_path(video_key)
+            if vf is None and event_dir:
+                vf = os.path.join(event_dir, f"video_view{view}.npz")  # no pool entry (txt mode)
+            if vf:
+                os.makedirs(os.path.dirname(vf), exist_ok=True)
+                np.savez_compressed(vf, video=video.cpu().numpy())
         fovx, fovy = self.train_cams[view].FoVx, self.train_cams[view].FoVy
         self.pseudo_stack = []
         for i in range(1, traj.shape[0]):  # frame 0 is the conditioning image
@@ -612,6 +780,8 @@ class GuidedTrainer(BaselineTrainer):
             pseudo_ssim=getattr(opt, "pseudo_cam_ssim", False),
             apply_adam=(iteration < opt.iterations) and not do_densify,
             update_stats=iteration < opt.densify_until_iter,
+            vgg_loss_fn=self.vgg_loss_fn,
+            pseudo_cam_lpips_weight=getattr(opt, "pseudo_cam_lpips_weight", 0.1),
         )
         if do_densify:
             self.densify(iteration)
@@ -627,10 +797,12 @@ class GuidedTrainer(BaselineTrainer):
                          num_active=self.state.num_gaussians, num_instances=metrics["num_instances"])
 
     def train(self, iterations=None, start_iteration=0, **kwargs):
-        """BaselineTrainer.train, then `<model>/timing_summary.json`: the
-        run's seconds split into events (by phase) and training."""
+        """BaselineTrainer.train, then the artifact writes drained (a failed
+        write raises here) and `<model>/timing_summary.json`: the run's
+        seconds split into events (by phase) and training."""
         t0 = time.perf_counter()
         out = super().train(iterations, start_iteration=start_iteration, **kwargs)
+        self.artifact_writer.drain()
         _sync(self.device)
         total_s = time.perf_counter() - t0
         self.write_timing_summary((iterations or self.opt.iterations) - start_iteration, total_s)

@@ -7,19 +7,29 @@ then
 
     python -m guidedvd3dgs_tpu_torch.train_guidedvd -s <source_path> -m <model_path> \\
         --baseline_path <baseline_path> [--baseline_iteration 10000] \\
-        [--oracle_gt_npz <source_path>/gt_gaussians.npz] [--device cuda|cpu]
+        [--viewcrafter_ckpt <model.ckpt> [--guidance_gpu_id 1]] \\
+        [--oracle_gt_npz <source_path>/gt_gaussians.npz] [--vgg19_weights <vgg19.pth>] \\
+        [--mask_baseline_path <path> [--mask_baseline_iteration 10000]] [--device cuda|cpu]
 
 The frozen renderer is the baseline's `point_cloud/iteration_<N>`; the
 trained model starts from the scene's point cloud, as the reference's
-does. The engine: `--oracle_gt_npz` renders the pseudo ground truth from
-known ground-truth Gaussians (validation); without it the mock engine
-(the frozen renders with the holes filled by the point-cloud render),
-announced. `--viewcrafter_ckpt` is refused: the ViewCrafter engine is not
-wired into the trainer yet. The perceptual pseudo term (VGG) is not
-ported: it is announced and left off, as the reference does without
-weights. `--start_checkpoint` resumes a plain checkpoint and rebuilds the
-trajectory pool. Writes what train_baseline writes plus
-`timing_summary.json`.
+does. The engine: `--viewcrafter_ckpt` loads the ViewCrafter checkpoint
+(bf16 on a card) and runs the guided DDIM sampler, at 320x448 or 320x512
+by the scene's aspect ratio, on `cuda:<guidance_gpu_id>` where the host
+has that card and on the trainer's otherwise; `--oracle_gt_npz` renders
+the pseudo ground truth from known ground-truth Gaussians (validation);
+without either the mock engine (the frozen renders with the holes filled
+by the point-cloud render), announced. The perceptual pseudo term
+(pseudo_cam_lpips, on by default) and, with --guidance_with_lpips, the
+guidance's perceptual term take the VGG19 of `--vgg19_weights`, of
+VGG19_WEIGHTS or of the torch hub cache; without weights both are
+announced and off, as in the reference. `--mask_baseline_path` is the
+two-renderer variant (a second baseline picks the pool and supplies the
+guidance masks). `--start_checkpoint` resumes a plain checkpoint and
+rebuilds the trajectory pool. Not ported: `--guidance_tp` and
+`--pipeline_guidance` (the JAX package's TPU mesh and overlapped events;
+refused). Writes what train_baseline writes plus the event artifacts, the
+video store and `timing_summary.json`.
 """
 
 from __future__ import annotations
@@ -32,6 +42,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from guidedvd3dgs_tpu_torch.diffusion.convert import load_viewcrafter_checkpoint
+from guidedvd3dgs_tpu_torch.diffusion.model import DiffusionParams, LatentDiffusionConfig
+from guidedvd3dgs_tpu_torch.diffusion.samplers.ddim_guidance import GuidedSampleConfig
+from guidedvd3dgs_tpu_torch.diffusion.synthesis import SynthesisConfig
 from guidedvd3dgs_tpu_torch.config import (
     ModelParams,
     OptimizationParams,
@@ -47,15 +61,53 @@ from guidedvd3dgs_tpu_torch.train.guided import (
     GuidedTrainer,
     MockDiffusionEngine,
     OracleDiffusionEngine,
+    ViewCrafterEngine,
 )
 from guidedvd3dgs_tpu_torch.train.logging import MetricsLogger
+from guidedvd3dgs_tpu_torch.utils.vgg_loss import frame_lpips_fn, make_vgg_loss_fn
 
 
-def build_engine(args, height: int, width: int, device):
+def guidance_device(opt, device: torch.device) -> torch.device:
+    """The engine's device (reference guidance_gpu_id, arguments/__init__.py:
+    129): `cuda:<guidance_gpu_id>` where the host has that card, else the
+    trainer's device; the CPU only when the trainer runs there."""
+    idx = int(getattr(opt, "guidance_gpu_id", 0))
+    if device.type == "cuda" and 0 <= idx < torch.cuda.device_count():
+        return torch.device("cuda", idx)
+    return device
+
+
+def engine_width(opt, height: int, width: int) -> int:
+    """The diffusion width at height 320 (reference viewcrafter_wrapper.py:
+    251-281): 512 under scannetpp_newres, else 448 for aspect ratios within
+    0.2 of 1.4 (640x480 gives 448), else 512."""
+    if getattr(opt, "scannetpp_newres", False):
+        return 512
+    return 448 if abs(width / height - 1.4) < 0.2 else 512
+
+
+def build_engine(args, opt, height: int, width: int, device):
     if args.viewcrafter_ckpt:
-        raise NotImplementedError(
-            "--viewcrafter_ckpt: the ViewCrafter engine is not yet wired into the guided trainer "
-            "(ROADMAP queue 1 item 2); use --oracle_gt_npz or the mock engine")
+        if getattr(opt, "guidance_mean_loss", False):
+            # the reference's LossGuidance asserts it off (viewcrafter_wrapper.py:86)
+            raise ValueError("guidance_mean_loss must stay False (the reference's LossGuidance asserts it)")
+        dev = guidance_device(opt, device)
+        # bf16 weights and compute on a card (the reference's fp16
+        # autocast); float32 on the CPU
+        dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+        print(f"Loading ViewCrafter checkpoint {args.viewcrafter_ckpt} ({dtype}) onto {dev} ...")
+        split = load_viewcrafter_checkpoint(args.viewcrafter_ckpt, device=dev, dtype=dtype)
+        params = DiffusionParams(unet=split["unet"], vae=split["vae"], resampler=split["resampler"],
+                                 clip_text=split["clip_text"], clip_image=split["clip_image"])
+        mcfg = LatentDiffusionConfig()
+        if dtype == torch.bfloat16:
+            mcfg = dataclasses.replace(mcfg, compute_dtype="bfloat16")
+        d_w = engine_width(opt, height, width)
+        print(f"ViewCrafter engine on {dev}: 25x320x{d_w}, {opt.guidance_ddim_steps} guided DDIM steps "
+              f"(trainer on {device})")
+        return ViewCrafterEngine(params, mcfg, SynthesisConfig(ddim_steps=opt.guidance_ddim_steps),
+                                 guided_cfg=GuidedSampleConfig(recur_steps=opt.guidance_recur_steps),
+                                 video_length=25, height=320, width=d_w, recon_loss=opt.guidance_recon_loss)
     if args.oracle_gt_npz:
         print(f"Using ORACLE diffusion engine (GT gaussians from {args.oracle_gt_npz}) - "
               "guided-machinery validation mode.")
@@ -64,6 +116,20 @@ def build_engine(args, height: int, width: int, device):
     print("WARNING: no --viewcrafter_ckpt given; using the MOCK diffusion engine "
           "(pseudo-GT = mask-blended frozen renders).")
     return MockDiffusionEngine(video_length=25, height=height, width=width)
+
+
+def configure_engine(engine, opt, vgg_fn) -> None:
+    """The guidance loss's settings from the options (JAX train_guidedvd.py:
+    223-238): the perceptual term is the VGG loss, frame by frame, with
+    guidance_with_lpips and weights only."""
+    if not isinstance(engine, ViewCrafterEngine):
+        return
+    if getattr(opt, "guidance_with_lpips", False) and vgg_fn is not None:
+        engine.lpips_fn = frame_lpips_fn(vgg_fn)
+    engine.ssim_guidance = getattr(opt, "guidance_with_ssim", False)
+    engine.verbose = getattr(opt, "guidance_verbose", False)
+    engine.w_recon = opt.w_guidance_recon_loss
+    engine.scale_weight_mode = getattr(opt, "scale_guidance_weight", False)
 
 
 def main(argv: Optional[List[str]] = None) -> GuidedTrainer:
@@ -82,7 +148,13 @@ def main(argv: Optional[List[str]] = None) -> GuidedTrainer:
     parser.add_argument("--checkpoint_iterations", nargs="+", type=int, default=[])
     parser.add_argument("--start_checkpoint", type=str, default=None)
     parser.add_argument("--quiet", action="store_true")
+    # the two-renderer variant: a second baseline decides the guidance mask
+    # (reference train_replica_guidedvd_tworenderer.py:60-74)
+    parser.add_argument("--mask_baseline_path", type=str, default=None)
+    parser.add_argument("--mask_baseline_iteration", type=int, default=10_000)
     parser.add_argument("--hybrid_traj", action="store_true")
+    parser.add_argument("--pipeline_guidance", action="store_true",
+                        help="not ported: the JAX package's overlapped events")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
@@ -90,6 +162,9 @@ def main(argv: Optional[List[str]] = None) -> GuidedTrainer:
     dataset = ModelParams.extract(args)
     opt = OptimizationParams.extract(args)
     pipe = PipelineParams.extract(args)
+    if args.pipeline_guidance or opt.guidance_tp > 1:
+        raise ValueError("--pipeline_guidance and --guidance_tp > 1 (the JAX package's overlapped events "
+                         "and TPU mesh) are not ported")
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
 
@@ -103,22 +178,32 @@ def main(argv: Optional[List[str]] = None) -> GuidedTrainer:
                        load_iteration=args.baseline_iteration)
     frozen = FrozenRenderer(base_scene.load_gaussians(base_scene.loaded_iter, device),
                             sh_degree=dataset.sh_degree, backend=pipe.raster_backend)
+    frozen_mask = None
+    if args.mask_baseline_path:
+        mask_scene = Scene(dataclasses.replace(dataset, model_path=args.mask_baseline_path),
+                           load_iteration=args.mask_baseline_iteration)
+        frozen_mask = FrozenRenderer(mask_scene.load_gaussians(mask_scene.loaded_iter, device),
+                                     sh_degree=dataset.sh_degree, backend=pipe.raster_backend)
+        print(f"Two-renderer variant: guidance mask from {args.mask_baseline_path}")
 
     cams = scene.getTrainCameras()
     h, w = cams[0].image_height, cams[0].image_width
     fx = w / (2 * math.tan(cams[0].FoVx / 2))
     fy = h / (2 * math.tan(cams[0].FoVy / 2))
     K = np.array([[fx, 0, w / 2], [0, fy, h / 2], [0, 0, 1]])
-    engine = build_engine(args, h, w, device)
-    if opt.pseudo_cam_lpips:
+    engine = build_engine(args, opt, h, w, device)
+    vgg_fn = make_vgg_loss_fn(args.vgg19_weights) if opt.pseudo_cam_lpips else None
+    if opt.pseudo_cam_lpips and vgg_fn is None:
         print("WARNING: pseudo_cam_lpips requested but VGG19 weights not found "
-              "(the perceptual loss is not ported); the perceptual pseudo term is DISABLED.")
+              "(set --vgg19_weights or VGG19_WEIGHTS); the perceptual pseudo term is DISABLED.")
+    configure_engine(engine, opt, vgg_fn)
 
     pcd = scene.scene_info.point_cloud
     trainer = GuidedTrainer(
         scene, state, opt, pipe, dataset, frozen=frozen, engine=engine,
         pcd_points=np.asarray(pcd.points, np.float32), pcd_colors=np.asarray(pcd.colors, np.float32),
-        guidance_intrinsic=K, seed=args.seed, hybrid_traj=args.hybrid_traj,
+        guidance_intrinsic=K, seed=args.seed, hybrid_traj=args.hybrid_traj, vgg_loss_fn=vgg_fn,
+        frozen_mask=frozen_mask,
     )
     first_iter = 0
     if args.start_checkpoint:

@@ -125,8 +125,6 @@ def test_guidance_fn_rejects_what_it_does_not_take():
     bufs = lg.resize_guidance(torch.zeros((1, 3, 8, 8)), 8, 8)
     with pytest.raises(ValueError):
         lg.make_guidance_fn(bufs, recon_loss="l3")
-    with pytest.raises(NotImplementedError, match="queue 4"):
-        lg.make_guidance_fn(bufs, lpips_fn=lambda *a: 0.0)
 
 
 @pytest.mark.parametrize("with_mask", [True, False])

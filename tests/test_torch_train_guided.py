@@ -265,6 +265,7 @@ def test_cli_guided_round_trip_with_the_oracle(tmp_path):
     port_metrics.evaluate([str(mdl)], device="cpu")
     res = json.loads((mdl / "results.json").read_text())["ours_40"]
     assert math.isfinite(res["PSNR"]) and math.isfinite(res["SSIM"]) and res["PSNR"] > 5.0
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    with pytest.raises(FileNotFoundError):  # the ViewCrafter branch loads the checkpoint
         port_guided_cli.main(common + ["-m", str(tmp_path / "vc"), "--baseline_path", str(base),
-                                       "--baseline_iteration", "30", "--viewcrafter_ckpt", "x.ckpt"])
+                                       "--baseline_iteration", "30", "--viewcrafter_ckpt",
+                                       str(tmp_path / "missing.ckpt")])
