@@ -100,6 +100,20 @@ and the exit code is non-zero; there is no CPU fallback):
               rule, 2 events, a pseudo stack of 24, 2 stored videos, L1's
               launches exactly; the render and metrics CLIs on the result;
               the checkpoint's write and load seconds
+  6d. published chain  each CLI of scripts/run_*.sh at full width on phase
+              4's room, the launches of each run exact: the room written as
+              the four ScanNet++ scenes (dslr/undistorted_images, the train
+              frames of SCANNETPP_TRAIN_ID among CHAIN_FRAMES), each through
+              train_baseline --dataset scannetpp (CHAIN_ITERS), render and
+              metrics, then get_avg_results --dataset scannetpp; the room as
+              a Replica scene, its 1M-point cloud projected to every 6th view
+              by project_pcd_to_views, train_project_cam (both kinds of
+              epoch, each kind's loss falling); phase 5c's trainer run A with
+              a guided checkpoint at RESUME_AT and events on both sides, run
+              B resumed from it: bitwise A's state; render --video of phase
+              4's model (240 frames); metrics with random LPIPS weights
+              written as torchvision / LPIPS v0.1 files (both LPIPS fields
+              finite), and a view's LPIPS ms
   7. generate the video-diffusion generation path (ViewCrafter at full
               width: 25 frames, 320x448, UNet 320 channels, ViT-H-14
               towers, random weights from a seed)
@@ -159,10 +173,11 @@ phases 1, 2, 7a and 7b-7c (L1's forward kernels and the DDIM request);
 `--gaussian-only` phases 1, 2, 3, 5 and 5b (the Gaussian kernels K1-K6
 and the trainer); `--guided-trainer-only` phases 1, 2 and 5c (the guided
 trainer); `--vc-trainer-only STEPS` phases 1, 2 and 5d with STEPS guided
-DDIM steps (50: a real event's time).
+DDIM steps (50: a real event's time); `--chain-only` phases 1, 2 and 6d
+(the published scripts' chain).
 The line before the last is the JSON kernel table (each kernel's launches
 summed over the phases that drive a path: K1-K6 over 4, 5, 5b, 5c, 5d, 6,
-6b and 6c, L1's forward over 5d, 6c, 7b and 8b, its backward over 5d, 6c and
+6b, 6c and 6d, L1's forward over 5d, 6c, 7b and 8b, its backward over 5d, 6c and
 8b; each phase's count in `launches_by_phase`; for
 K1-K6 `host_ms` beside `ms` and `ms_dense` and `bound_ms_dense` from
 phase 5b's view; for K1 also `ms_full_table`, `bound_ms_all_rows` and
@@ -196,10 +211,13 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
+from guidedvd3dgs_tpu_torch import get_avg_results as port_avg  # noqa: E402
 from guidedvd3dgs_tpu_torch import metrics as port_metrics  # noqa: E402
+from guidedvd3dgs_tpu_torch import project_pcd_to_views  # noqa: E402
 from guidedvd3dgs_tpu_torch import render as port_render  # noqa: E402
 from guidedvd3dgs_tpu_torch import train_baseline as port_train_cli  # noqa: E402
 from guidedvd3dgs_tpu_torch import train_guidedvd as port_guided_cli  # noqa: E402
+from guidedvd3dgs_tpu_torch import train_project_cam as port_project_cli  # noqa: E402
 from guidedvd3dgs_tpu_torch.config import (  # noqa: E402
     ModelParams,
     OptimizationParams,
@@ -234,6 +252,9 @@ from guidedvd3dgs_tpu_torch.train.guided import (  # noqa: E402
     ViewCrafterEngine,
     resize_renders,
 )
+from guidedvd3dgs_tpu_torch.train.guided_checkpoint import load_guided_checkpoint  # noqa: E402
+from guidedvd3dgs_tpu_torch.train.project_cam import ProjectCamTrainer  # noqa: E402
+from guidedvd3dgs_tpu_torch.utils.lpips import load_lpips, write_random_lpips  # noqa: E402
 from guidedvd3dgs_tpu_torch.utils.sh import SH2RGB  # noqa: E402
 from guidedvd3dgs_tpu_torch.utils.vgg_loss import make_vgg_loss_fn, random_vgg19  # noqa: E402
 
@@ -343,6 +364,17 @@ CLI_MIN_EVENTS = 7  # of the 8 the schedule fires (a view without a trajectory s
 # 6c: the guided CLI with a ViewCrafter checkpoint on that scene: events at
 # iterations 1 and 1 + VC_CLI_EVERY, each of VC_CLI_STEPS guided steps
 VC_CLI_ITERS, VC_CLI_EVERY, VC_CLI_STEPS = 30, 15, 3
+# phase 6d: the published scripts' chain. The ScanNet++ scenes' frames:
+# their train frame numbers among CHAIN_FRAMES numbers spread over the
+# span they cover (+-12); the Replica scene of the project-cam trainer
+# (room_0/Sequence_2: its 6-view split needs 659 frames); iterations of
+# each trainer; the guided run resumed: RESUME_STEPS steps, an event every
+# RESUME_EVERY from step 1 (1, 9, 17), the checkpoint at RESUME_AT
+CHAIN_FRAMES = 60
+REPLICA_SCENE, REPLICA_FRAMES = "room_0/Sequence_2", 660
+CHAIN_ITERS = 200
+PROJECT_CAM_PROB = 0.8  # the published script's: seed 1 draws a train, a projection, a train epoch...
+RESUME_STEPS, RESUME_AT, RESUME_EVERY = 24, 12, 8
 # phase 7: the ViewCrafter request (configs/inference_pvd_1024.yaml widths,
 # the guidedvd engine size) and L1's shapes on its path: the UNet's level-0
 # spatial attention per CFG branch and with the guided step's CFG pair
@@ -1749,6 +1781,321 @@ def phase_guided_cli(dev, work: Path, src: Path, base: Path, base_scores):
     return launches
 
 
+def chain_room(dev):
+    """Phase 4's room (the same draws): its ground truth, the noisy model,
+    and a 1M-point noisy cloud of it (the DUSt3R cloud's stand-in)."""
+    rng = np.random.default_rng(SEED + 1)
+    gt = synthetic.room_gaussians(N_SCENE, rng)
+    synthetic.orbit(N_CAMS, WIDTH, HEIGHT, HFOV, rng)
+    model = noisy_model(gt, rng)
+    cols = np.clip(SH2RGB(gt["features_dc"][:, 0]), 0, 1).astype(np.float32)
+    pts, pcols = synthetic.init_cloud(gt["xyz"], cols, N_SCENE, rng)
+    return gt, model, pts, (pcols * 255).astype(np.uint8)
+
+
+def orbit_images(gt_params, n: int, dev):
+    """(c2ws, cameras, images) of an n-view orbit of the room at full width."""
+    c2ws, cams = synthetic.orbit(n, WIDTH, HEIGHT, HFOV, None)
+    bg = torch.zeros(3, device=dev)
+    images = [eval_render(gt_params, c.raster_camera(dev), bg, 3).color.clamp(0, 1).cpu().numpy() for c in cams]
+    return c2ws, cams, images
+
+
+def add_launches(total: dict) -> dict:
+    """Add the launches since the last reset to `total`; returns them."""
+    now = dict(_build.LAUNCHES)
+    for k, v in now.items():
+        total[k] = total.get(k, 0) + v
+    return now
+
+
+def check_chain_launches(what: str, got: dict, forward: int, backward: int) -> None:
+    want = {n: forward if n in FORWARD_KERNELS else backward for n in GAUSSIAN_KERNELS}
+    if any(got[n] != want[n] for n in GAUSSIAN_KERNELS) or any(
+            got[n] for n in ("flash_attn_fwd",) + L1_BWD_KERNELS):
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def chain_scannetpp(dev, work: Path, gt_params, pts, cols_u8, total: dict) -> list:
+    """The ScanNet++ script's chain on the room written as each of its four
+    scenes: train_baseline --dataset scannetpp, render, metrics; then
+    get_avg_results --dataset scannetpp."""
+    c2ws, cams, images = orbit_images(gt_params, CHAIN_FRAMES, dev)
+    images_dir = "dslr/undistorted_images"
+    root = work / "output"
+    lines, steps_ms = [], []
+    for scene_id, train in dataset_readers.SCANNETPP_TRAIN_ID.items():
+        fill = np.linspace(max(train[0] - 12, 0), train[-1] + 12, CHAIN_FRAMES - len(train)).round()
+        numbers = sorted(set(train) | {int(k) for k in fill})
+        src, mdl = work / "scannetpp" / scene_id, root / "chain" / scene_id
+        synthetic.write_source(str(src), c2ws, cams, images, None, None, pts, cols_u8, images_dir=images_dir,
+                               names=[f"DSC{k:05d}.png" for k in numbers])
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        port_train_cli.main(["-s", str(src), "-m", str(mdl), "--dataset", "scannetpp", "--images", images_dir,
+                             "--eval", "--n_views", "6", "--densify_grad_threshold", "1e10",
+                             "--iterations", str(CHAIN_ITERS), "--test_iterations", str(CHAIN_ITERS),
+                             "--save_iterations", str(CHAIN_ITERS)])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        port_render.main(["-s", str(src), "-m", str(mdl), "--iteration", str(CHAIN_ITERS)])
+        port_metrics.evaluate([str(mdl)])
+        launches = add_launches(total)
+        n_test = len(os.listdir(mdl / "test" / f"ours_{CHAIN_ITERS}" / "renders"))
+        n_train = len(os.listdir(mdl / "train" / f"ours_{CHAIN_ITERS}" / "renders"))
+        if n_train != 6 or n_test < 1:
+            raise AssertionError(f"{scene_id}: split {n_train} train / {n_test} test")
+        # each step renders and takes the gradient once; the evaluation at the
+        # last iteration renders the test and train views, and so does render
+        check_chain_launches(f"ScanNet++ {scene_id}", launches, CHAIN_ITERS + 2 * (n_test + n_train),
+                             CHAIN_ITERS)
+        res = json.loads((mdl / "results.json").read_text())[f"ours_{CHAIN_ITERS}"]
+        if not (math.isfinite(res["PSNR"]) and math.isfinite(res["SSIM"])):
+            raise AssertionError(f"{scene_id}: {res}")
+        lines.append(f"{scene_id} {len(numbers)} frames (train {train}) split 6 / {n_test}, test PSNR "
+                     f"{res['PSNR']:.4f} SSIM {res['SSIM']:.5f}, train_baseline {train_s:.1f} s")
+    avg = port_avg.main(["-m", "chain", "--dataset", "scannetpp", "--iteration", str(CHAIN_ITERS),
+                         "--root", str(root)])
+    if len(avg["psnr"]) != 4 or not math.isfinite(avg["psnr_all"]):
+        raise AssertionError(f"get_avg_results: {avg}")
+    return lines + [f"get_avg_results --dataset scannetpp: PSNR {avg['psnr_all']:.4f} SSIM "
+                    f"{avg['ssim_all']:.5f} over {len(avg['psnr'])} scenes"]
+
+
+def chain_project_cam(dev, work: Path, gt_params, pts, cols_u8, total: dict) -> list:
+    """The project-cam script's trainer: the room as a Replica scene, its
+    cloud projected to every 6th view by project_pcd_to_views, then
+    train_project_cam with the published project_cam_prob and weight."""
+    src, mdl = work / "replica" / REPLICA_SCENE, work / "output" / "project_cam"
+    t0 = time.perf_counter()
+    c2ws, cams, images = orbit_images(gt_params, REPLICA_FRAMES, dev)
+    synthetic.write_source(str(src), c2ws, cams, images, None, None, pts, cols_u8, images_dir="rgb",
+                           names=[f"rgb_{i}.png" for i in range(REPLICA_FRAMES)])
+    del images
+    scene_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    project_pcd_to_views.main(["--source", str(src), "--ply", str(src / "sparse" / "0" / "points3D.ply"),
+                               "--images", "rgb"])
+    project_s = time.perf_counter() - t0
+
+    record = []
+    step = ProjectCamTrainer.step
+
+    def timed_step(self, it):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st = step(self, it)
+        torch.cuda.synchronize()
+        record.append((self.use_project_cam, float(st.loss), (time.perf_counter() - t) * 1e3))
+        return st
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(ProjectCamTrainer, "step", timed_step):
+        trainer = port_project_cli.main([
+            "-s", str(src), "-m", str(mdl), "--dataset", "replica", "--images", "rgb", "--eval",
+            "--n_views", "6", "--projected_dir", str(src / "projected_dir"), "--sample_pseudo_interval", "1",
+            "--densify_grad_threshold", "1e10", "--project_cam_prob", str(PROJECT_CAM_PROB),
+            "--project_cam_weight", "0.05", "--iterations", str(CHAIN_ITERS),
+            "--test_iterations", str(CHAIN_ITERS), "--save_iterations", str(CHAIN_ITERS)])
+    train_s = time.perf_counter() - t0
+    launches = add_launches(total)
+    n_test, n_proj = len(trainer.scene.getTestCameras()), len(trainer.scene.getProjectCameras())
+    check_chain_launches("project-cam trainer", launches, CHAIN_ITERS + n_test + 6, CHAIN_ITERS)
+    with_proj = [c for c in trainer.scene.getProjectCameras() if c.projected_mask is not None]
+    if n_proj != len(range(0, REPLICA_FRAMES, 6)) or len(with_proj) != n_proj:
+        raise AssertionError(f"{n_proj} projection cameras, {len(with_proj)} with a projection and mask")
+    if not (trainer.epochs["train"] and trainer.epochs["project"]):
+        raise AssertionError(f"epochs {trainer.epochs}: both kinds are needed")
+    # epochs: runs of steps of one kind; the loss of each kind's first and last epoch
+    epochs = []
+    for p_, loss, _ in record:
+        if not epochs or epochs[-1][0] != p_:
+            epochs.append((p_, []))
+        epochs[-1][1].append(loss)
+    kinds = {k: [loss for p_, loss, _ in record if p_ == k] for k in (False, True)}
+    falling = {k: (statistics.mean(next(v for p_, v in epochs if p_ == k)),
+                   statistics.mean([v for p_, v in epochs if p_ == k][-1])) for k in (False, True)}
+    if not all(math.isfinite(x) for _, x, _ in record) or not all(b < a for a, b in falling.values()):
+        raise AssertionError(f"mean losses (first epoch, last epoch) by kind: {falling}")
+    coverage = statistics.mean(float(c.projected_mask.mean()) for c in with_proj)
+    return [f"Replica {REPLICA_SCENE} ({REPLICA_FRAMES} frames, scene written in {scene_s:.1f} s): "
+            f"project_pcd_to_views {n_proj} views of the {pts.shape[0]}-point cloud in {project_s:.1f} s "
+            f"(mean coverage {coverage:.3f} of the pixels)",
+            f"train_project_cam {CHAIN_ITERS} iterations {train_s:.1f} s: epochs {trainer.epochs} "
+            f"(train steps {len(kinds[False])}, projection steps {len(kinds[True])}, in epochs of "
+            f"{[len(v) for _, v in epochs]}); mean loss of the first -> the last epoch: train {falling[False][0]:.5f} -> {falling[False][1]:.5f}, "
+            f"projection {falling[True][0]:.6f} -> {falling[True][1]:.6f}; step ms median "
+            f"{statistics.median(ms for _, _, ms in record[1:]):.3f} (host clock, synchronised); "
+            f"launches {launches} ({n_test} test views)"]
+
+
+def chain_resume(dev, work: Path, total: dict) -> list:
+    """Phase 5c's trainer (the 1M room frozen, the oracle, a 1M-point
+    cloud) run A to RESUME_STEPS with a guided checkpoint at RESUME_AT,
+    run B a fresh trainer loaded from it: B's state must be A's bitwise."""
+    gt, pcams, params = dense_room(dev)
+    views = train_views(gt, pcams, dev)
+    npz = work / "resume_gt.npz"
+    synthetic.write_gt_npz(str(npz), gt)
+    cols = np.clip(SH2RGB(gt["features_dc"][:, 0]), 0, 1).astype(np.float32)
+    pcd_pts, pcd_cols = synthetic.init_cloud(gt["xyz"], cols, N_SCENE, np.random.default_rng(SEED + 5))
+    frozen = FrozenRenderer(params, 3)
+    engine = OracleDiffusionEngine(str(npz), EVENT_FRAMES, HEIGHT, WIDTH, device=dev)
+    frames = {}
+    count_renders(frozen, frames, "frozen")
+    count_renders(engine.renderer, frames, "oracle")
+    opt = OptimizationParams(iterations=RESUME_STEPS, start_sample_pseudo=0, end_sample_pseudo=10 * RESUME_STEPS,
+                             guidance_vd_iter=RESUME_EVERY, densify_from_iter=10 * RESUME_STEPS,
+                             densify_until_iter=10 * RESUME_STEPS)
+
+    def trainer():
+        state = G.GaussianState.fresh(G.GaussianParams(**{k: v.clone() for k, v in params.tensors().items()}))
+        return GuidedTrainer(views, state, opt, PipelineParams(), ModelParams(), frozen, engine, pcd_pts,
+                             pcd_cols, guidance_intrinsic(views.cams[0]))
+
+    ck = str(work / f"chkpnt{RESUME_AT}.ckpt")
+    a = trainer()
+    write = a.write_checkpoint
+    write_s = []
+
+    def timed_write(path, it):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        write(path, it)
+        write_s.append(time.perf_counter() - t)
+
+    a.write_checkpoint = timed_write
+    _build.reset_launches()
+    a.init_trajectory_pool()
+    a.train(iterations=RESUME_STEPS, log_every=0, checkpoint_iterations={RESUME_AT}, checkpoint_dir=str(work))
+    torch.cuda.synchronize()
+    launches_a, frames_a = add_launches(total), dict(frames)
+    # step 1 renders the train view only (its event comes after it), every later step a pseudo view too
+    check_chain_launches("run A", launches_a, 2 * RESUME_STEPS - 1 + frames_a["frozen"] + frames_a["oracle"],
+                         2 * RESUME_STEPS - 1)
+
+    b = trainer()
+    frames.clear()
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    it = load_guided_checkpoint(ck, b)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    events_at = b.events_run
+    b.train(iterations=RESUME_STEPS, log_every=0, start_iteration=it)
+    torch.cuda.synchronize()
+    launches_b = add_launches(total)
+    check_chain_launches("run B", launches_b,
+                         2 * (RESUME_STEPS - it) + frames.get("frozen", 0) + frames.get("oracle", 0),
+                         2 * (RESUME_STEPS - it))
+    if not (0 < events_at < a.events_run == b.events_run):
+        raise AssertionError(f"events: {events_at} at the checkpoint, A {a.events_run}, B {b.events_run}")
+    differ = [n for n in G.PARAM_NAMES if not torch.equal(getattr(a.state.params, n), getattr(b.state.params, n))]
+    differ += [f"adam_{k}/{n}" for k in ("m", "v") for n in G.PARAM_NAMES
+               if not torch.equal(getattr(a.state, f"adam_{k}")[n], getattr(b.state, f"adam_{k}")[n])]
+    differ += [n for n in ("xyz_gradient_accum", "denom", "max_radii2d")
+               if not torch.equal(getattr(a.state, n), getattr(b.state, n))]
+    stacks = [(len(x.pseudo_stack), len(x.pseudo_stack_alltime)) for x in (a, b)]
+    same_poses = all(np.array_equal(p.world_view_transform, q.world_view_transform)
+                     for p, q in zip(a.pseudo_stack + a.pseudo_stack_alltime, b.pseudo_stack + b.pseudo_stack_alltime))
+    if differ or stacks[0] != stacks[1] or not same_poses:
+        raise AssertionError(f"resumed run differs from the uninterrupted one: {differ}, stacks {stacks}, "
+                             f"poses equal {same_poses}")
+    mb = os.path.getsize(ck + ".guided.npz") / 2**20
+    return [f"exact resume (phase 5c's trainer: {N_SCENE} Gaussians, the oracle, {pcd_pts.shape[0]}-point cloud, "
+            f"events every {RESUME_EVERY} from 1): run A {RESUME_STEPS} steps ({a.events_run} events, "
+            f"{events_at} before the checkpoint at {RESUME_AT}), run B loaded at {it} and run to "
+            f"{RESUME_STEPS}: parameters, Adam moments and statistics bitwise equal; pseudo stacks "
+            f"{stacks[0]} (current, all-time) with equal poses | checkpoint written in {write_s[0]:.3f} s "
+            f"({os.path.getsize(ck) / 2**20:.1f} MB state + {mb:.1f} MB .guided.npz), loaded in {load_s:.3f} s "
+            f"| launches A {launches_a}, B {launches_b}"]
+
+
+def chain_video_lpips(dev, work: Path, gt, model, total: dict) -> list:
+    """Phase 4's model in the colmap layout: render --video (240 frames),
+    then its test views rendered and scored by metrics with random LPIPS
+    weights (alexnet, vgg16 and the lin layers from a seed, in the
+    torchvision / LPIPS v0.1 file layout)."""
+    rng = np.random.default_rng(SEED + 7)
+    gt_params = params_from_numpy(gt, dev)
+    c2ws, cams, images = orbit_images(gt_params, N_CAMS, dev)
+    del gt_params
+    train_ids, test_ids = synthetic.split_ids(N_CAMS, 6)
+    src, mdl = work / "chain_scene", work / "chain_model"
+    synthetic.write_scene(str(src), str(mdl), c2ws, cams, images, model, train_ids, test_ids, ITERATION, rng)
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    port_render.main(["-m", str(mdl), "--skip_train", "--skip_test", "--video"])
+    torch.cuda.synchronize()
+    video_s = time.perf_counter() - t0
+    launches = add_launches(total)
+    check_chain_launches("render --video", launches, port_render.VIDEO_FRAMES, 0)
+    out = mdl / "video" / f"ours_{ITERATION}"
+    n_frames = len(list((out / "final_video").glob("*.png"))) if (out / "final_video").is_dir() else None
+    if n_frames is None and (out / "final_video.mp4").exists():
+        import cv2  # an mp4 when cv2 is present: its frame count
+
+        n_frames = int(cv2.VideoCapture(str(out / "final_video.mp4")).get(cv2.CAP_PROP_FRAME_COUNT))
+    if n_frames != port_render.VIDEO_FRAMES:
+        raise AssertionError(f"the video has {n_frames} frames")
+    params = params_from_numpy(model, dev)
+    vcams = [c.raster_camera(dev) for c in port_render.video_cameras(
+        Scene(ModelParams.extract(get_combined_args(build_parser(fill_none=True).parse_args(
+            ["-m", str(mdl)]))), load_iteration=ITERATION).getTrainCameras())]
+    bg = torch.zeros(3, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in vcams:
+        eval_render(params, c, bg, 3)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3 / len(vcams)
+
+    weights = work / "lpips_weights"
+    write_random_lpips(str(weights), seed=SEED)
+    _build.reset_launches()
+    with mock.patch.dict(os.environ, {"LPIPS_WEIGHTS_DIR": str(weights)}):
+        port_render.main(["-m", str(mdl), "--skip_train"])
+        t0 = time.perf_counter()
+        port_metrics.evaluate([str(mdl)])
+        metrics_s = time.perf_counter() - t0
+        nets = {n: load_lpips(n).to(dev) for n in ("vgg", "alex")}
+    add_launches(total)
+    res = json.loads((mdl / "results.json").read_text())[f"ours_{ITERATION}"]
+    if not all(res[k] is not None and math.isfinite(res[k]) for k in ("LPIPS", "LPIPS_ALEX", "PSNR", "SSIM")):
+        raise AssertionError(f"metrics with LPIPS weights: {res}")
+    x = torch.from_numpy(images[test_ids[0]][None]).to(dev)
+    y = eval_render(params, cams[test_ids[0]].raster_camera(dev), bg, 3).color.clamp(0, 1)[None]
+    # vgg on [0, 1], alex on [-1, 1], as metrics.py
+    ranged = {"vgg": (x, y), "alex": (x * 2 - 1, y * 2 - 1)}
+    with torch.no_grad():
+        lp_ms = {n: median_ms(functools.partial(net, *ranged[n]), runs=10) for n, net in nets.items()}
+    return [f"render --video: {n_frames} frames in {video_s:.1f} s (CLI: the model's load, the renders, the "
+            f"frame writes), {frame_ms:.3f} ms a frame rendering alone (host clock, synchronised) | launches "
+            f"{launches}",
+            f"metrics with random LPIPS weights ({len(test_ids)} test views): PSNR {res['PSNR']:.4f} SSIM "
+            f"{res['SSIM']:.5f} LPIPS (vgg) {res['LPIPS']:.5f} LPIPS_ALEX {res['LPIPS_ALEX']:.5f} (random "
+            f"weights: a reading); metrics {metrics_s:.2f} s, a view's LPIPS median ms vgg {lp_ms['vgg']:.3f} "
+            f"alex {lp_ms['alex']:.3f} at {WIDTH}x{HEIGHT}"]
+
+
+def phase_chain(dev, work: Path) -> dict:
+    """6d: each CLI of the published scripts at full width on the room."""
+    gt, model, pts, cols_u8 = chain_room(dev)
+    total = {}
+    gt_params = params_from_numpy(gt, dev)
+    lines = chain_scannetpp(dev, work, gt_params, pts, cols_u8, total)
+    lines += chain_project_cam(dev, work, gt_params, pts, cols_u8, total)
+    del gt_params
+    lines += chain_resume(dev, work, total)
+    lines += chain_video_lpips(dev, work, gt, model, total)
+    for line in lines:
+        log("phase 6d " + line)
+    return total
+
+
 def l1_bound(shape, dtype):
     """L1's least time: q, k, v read once and o written once, against the
     two products (4 B H N^2 D operations) at the peak of the input type."""
@@ -2414,6 +2761,8 @@ def main() -> None:
                         help="run phases 1, 2 and 5c alone: the guided trainer at full width")
     parser.add_argument("--vc-trainer-only", type=int, metavar="STEPS", default=None,
                         help="run phases 1, 2 and 5d alone, with STEPS guided DDIM steps in the event")
+    parser.add_argument("--chain-only", action="store_true",
+                        help="run phases 1, 2 and 6d alone: the published scripts' chain")
     args = parser.parse_args()
     start = time.perf_counter()
     secs = {}
@@ -2454,6 +2803,10 @@ def main() -> None:
             run("5d", phase_vc_trainer, dev, work, args.vc_trainer_only)
             log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
             return
+        if args.chain_only:
+            run("6d", phase_chain, dev, work)
+            log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+            return
         res = run("3", phase_kernels, dev)
         if args.gaussian_only:
             run("5", phase_train, dev)
@@ -2468,6 +2821,7 @@ def main() -> None:
         cli_src, base, base_scores, by_phase["6"] = run("6", phase_cli, dev, work)
         by_phase["6b"] = run("6b", phase_guided_cli, dev, work, cli_src, base, base_scores)
         by_phase["6c"] = run("6c", phase_vc_cli, dev, work, cli_src, base)
+        by_phase["6d"] = run("6d", phase_chain, dev, work)
         res["flash_attn_fwd"] = run("7a", phase_l1, dev)
         by_phase["7b"] = {"flash_attn_fwd": run("7b-7c", phase_generate, dev, GEN_STEPS)}
         res.update(run("8a", phase_l1_bwd, dev))

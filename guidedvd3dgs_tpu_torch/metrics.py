@@ -1,12 +1,14 @@
-"""Evaluate rendered test sets: SSIM and PSNR.
+"""Evaluate rendered test sets: SSIM, PSNR and LPIPS.
 
 Counterpart of the reference `metrics.py`, with the same JSON artifacts
 (`results.json`, `per_view.json` in each model directory):
 
     python -m guidedvd3dgs_tpu_torch.metrics -m <model_dir> [...] [--device cuda|cpu]
 
-LPIPS needs external network weights and is not ported yet: its fields
-are null, with a warning, never zero.
+LPIPS-vgg takes the images in [0, 1] (`LPIPS`), LPIPS-alex in [-1, 1]
+(`LPIPS_ALEX`, the paper's number), with the weights `utils/lpips.py`'s
+load_lpips finds ($LPIPS_WEIGHTS_DIR or the torch hub cache). Without them
+the LPIPS fields are null, with a warning, never zero.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from guidedvd3dgs_tpu_torch.render import resolve_device
 from guidedvd3dgs_tpu_torch.utils.image_io import load_image
+from guidedvd3dgs_tpu_torch.utils.lpips import load_lpips
 from guidedvd3dgs_tpu_torch.utils.losses import psnr as psnr_fn
 from guidedvd3dgs_tpu_torch.utils.losses import ssim as ssim_fn
 
@@ -37,9 +40,12 @@ def read_images(renders_dir: Path, gt_dir: Path):
     return renders, gts, names
 
 
+@torch.no_grad()
 def evaluate(model_paths: List[str], device="cuda") -> None:
     device = resolve_device(str(device))
-    print("WARNING: LPIPS weights not found (set LPIPS_WEIGHTS_DIR); lpips fields will be null")
+    lpips_vgg, lpips_alex = (None if m is None else m.to(device) for m in (load_lpips("vgg"), load_lpips("alex")))
+    if lpips_vgg is None or lpips_alex is None:
+        print("WARNING: LPIPS weights not found (set LPIPS_WEIGHTS_DIR); lpips fields will be null")
     for scene_dir in model_paths:
         print("Scene:", scene_dir)
         full_dict, per_view_dict = {}, {}
@@ -48,29 +54,35 @@ def evaluate(model_paths: List[str], device="cuda") -> None:
             print("Method:", method)
             method_dir = test_dir / method
             renders, gts, names = read_images(method_dir / "renders", method_dir / "gt")
-            ssims, psnrs = [], []
+            ssims, psnrs, lpipss, lpipss_alex = [], [], [], []
             for r, g in zip(renders, gts):
-                rt = torch.from_numpy(r[0]).to(device)
-                gt = torch.from_numpy(g[0]).to(device)
-                ssims.append(float(ssim_fn(rt, gt)))
-                psnrs.append(float(psnr_fn(rt, gt)[0, 0]))
+                rt = torch.from_numpy(r).to(device)
+                gt = torch.from_numpy(g).to(device)
+                ssims.append(float(ssim_fn(rt[0], gt[0])))
+                psnrs.append(float(psnr_fn(rt[0], gt[0])[0, 0]))
+                if lpips_vgg is not None:
+                    lpipss.append(float(lpips_vgg(rt, gt)[0]))
+                if lpips_alex is not None:
+                    lpipss_alex.append(float(lpips_alex(rt * 2 - 1, gt * 2 - 1)[0]))
 
             def mean(xs):
                 return float(np.mean(xs)) if xs else None
 
             print(f"  SSIM : {mean(ssims):.7f}")
             print(f"  PSNR : {mean(psnrs):.7f}")
+            if lpipss:
+                print(f"  LPIPS: {mean(lpipss):.7f}")
             full_dict[method] = {
                 "SSIM": mean(ssims),
                 "PSNR": mean(psnrs),
-                "LPIPS": None,
-                "LPIPS_ALEX": None,
+                "LPIPS": mean(lpipss),
+                "LPIPS_ALEX": mean(lpipss_alex),
             }
             per_view_dict[method] = {
                 "SSIM": dict(zip(names, ssims)),
                 "PSNR": dict(zip(names, psnrs)),
-                "LPIPS": {},
-                "LPIPS_ALEX": {},
+                "LPIPS": dict(zip(names, lpipss)),
+                "LPIPS_ALEX": dict(zip(names, lpipss_alex)),
             }
         with open(os.path.join(scene_dir, "results.json"), "w") as f:
             json.dump(full_dict, f, indent=2)

@@ -5,11 +5,14 @@ by the port's PNG decoder (utils/image_io.py) instead of PIL. When the
 resolution policy asks for another size (it only ever shrinks), the image
 is resampled with antialiased bicubic interpolation like PIL's `resize`;
 torch's cubic kernel (a = -0.75) differs from PIL's (a = -0.5), so a
-downscaled image agrees with PIL's within a few 8-bit levels.
+downscaled image agrees with PIL's within a few 8-bit levels. A camera
+with a point-cloud projection loads its image the same way and its mask
+(an .npy of any size) by nearest sampling at the camera's resolution.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List
 
 import numpy as np
@@ -50,6 +53,15 @@ def image_to_chw(img_u8: np.ndarray, resolution) -> np.ndarray:
     return (arr / 255.0).transpose(2, 0, 1).astype(np.float32)
 
 
+def nearest_resize(m: np.ndarray, resolution) -> np.ndarray:
+    """(h, w) -> (H, W) at resolution (W, H), each pixel taking the
+    source pixel at floor(index * source size / size)."""
+    w, h = resolution
+    ys = (np.arange(h) * m.shape[0] / h).astype(int)
+    xs = (np.arange(w) * m.shape[1] / w).astype(int)
+    return m[np.ix_(ys, xs)]
+
+
 def load_cam(args, uid: int, info: CameraInfo, resolution_scale: float) -> Camera:
     img = read_png(info.image_path)
     resolution = compute_resolution(img.shape[1], img.shape[0], args.resolution, resolution_scale)
@@ -58,6 +70,11 @@ def load_cam(args, uid: int, info: CameraInfo, resolution_scale: float) -> Camer
     if rgb.shape[0] == 4:
         gt_alpha = rgb[3:4]
         rgb = rgb[:3]
+    projected_image = projected_mask = None
+    if info.projected_image_path and os.path.exists(info.projected_image_path):
+        projected_image = image_to_chw(read_png(info.projected_image_path), resolution)[:3]
+    if info.projected_mask_path and os.path.exists(info.projected_mask_path):
+        projected_mask = nearest_resize(np.load(info.projected_mask_path).astype(np.float32), resolution)
     return Camera(
         colmap_id=info.uid,
         R=info.R,
@@ -68,6 +85,8 @@ def load_cam(args, uid: int, info: CameraInfo, resolution_scale: float) -> Camer
         gt_alpha_mask=gt_alpha,
         image_name=info.image_name,
         uid=uid,
+        projected_image=projected_image,
+        projected_mask=projected_mask,
     )
 
 

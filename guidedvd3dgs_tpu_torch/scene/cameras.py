@@ -45,7 +45,9 @@ def _raster_camera(cam, height: int, width: int, device) -> RasterCamera:
 
 @dataclasses.dataclass
 class Camera:
-    """Evaluation camera with its ground-truth image, (3, H, W) float32."""
+    """Evaluation camera with its ground-truth image, (3, H, W) float32.
+    A projection camera also holds the point cloud projected to its view,
+    `projected_image` (3, H, W), and its coverage `projected_mask` (H, W)."""
 
     colmap_id: int
     R: np.ndarray  # (3, 3) world-from-camera rotation (COLMAP, transposed)
@@ -58,6 +60,8 @@ class Camera:
     gt_alpha_mask: Optional[np.ndarray] = None
     trans: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(3))
     scale: float = 1.0
+    projected_image: Optional[np.ndarray] = None
+    projected_mask: Optional[np.ndarray] = None
 
     def __post_init__(self):
         if self.gt_alpha_mask is not None:

@@ -1,11 +1,17 @@
-"""Dataset readers: COLMAP scenes with fixed sparse-view splits.
+"""Dataset readers: COLMAP scenes with fixed sparse-view splits, and
+Blender (NeRF-synthetic) transforms.
 
-The port's own copy of the `colmap` and `replica` readers of
-`guidedvd3dgs_tpu/scene/dataset_readers.py` (pure numpy), which are the
-ones the CLIs reach. Replica test views are every 10th frame within +/-50
-of each train view of the fixed per-scene tables; a generic COLMAP scene
-takes `train_test_split_<n>.json` when present, else every 8th frame as
-the test set.
+The port's own copy of `guidedvd3dgs_tpu/scene/dataset_readers.py` (pure
+numpy). Replica test views are every 10th frame within +/-50 of each train
+view of the fixed per-scene tables; ScanNet++ takes the train frames of
+its fixed table by the number in each image's file name, and every 6th
+frame of the covered range (+/-10) but those as the test set; re10k reads
+`train_test_split_<n>.json`; a generic COLMAP scene takes that file when
+present, else every 8th frame as the test set. With `projected_dir`, a
+camera carries the paths of its point-cloud projection
+`<projected_dir>/<image stem>.png` and mask `<image stem>_mask.npy` where
+they exist; a Replica scene read with `replica_use_project_cam` has every
+6th camera of the trajectory as a projection camera.
 """
 
 from __future__ import annotations
@@ -14,13 +20,14 @@ import glob
 import json
 import os
 import re
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 
 from guidedvd3dgs_tpu_torch.scene import colmap
 from guidedvd3dgs_tpu_torch.scene.ply import fetch_ply, store_ply
-from guidedvd3dgs_tpu_torch.utils.graphics import BasicPointCloud, focal2fov, getWorld2View2
+from guidedvd3dgs_tpu_torch.utils.graphics import BasicPointCloud, focal2fov, fov2focal, getWorld2View2
+from guidedvd3dgs_tpu_torch.utils.image_io import png_size
 
 
 class CameraInfo(NamedTuple):
@@ -33,12 +40,19 @@ class CameraInfo(NamedTuple):
     image_name: str
     width: int
     height: int
+    fid: int = 0  # the camera's place among the train cameras
+    bounds: Optional[np.ndarray] = None
+    projected_image_path: Optional[str] = None
+    projected_mask_path: Optional[str] = None
 
 
 class SceneInfo(NamedTuple):
     point_cloud: BasicPointCloud
+    train_indices: list
     train_cameras: List[CameraInfo]
     test_cameras: List[CameraInfo]
+    all_cameras: List[CameraInfo]
+    project_cameras: Optional[List[CameraInfo]]
     nerf_normalization: dict
     ply_path: str
 
@@ -75,6 +89,29 @@ REPLICA_TRAIN_IDX_DEMO = {
     "room0_seq2": [80, 187, 392, 497, 658, 833],
     "office4_seq1": [0, 242, 370, 401, 554, 822],
 }
+# the ScanNet++ scenes' train frames, by the number in the image file name
+SCANNETPP_TRAIN_ID = {
+    "8a20d62ac0": [9, 85, 134, 172, 329, 380],
+    "94ee15e8ba": [3057, 3107, 3177, 3184, 3274, 3302],
+    "a29cccc784": [848, 865, 928, 947, 1006, 1040],
+    "7831862f02": [3872, 3905, 3954, 3960, 3999, 4051],
+}
+
+
+def farthest_point_sampling(points: np.ndarray, k: int, seed=None) -> np.ndarray:
+    """Greedy farthest-point subsample of an (N, D) cloud: k rows, the
+    first at a random index drawn from `np.random.default_rng(seed)`."""
+    rng = np.random.default_rng(seed)
+    n = points.shape[0]
+    out = np.zeros((k, points.shape[1]), points.dtype)
+    distances = np.full(n, np.inf)
+    farthest = int(rng.integers(0, n))
+    for i in range(k):
+        out[i] = points[farthest]
+        dist = np.sum((points - points[farthest]) ** 2, axis=1)
+        distances = np.minimum(distances, dist)
+        farthest = int(np.argmax(distances))
+    return out
 
 
 def extract_number(s: str) -> int:
@@ -105,7 +142,11 @@ def _fov_from_intrinsics(intr: colmap.ColmapCamera):
     return focal2fov(fx, intr.width), focal2fov(fy, intr.height)
 
 
-def _read_colmap_cameras(path: str, images_dir: str):
+def colmap_views(path: str, images_dir: str):
+    """The scene's COLMAP views in the readers' order (by the number in
+    each image's name): [(ColmapImage, ColmapCamera, image path)], and the
+    image files of `images_dir` sorted by the number in their names (the
+    i-th view takes the i-th file)."""
     sparse = os.path.join(path, "sparse", "0")
     try:
         extr = colmap.read_images_binary(os.path.join(sparse, "images.bin"))
@@ -119,14 +160,31 @@ def _read_colmap_cameras(path: str, images_dir: str):
         for f in sorted(glob.glob(os.path.join(images_dir, "*")), key=extract_number)
         if f.lower().endswith((".jpg", ".png", ".jpeg"))
     ]
-
-    infos = []
     keys = sorted(extr.keys(), key=lambda k: extract_number(extr[k].name))
+    views = []
     for idx, key in enumerate(keys):
         im = extr[key]
-        cam = intr[im.camera_id]
-        fovx, fovy = _fov_from_intrinsics(cam)
         image_path = rgb_mapping[idx] if idx < len(rgb_mapping) else os.path.join(images_dir, im.name)
+        views.append((im, intr[im.camera_id], image_path))
+    return views, rgb_mapping
+
+
+def image_stem(image_path: str) -> str:
+    return os.path.splitext(os.path.basename(image_path))[0]
+
+
+def _read_colmap_cameras(path: str, images_dir: str, projected_dir: Optional[str] = None):
+    views, rgb_mapping = colmap_views(path, images_dir)
+    infos = []
+    for im, cam, image_path in views:
+        fovx, fovy = _fov_from_intrinsics(cam)
+        name = image_stem(image_path)
+        proj_img = proj_mask = None
+        if projected_dir is not None:
+            cand = os.path.join(projected_dir, f"{name}.png")
+            cand_mask = os.path.join(projected_dir, f"{name}_mask.npy")
+            proj_img = cand if os.path.exists(cand) else None
+            proj_mask = cand_mask if os.path.exists(cand_mask) else None
         infos.append(
             CameraInfo(
                 uid=cam.id,
@@ -135,12 +193,15 @@ def _read_colmap_cameras(path: str, images_dir: str):
                 FovY=fovy,
                 FovX=fovx,
                 image_path=image_path,
-                image_name=os.path.splitext(os.path.basename(image_path))[0],
+                image_name=name,
                 width=cam.width,
                 height=cam.height,
+                bounds=np.array([1.0, 10.0]),
+                projected_image_path=proj_img,
+                projected_mask_path=proj_mask,
             )
         )
-    return infos
+    return infos, rgb_mapping
 
 
 def replica_scene_key(path: str) -> str:
@@ -162,6 +223,22 @@ def replica_test_indices(train_idx: List[int], num_cams: int) -> List[int]:
     return sorted(set(test_idx))
 
 
+def scannetpp_test_indices(train_indices: List[int], num_cams: int, gap: int = 6) -> List[int]:
+    """Every `gap`th frame of the range the train frames cover (+/-10),
+    the train frames excluded."""
+    extend = 10
+    start = max(train_indices[0] - extend, 0)
+    end = min(train_indices[-1] + extend + 1, num_cams)
+    test = list(range(start, end))[::gap]
+    return [i for i in test if i not in train_indices]
+
+
+def _split_json(path: str, n_views: int):
+    with open(os.path.join(path, f"train_test_split_{n_views}.json")) as f:
+        splits = json.load(f)
+    return splits["train_ids"], splits["test_ids"]
+
+
 def read_colmap_scene(
     path: str,
     images: str,
@@ -169,13 +246,17 @@ def read_colmap_scene(
     eval: bool = True,
     n_views: int = 6,
     ply_path: str = "",
+    replica_use_project_cam: bool = False,
+    projected_dir: Optional[str] = None,
     demo_setting: bool = False,
 ) -> SceneInfo:
     """A COLMAP scene with its sparse-view split. `ply_path` overrides the
     scene's own `sparse/0/points3D.ply` (e.g. a DUSt3R point cloud)."""
-    cam_infos = _read_colmap_cameras(path, os.path.join(path, images or "images"))
+    cam_infos, rgb_mapping = _read_colmap_cameras(path, os.path.join(path, images or "images"),
+                                                  projected_dir)
 
     dataset_l = dataset.lower()
+    project_cam_infos = None
     if eval:
         if dataset_l == "replica":
             key = replica_scene_key(path)
@@ -188,23 +269,32 @@ def read_colmap_scene(
                 # test views for 6 and 9 views both derive from the 6-view anchors
                 anchors = REPLICA_TRAIN_IDX_6V[key] if n_views in (6, 9) else train_idx
                 test_idx = replica_test_indices(anchors, len(cam_infos))
+            if replica_use_project_cam:
+                project_cam_infos = cam_infos[::6]
+        elif dataset_l == "scannetpp":
+            scene_id = path.rstrip("/").split("/")[-1]
+            suffixes = [extract_number(p) for p in rgb_mapping]
+            train_idx = [suffixes.index(t) for t in sorted(SCANNETPP_TRAIN_ID[scene_id])]
+            test_idx = scannetpp_test_indices(train_idx, len(cam_infos))
+        elif dataset_l == "re10k":
+            train_idx, test_idx = _split_json(path, n_views)
         elif dataset_l in ("colmap", "custom"):
-            split_json = os.path.join(path, f"train_test_split_{n_views}.json")
-            if os.path.exists(split_json):
-                with open(split_json) as f:
-                    splits = json.load(f)
-                train_idx, test_idx = splits["train_ids"], splits["test_ids"]
+            if os.path.exists(os.path.join(path, f"train_test_split_{n_views}.json")):
+                train_idx, test_idx = _split_json(path, n_views)
             else:
                 test_idx = list(range(0, len(cam_infos), 8))
                 train_idx = [i for i in range(len(cam_infos)) if i % 8 != 0]
         else:
             raise NotImplementedError(
-                f"dataset {dataset!r}: the port reads 'replica' and 'colmap' scenes"
+                f"dataset {dataset!r}: the port reads 'replica', 'scannetpp', 're10k' and "
+                "'colmap' (or 'custom') COLMAP scenes, and Blender scenes by their transforms"
             )
         train_cams = [c for i, c in enumerate(cam_infos) if i in set(train_idx)]
         test_cams = [c for i, c in enumerate(cam_infos) if i in set(test_idx)]
     else:
+        train_idx = list(range(len(cam_infos)))
         train_cams, test_cams = cam_infos, []
+    train_cams = [c._replace(fid=i) for i, c in enumerate(train_cams)]
 
     if not ply_path:
         ply_path = os.path.join(path, "sparse", "0", "points3D.ply")
@@ -223,8 +313,66 @@ def read_colmap_scene(
 
     return SceneInfo(
         point_cloud=pcd,
+        train_indices=list(train_idx),
         train_cameras=train_cams,
         test_cameras=test_cams,
+        all_cameras=cam_infos,
+        project_cameras=project_cam_infos,
+        nerf_normalization=getNerfppNorm(train_cams),
+        ply_path=ply_path,
+    )
+
+
+def read_blender_scene(path: str, white_background: bool, eval: bool, extension: str = ".png") -> SceneInfo:
+    """A NeRF-synthetic scene: `transforms_{train,test}.json` (Blender
+    c2w, y and z flipped to COLMAP's), and `points3d.ply`, written first
+    as 100,000 random points in [-1.3, 1.3]^3 (seed 0) when absent."""
+
+    def read_split(transformsfile):
+        infos = []
+        with open(os.path.join(path, transformsfile)) as f:
+            contents = json.load(f)
+        fovx = contents["camera_angle_x"]
+        for idx, frame in enumerate(contents["frames"]):
+            image_path = os.path.join(path, frame["file_path"] + extension)
+            c2w = np.array(frame["transform_matrix"])
+            c2w[:3, 1:3] *= -1
+            w2c = np.linalg.inv(c2w)
+            width, height = png_size(image_path)
+            infos.append(
+                CameraInfo(
+                    uid=idx,
+                    R=w2c[:3, :3].T,
+                    T=w2c[:3, 3],
+                    FovY=focal2fov(fov2focal(fovx, width), height),
+                    FovX=fovx,
+                    image_path=image_path,
+                    image_name=os.path.basename(frame["file_path"]),
+                    width=width,
+                    height=height,
+                    fid=idx,
+                )
+            )
+        return infos
+
+    train_cams = read_split("transforms_train.json")
+    test_cams = read_split("transforms_test.json") if eval else []
+
+    ply_path = os.path.join(path, "points3d.ply")
+    if not os.path.exists(ply_path):
+        n = 100_000
+        rng = np.random.default_rng(0)
+        xyz = rng.random((n, 3)) * 2.6 - 1.3
+        store_ply(ply_path, xyz, rng.random((n, 3)) * 255)
+    pcd = fetch_ply(ply_path)
+
+    return SceneInfo(
+        point_cloud=pcd,
+        train_indices=list(range(len(train_cams))),
+        train_cameras=train_cams,
+        test_cameras=test_cams,
+        all_cameras=train_cams + test_cams,
+        project_cameras=None,
         nerf_normalization=getNerfppNorm(train_cams),
         ply_path=ply_path,
     )

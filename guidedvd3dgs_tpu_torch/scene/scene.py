@@ -27,10 +27,16 @@ def searchForMaxIteration(folder: str) -> int:
 
 
 class Scene:
-    def __init__(self, args, load_iteration: Optional[int] = None):
+    def __init__(self, args, load_iteration: Optional[int] = None, replica_use_project_cam: bool = False,
+                 projected_dir: Optional[str] = None):
         """`load_iteration` -1 picks the newest `point_cloud/iteration_*`
         snapshot of `args.model_path`; None loads no snapshot and records
-        the input point cloud and cameras.json there, as a new run does."""
+        the input point cloud and cameras.json there, as a new run does.
+        A COLMAP scene (`sparse/`) is read by its `args.dataset`, a
+        directory with `transforms_train.json` as a Blender scene; with
+        `replica_use_project_cam` (or the flag in `args`) a Replica scene
+        also has projection cameras, their projections read from
+        `projected_dir`."""
         self.model_path = args.model_path
         self.loaded_iter = None
         if load_iteration is not None:
@@ -42,21 +48,29 @@ class Scene:
                 self.loaded_iter = load_iteration
             print(f"Loading trained model at iteration {self.loaded_iter}")
 
-        if not os.path.exists(os.path.join(args.source_path, "sparse")):
+        if os.path.exists(os.path.join(args.source_path, "sparse")):
+            scene_info = dataset_readers.read_colmap_scene(
+                args.source_path,
+                args.images,
+                args.dataset,
+                args.eval,
+                n_views=args.n_views,
+                ply_path=getattr(args, "dust3r_ply", ""),
+                replica_use_project_cam=replica_use_project_cam
+                or getattr(args, "replica_use_project_cam", False),
+                projected_dir=projected_dir,
+                demo_setting=getattr(args, "demo_setting", False),
+            )
+        elif os.path.exists(os.path.join(args.source_path, "transforms_train.json")):
+            scene_info = dataset_readers.read_blender_scene(args.source_path, args.white_background, args.eval)
+        else:
             raise ValueError(f"Could not recognize scene type at {args.source_path}")
-        scene_info = dataset_readers.read_colmap_scene(
-            args.source_path,
-            args.images,
-            args.dataset,
-            args.eval,
-            n_views=args.n_views,
-            ply_path=getattr(args, "dust3r_ply", ""),
-            demo_setting=getattr(args, "demo_setting", False),
-        )
         self.scene_info = scene_info
         self.cameras_extent = scene_info.nerf_normalization["radius"]
         self.train_cameras: List[Camera] = camera_list_from_infos(scene_info.train_cameras, 1.0, args)
         self.test_cameras: List[Camera] = camera_list_from_infos(scene_info.test_cameras, 1.0, args)
+        self.project_cameras: List[Camera] = camera_list_from_infos(scene_info.project_cameras or [], 1.0,
+                                                                    args)
 
         if not self.loaded_iter and self.model_path:
             os.makedirs(self.model_path, exist_ok=True)
@@ -93,3 +107,6 @@ class Scene:
 
     def getTestCameras(self) -> List[Camera]:
         return self.test_cameras
+
+    def getProjectCameras(self) -> List[Camera]:
+        return self.project_cameras

@@ -31,7 +31,7 @@ import numpy as np
 from guidedvd3dgs_tpu_torch.scene import colmap
 from guidedvd3dgs_tpu_torch.scene.cameras import PseudoCamera
 from guidedvd3dgs_tpu_torch.scene.ply import save_gaussian_ply, store_ply
-from guidedvd3dgs_tpu_torch.utils.image_io import save_image
+from guidedvd3dgs_tpu_torch.utils.image_io import save_images
 from guidedvd3dgs_tpu_torch.utils.sh import RGB2SH, SH2RGB
 
 ROOM_HALF = (2.0, 1.4, 2.0)
@@ -180,31 +180,34 @@ def init_cloud(pts, cols, n_init: int, rng):
 
 
 def write_source(source_dir: str, c2ws, cams, images, train_ids, test_ids,
-                 init_pts, init_rgb_u8) -> None:
-    """Write a scene's images, COLMAP text model, init cloud and split."""
+                 init_pts, init_rgb_u8, images_dir: str = "images", names=None) -> None:
+    """Write a scene's images (under `images_dir`, named `names` or
+    frame_<i>.png; encoded on a thread pool), COLMAP text model, init cloud
+    and, where train_ids is given, its split json."""
     width, height = cams[0].width, cams[0].height
     fx = width / (2 * math.tan(cams[0].FoVx / 2))
     fy = height / (2 * math.tan(cams[0].FoVy / 2))
-    os.makedirs(os.path.join(source_dir, "images"), exist_ok=True)
+    names = names or [f"frame_{i:05d}.png" for i in range(len(c2ws))]
+    os.makedirs(os.path.join(source_dir, images_dir), exist_ok=True)
     sparse = os.path.join(source_dir, "sparse", "0")
     os.makedirs(sparse, exist_ok=True)
     intr = {1: colmap.ColmapCamera(1, "PINHOLE", width, height, np.array([fx, fy, width / 2, height / 2]))}
     extr = {}
-    for i, (c2w, img) in enumerate(zip(c2ws, images)):
+    for i, (c2w, name) in enumerate(zip(c2ws, names)):
         w2c = np.linalg.inv(c2w)
-        name = f"frame_{i:05d}.png"
-        save_image(img, os.path.join(source_dir, "images", name))
         extr[i + 1] = colmap.ColmapImage(
             i + 1, colmap.rotmat2qvec(w2c[:3, :3]), w2c[:3, 3], 1, name,
             np.zeros((0, 2)), np.zeros((0,), np.int64),
         )
+    save_images(images, [os.path.join(source_dir, images_dir, n) for n in names])
     colmap.write_cameras_text(os.path.join(sparse, "cameras.txt"), intr)
     colmap.write_images_text(os.path.join(sparse, "images.txt"), extr)
     with open(os.path.join(sparse, "points3D.txt"), "w") as f:
         f.write("# empty\n")
     store_ply(os.path.join(sparse, "points3D.ply"), init_pts, init_rgb_u8)
-    with open(os.path.join(source_dir, f"train_test_split_{len(train_ids)}.json"), "w") as f:
-        json.dump({"train_ids": [int(i) for i in train_ids], "test_ids": [int(i) for i in test_ids]}, f)
+    if train_ids is not None:
+        with open(os.path.join(source_dir, f"train_test_split_{len(train_ids)}.json"), "w") as f:
+            json.dump({"train_ids": [int(i) for i in train_ids], "test_ids": [int(i) for i in test_ids]}, f)
 
 
 def make_scene(

@@ -34,10 +34,9 @@ stored at the train resolution under `<model>/video_files_scale<s>/<view>/
 (guidance_videos_from_file); the two-renderer variant (`frozen_mask` picks
 the pool and supplies the mask) and guidance_with_training_gs (the
 guidance renders of the current training Gaussians); the VGG perceptual
-pseudo term (`vgg_loss_fn`).
+pseudo term (`vgg_loss_fn`); exact checkpoints (train/guided_checkpoint.py).
 Not carried from the reference: its lax.scan chunk trainer and device
-pseudo-frame pool, pipelined events, exact guided checkpoints (a
-checkpoint is the plain training state) and the depth-lift appends.
+pseudo-frame pool, pipelined events and the depth-lift appends.
 """
 
 from __future__ import annotations
@@ -435,9 +434,9 @@ class GuidedTrainer(BaselineTrainer):
     Host draws follow the reference's streams in its order: the train
     views from `random.Random(seed)` (BaselineTrainer), the pool
     shuffles, event views, pseudo views and promotions from
-    `np.random.default_rng(seed)`. A checkpoint is the plain training
-    state (BaselineTrainer.write_checkpoint), as the reference's per-step
-    path writes; resuming rebuilds the pool. `vgg_loss_fn` adds the
+    `np.random.default_rng(seed)`. A checkpoint holds the whole guided
+    state (train/guided_checkpoint.py), so a run resumed from it is
+    bitwise the run that wrote it. `vgg_loss_fn` adds the
     perceptual pseudo term; `frozen_mask`, a second frozen renderer, picks
     the pool's candidates and supplies each event's mask (the two-renderer
     variant, reference train_replica_guidedvd_tworenderer.py:60-74)."""
@@ -480,6 +479,12 @@ class GuidedTrainer(BaselineTrainer):
         self._cur_video_key = None  # (scale_idx, view, cand_idx) of the event's pool entry
         self.artifact_writer = AsyncArtifactWriter()
         self.last_metrics = None
+
+    def write_checkpoint(self, path: str, iteration: int) -> None:
+        from guidedvd3dgs_tpu_torch.train.guided_checkpoint import save_guided_checkpoint
+
+        save_guided_checkpoint(path, self, iteration)
+        print(f"[ITER {iteration}] saved guided checkpoint {path} (+ .guided.npz)")
 
     # -- setup ---------------------------------------------------------------
 

@@ -25,8 +25,10 @@ guidance's perceptual term take the VGG19 of `--vgg19_weights`, of
 VGG19_WEIGHTS or of the torch hub cache; without weights both are
 announced and off, as in the reference. `--mask_baseline_path` is the
 two-renderer variant (a second baseline picks the pool and supplies the
-guidance masks). `--start_checkpoint` resumes a plain checkpoint and
-rebuilds the trajectory pool. Not ported: `--guidance_tp` and
+guidance masks). `--checkpoint_iterations` write guided checkpoints
+(`chkpnt<it>.ckpt` and its `.guided.npz`) and `--start_checkpoint`
+resumes one exactly; a plain checkpoint resumes its Gaussian state and
+builds the trajectory pool anew. Not ported: `--guidance_tp` and
 `--pipeline_guidance` (the JAX package's TPU mesh and overlapped events;
 refused). Writes what train_baseline writes plus the event artifacts, the
 video store and `timing_summary.json`.
@@ -55,7 +57,7 @@ from guidedvd3dgs_tpu_torch.config import (
 )
 from guidedvd3dgs_tpu_torch.render import resolve_device
 from guidedvd3dgs_tpu_torch.scene.scene import Scene
-from guidedvd3dgs_tpu_torch.train.checkpoint import load_checkpoint
+from guidedvd3dgs_tpu_torch.train.guided_checkpoint import load_guided_checkpoint
 from guidedvd3dgs_tpu_torch.train.guided import (
     FrozenRenderer,
     GuidedTrainer,
@@ -207,9 +209,9 @@ def main(argv: Optional[List[str]] = None) -> GuidedTrainer:
     )
     first_iter = 0
     if args.start_checkpoint:
-        trainer.state, first_iter = load_checkpoint(args.start_checkpoint, device)
+        first_iter = load_guided_checkpoint(args.start_checkpoint, trainer)
         print(f"Restored checkpoint at iteration {first_iter}")
-    if getattr(opt, "use_trajectory_pool", True):
+    elif getattr(opt, "use_trajectory_pool", True):
         print("Building trajectory pool ...")
         trainer.init_trajectory_pool()
     else:

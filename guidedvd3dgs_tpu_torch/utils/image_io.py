@@ -11,6 +11,7 @@ from __future__ import annotations
 import os
 import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -59,6 +60,13 @@ def save_image(img: np.ndarray, path: str) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
         f.write(encode_png(np.ascontiguousarray(to_uint8(img))))
+
+
+def save_images(images, paths) -> None:
+    """save_image of each image to its path, encoded on a thread pool
+    (zlib releases the interpreter lock)."""
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        list(pool.map(save_image, images, paths))
 
 
 def _unfilter_slow(ft: int, line: bytes, prev: bytes, bpp: int) -> bytearray:
@@ -139,6 +147,15 @@ def decode_png(data: bytes) -> np.ndarray:
             raise ValueError("palette PNG without PLTE")
         img = palette[img[..., 0]]
     return img
+
+
+def png_size(path: str):
+    """(width, height) from a PNG's header."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != _SIGNATURE or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file")
+    return struct.unpack(">II", head[16:24])
 
 
 def read_png(path: str) -> np.ndarray:

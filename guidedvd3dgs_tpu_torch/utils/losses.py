@@ -16,6 +16,15 @@ def l1_loss(x: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     return torch.abs(x - gt).mean()
 
 
+def l1_loss_mask(x: torch.Tensor, gt: torch.Tensor, mask=None) -> torch.Tensor:
+    """L1 over the pixels where `mask` (broadcast against x) is set: the
+    sum of |x - gt| * mask over the mask's sum; the plain mean without a
+    mask."""
+    if mask is None:
+        return l1_loss(x, gt)
+    return torch.abs((x - gt) * mask).sum() / mask.sum()
+
+
 def mse(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
     return ((img1 - img2) ** 2).reshape(img1.shape[0], -1).mean(1, keepdim=True)
 

@@ -1,6 +1,6 @@
 """The oracle-guided acceptance run of the port on the tool-default scene.
 
-    python scripts/guided_oracle_e2e.py --out build/e2e [--iterations 10000] [--device cuda]
+    python scripts/guided_oracle_e2e.py --out build/e2e [--iterations 10000] [--seed 1] [--device cuda]
 
 For each of two versions of the tool-default synthetic scene (624x352, 60
 cameras, 6 train views, 150,000 ground-truth Gaussians): the images as the
@@ -24,8 +24,10 @@ frames rendered as the reference's oracle renders them: each group of
 five frames one chain of that capacity, slots given frame by frame in
 Gaussian order, the Gaussians past the capacity dropped (whole, where the
 reference keeps a straddling Gaussian's first slots). `--runs` picks the
-runs. The last line is one JSON object of these numbers; it is also
-written to `<out>/guided_e2e.json`.
+runs; `--seed` goes to both CLIs (the train views' order, the pool's and
+the events' draws; the scene is the same at every seed), so runs at
+several seeds measure the spread. The last line is one JSON object of
+these numbers; it is also written to `<out>/guided_e2e.json`.
 """
 
 from __future__ import annotations
@@ -129,13 +131,13 @@ class ReferenceCapacityOracle:
 
 
 def run_scene(name: str, src: Path, out: Path, iters: int, dev, ref, base: Path = None,
-              reference_capacity: bool = False) -> dict:
+              reference_capacity: bool = False, seed: int = 1) -> dict:
     """Train the baseline (unless `base` is given), then the guided run on
     it; score both."""
     guided = out / f"{name}_guided"
     common = ["-s", str(src), "--dataset", "colmap", "--n_views", "6", "--eval",
               "--iterations", str(iters), "--test_iterations", str(iters),
-              "--save_iterations", str(iters), "--device", dev.type]
+              "--save_iterations", str(iters), "--seed", str(seed), "--device", dev.type]
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     base_s = None
     if base is None:
@@ -166,7 +168,7 @@ def run_scene(name: str, src: Path, out: Path, iters: int, dev, ref, base: Path 
                             "PSNR_per_view": [per_view[k] for k in sorted(per_view)]}
     frozen_n = trainer.frozen.params.xyz.shape[0]
     out_rec = dict(
-        scene=name, iterations=iters, baseline_s=base_s, guided_s=guided_s, scores=scores,
+        scene=name, iterations=iters, seed=seed, baseline_s=base_s, guided_s=guided_s, scores=scores,
         timing=json.loads((guided / "timing_summary.json").read_text()),
         events_run=trainer.events_run, gaussians=trainer.state.num_gaussians,
         capacity_oracle=capacity_count(trainer, trainer.engine.renderer.params,
@@ -185,6 +187,7 @@ def main(argv=None) -> None:
     ap.add_argument("--iterations", type=int, default=10_000)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--runs", default="reference,exact,reference_capacity")
+    ap.add_argument("--seed", type=int, default=1)
     a = ap.parse_args(argv)
     runs = a.runs.split(",")
     dev = resolve_device(a.device)
@@ -197,18 +200,18 @@ def main(argv=None) -> None:
     records = []
     if "reference" in runs or "reference_capacity" in runs:
         ref.main(["--out", str(s_ref), "--device", dev.type])
-        records.append(run_scene("reference", s_ref, out, a.iterations, dev, ref))
+        records.append(run_scene("reference", s_ref, out, a.iterations, dev, ref, seed=a.seed))
     if "exact" in runs:
         synthetic.make_scene(str(s_exact), device=dev)
-        records.append(run_scene("exact", s_exact, out, a.iterations, dev, ref))
+        records.append(run_scene("exact", s_exact, out, a.iterations, dev, ref, seed=a.seed))
     if "reference_capacity" in runs:
         records.append(run_scene("reference_capacity", s_ref, out, a.iterations, dev, ref,
-                                 base=out / "reference_baseline", reference_capacity=True))
+                                 base=out / "reference_baseline", reference_capacity=True, seed=a.seed))
     for r in records:
         b = r["scores"].get(f"{r['scene']}_baseline") or r["scores"]["reference_baseline"]
         g = r["scores"][f"{r['scene']}_guided"]
         t = r["timing"]
-        print(f"{r['scene']} images: baseline PSNR {b['PSNR']:.4f} SSIM {b['SSIM']:.5f}; oracle-guided "
+        print(f"{r['scene']} images, seed {r['seed']}: baseline PSNR {b['PSNR']:.4f} SSIM {b['SSIM']:.5f}; oracle-guided "
               f"PSNR {g['PSNR']:.4f} SSIM {g['SSIM']:.5f}; guided run {t['total_s']:.3f} s = training "
               f"{t['train_s']:.3f} + events {t['event_s']:.3f} ({t['events_run']} events: "
               + ", ".join(f"{k} {v:.3f}" for k, v in t["event_phase_s"].items())
