@@ -165,6 +165,32 @@ and the exit code is non-zero; there is no CPU fallback):
               (L2 norms); and that dL/dx with L1's backward in bf16 (the
               bf16 kernels against the plain backward of the same bf16
               inputs) within GUIDED_GRAD_TOL_BF16
+  9. raw data, append, two-scale CFG, --nan_debug, viewer
+     9a. phase 4's room written as a raw Replica sequence (traj_w_c.txt,
+              rgb/rgb_<i>.png, the 660 frames of the 6-view split);
+              `dataset_to_colmap replica`; the DUSt3R cloud CLI
+              (`geometry.pipeline`) at Dust3rConfig() from a .pth of random
+              weights (DUST3R_HEAD_BIAS), the 6 train views at 512x384, 30
+              pairs in batches of 4, 300 alignment iterations with the COLMAP
+              poses and focals preset, no kernel launched; train_baseline
+              GEOM_ITERS iterations from that cloud, launches exact; the pair
+              forward ms, the alignment s, the cloud's size, the peak; and
+              the aligner's known answer: perfect predictions made from the
+              room's rendered depth at the train views, the depth recovered
+              within ALIGN_TOL, the presets bitwise
+     9b. phase 5c's trainer on the room with holes (APPEND_HOLE) with the oracle
+              and DPT-large at DPTConfig() (random weights) under
+              append_pcd_from_video_diffusion: one event with the lift and
+              add_points, 24 guided steps; points added, the DPT ms for the
+              25 frames, the lift s, the step's host ms beside 5c's;
+              launches exact
+     9c. one ViewCrafterEngine.generate with multiple_cond_cfg at 7b's
+              widths in bf16, GEN_STEPS steps: step ms, peak, L1 forward
+              exactly 15 a step (three branches) + 2
+     9d. a NaN planted during iteration 7 of train_baseline --nan_debug
+              stops the run with its bundle (nan_5_7.ckpt / .json); a
+              NetworkGUI round trip on localhost answers one 640x480 view
+              of 9a's model through K1/K3/K4 (once each), byte for byte
 `python3 chip_smoke.py --generate-only STEPS` runs phases 1, 2 and 7b
 alone with STEPS DDIM steps; `--guided-only STEPS` phases 1, 2 and 8b
 (the 50-step requests of PERF.md); `--backward-only` phases 1, 2, 8a and
@@ -174,11 +200,11 @@ phases 1, 2, 7a and 7b-7c (L1's forward kernels and the DDIM request);
 and the trainer); `--guided-trainer-only` phases 1, 2 and 5c (the guided
 trainer); `--vc-trainer-only STEPS` phases 1, 2 and 5d with STEPS guided
 DDIM steps (50: a real event's time); `--chain-only` phases 1, 2 and 6d
-(the published scripts' chain).
+(the published scripts' chain); `--geometry-only` phases 1, 2 and 9.
 The line before the last is the JSON kernel table (each kernel's launches
 summed over the phases that drive a path: K1-K6 over 4, 5, 5b, 5c, 5d, 6,
-6b, 6c and 6d, L1's forward over 5d, 6c, 7b and 8b, its backward over 5d, 6c and
-8b; each phase's count in `launches_by_phase`; for
+6b, 6c, 6d and 9, L1's forward over 5d, 6c, 7b, 8b and 9, its backward over
+5d, 6c and 8b; each phase's count in `launches_by_phase`; for
 K1-K6 `host_ms` beside `ms` and `ms_dense` and `bound_ms_dense` from
 phase 5b's view; for K1 also `ms_full_table`, `bound_ms_all_rows` and
 their `_dense` twins);
@@ -196,10 +222,12 @@ import math
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 from unittest import mock
@@ -211,6 +239,7 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
+from guidedvd3dgs_tpu_torch import dataset_to_colmap as port_d2c  # noqa: E402
 from guidedvd3dgs_tpu_torch import get_avg_results as port_avg  # noqa: E402
 from guidedvd3dgs_tpu_torch import metrics as port_metrics  # noqa: E402
 from guidedvd3dgs_tpu_torch import project_pcd_to_views  # noqa: E402
@@ -233,7 +262,11 @@ from guidedvd3dgs_tpu_torch.diffusion import synthesis, unet3d  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion import vae as d_vae  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion.init import init_diffusion_params  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion.model import Conditioning, LatentDiffusionConfig, apply_model  # noqa: E402
-from guidedvd3dgs_tpu_torch.diffusion.samplers import ddim, ddim_guidance  # noqa: E402
+from guidedvd3dgs_tpu_torch.diffusion.samplers import ddim, ddim_guidance, ddim_multicond  # noqa: E402
+from guidedvd3dgs_tpu_torch.geometry import dust3r  # noqa: E402
+from guidedvd3dgs_tpu_torch.geometry import global_aligner as GA  # noqa: E402
+from guidedvd3dgs_tpu_torch.geometry import pipeline as geometry_pipeline  # noqa: E402
+from guidedvd3dgs_tpu_torch.guidance import dpt  # noqa: E402
 from guidedvd3dgs_tpu_torch.guidance.loss_guidance import make_guidance_fn, resize_guidance  # noqa: E402
 from guidedvd3dgs_tpu_torch.models import gaussians as G  # noqa: E402
 from guidedvd3dgs_tpu_torch.models.render import eval_render  # noqa: E402
@@ -252,10 +285,14 @@ from guidedvd3dgs_tpu_torch.train.guided import (  # noqa: E402
     ViewCrafterEngine,
     resize_renders,
 )
+from guidedvd3dgs_tpu_torch.train.checkpoint import load_checkpoint  # noqa: E402
 from guidedvd3dgs_tpu_torch.train.guided_checkpoint import load_guided_checkpoint  # noqa: E402
 from guidedvd3dgs_tpu_torch.train.project_cam import ProjectCamTrainer  # noqa: E402
 from guidedvd3dgs_tpu_torch.utils.lpips import load_lpips, write_random_lpips  # noqa: E402
+from guidedvd3dgs_tpu_torch.utils import graphics  # noqa: E402
+from guidedvd3dgs_tpu_torch.utils.image_io import save_images  # noqa: E402
 from guidedvd3dgs_tpu_torch.utils.sh import SH2RGB  # noqa: E402
+from guidedvd3dgs_tpu_torch.viewer import network_gui  # noqa: E402
 from guidedvd3dgs_tpu_torch.utils.vgg_loss import make_vgg_loss_fn, random_vgg19  # noqa: E402
 
 SEED = 20261016
@@ -453,6 +490,19 @@ GUIDED_GRAD_TOL = 2.6e-5
 # 1.925e-5, 1.92e-5 (each twice identical), against 1.63e-3 to 1.76e-3
 # with dQ zeroed and 3.85e-3 to 4.11e-3 with Delta zeroed
 GUIDED_GRAD_TOL_BF16 = 4e-5
+# phase 9: train_baseline's iterations from the DUSt3R cloud; the DUSt3R
+# heads' last bias (x, y, z, conf): random weights at the published width
+# put every point ~3 cm from its camera with conf ~1.9, below the
+# reference's min_conf_thr of 3, so this bias places the untrained network's
+# points 2.5 m in front of the camera (expm1 of z's 1.2528) with conf ~5
+# (1 + e^1.386), as a trained one indoors; the aligner's known-answer
+# tolerance (median relative depth error over the covered pixels); cfg_img
+# of the two-scale CFG request
+GEOM_ITERS = 200
+DUST3R_HEAD_BIAS = (0.0, 0.0, 1.2528, 1.386)
+ALIGN_TOL = 1e-3
+MULTICOND_CFG_IMG = 2.5
+APPEND_HOLE = 0.25  # 9b's baseline: the room's hole at each train view's centre, by its depth
 
 
 def log(msg: str) -> None:
@@ -2372,7 +2422,7 @@ def ddim_step_inputs(dev, params, mcfg, scfg, engine, renders):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 12)
     with torch.no_grad():
-        cond, uncond = synthesis.build_conditioning(params, mcfg, scfg, renders * 2.0 - 1.0,
+        cond, uncond, _ = synthesis.build_conditioning(params, mcfg, scfg, renders * 2.0 - 1.0,
                                                        generator=gen, text_pair=engine.text_pair)
         x = torch.randn(cond.concat.shape, generator=gen, device=dev)
         noise = torch.randn(x.shape, generator=gen, device=dev)
@@ -2524,7 +2574,7 @@ def guided_step_inputs(dev, params, mcfg, scfg, engine, renders):
     f = 2 ** (len(mcfg.vae.ch_mult) - 1)  # the VAE's downsampling
     lat = (GEN_FRAMES, GEN_H // f, GEN_W // f, 4)
     with torch.no_grad():
-        cond, uncond = synthesis.build_conditioning(
+        cond, uncond, _ = synthesis.build_conditioning(
             params, mcfg, scfg, resize_renders(renders, GEN_H, GEN_W) * 2.0 - 1.0,
             eps=torch.randn(lat, generator=gen, device=dev), text_pair=engine.text_pair)
     sched = mcfg.schedule(dev)
@@ -2745,6 +2795,380 @@ def phase_guided(dev, steps: int, trace_and_f32: bool = True):
     return launches, med(step_ms)
 
 
+# --- phase 9: from raw data, the append path, the two-scale CFG, --nan_debug and the viewer ----------
+
+
+def geometry_raw_replica(dev, work: Path):
+    """Phase 4's room written as a raw Replica sequence (traj_w_c.txt and
+    rgb/rgb_<i>.png, REPLICA_FRAMES frames: the 6-view split's); returns
+    (the scene's path, the ground truth on the card, seconds)."""
+    t0 = time.perf_counter()
+    gt = chain_room(dev)[0]
+    gt_params = params_from_numpy(gt, dev)
+    c2ws, _, images = orbit_images(gt_params, REPLICA_FRAMES, dev)
+    scene = work / "Replica" / REPLICA_SCENE
+    (scene / "rgb").mkdir(parents=True)
+    with open(scene / "traj_w_c.txt", "w") as f:
+        for c2w in c2ws:
+            f.write(" ".join(repr(float(x)) for x in np.asarray(c2w).flatten()) + "\n")
+    save_images(images, [str(scene / "rgb" / f"rgb_{i}.png") for i in range(REPLICA_FRAMES)])
+    return scene, gt_params, time.perf_counter() - t0
+
+
+def dust3r_checkpoint(path: Path) -> float:
+    """Random DUSt3R weights at the published width from the seed, written
+    as a DUSt3R .pth ({"model": state dict}); the two heads' last bias is
+    DUST3R_HEAD_BIAS (see there). Returns the seconds."""
+    t0 = time.perf_counter()
+    params = dust3r.init_params(dust3r.Dust3rConfig(), SEED + 20)
+    for h in (1, 2):
+        params[f"downstream_head{h}.dpt.head.4.bias"] = np.asarray(DUST3R_HEAD_BIAS, np.float32)
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in params.items()}}, str(path))
+    return time.perf_counter() - t0
+
+
+def aligner_known_answer(dev, gt_params, scene: Path) -> str:
+    """The aligner fed perfect predictions made from the room's rendered
+    depth at the 6 train views at DUSt3R's size, poses and focals preset,
+    the depth start corrupted by +0.3 in log: it must recover the depth
+    (median relative error over the pixels the room covers <= ALIGN_TOL)
+    and leave the presets bitwise."""
+    imgs, c2ws, focals = geometry_pipeline.train_view_inputs(str(scene), "rgb", "replica", 6)
+    v, h, w, _ = imgs.shape
+    depth, cover = [], []
+    for c2w, f in zip(c2ws, focals):
+        K = np.array([[f, 0, w / 2.0], [0, f, h / 2.0], [0, 0, 1]])
+        cam = cameras.camera_from_w2c_K(np.linalg.inv(c2w), K, h, w).raster_camera(dev)
+        r = eval_render(gt_params, cam, torch.zeros(3, device=dev), 3)
+        depth.append(r.depth.cpu().numpy())
+        cover.append(r.alpha.cpu().numpy() > 0.99)
+    depth, cover = np.stack(depth), np.stack(cover)
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    world = []
+    for k in range(v):  # the aligner's own unprojection (pixel grid, centred principal point)
+        cam_pts = np.stack([(xx - w / 2.0) * depth[k] / focals[k], (yy - h / 2.0) * depth[k] / focals[k],
+                            depth[k]], -1).reshape(-1, 3)
+        world.append(cam_pts @ c2ws[k][:3, :3].T + c2ws[k][:3, 3])
+    edges = geometry_pipeline.make_pairs(v)
+
+    def in_frame(pts, k):
+        w2c = np.linalg.inv(c2ws[k])
+        return pts @ w2c[:3, :3].T + w2c[:3, 3]
+
+    pred_i = np.stack([in_frame(world[i], i) for i, _ in edges]).astype(np.float32)
+    pred_j = np.stack([in_frame(world[j], i) for i, j in edges]).astype(np.float32)
+    conf_i = np.stack([np.where(cover[i].reshape(-1), 5.0, 1.0 + 1e-6) for i, _ in edges]).astype(np.float32)
+    conf_j = np.stack([np.where(cover[j].reshape(-1), 5.0, 1.0 + 1e-6) for _, j in edges]).astype(np.float32)
+    acfg = GA.AlignerConfig(height=h, width=w, pose_preset=True, focal_preset=True)
+    s0 = GA.init_state(acfg, v, edges, pred_i, np.random.default_rng(SEED + 21), preset_c2w=c2ws,
+                       preset_focals=focals, device=dev)
+    s0 = s0._replace(im_depth=s0.im_depth + 0.3)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = GA.global_align(s0, acfg, t(pred_i), t(pred_j), t(conf_i), t(conf_j), edges, niter=300, lr=0.02)
+    torch.cuda.synchronize()
+    align_s = time.perf_counter() - t0
+    got = GA.aligner_outputs(state, acfg)["depth"].cpu().numpy()
+    rel = np.abs(got - depth)[cover] / depth[cover]
+    med, p90 = float(np.median(rel)), float(np.percentile(rel, 90))
+    if not (med <= ALIGN_TOL and torch.equal(state.im_poses, s0.im_poses)
+            and torch.equal(state.im_focals, s0.im_focals)):
+        raise AssertionError(f"9a aligner known answer: median relative depth error {med:.4g} (tol {ALIGN_TOL}), "
+                             "or the preset poses / focals moved")
+    return (f"aligner known answer ({v} views {w}x{h}, {len(edges)} edges, 300 iterations lr 0.02, presets, "
+            f"start +0.3 in log depth): median relative depth error {med:.3g} (tol {ALIGN_TOL}), 90th pct "
+            f"{p90:.3g}, over {int(cover.sum())} covered pixels; loss {float(loss):.4g}; presets bitwise; "
+            f"{align_s:.2f} s")
+
+
+def geometry_init_chain(dev, work: Path, total: dict) -> list:
+    """9a: raw Replica files -> dataset_to_colmap -> the DUSt3R cloud (the
+    pipeline CLI at Dust3rConfig(), a .pth of random weights) ->
+    train_baseline GEOM_ITERS iterations from that cloud; and the aligner's
+    known-answer check on the room's depth."""
+    scene, gt_params, scene_s = geometry_raw_replica(dev, work)
+    ckpt = work / "dust3r.pth"
+    ckpt_s = dust3r_checkpoint(ckpt)
+    pair_ms, align_ms = [], []
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    port_d2c.main(["replica", "--base", str(work / "Replica"), "--scenes", REPLICA_SCENE])
+    d2c_s = time.perf_counter() - t0
+    with timed(geometry_pipeline, "dust3r_apply", pair_ms), timed(GA, "global_align", align_ms):
+        t0 = time.perf_counter()
+        ds, n_pts = geometry_pipeline.main(["-s", str(scene), "--dataset", "replica", "--images", "rgb",
+                                            "--weights", str(ckpt), "--seed", str(SEED)])
+        torch.cuda.synchronize()
+        cloud_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ckpt.unlink()
+    during = add_launches(total)
+    if any(during.values()):
+        raise AssertionError(f"9a: the DUSt3R cloud launched kernels {during} (its attention is plain)")
+    if ds.imgs.shape != (6, 384, 512, 3) or n_pts < 1000 or not np.isfinite(ds.pts3d).all():
+        raise AssertionError(f"9a: cloud of {n_pts} points from images {ds.imgs.shape}")
+    mdl = work / "geometry_model"
+    t0 = time.perf_counter()
+    trainer = port_train_cli.main(["-s", str(scene), "-m", str(mdl), "--dataset", "replica", "--images", "rgb",
+                                   "--eval", "--n_views", "6", "--iterations", str(GEOM_ITERS),
+                                   "--test_iterations", str(GEOM_ITERS), "--save_iterations", str(GEOM_ITERS)])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = add_launches(total)
+    n_test = len(trainer.scene.getTestCameras())
+    check_chain_launches("9a train_baseline", launches, GEOM_ITERS + n_test + 6, GEOM_ITERS)
+    if trainer.state.num_gaussians < 1000 or not bool(torch.isfinite(trainer.state.params.xyz).all()):
+        raise AssertionError(f"9a: {trainer.state.num_gaussians} Gaussians after training")
+    conf = ds.confs.reshape(-1)
+    return [
+        f"raw Replica {REPLICA_SCENE} ({REPLICA_FRAMES} frames {WIDTH}x{HEIGHT}, hfov {HFOV:g}) written in "
+        f"{scene_s:.1f} s; "
+        f"dataset_to_colmap {d2c_s:.2f} s",
+        f"DUSt3R at Dust3rConfig() (random weights from the seed, heads' last bias {DUST3R_HEAD_BIAS}; the "
+        f".pth written in {ckpt_s:.1f} s): 6 train views 512x384, {len(pair_ms)} batches of up to 4 of the 30 "
+        f"pairs, pair forward ms median {statistics.median(pair_ms) / 4:.1f} a pair ({statistics.median(pair_ms):.1f} "
+        f"a batch of 4, first {pair_ms[0]:.1f}); alignment (300 iterations, presets) {align_ms[0] / 1e3:.2f} s; "
+        f"cloud CLI {cloud_s:.1f} s; {n_pts} points (conf > 3; conf 5/50/95 pct "
+        f"{np.percentile(conf, 5):.2f}/{np.percentile(conf, 50):.2f}/{np.percentile(conf, 95):.2f}); peak "
+        f"allocated {peak_gb:.2f} GB; no kernel launched",
+        f"train_baseline from the cloud: {GEOM_ITERS} iterations {train_s:.1f} s, {trainer.state.num_gaussians} "
+        f"Gaussians, launches {launches} ({n_test} test views)",
+    ] + [aligner_known_answer(dev, gt_params, scene)]
+
+
+def geometry_append(dev, work: Path, step_ms_5c, total: dict) -> list:
+    """9b: phase 5c's guided trainer (the oracle) with DPT-large at
+    DPTConfig() (random weights from the seed) as the depth estimator and
+    append_pcd_from_video_diffusion: one event with the lift and
+    add_points, then GUIDED_TRAINER_STEPS guided steps. The frozen
+    baseline and the trained state are the noisy room with a hole: its
+    Gaussians within APPEND_HOLE of the surface point at the centre of each
+    train view (that view's depth times APPEND_HOLE) removed, as a
+    sparse-view baseline leaves regions unobserved (the whole room leaves
+    no pixel below alpha 0.9). The event's trajectory is the loop2 preset
+    (use_trajectory_pool off), which circles that centre point."""
+    gt, pcams, full = dense_room(dev)
+    views = train_views(gt, pcams, dev)
+    keep = torch.ones(N_SCENE, dtype=torch.bool, device=dev)
+    xyz = full.xyz.detach()
+    for cam in views.cams:
+        w2c = np.asarray(cam.world_view_transform).T
+        c2w = np.linalg.inv(w2c)
+        h, w = cam.image_height, cam.image_width
+        depth = float(eval_render(full, cam.raster_camera(dev), torch.zeros(3, device=dev), 3).depth[h // 2, w // 2])
+        centre = torch.from_numpy((c2w[:3, 3] + depth * c2w[:3, 2]).astype(np.float32)).to(dev)
+        keep &= torch.linalg.norm(xyz - centre, dim=1) > APPEND_HOLE * depth
+    params = G.GaussianParams(**{k: v[keep].clone() for k, v in full.tensors().items()})
+    del full
+    npz = work / "gt_gaussians_9b.npz"
+    synthetic.write_gt_npz(str(npz), gt)
+    cols = np.clip(SH2RGB(gt["features_dc"][:, 0]), 0, 1).astype(np.float32)
+    pcd_pts, pcd_cols = synthetic.init_cloud(gt["xyz"], cols, N_SCENE, np.random.default_rng(SEED + 5))
+    t0 = time.perf_counter()
+    dcfg = dpt.DPTConfig()
+    estimator = dpt.make_depth_estimator(dpt.params_to_device(dpt.init_dpt_params(dcfg, SEED + 22), dev), dcfg)
+    dpt_init_s = time.perf_counter() - t0
+    dpt_ms = []
+
+    def timed_estimator(frames):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = estimator(frames)
+        torch.cuda.synchronize()
+        dpt_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    frozen = FrozenRenderer(params, 3)
+    engine = OracleDiffusionEngine(str(npz), EVENT_FRAMES, HEIGHT, WIDTH, device=dev)
+    state = G.GaussianState.fresh(G.GaussianParams(**{k: v.clone() for k, v in params.tensors().items()}))
+    last = GUIDED_TRAINER_STEPS + 1
+    opt = OptimizationParams(iterations=10 * last, start_sample_pseudo=0, end_sample_pseudo=10 * last,
+                             guidance_vd_iter=10 * last, densify_from_iter=10 * last,
+                             densify_until_iter=10 * last, append_pcd_from_video_diffusion=True,
+                             use_trajectory_pool=False)
+    trainer = GuidedTrainer(views, state, opt, PipelineParams(), ModelParams(), frozen, engine, pcd_pts, pcd_cols,
+                            guidance_intrinsic(views.cams[0]), depth_estimator=timed_estimator)
+    frames = {}
+    count_renders(frozen, frames, "frozen")
+    count_renders(engine.renderer, frames, "oracle")
+    trainer.init_view_geometry()
+    pool_frames = dict(frames)
+    n0 = trainer.state.num_gaussians
+    _build.reset_launches()
+    trainer.run_diffusion_event(1)
+    added = trainer.state.num_gaussians - n0
+    unobserved = [int(c.mask.sum()) for c in trainer.pseudo_stack]
+    if trainer.points_added != added or added <= 0 or len(dpt_ms) != 1:
+        raise AssertionError(f"9b: {added} Gaussians added, points_added {trainer.points_added}, "
+                             f"{len(dpt_ms)} DPT calls; unobserved pixels of the event's frames {unobserved}")
+    step_ms, losses, _, _ = run_steps(trainer, last, range(-1, 0), first=2)  # none traced
+    launches = add_launches(total)
+    renders = sum(frames.values()) - sum(pool_frames.values())
+    want = {n: 2 * GUIDED_TRAINER_STEPS + (renders if n in FORWARD_KERNELS else 0) for n in GAUSSIAN_KERNELS}
+    if any(launches[n] != want[n] for n in GAUSSIAN_KERNELS) or not all(math.isfinite(float(v)) for v in losses):
+        raise AssertionError(f"9b: launches {launches}, expected {want}; losses {[float(v) for v in losses]}")
+    ms = statistics.median(list(step_ms.values())[1:])
+    return [f"append path (phase 5b's room with a hole at each train view's centre: {params.num_gaussians} of "
+            f"{N_SCENE} Gaussians; the oracle; the loop2 trajectory; DPT-large random weights from the seed, "
+            f"init {dpt_init_s:.1f} s): one event of {EVENT_FRAMES} frames, DPT on the {EVENT_FRAMES} frames "
+            f"{dpt_ms[0]:.1f} ms, the lift (DPT, scale-shift fit, unprojection, add_points) "
+            f"{trainer.event_phase_s['lift']:.3f} s, {added} Gaussians added ({n0} -> {trainer.state.num_gaussians}; "
+            f"unobserved pixels of frames 1-{EVENT_FRAMES - 1} min {min(unobserved)} max {max(unobserved)})",
+            f"{GUIDED_TRAINER_STEPS} guided steps after it: step ms median {ms:.3f} (host clock, synchronised; "
+            f"5c's at {n0}: {step_ms_5c}); loss {float(losses[0]):.5f} -> {float(losses[-1]):.5f}; "
+            f"launches {launches}"]
+
+
+def geometry_multicond(dev) -> list:
+    """9c: one ViewCrafterEngine.generate with multiple_cond_cfg at phase
+    7b's widths in bf16, GEN_STEPS steps: L1 exactly 15 a step (5 level-0
+    attentions x 3 branches) + 2."""
+    mcfg = LatentDiffusionConfig(compute_dtype="bfloat16")
+    scfg = synthesis.SynthesisConfig(ddim_steps=GEN_STEPS, multiple_cond_cfg=True, cfg_img=MULTICOND_CFG_IMG)
+    params, _ = gen_params(dev)
+    engine = ViewCrafterEngine(params, mcfg, scfg, video_length=GEN_FRAMES, height=GEN_H, width=GEN_W)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    renders = torch.rand((GEN_FRAMES, GEN_H, GEN_W, 3), generator=gen, device=dev)
+    model_ms, update_ms = [], []
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with timed(ddim_multicond, "multicond_model_output", model_ms), timed(ddim_multicond, "ddim_step", update_ms):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        video = engine.generate(renders, no_guidance=True, generator=gen)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected = 15 * GEN_STEPS + 2
+    if launches["flash_attn_fwd"] != expected or any(launches[n] for n in GAUSSIAN_KERNELS + L1_BWD_KERNELS):
+        raise AssertionError(f"9c: launches {launches}; L1 expected {expected}")
+    if tuple(video.shape) != (GEN_FRAMES, 3, GEN_H, GEN_W) or not bool(torch.isfinite(video).all()):
+        raise AssertionError(f"9c: bad video {tuple(video.shape)}")
+    step_ms = [m + u for m, u in zip(model_ms, update_ms)]
+    return [launches, f"two-scale CFG request ({GEN_FRAMES}x{GEN_H}x{GEN_W}, bf16, {GEN_STEPS} steps, cfg_img "
+            f"{MULTICOND_CFG_IMG}): DDIM step ms median {statistics.median(step_ms):.1f} (first {step_ms[0]:.1f}, "
+            f"min {min(step_ms):.1f}; three branches {statistics.median(model_ms):.1f}) | total {total_s:.3f} s | "
+            f"peak allocated {peak_gb:.2f} GB | L1 launches {launches['flash_attn_fwd']} (expected {expected}) | "
+            f"video std {float(video.std()):.4f}"]
+
+
+def geometry_nan_and_gui(dev, work: Path, total: dict) -> list:
+    """9d: a NaN planted during iteration 7 of train_baseline --nan_debug
+    (densification_interval 5) on the 9a scene stops the run with its
+    bundle; a NetworkGUI on localhost answers one 640x480 view of the room
+    through K1/K3/K4, byte for byte the renderer's."""
+    scene = work / "Replica" / REPLICA_SCENE
+    step = BaselineTrainer.step
+
+    def planted(self, iteration):
+        out = step(self, iteration)
+        if iteration == 7:
+            with torch.no_grad():
+                self.state.params.xyz[11, 0] = float("nan")
+        return out
+
+    mdl = work / "nan_model"
+    _build.reset_launches()
+    with mock.patch.object(BaselineTrainer, "step", planted):
+        try:
+            port_train_cli.main(["-s", str(scene), "-m", str(mdl), "--dataset", "replica", "--images", "rgb",
+                                 "--eval", "--n_views", "6", "--iterations", "20", "--densification_interval", "5",
+                                 "--test_iterations", "20", "--save_iterations", "20", "--nan_debug"])
+        except RuntimeError as e:
+            halted = str(e)
+        else:
+            raise AssertionError("9d: the planted NaN did not stop the run")
+    bundle = json.loads((mdl / "nan_5_7.json").read_text())
+    snap, it0 = load_checkpoint(str(mdl / "nan_5_7.ckpt"), dev)
+    if [s["iteration"] for s in bundle["schedule"]] != [6, 7] or it0 != 5 \
+            or not bool(torch.isfinite(snap.params.xyz).all()):
+        raise AssertionError(f"9d: bundle {bundle}, snapshot at {it0}")
+    nan_launches = add_launches(total)
+
+    params = G.GaussianParams.from_ply(str(work / "geometry_model" / "point_cloud" / f"iteration_{GEOM_ITERS}"
+                                         / "point_cloud.ply"), dev)
+    render = network_gui.gaussian_render_fn(params, 3)
+    c2w = synthetic.orbit(N_CAMS, WIDTH, HEIGHT, HFOV, None)[0][3]
+    view = np.linalg.inv(c2w).T.astype(np.float32)  # the transposed layout
+    fovx = math.radians(HFOV)
+    fovy = 2 * math.atan(math.tan(fovx / 2) * HEIGHT / WIDTH)
+    proj = view @ graphics.getProjectionMatrix(0.01, 100.0, fovx, fovy).T.astype(np.float32)
+    sent = {"resolution_x": WIDTH, "resolution_y": HEIGHT, "train": False, "fov_y": fovy, "fov_x": fovx,
+            "z_near": 0.01, "z_far": 100.0, "shs_python": False, "rot_scale_python": False, "keep_alive": True,
+            "scaling_modifier": 1.0}
+    for key, m in (("view_matrix", view), ("view_projection_matrix", proj)):
+        m = m.copy()
+        m[:, 1:3] *= -1  # the viewer negates these columns
+        sent[key] = [float(x) for x in m.flatten()]
+    gui = network_gui.NetworkGUI(port=0)
+    got = {}
+
+    def client():
+        with socket.create_connection(("127.0.0.1", gui.listener.getsockname()[1]), timeout=30) as c:
+            payload = json.dumps(sent).encode()
+            c.sendall(len(payload).to_bytes(4, "little") + payload)
+            img = b""
+            while len(img) < WIDTH * HEIGHT * 3:
+                img += c.recv(WIDTH * HEIGHT * 3 - len(img))
+            n = int.from_bytes(c.recv(4), "little")
+            got["img"], got["verify"] = img, c.recv(n).decode()
+
+    seen = {}
+
+    def render_fn(cam, scaling):
+        seen["cam"] = cam
+        return render(cam, scaling)
+
+    th = threading.Thread(target=client, daemon=True)
+    _build.reset_launches()
+    try:
+        th.start()
+        for _ in range(500):
+            if gui.try_connect():
+                break
+            time.sleep(0.01)
+        t0 = time.perf_counter()
+        gui.serve_once(render_fn, str(scene), training=False)
+        serve_ms = (time.perf_counter() - t0) * 1e3
+        th.join(timeout=30)
+    finally:
+        gui.close()
+    gui_launches = add_launches(total)
+    want = {n: 1 if n in FORWARD_KERNELS else 0 for n in GAUSSIAN_KERNELS}
+    if th.is_alive() or any(gui_launches[n] != want[n] for n in GAUSSIAN_KERNELS):
+        raise AssertionError(f"9d: the GUI round trip ({'hung' if th.is_alive() else 'done'}) launched "
+                             f"{gui_launches}, expected {want}")
+    img = np.clip(render(seen["cam"], 1.0) * 255, 0, 255).astype(np.uint8).transpose(1, 2, 0).tobytes()
+    if got.get("img") != img or got.get("verify") != str(scene) or len(set(img)) < 10:
+        raise AssertionError("9d: the GUI's answer is not the renderer's image of the view")
+    return [f"--nan_debug: the NaN planted in iteration 7 stopped the run ({halted[:60]}...), bundle nan_5_7 "
+            f"(snapshot at {it0}, schedule {[s['iteration'] for s in bundle['schedule']]}); launches {nan_launches}",
+            f"NetworkGUI round trip on localhost: one {WIDTH}x{HEIGHT} view of the 9a model "
+            f"({params.num_gaussians} Gaussians) answered in {serve_ms:.1f} ms (render, bytes, send), the "
+            f"renderer's image byte for byte; launches {gui_launches}"]
+
+
+def phase_geometry(dev, work: Path, step_ms_5c=None):
+    """Phase 9 (see the module's docstring). Returns its launches."""
+    total = {}
+    lines = geometry_init_chain(dev, work, total)
+    for line in lines:
+        log("phase 9a " + line)
+    shown_5c = "not run in this call" if step_ms_5c is None else f"{step_ms_5c:.3f} in this call"
+    for line in geometry_append(dev, work, shown_5c, total):
+        log("phase 9b " + line)
+    l1, line = geometry_multicond(dev)
+    total["flash_attn_fwd"] = total.get("flash_attn_fwd", 0) + l1["flash_attn_fwd"]
+    log("phase 9c " + line)
+    for line in geometry_nan_and_gui(dev, work, total):
+        log("phase 9d " + line)
+    return {n: total.get(n, 0) for n in KERNELS}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--generate-only", type=int, metavar="STEPS", default=None,
@@ -2763,6 +3187,9 @@ def main() -> None:
                         help="run phases 1, 2 and 5d alone, with STEPS guided DDIM steps in the event")
     parser.add_argument("--chain-only", action="store_true",
                         help="run phases 1, 2 and 6d alone: the published scripts' chain")
+    parser.add_argument("--geometry-only", action="store_true",
+                        help="run phases 1, 2 and 9 alone: raw data to the DUSt3R cloud and training, the "
+                             "append path, the two-scale CFG, --nan_debug and the viewer")
     args = parser.parse_args()
     start = time.perf_counter()
     secs = {}
@@ -2807,6 +3234,10 @@ def main() -> None:
             run("6d", phase_chain, dev, work)
             log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
             return
+        if args.geometry_only:
+            run("9", phase_geometry, dev, work)
+            log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+            return
         res = run("3", phase_kernels, dev)
         if args.gaussian_only:
             run("5", phase_train, dev)
@@ -2826,6 +3257,7 @@ def main() -> None:
         by_phase["7b"] = {"flash_attn_fwd": run("7b-7c", phase_generate, dev, GEN_STEPS)}
         res.update(run("8a", phase_l1_bwd, dev))
         by_phase["8b"], step_8b = run("8b-8c", phase_guided, dev, GUIDED_STEPS)
+        by_phase["9"] = run("9", phase_geometry, dev, work, c5["host_ms"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"phase 5d vs 8b: a guided DDIM step ({GUIDED_STEPS}-step request, 25x320x448 bf16) "

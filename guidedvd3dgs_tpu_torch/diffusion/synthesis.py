@@ -12,7 +12,9 @@ guidance function is given (samplers/ddim_guidance.py) and plain otherwise
 (the reference's --no_guidance), and the VAE decode of every frame. With
 the guidedvd config (25 frames, resampler video_length 16 -> 256 image
 tokens) the context is (1, 77 + 256, 1024) and the UNet repeats it per
-frame. The two-scale CFG (--multiple_cond_cfg) is not ported yet.
+frame. With `multiple_cond_cfg` (the reference's --multiple_cond_cfg) the
+two-scale CFG sampler (samplers/ddim_multicond.py) takes a third context,
+"image yes, text empty", and runs unguided as the reference's does.
 
 Noise: the three draws of a request (the VAE encode's eps, x_T, the step
 noise) are taken from `noise` where given, else from `generator`.
@@ -41,6 +43,7 @@ from guidedvd3dgs_tpu_torch.diffusion.model import (
 from guidedvd3dgs_tpu_torch.diffusion.resampler import ResamplerConfig, resampler_apply
 from guidedvd3dgs_tpu_torch.diffusion.samplers.ddim import ddim_sample
 from guidedvd3dgs_tpu_torch.diffusion.samplers.ddim_guidance import GuidedSampleConfig, guided_ddim_sample
+from guidedvd3dgs_tpu_torch.diffusion.samplers.ddim_multicond import ddim_sample_multicond
 from guidedvd3dgs_tpu_torch.diffusion.tokenizer import tokenize
 from guidedvd3dgs_tpu_torch.guidance.loss_guidance import GuidanceFn
 
@@ -52,8 +55,10 @@ class SynthesisConfig:
     cfg_scale: float = 7.5
     guidance_rescale: float = 0.7
     timestep_spacing: str = "uniform_trailing"
-    # the two-scale CFG (reference --multiple_cond_cfg): not ported yet
+    # the two-scale CFG (reference --multiple_cond_cfg / --cfg_img,
+    # configs/infer_config.py:45-46); cfg_img None -> cfg_scale
     multiple_cond_cfg: bool = False
+    cfg_img: Optional[float] = None
     fs: int = 10
     prompt: str = "Rotating view of a scene"
     text_config: clip_mod.TextConfig = field(default_factory=clip_mod.TextConfig)
@@ -72,12 +77,6 @@ class SynthesisNoise(NamedTuple):
     steps: Optional[torch.Tensor] = None
 
 
-def _check_config(scfg: SynthesisConfig) -> None:
-    if scfg.multiple_cond_cfg:
-        raise NotImplementedError("the two-scale CFG sampler is not ported yet "
-                                  "(ROADMAP queue 6, samplers/ddim_multicond.py)")
-
-
 def encode_text_pair(params: DiffusionParams, scfg: SynthesisConfig, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """The CLIP text embeddings of the prompt and of the empty prompt."""
     return tuple(clip_mod.text_encode(params.clip_text, scfg.text_config,
@@ -89,9 +88,11 @@ def build_conditioning(params: DiffusionParams, mcfg: LatentDiffusionConfig, scf
                        video: torch.Tensor, eps: Optional[torch.Tensor] = None,
                        generator: Optional[torch.Generator] = None,
                        text_pair: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
-    """(cond, uncond) Conditioning (reference diffusion_utils.py:134-174).
-    video: (T, H, W, 3) renders in [-1, 1], frame 0 the real image; eps:
-    the VAE encode's noise; text_pair: precomputed (txt, txt_uc)."""
+    """(cond, uncond, uncond_img) Conditioning (reference
+    diffusion_utils.py:134-181; uncond_img, "image yes, text empty", is the
+    two-scale CFG's third context). video: (T, H, W, 3) renders in
+    [-1, 1], frame 0 the real image; eps: the VAE encode's noise;
+    text_pair: precomputed (txt, txt_uc)."""
     if text_pair is None:
         text_pair = encode_text_pair(params, scfg, video.device)
     txt, txt_uc = text_pair
@@ -103,7 +104,8 @@ def build_conditioning(params: DiffusionParams, mcfg: LatentDiffusionConfig, scf
     z = encode_video_frames(params, mcfg, video, eps=eps, generator=generator)[None]
     fs = torch.full((1,), scfg.fs, dtype=torch.int64, device=video.device)
     return (Conditioning(context=torch.cat([txt, img_emb], dim=1), concat=z, fs=fs),
-            Conditioning(context=torch.cat([txt_uc, img_emb_uc], dim=1), concat=z, fs=fs))
+            Conditioning(context=torch.cat([txt_uc, img_emb_uc], dim=1), concat=z, fs=fs),
+            Conditioning(context=torch.cat([txt_uc, img_emb], dim=1), concat=z, fs=fs))
 
 
 def sample_from_conditioning(params: DiffusionParams, mcfg: LatentDiffusionConfig,
@@ -112,14 +114,19 @@ def sample_from_conditioning(params: DiffusionParams, mcfg: LatentDiffusionConfi
                              generator: Optional[torch.Generator] = None,
                              guidance_fn: Optional[GuidanceFn] = None,
                              guided_cfg: GuidedSampleConfig = GuidedSampleConfig(),
-                             scale_guidance_weight: float = 1.0, pred_x0_trace: bool = False):
+                             scale_guidance_weight: float = 1.0, pred_x0_trace: bool = False,
+                             uncond_img: Optional[Conditioning] = None):
     """Sampling and decode from prebuilt conditioning: the generated video
     (T, H, W, 3) in [-1, 1]. With `guidance_fn`, the guided sampler with
     `guided_cfg` (its CFG scale and rescale taken from `scfg`, as JAX
-    synthesis.py:236-238). With `pred_x0_trace`, (video, the guided
-    sampler's per-step pred_x0 latents (S, T, h, w, 4), or None without
-    guidance)."""
-    _check_config(scfg)
+    synthesis.py:236-238). With `scfg.multiple_cond_cfg`, the two-scale CFG
+    sampler on (cond, uncond, uncond_img), which takes no guidance (JAX
+    synthesis.py:211-227; the engine decides to run such a request
+    unguided, so a `guidance_fn` here is refused). With `pred_x0_trace`,
+    (video, the guided sampler's per-step pred_x0 latents (S, T, h, w, 4),
+    or None without guidance)."""
+    if guidance_fn is not None and scfg.multiple_cond_cfg:
+        raise ValueError("multiple_cond_cfg takes no guidance_fn: the two-scale CFG sampler is unguided")
     dev = cond.concat.device
     sched = mcfg.schedule(dev)
     pr = S.make_ddim_params(sched, scfg.ddim_steps, eta=scfg.ddim_eta, method=scfg.timestep_spacing)
@@ -144,8 +151,20 @@ def sample_from_conditioning(params: DiffusionParams, mcfg: LatentDiffusionConfi
             return apply_model(params, mcfg, x, ts, uncond)
 
         with torch.no_grad():
-            x0 = ddim_sample(sched, pr, ap_c, ap_u, x_T, noise=noise.steps, generator=generator,
-                             cfg_scale=scfg.cfg_scale, guidance_rescale=scfg.guidance_rescale)
+            if scfg.multiple_cond_cfg:
+                if uncond_img is None:
+                    raise ValueError("multiple_cond_cfg needs the uncond_img conditioning")
+
+                def ap_ui(x, ts):
+                    return apply_model(params, mcfg, x, ts, uncond_img)
+
+                cfg_img = scfg.cfg_scale if scfg.cfg_img is None else scfg.cfg_img
+                x0 = ddim_sample_multicond(sched, pr, ap_c, ap_u, ap_ui, x_T, noise=noise.steps,
+                                           generator=generator, cfg_text=scfg.cfg_scale, cfg_img=cfg_img,
+                                           guidance_rescale=scfg.guidance_rescale)
+            else:
+                x0 = ddim_sample(sched, pr, ap_c, ap_u, x_T, noise=noise.steps, generator=generator,
+                                 cfg_scale=scfg.cfg_scale, guidance_rescale=scfg.guidance_rescale)
         trace = None
     with torch.no_grad():
         frames = decode_video_frames(params, mcfg, x0[0])
@@ -163,13 +182,11 @@ def image_guided_synthesis(params: DiffusionParams, mcfg: LatentDiffusionConfig,
                            pred_x0_trace: bool = False):
     """The generated video (T, H, W, 3) in [-1, 1] from renders `video`
     (T, H, W, 3) in [-1, 1], guided by `guidance_fn` when given; with
-    `pred_x0_trace`, (video, trace) as sample_from_conditioning.
-    multiple_cond_cfg raises NotImplementedError."""
-    _check_config(scfg)
+    `pred_x0_trace`, (video, trace) as sample_from_conditioning."""
     with torch.no_grad():
-        cond, uncond = build_conditioning(params, mcfg, scfg, video, eps=noise.encode_eps,
+        cond, uncond, uncond_img = build_conditioning(params, mcfg, scfg, video, eps=noise.encode_eps,
                                           generator=generator, text_pair=text_pair)
     return sample_from_conditioning(params, mcfg, scfg, cond, uncond, noise=noise, generator=generator,
                                     guidance_fn=guidance_fn, guided_cfg=guided_cfg,
                                     scale_guidance_weight=scale_guidance_weight,
-                                    pred_x0_trace=pred_x0_trace)
+                                    pred_x0_trace=pred_x0_trace, uncond_img=uncond_img)

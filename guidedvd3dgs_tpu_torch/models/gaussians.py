@@ -14,9 +14,9 @@ removal is stable, so the two states can be compared row by row.
     confidence and the densification statistics.
   * `create_from_pcd`, `adam_step`, `add_densification_stats` (and its
     train + pseudo view form), `update_max_radii`, `densify_and_clone`,
-    `densify_and_split`, `proximity`, `densify_and_prune`, `reset_opacity`:
-    the reference's operations, updating the state in place (and
-    returning it).
+    `densify_and_split`, `proximity`, `densify_and_prune`, `reset_opacity`,
+    `add_points`: the reference's operations, updating the state in place
+    (and returning it).
 """
 
 from __future__ import annotations
@@ -382,4 +382,36 @@ def reset_opacity(state: GaussianState) -> GaussianState:
     p.opacity.copy_(inverse_sigmoid(torch.clamp(p.get_opacity, max=0.05)))
     state.adam_m["opacity"].zero_()
     state.adam_v["opacity"].zero_()
+    return state
+
+
+@torch.no_grad()
+def add_points(state: GaussianState, new_pts: np.ndarray, new_rgbs: np.ndarray) -> GaussianState:
+    """Append lifted points (reference gaussian_model.py:547-567, JAX
+    models/gaussians.py::add_points): features_dc the colour as given,
+    features_rest zero, log-scale log sqrt of the mean squared distance to
+    the new points' 3 nearest among themselves, the identity quaternion
+    (the reference's zero quaternion, which its rasterizer treats as the
+    identity), opacity 0.1; zero Adam moments for the new rows, and the
+    densification statistics of every row zeroed."""
+    dev = state.device
+    pts = torch.from_numpy(np.ascontiguousarray(new_pts, np.float32)).to(dev)
+    n = pts.shape[0]
+    if n == 0:
+        return state
+    d2, _ = dist_knn3(pts)
+    rot = torch.zeros((n, 4), device=dev)
+    rot[:, 0] = 1.0
+    new = dict(
+        xyz=pts,
+        features_dc=torch.from_numpy(np.ascontiguousarray(new_rgbs, np.float32)).to(dev)[:, None, :],
+        features_rest=torch.zeros((n,) + tuple(state.params.features_rest.shape[1:]), device=dev),
+        scaling=(0.5 * torch.log(torch.clamp(d2, min=1e-7)))[:, None].repeat(1, 3),
+        rotation=rot,
+        opacity=torch.full((n, 1), float(inverse_sigmoid(torch.tensor(0.1, dtype=torch.float32))), device=dev),
+    )
+    _append_rows(state, new, torch.ones(n, dtype=torch.bool, device=dev))
+    state.xyz_gradient_accum.zero_()
+    state.denom.zero_()
+    state.max_radii2d.zero_()
     return state

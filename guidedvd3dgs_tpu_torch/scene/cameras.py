@@ -1,7 +1,7 @@
 """Camera containers.
 
 Counterpart of `guidedvd3dgs_tpu/scene/cameras.py` (Camera, PseudoCamera,
-camera_from_w2c_K), with host numpy matrices in the reference's transposed
+MiniCam, camera_from_w2c_K), with host numpy matrices in the reference's transposed
 row-vector layout: world_view = getWorld2View2(R, T).T and
 full_proj = world_view @ proj. `raster_camera(device)` hands the renderer
 a torch `RasterCamera` on the given device.
@@ -118,6 +118,28 @@ class PseudoCamera:
     @property
     def image_width(self) -> int:
         return self.width
+
+    def raster_camera(self, device) -> RasterCamera:
+        return _raster_camera(self, self.height, self.width, device)
+
+
+@dataclasses.dataclass
+class MiniCam:
+    """A camera given by its matrices in the transposed layout, as the
+    network viewer sends them (reference scene/cameras.py:97-108)."""
+
+    width: int
+    height: int
+    fovy: float
+    fovx: float
+    znear: float
+    zfar: float
+    world_view_transform: np.ndarray  # (4, 4)
+    full_proj_transform: np.ndarray  # (4, 4)
+
+    def __post_init__(self):
+        self.camera_center = np.linalg.inv(self.world_view_transform)[3, :3]
+        self.FoVx, self.FoVy = self.fovx, self.fovy
 
     def raster_camera(self, device) -> RasterCamera:
         return _raster_camera(self, self.height, self.width, device)

@@ -239,6 +239,38 @@ def _split_json(path: str, n_views: int):
     return splits["train_ids"], splits["test_ids"]
 
 
+def sparse_view_split(path: str, dataset: str, cam_infos: List[CameraInfo], rgb_mapping: List[str],
+                      n_views: int = 6, demo_setting: bool = False):
+    """(train indices, test indices) of a COLMAP scene's cameras in the
+    readers' order: the dataset's fixed sparse-view split."""
+    dataset_l = dataset.lower()
+    if dataset_l == "replica":
+        key = replica_scene_key(path)
+        if demo_setting:
+            train_idx = REPLICA_TRAIN_IDX_DEMO[key]
+            return train_idx, replica_test_indices(train_idx, len(cam_infos))
+        table = {6: REPLICA_TRAIN_IDX_6V, 9: REPLICA_TRAIN_IDX_9V, 3: REPLICA_TRAIN_IDX_3V}
+        train_idx = table[n_views][key]
+        # test views for 6 and 9 views both derive from the 6-view anchors
+        anchors = REPLICA_TRAIN_IDX_6V[key] if n_views in (6, 9) else train_idx
+        return train_idx, replica_test_indices(anchors, len(cam_infos))
+    if dataset_l == "scannetpp":
+        scene_id = path.rstrip("/").split("/")[-1]
+        suffixes = [extract_number(p) for p in rgb_mapping]
+        train_idx = [suffixes.index(t) for t in sorted(SCANNETPP_TRAIN_ID[scene_id])]
+        return train_idx, scannetpp_test_indices(train_idx, len(cam_infos))
+    if dataset_l == "re10k":
+        return _split_json(path, n_views)
+    if dataset_l in ("colmap", "custom"):
+        if os.path.exists(os.path.join(path, f"train_test_split_{n_views}.json")):
+            return _split_json(path, n_views)
+        return ([i for i in range(len(cam_infos)) if i % 8 != 0], list(range(0, len(cam_infos), 8)))
+    raise NotImplementedError(
+        f"dataset {dataset!r}: the port reads 'replica', 'scannetpp', 're10k' and "
+        "'colmap' (or 'custom') COLMAP scenes, and Blender scenes by their transforms"
+    )
+
+
 def read_colmap_scene(
     path: str,
     images: str,
@@ -254,41 +286,11 @@ def read_colmap_scene(
     scene's own `sparse/0/points3D.ply` (e.g. a DUSt3R point cloud)."""
     cam_infos, rgb_mapping = _read_colmap_cameras(path, os.path.join(path, images or "images"),
                                                   projected_dir)
-
-    dataset_l = dataset.lower()
     project_cam_infos = None
     if eval:
-        if dataset_l == "replica":
-            key = replica_scene_key(path)
-            if demo_setting:
-                train_idx = REPLICA_TRAIN_IDX_DEMO[key]
-                test_idx = replica_test_indices(train_idx, len(cam_infos))
-            else:
-                table = {6: REPLICA_TRAIN_IDX_6V, 9: REPLICA_TRAIN_IDX_9V, 3: REPLICA_TRAIN_IDX_3V}
-                train_idx = table[n_views][key]
-                # test views for 6 and 9 views both derive from the 6-view anchors
-                anchors = REPLICA_TRAIN_IDX_6V[key] if n_views in (6, 9) else train_idx
-                test_idx = replica_test_indices(anchors, len(cam_infos))
-            if replica_use_project_cam:
-                project_cam_infos = cam_infos[::6]
-        elif dataset_l == "scannetpp":
-            scene_id = path.rstrip("/").split("/")[-1]
-            suffixes = [extract_number(p) for p in rgb_mapping]
-            train_idx = [suffixes.index(t) for t in sorted(SCANNETPP_TRAIN_ID[scene_id])]
-            test_idx = scannetpp_test_indices(train_idx, len(cam_infos))
-        elif dataset_l == "re10k":
-            train_idx, test_idx = _split_json(path, n_views)
-        elif dataset_l in ("colmap", "custom"):
-            if os.path.exists(os.path.join(path, f"train_test_split_{n_views}.json")):
-                train_idx, test_idx = _split_json(path, n_views)
-            else:
-                test_idx = list(range(0, len(cam_infos), 8))
-                train_idx = [i for i in range(len(cam_infos)) if i % 8 != 0]
-        else:
-            raise NotImplementedError(
-                f"dataset {dataset!r}: the port reads 'replica', 'scannetpp', 're10k' and "
-                "'colmap' (or 'custom') COLMAP scenes, and Blender scenes by their transforms"
-            )
+        train_idx, test_idx = sparse_view_split(path, dataset, cam_infos, rgb_mapping, n_views, demo_setting)
+        if dataset.lower() == "replica" and replica_use_project_cam:
+            project_cam_infos = cam_infos[::6]
         train_cams = [c for i, c in enumerate(cam_infos) if i in set(train_idx)]
         test_cams = [c for i, c in enumerate(cam_infos) if i in set(test_idx)]
     else:

@@ -11,7 +11,13 @@ Counterpart of `guidedvd3dgs_tpu/train/baseline.py` (`train_step`,
     (screen-size threshold off); no Adam step on those iterations, nor on
     the last one;
   * the xyz learning rate scheduled after the step with its index;
-  * opacity reset every opacity_reset_interval.
+  * opacity reset every opacity_reset_interval;
+  * with `nan_debug`, the state snapshotted at the start of every
+    densification interval (the JAX package's chunk) and checked after
+    every step: on the first non-finite xyz, opacity or scaling the
+    snapshot (a checkpoint that --start_checkpoint resumes) and the
+    interval's schedule are written next to the checkpoints and the run
+    stops (JAX train/baseline.py:426-515).
 
 One step is a plain eager loop: render (K1 -> binning -> K4), loss,
 `backward()` (K5 -> K6 -> K2), statistics, Adam. It reads nothing back to
@@ -23,6 +29,8 @@ sizes its buffers exactly and has neither.
 
 from __future__ import annotations
 
+import json
+import os
 import random
 import time
 from dataclasses import dataclass
@@ -34,7 +42,7 @@ import torch
 from guidedvd3dgs_tpu_torch.models import gaussians as G
 from guidedvd3dgs_tpu_torch.models.render import render_gaussians, render_state
 from guidedvd3dgs_tpu_torch.ops.projection import RasterCamera
-from guidedvd3dgs_tpu_torch.train.checkpoint import save_checkpoint
+from guidedvd3dgs_tpu_torch.train.checkpoint import checkpoint_arrays, save_checkpoint, write_checkpoint_arrays
 from guidedvd3dgs_tpu_torch.utils.general import get_expon_lr_func
 from guidedvd3dgs_tpu_torch.utils.losses import l1_loss, psnr, ssim
 
@@ -152,12 +160,14 @@ class BaselineTrainer:
         self.ema_loss = torch.zeros((), device=self.device)
         self.split_noise = split_noise
         self.logger = None  # set via attach_logger
+        self.last_camera = None  # the train view of the last step
         self._on_device = {}  # id(camera) -> (RasterCamera, gt image) on the device
 
     def pick_camera(self):
         if not self.viewpoint_stack:
             self.viewpoint_stack = list(self.scene.getTrainCameras())
-        return self.viewpoint_stack.pop(self.rng.randint(0, len(self.viewpoint_stack) - 1))
+        self.last_camera = self.viewpoint_stack.pop(self.rng.randint(0, len(self.viewpoint_stack) - 1))
+        return self.last_camera
 
     def camera_on_device(self, cam):
         """The camera's RasterCamera and ground-truth image on the device,
@@ -219,6 +229,24 @@ class BaselineTrainer:
         G.densify_and_prune(self.state, cfg, noise=noise, generator=gen)
 
     @torch.no_grad()
+    def check_finite(self, iteration: int, snapshot, checkpoint_dir) -> None:
+        """Raise after writing `nan_<it0>_<it>.ckpt` (the state before
+        iteration it0 + 1) and `.json` (the steps since, each with its xyz
+        lr, camera and SH degree) when xyz, opacity or scaling holds a
+        non-finite value."""
+        p = self.state.params
+        if all(bool(torch.isfinite(t).all()) for t in (p.xyz, p.opacity, p.scaling)):
+            return
+        it0, arrays, schedule = snapshot
+        stem = os.path.join(checkpoint_dir or ".", f"nan_{it0}_{iteration}")
+        write_checkpoint_arrays(stem + ".ckpt", arrays)
+        with open(stem + ".json", "w") as f:
+            json.dump({"it0": it0, "it1": iteration, "schedule": schedule,
+                       "densification_interval": self.opt.densification_interval}, f, indent=1)
+        raise RuntimeError(f"non-finite parameters after iteration {iteration}; the state before "
+                           f"iteration {it0 + 1} and the schedule since are in {stem}.ckpt / .json")
+
+    @torch.no_grad()
     def evaluate(self, cameras, max_cams: Optional[int] = None):
         """Mean PSNR and L1 of the clamped renders over a camera list."""
         psnrs, l1s = [], []
@@ -240,13 +268,28 @@ class BaselineTrainer:
         checkpoint_iterations=(),
         checkpoint_dir=None,
         start_iteration=0,
+        nan_debug=False,
     ):
         """The host schedule: steps, evaluation at test_iterations, ply
-        snapshots, full checkpoints."""
+        snapshots, full checkpoints; with `nan_debug` the non-finite check
+        of every step (see the module's docstring)."""
         iterations = iterations or self.opt.iterations
         t0 = time.time()
+        snapshot = None
         for it in range(start_iteration + 1, iterations + 1):
+            if nan_debug and (snapshot is None or (it - 1) % self.opt.densification_interval == 0):
+                arrays = checkpoint_arrays(self.state, it - 1)
+                if self.device.type == "cpu":  # there the arrays share the live tensors' memory
+                    arrays = {k: v.copy() for k, v in arrays.items()}
+                snapshot = (it - 1, arrays, [])
+            if nan_debug:
+                sched = dict(iteration=it, xyz_lr=float(self.xyz_lr))
             stats = self.step(it)
+            if nan_debug:
+                sched.update(camera=getattr(self.last_camera, "image_name", ""),
+                             sh_degree=self.active_sh_degree, num_gaussians=self.state.num_gaussians)
+                snapshot[2].append(sched)
+                self.check_finite(it, snapshot, checkpoint_dir)
             if log_every and it % log_every == 0:
                 rate = (it - start_iteration) / (time.time() - t0)
                 print(

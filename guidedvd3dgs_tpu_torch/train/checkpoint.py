@@ -21,6 +21,11 @@ _ROWS = ("confidence", "max_radii2d", "xyz_gradient_accum", "denom")
 
 
 def save_checkpoint(path: str, state: GaussianState, iteration: int) -> None:
+    write_checkpoint_arrays(path, checkpoint_arrays(state, iteration))
+
+
+def checkpoint_arrays(state: GaussianState, iteration: int) -> dict:
+    """The checkpoint's arrays: a host copy of the whole state."""
     arrays = {}
     for group, values in (("params", state.params.tensors()), ("adam_m", state.adam_m),
                           ("adam_v", state.adam_v)):
@@ -31,6 +36,10 @@ def save_checkpoint(path: str, state: GaussianState, iteration: int) -> None:
     for name in _ROWS:
         arrays[name] = getattr(state, name).cpu().numpy()
     arrays["__iteration__"] = np.asarray(iteration)
+    return arrays
+
+
+def write_checkpoint_arrays(path: str, arrays: dict) -> None:
     # through a file object: np.savez would append ".npz" to a bare path
     with open(path, "wb") as f:
         np.savez(f, **arrays)

@@ -34,9 +34,12 @@ stored at the train resolution under `<model>/video_files_scale<s>/<view>/
 (guidance_videos_from_file); the two-renderer variant (`frozen_mask` picks
 the pool and supplies the mask) and guidance_with_training_gs (the
 guidance renders of the current training Gaussians); the VGG perceptual
-pseudo term (`vgg_loss_fn`); exact checkpoints (train/guided_checkpoint.py).
+pseudo term (`vgg_loss_fn`); exact checkpoints (train/guided_checkpoint.py);
+with append_pcd_from_video_diffusion and a `depth_estimator`, each event's
+unobserved pixels lifted to new Gaussians (guidance/depth_lift.py,
+models/gaussians.py::add_points; reference train_guidedvd.py:569-612).
 Not carried from the reference: its lax.scan chunk trainer and device
-pseudo-frame pool, pipelined events and the depth-lift appends.
+pseudo-frame pool, its pipelined events and its capacity regrowth.
 """
 
 from __future__ import annotations
@@ -51,7 +54,6 @@ from typing import Callable, Dict, List, Optional, Protocol
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from guidedvd3dgs_tpu_torch.convert import params_from_numpy
 
@@ -64,6 +66,7 @@ from guidedvd3dgs_tpu_torch.diffusion.synthesis import (
     image_guided_synthesis,
 )
 from guidedvd3dgs_tpu_torch.guidance import morphology as morph
+from guidedvd3dgs_tpu_torch.guidance.depth_lift import lift_video_to_points
 from guidedvd3dgs_tpu_torch.guidance import pose_math as pm
 from guidedvd3dgs_tpu_torch.guidance.loss_guidance import (
     guidance_weight_schedule,
@@ -77,18 +80,19 @@ from guidedvd3dgs_tpu_torch.ops.projection import RasterCamera
 from guidedvd3dgs_tpu_torch.scene.cameras import PseudoCamera, camera_from_w2c_K
 from guidedvd3dgs_tpu_torch.scene.synthetic import GT_NPZ_KEYS
 from guidedvd3dgs_tpu_torch.train.baseline import BaselineTrainer, StepStats, lrs_for
+from guidedvd3dgs_tpu_torch.utils.general import resize_bilinear
 from guidedvd3dgs_tpu_torch.utils.losses import l1_loss, psnr, ssim
 from guidedvd3dgs_tpu_torch.utils.video import AsyncArtifactWriter, save_video, video_u8
 
 
 def resize_renders(video: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """(T, H, W, C) frames at (height, width), bilinear as the reference's
-    jax.image.resize (guided.py:561-564): antialiased where it shrinks (an
-    antialiased bilinear that enlarges is the plain one)."""
+    jax.image.resize (guided.py:561-564): antialiased on an axis that
+    shrinks, the plain triangle on one that grows (utils/general.py::
+    resize_bilinear)."""
     if video.shape[1:3] == (height, width):
         return video
-    return F.interpolate(video.permute(0, 3, 1, 2), size=(height, width), mode="bilinear",
-                         align_corners=False, antialias=True).permute(0, 2, 3, 1)
+    return resize_bilinear(video, height, width)
 
 
 class DiffusionEngine(Protocol):
@@ -150,8 +154,11 @@ class ViewCrafterEngine:
         dev = self.device
         with torch.no_grad():
             video = resize_renders(pc_renders.to(dev, torch.float32), self.height, self.width)
+        # a two-scale CFG request runs unguided, as the reference's multicond
+        # sampler (JAX train/guided.py:582-584)
+        guided = not no_guidance and not self.scfg.multiple_cond_cfg
         guidance_fn = None
-        if not no_guidance:
+        if guided:
             as_dev = (lambda a: None if a is None else a.to(dev, torch.float32))
             buffers = resize_guidance(as_dev(guidance_images), self.height, self.width,
                                       masks=None if self.scale_weight_mode else as_dev(guidance_masks),
@@ -162,7 +169,7 @@ class ViewCrafterEngine:
             print(f"  [engine] {self.height}x{self.width}x{video.shape[0]} recon={self.recon_loss} "
                   f"w_recon={self.w_recon} ssim={self.ssim_guidance} lpips={self.lpips_fn is not None} "
                   f"guided={not no_guidance} sw={scale_guidance_weight}", flush=True)
-        want_trace = bool(self.save_pred_x0_dir) and not no_guidance
+        want_trace = bool(self.save_pred_x0_dir) and guided
         frames = image_guided_synthesis(self.params, self.mcfg, self.scfg, video * 2.0 - 1.0,
                                         generator=generator, noise=noise, guidance_fn=guidance_fn,
                                         guided_cfg=self.guided_cfg,
@@ -439,18 +446,25 @@ class GuidedTrainer(BaselineTrainer):
     bitwise the run that wrote it. `vgg_loss_fn` adds the
     perceptual pseudo term; `frozen_mask`, a second frozen renderer, picks
     the pool's candidates and supplies each event's mask (the two-renderer
-    variant, reference train_replica_guidedvd_tworenderer.py:60-74)."""
+    variant, reference train_replica_guidedvd_tworenderer.py:60-74).
+    `depth_estimator` (frames (T, H, W, 3) in [-1, 1] -> (T, H, W) relative
+    inverse depth, guidance/dpt.py::make_depth_estimator) lifts each event's
+    video to new Gaussians when the options ask for
+    append_pcd_from_video_diffusion; `points_added` counts them."""
 
     def __init__(self, scene, state: G.GaussianState, opt, pipe, model_params,
                  frozen: FrozenRenderer, engine: DiffusionEngine, pcd_points: np.ndarray,
                  pcd_colors: np.ndarray, guidance_intrinsic: np.ndarray, background=None,
                  seed: int = 1, elevation: float = 5.0, hybrid_traj: bool = False,
-                 vgg_loss_fn: Optional[Callable] = None, frozen_mask: Optional[FrozenRenderer] = None):
+                 vgg_loss_fn: Optional[Callable] = None, frozen_mask: Optional[FrozenRenderer] = None,
+                 depth_estimator: Optional[Callable] = None):
         super().__init__(scene, state, opt, pipe, model_params, background)
         self.frozen = frozen
         self.frozen_mask = frozen_mask
         self.engine = engine
         self.vgg_loss_fn = vgg_loss_fn
+        self.depth_estimator = depth_estimator
+        self.points_added = 0
         self.pcd_points = torch.from_numpy(np.ascontiguousarray(pcd_points, np.float32)).to(self.device)
         self.pcd_colors = torch.from_numpy(np.ascontiguousarray(pcd_colors, np.float32)).to(self.device)
         self.intrinsic = np.asarray(guidance_intrinsic)
@@ -473,7 +487,8 @@ class GuidedTrainer(BaselineTrainer):
         # preset, then the pool (train_scannetpp_guidedvd_hybrid_traj.py:318)
         self.hybrid_traj = hybrid_traj
         self.txt_traj_warmup = hybrid_traj
-        self.event_phase_s = {"pc_render": 0.0, "frozen": 0.0, "artifacts": 0.0, "generate": 0.0}
+        self.event_phase_s = {"pc_render": 0.0, "frozen": 0.0, "artifacts": 0.0, "generate": 0.0,
+                              "lift": 0.0}
         self._visible = {}  # source view -> (N,) bool of the points it sees
         self._live_renderer: Optional[LiveRenderer] = None
         self._cur_video_key = None  # (scale_idx, view, cand_idx) of the event's pool entry
@@ -708,15 +723,17 @@ class GuidedTrainer(BaselineTrainer):
               f"artifacts {t_art:.3f}s generate {t_gen:.3f}s", flush=True)
         for k, v in (("pc_render", t_pc), ("frozen", t_frozen), ("artifacts", t_art), ("generate", t_gen)):
             self.event_phase_s[k] += v
-        return iteration, view, traj, video, gs_alpha, event_dir, self._cur_video_key
+        return iteration, view, traj, video, gs_alpha, gs_depth, event_dir, self._cur_video_key
 
     def finalize_diffusion_event(self, pending) -> None:
         """Write the event's video (diffusion0 with the artifacts; the store
         with guidance_save_videos, synchronously, so that a later event of
-        this run may read it) and rebuild the pseudo stacks from it: every
-        frame but the first, a fifth of them also to the all-time stack
-        (reference train_guidedvd.py:557-636)."""
-        _, view, traj, video, gs_alpha, event_dir, video_key = pending
+        this run may read it), lift its unobserved pixels to new Gaussians
+        with append_pcd_from_video_diffusion and a depth estimator, and
+        rebuild the pseudo stacks from it: every frame but the first, a
+        fifth of them also to the all-time stack (reference
+        train_guidedvd.py:557-636)."""
+        _, view, traj, video, gs_alpha, gs_depth, event_dir, video_key = pending
         if event_dir:
             self.artifact_writer.submit(save_video, video_u8(video), os.path.join(event_dir, "diffusion0.mp4"))
         if getattr(self.opt, "guidance_save_videos", False):
@@ -726,6 +743,8 @@ class GuidedTrainer(BaselineTrainer):
             if vf:
                 os.makedirs(os.path.dirname(vf), exist_ok=True)
                 np.savez_compressed(vf, video=video.cpu().numpy())
+        if getattr(self.opt, "append_pcd_from_video_diffusion", False) and self.depth_estimator is not None:
+            self.append_lifted_points(video, gs_alpha, gs_depth, traj)
         fovx, fovy = self.train_cams[view].FoVx, self.train_cams[view].FoVy
         self.pseudo_stack = []
         for i in range(1, traj.shape[0]):  # frame 0 is the conditioning image
@@ -740,6 +759,27 @@ class GuidedTrainer(BaselineTrainer):
                 alt.pseudo_gt, alt.mask = video[i].clone(), gs_alpha[i].clone()
                 self.pseudo_stack_alltime.append(alt)
         self.events_run += 1
+
+    def append_lifted_points(self, video: torch.Tensor, gs_alpha: torch.Tensor, gs_depth: torch.Tensor,
+                             traj: np.ndarray) -> int:
+        """The event's frames (T, 3, H, W) lifted where the frozen render
+        leaves them unobserved (`gs_alpha` (T, 1, H, W) 1 there), their
+        relative depth fitted to the frozen render's depth `gs_depth` where
+        observed, and appended as Gaussians (reference train_guidedvd.py:
+        569-612). Returns the number of points added; the seconds add to
+        event_phase_s["lift"]."""
+        _sync(self.device)
+        t = time.perf_counter()
+        frames = video.permute(0, 2, 3, 1)
+        rel = self.depth_estimator(frames * 2.0 - 1.0)
+        pts, rgbs = lift_video_to_points(frames.cpu().numpy(), rel.cpu().numpy(), gs_depth[:, 0].cpu().numpy(),
+                                         1.0 - gs_alpha[:, 0].cpu().numpy(), traj, self.intrinsic)
+        if pts.shape[0]:
+            G.add_points(self.state, pts, rgbs)
+        self.points_added += pts.shape[0]
+        _sync(self.device)
+        self.event_phase_s["lift"] += time.perf_counter() - t
+        return pts.shape[0]
 
     # -- per-iteration step ----------------------------------------------------
 

@@ -3,7 +3,11 @@
 Counterpart of the reference package's root `train_baseline.py`, with its
 flags (the config tree, --test_iterations, --save_iterations,
 --checkpoint_iterations, --start_checkpoint, --quiet, --nan_debug) except
-the TPU-only --no_scan and --profile_dir, plus --device (default cuda):
+the TPU-only --no_scan and --profile_dir, plus --device (default cuda).
+--nan_debug checks the parameters after every step and, on the first
+non-finite one, writes the state from the start of that densification
+interval (`<model>/nan_<it0>_<it>.ckpt`, which --start_checkpoint resumes)
+and the interval's schedule (`.json`), then exits non-zero:
 
     python -m guidedvd3dgs_tpu_torch.train_baseline -s <source_path> -m <model_path> \\
         --iterations 10000 --test_iterations 10000 --save_iterations 10000 [--device cuda|cpu]
@@ -36,7 +40,7 @@ from guidedvd3dgs_tpu_torch.train.checkpoint import load_checkpoint
 from guidedvd3dgs_tpu_torch.train.logging import MetricsLogger
 
 
-def main(argv: Optional[List[str]] = None) -> None:
+def main(argv: Optional[List[str]] = None) -> BaselineTrainer:
     parser = build_parser()
     parser.add_argument("--test_iterations", nargs="+", type=int, default=[10_000])
     parser.add_argument("--save_iterations", nargs="+", type=int, default=[10_000])
@@ -46,8 +50,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
-    if args.nan_debug:
-        raise NotImplementedError("--nan_debug is not ported yet")
     device = resolve_device(args.device)
 
     dataset = ModelParams.extract(args)
@@ -78,8 +80,10 @@ def main(argv: Optional[List[str]] = None) -> None:
             checkpoint_iterations=set(args.checkpoint_iterations),
             checkpoint_dir=dataset.model_path,
             start_iteration=first_iter,
+            nan_debug=args.nan_debug,
         )
     print("\nTraining complete.")
+    return trainer
 
 
 if __name__ == "__main__":

@@ -25,7 +25,11 @@ guidance's perceptual term take the VGG19 of `--vgg19_weights`, of
 VGG19_WEIGHTS or of the torch hub cache; without weights both are
 announced and off, as in the reference. `--mask_baseline_path` is the
 two-renderer variant (a second baseline picks the pool and supplies the
-guidance masks). `--checkpoint_iterations` write guided checkpoints
+guidance masks). `--append_pcd_from_video_diffusion --dpt_weights <file>`
+lifts each event's unobserved pixels to new Gaussians by DPT-large's depth
+(an HF DPTForDepthEstimation checkpoint, .safetensors or .bin); without
+`--dpt_weights` the flag is announced and off, as in the reference.
+`--checkpoint_iterations` write guided checkpoints
 (`chkpnt<it>.ckpt` and its `.guided.npz`) and `--start_checkpoint`
 resumes one exactly; a plain checkpoint resumes its Gaussian state and
 builds the trajectory pool anew. Not ported: `--guidance_tp` and
@@ -55,6 +59,7 @@ from guidedvd3dgs_tpu_torch.config import (
     build_parser,
     save_cfg_args,
 )
+from guidedvd3dgs_tpu_torch.guidance.dpt import DPTConfig, load_hf_dpt_weights, make_depth_estimator, params_to_device
 from guidedvd3dgs_tpu_torch.render import resolve_device
 from guidedvd3dgs_tpu_torch.scene.scene import Scene
 from guidedvd3dgs_tpu_torch.train.guided_checkpoint import load_guided_checkpoint
@@ -134,6 +139,20 @@ def configure_engine(engine, opt, vgg_fn) -> None:
     engine.scale_weight_mode = getattr(opt, "scale_guidance_weight", False)
 
 
+def build_depth_estimator(args, opt, device):
+    """DPT-large on the trainer's device for append_pcd_from_video_diffusion
+    (JAX train_guidedvd.py:238-251), or None with the reference's warning
+    when no --dpt_weights is given."""
+    if not getattr(opt, "append_pcd_from_video_diffusion", False):
+        return None
+    if not args.dpt_weights:
+        print("WARNING: append_pcd_from_video_diffusion needs --dpt_weights "
+              "(HF DPTForDepthEstimation ckpt); the append path is DISABLED.")
+        return None
+    print(f"DPT depth estimator from {args.dpt_weights} on {device}")
+    return make_depth_estimator(params_to_device(load_hf_dpt_weights(args.dpt_weights), device), DPTConfig())
+
+
 def main(argv: Optional[List[str]] = None) -> GuidedTrainer:
     parser = build_parser()
     parser.add_argument("--baseline_path", type=str, required=True,
@@ -155,6 +174,9 @@ def main(argv: Optional[List[str]] = None) -> GuidedTrainer:
     parser.add_argument("--mask_baseline_path", type=str, default=None)
     parser.add_argument("--mask_baseline_iteration", type=int, default=10_000)
     parser.add_argument("--hybrid_traj", action="store_true")
+    # DPT (MiDaS) weights of the append_pcd_from_video_diffusion path
+    # (reference utils/midas_depth_estimator.py:9-39)
+    parser.add_argument("--dpt_weights", type=str, default=None)
     parser.add_argument("--pipeline_guidance", action="store_true",
                         help="not ported: the JAX package's overlapped events")
     parser.add_argument("--device", default="cuda")
@@ -199,13 +221,14 @@ def main(argv: Optional[List[str]] = None) -> GuidedTrainer:
         print("WARNING: pseudo_cam_lpips requested but VGG19 weights not found "
               "(set --vgg19_weights or VGG19_WEIGHTS); the perceptual pseudo term is DISABLED.")
     configure_engine(engine, opt, vgg_fn)
+    depth_estimator = build_depth_estimator(args, opt, device)
 
     pcd = scene.scene_info.point_cloud
     trainer = GuidedTrainer(
         scene, state, opt, pipe, dataset, frozen=frozen, engine=engine,
         pcd_points=np.asarray(pcd.points, np.float32), pcd_colors=np.asarray(pcd.colors, np.float32),
         guidance_intrinsic=K, seed=args.seed, hybrid_traj=args.hybrid_traj, vgg_loss_fn=vgg_fn,
-        frozen_mask=frozen_mask,
+        frozen_mask=frozen_mask, depth_estimator=depth_estimator,
     )
     first_iter = 0
     if args.start_checkpoint:

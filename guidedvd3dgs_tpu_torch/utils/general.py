@@ -1,6 +1,6 @@
 """General math helpers: the opacity activation's inverse, the position
 learning-rate schedule, the guidance-weight warmup, quaternion -> rotation
-matrix.
+matrix, and `jax.image.resize`'s bilinear resize.
 
 Counterpart of `guidedvd3dgs_tpu/utils/general.py`. Quaternions are
 (w, x, y, z) throughout.
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def inverse_sigmoid(x):
@@ -76,3 +77,19 @@ def build_rotation(q: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return R.reshape(*q.shape[:-1], 3, 3)
+
+
+def resize_bilinear(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(..., H, W, C) at (height, width) as `jax.image.resize(...,
+    "bilinear")`: half-pixel centres, one axis at a time, antialiased (the
+    triangle widened by the scale) on an axis that shrinks and the plain
+    triangle on one that grows (torch's antialiased kernel is 1.5e-5 off
+    JAX's when it enlarges 384 -> 480)."""
+    lead, (h, w, c) = img.shape[:-3], img.shape[-3:]
+    x = img.reshape(-1, h, w, c).permute(0, 3, 1, 2)
+    if height != h:
+        x = F.interpolate(x, size=(height, w), mode="bilinear", align_corners=False, antialias=height < h)
+    if width != w:
+        x = F.interpolate(x, size=(height, width), mode="bilinear", align_corners=False,
+                          antialias=width < w)
+    return x.permute(0, 2, 3, 1).reshape(*lead, height, width, c)

@@ -93,7 +93,8 @@ def test_generate_draws_from_the_generator(engines):
 def test_guided_paths_are_not_in_this_slice(engines):
     """The guided request runs through the engine (guidance at another
     size, no depths): frames of the engine's size in [0, 1]. The two-scale
-    CFG is not ported and raises, naming its queue."""
+    CFG runs too (tests/test_torch_multicond.py holds it to JAX): finite
+    decoded frames of the same size."""
     _, teng = engines
     rng = np.random.default_rng(13)
     pc = torch.from_numpy(rng.uniform(size=(T, ENGINE, ENGINE, 3)).astype(np.float32))
@@ -103,8 +104,9 @@ def test_guided_paths_are_not_in_this_slice(engines):
     assert out.shape == (T, 3, ENGINE, ENGINE) and bool(torch.isfinite(out).all())
     assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
     multi = dataclasses.replace(teng.scfg, multiple_cond_cfg=True)
-    with pytest.raises(NotImplementedError, match="queue 6"):
-        image_guided_synthesis(teng.params, teng.mcfg, multi, pc * 2.0 - 1.0)
+    out = image_guided_synthesis(teng.params, teng.mcfg, multi, pc * 2.0 - 1.0,
+                                 generator=torch.Generator().manual_seed(0))
+    assert out.shape == (T, ENGINE, ENGINE, 3) and bool(torch.isfinite(out).all())
 
 
 @pytest.mark.parametrize("size", [(32, 32), (56, 48), (24, 60)])

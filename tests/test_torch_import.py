@@ -42,6 +42,12 @@ DIFFUSION_MODULES = [
     "diffusion.init", "diffusion.convert", "train.guided",
     "diffusion.samplers.ddim_guidance", "guidance", "guidance.loss_guidance",
 ]
+# the raw-data chain, the append-pcd path, the two-scale CFG and the viewer
+RAW_DATA_MODULES = [
+    "dataset_to_colmap", "geometry.dust3r", "geometry.global_aligner", "geometry.pipeline",
+    "guidance.dpt", "guidance.depth_lift", "augment_ply_with_depth", "diffusion.samplers.ddim_multicond",
+    "viewer.network_gui",
+]
 
 
 def test_every_port_module_imports_with_jax_blocked():
@@ -52,8 +58,8 @@ def test_every_port_module_imports_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
-    assert len(names) >= 53  # every module of the port
-    missing = [m for m in DIFFUSION_MODULES if f"guidedvd3dgs_tpu_torch.{m}" not in names]
+    assert len(names) >= 85  # every module of the port
+    missing = [m for m in DIFFUSION_MODULES + RAW_DATA_MODULES if f"guidedvd3dgs_tpu_torch.{m}" not in names]
     assert not missing, missing
 
 
