@@ -191,6 +191,25 @@ and the exit code is non-zero; there is no CPU fallback):
               stops the run with its bundle (nan_5_7.ckpt / .json); a
               NetworkGUI round trip on localhost answers one 640x480 view
               of 9a's model through K1/K3/K4 (once each), byte for byte
+    10. pipelined events (pipeline_guidance) and the camera-batch step, on
+              phase 5b's room: 10a phase 5c's trainer with the oracle,
+              PIPE_BOUNDARIES boundaries PIPE_SPAN steps apart and the
+              drain, inline (serial), with the worker thread and its stream,
+              and with the trainer's stream at priority -1: state, stacks
+              and random streams bitwise equal across the three, the spans'
+              seconds, the step's host ms while an event runs and while none
+              does, the finalize wait, launches exact; 10b the ViewCrafter
+              engine (random bf16 weights, GUIDED_STEPS guided steps) in that
+              trainer: an event alone, then one with the trainer stepping
+              beside it on the same card until its worker is done: the
+              event's s and its guided DDIM step's ms both ways, the
+              trainer's step ms during and after, the peak (below 80 GB),
+              launches exact (L1 20 S + 2 / 15 S / 15 S an event); 10c
+              train_step_dp of the 6 train views: K1-K6 exactly 6 a step,
+              and one step against its plain chain (DP_* tolerances); 10d
+              train_guidedvd --pipeline_guidance with the oracle on phase
+              6's scene (a checkpoint with an event in flight, launches
+              exact) and with 6c's ViewCrafter checkpoint
 `python3 chip_smoke.py --generate-only STEPS` runs phases 1, 2 and 7b
 alone with STEPS DDIM steps; `--guided-only STEPS` phases 1, 2 and 8b
 (the 50-step requests of PERF.md); `--backward-only` phases 1, 2, 8a and
@@ -200,11 +219,12 @@ phases 1, 2, 7a and 7b-7c (L1's forward kernels and the DDIM request);
 and the trainer); `--guided-trainer-only` phases 1, 2 and 5c (the guided
 trainer); `--vc-trainer-only STEPS` phases 1, 2 and 5d with STEPS guided
 DDIM steps (50: a real event's time); `--chain-only` phases 1, 2 and 6d
-(the published scripts' chain); `--geometry-only` phases 1, 2 and 9.
+(the published scripts' chain); `--geometry-only` phases 1, 2 and 9;
+`--pipeline-only` phases 1, 2 and 10.
 The line before the last is the JSON kernel table (each kernel's launches
 summed over the phases that drive a path: K1-K6 over 4, 5, 5b, 5c, 5d, 6,
-6b, 6c, 6d and 9, L1's forward over 5d, 6c, 7b, 8b and 9, its backward over
-5d, 6c and 8b; each phase's count in `launches_by_phase`; for
+6b, 6c, 6d, 9 and 10, L1's forward over 5d, 6c, 7b, 8b, 9 and 10, its
+backward over 5d, 6c, 8b and 10; each phase's count in `launches_by_phase`; for
 K1-K6 `host_ms` beside `ms` and `ms_dense` and `bound_ms_dense` from
 phase 5b's view; for K1 also `ms_full_table`, `bound_ms_all_rows` and
 their `_dense` twins);
@@ -277,7 +297,8 @@ from guidedvd3dgs_tpu_torch.ops.knn import dist_knn3  # noqa: E402
 from guidedvd3dgs_tpu_torch.scene import cameras, dataset_readers, synthetic  # noqa: E402
 from guidedvd3dgs_tpu_torch.scene.ply import load_gaussian_ply  # noqa: E402
 from guidedvd3dgs_tpu_torch.scene.scene import Scene  # noqa: E402
-from guidedvd3dgs_tpu_torch.train.baseline import BaselineTrainer  # noqa: E402
+from guidedvd3dgs_tpu_torch.parallel import stack_cameras, train_step_dp  # noqa: E402
+from guidedvd3dgs_tpu_torch.train.baseline import BaselineTrainer, lrs_for  # noqa: E402
 from guidedvd3dgs_tpu_torch.train.guided import (  # noqa: E402
     FrozenRenderer,
     GuidedTrainer,
@@ -505,6 +526,25 @@ MULTICOND_CFG_IMG = 2.5
 APPEND_HOLE = 0.25  # 9b's baseline: the room's hole at each train view's centre, by its depth
 
 
+# phase 10: pipelined events. 10a: events PIPE_SPAN steps apart (an oracle
+# event of 25 frames at 1M Gaussians, ~1.2 s, spans about that many
+# ~12-ms guided steps); 10b: PIPE_IDLE_STEPS steps without an event after
+# the ViewCrafter event; 10c: DP_STEPS camera-batch steps, then one against
+# its plain chain: the loss within DP_LOSS_TOL absolute, each gradient and
+# the accumulated norms within DP_GRAD_TOL in L2 norm over the plain's (K4
+# against its plain version may stop a pixel one instance apart, K6 and K2
+# sum in other orders), rows of denom / max radii differing (a radius or a
+# visibility at a rounding edge) at most DP_ROW_FRACTION of the Gaussians
+PIPE_SPAN = 100
+PIPE_BOUNDARIES = 3
+PIPE_CLI_ITERS, PIPE_CLI_EVERY = 400, 100  # 10d: boundaries at 1, 101, 201, 301
+PIPE_IDLE_STEPS = 30
+DP_STEPS = 3
+DP_LOSS_TOL = 1e-5
+DP_GRAD_TOL = 1e-3
+DP_ROW_FRACTION = 1e-4
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -516,6 +556,11 @@ def activations(params):
         return (params.xyz.detach().contiguous(), params.get_scaling.contiguous(),
                 params.get_rotation.contiguous(), params.get_opacity.contiguous(),
                 (params.features_dc.detach().contiguous(), params.features_rest.detach().contiguous()))
+
+
+def stream_sync() -> None:
+    """Wait for the calling thread's current stream only."""
+    torch.cuda.current_stream().synchronize()
 
 
 def median_ms(fn, runs: int = 10, warmup: int = 2) -> float:
@@ -1673,15 +1718,16 @@ def vc_checkpoint(params, path: Path) -> None:
     torch.save({"state_dict": sd}, path)
 
 
-def phase_vc_cli(dev, work: Path, src: Path, base: Path):
+def phase_vc_cli(dev, work: Path, src: Path, base: Path, extra: tuple = (), tag: str = "6c"):
     """6c: the guided CLI with --viewcrafter_ckpt on phase 6's scene and
     baseline: the random parameters written as a ViewCrafter checkpoint, a
     random VGG19 as a torchvision state dict, VC_CLI_ITERS iterations with
     two events of VC_CLI_STEPS guided steps; then the render and metrics
-    CLIs. The checkpoint is deleted at the end."""
+    CLIs. The checkpoint is deleted at the end. `extra`: more CLI flags
+    (10d: --pipeline_guidance), logged under `tag`."""
     t_phase = time.perf_counter()
     gparams, _ = gen_params(dev)
-    ckpt, vgg_path, mdl = work / "viewcrafter.ckpt", work / "vgg19.pth", work / "synthetic_vc"
+    ckpt, vgg_path, mdl = work / "viewcrafter.ckpt", work / "vgg19.pth", work / f"synthetic_vc_{tag}"
     try:
         t0 = time.perf_counter()
         vc_checkpoint(gparams, ckpt)
@@ -1700,6 +1746,7 @@ def phase_vc_cli(dev, work: Path, src: Path, base: Path):
                 "--vgg19_weights", str(vgg_path), "--guidance_save_videos",
                 "--guidance_ddim_steps", str(VC_CLI_STEPS), "--guidance_vd_iter", str(VC_CLI_EVERY),
                 "--start_sample_pseudo", "2", "--end_sample_pseudo", str(VC_CLI_ITERS - 2), "--device", dev.type,
+                *extra,
             ])
             torch.cuda.synchronize()
             train_s = time.perf_counter() - t0
@@ -1723,8 +1770,10 @@ def phase_vc_cli(dev, work: Path, src: Path, base: Path):
     if not (math.isfinite(res["PSNR"]) and math.isfinite(res["SSIM"])):
         raise AssertionError(f"scores {res}")
     timing = json.loads((mdl / "timing_summary.json").read_text())
-    log(f"phase 6c ViewCrafter CLI (phase 6's scene {trainer.W}x{trainer.H} and its {CLI_ITERS}-iteration "
-        f"baseline; "
+    if timing.get("pipeline_guidance") != ("--pipeline_guidance" in extra):
+        raise AssertionError(f"timing_summary pipeline_guidance {timing.get('pipeline_guidance')}, flags {extra}")
+    log(f"phase {tag} ViewCrafter CLI {' '.join(extra)} (phase 6's scene {trainer.W}x{trainer.H} and its "
+        f"{CLI_ITERS}-iteration baseline; "
         f"the random bf16 weights as a ViewCrafter checkpoint of {ckpt_gb:.2f} GB, written in {write_s:.1f} s; "
         f"a random VGG19 in the torchvision layout): checkpoint load {load_ms[0] / 1e3:.1f} s | train_guidedvd "
         f"{VC_CLI_ITERS} iterations {train_s:.1f} s (events {timing['event_s']:.3f} s: "
@@ -1732,7 +1781,8 @@ def phase_vc_cli(dev, work: Path, src: Path, base: Path):
         + f") | engine {engine.video_length}x{engine.height}x{engine.width} on {engine.device}, "
         f"{VC_CLI_STEPS} guided steps | events {trainer.events_run}, pseudo stack {len(trainer.pseudo_stack)}, "
         f"store {len(stored)} npz | test PSNR {res['PSNR']:.4f} SSIM {res['SSIM']:.5f} (random weights: a "
-        f"reading) | launches {launches} | phase {time.perf_counter() - t_phase:.1f} s")
+        f"reading) | finalize waited {timing['event_wait_s']:.3f} s | launches {launches} | phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -2190,16 +2240,17 @@ def phase_l1(dev):
 
 @contextlib.contextmanager
 def timed(module, name: str, record: list, outputs: list | None = None):
-    """Time every call of module.name (synchronised on both sides) into
-    `record`, in ms, while the context is open; append what each call
-    returns to `outputs` if given."""
+    """Time every call of module.name (the calling thread's stream
+    synchronised on both sides: a pipelined event's worker times its own
+    work) into `record`, in ms, while the context is open; append what each
+    call returns to `outputs` if given."""
     fn = getattr(module, name)
 
     def run(*args, **kwargs):
-        torch.cuda.synchronize()
+        stream_sync()
         t = time.perf_counter()
         out = fn(*args, **kwargs)
-        torch.cuda.synchronize()
+        stream_sync()
         record.append((time.perf_counter() - t) * 1e3)
         if outputs is not None:
             outputs.append(out)
@@ -3169,6 +3220,448 @@ def phase_geometry(dev, work: Path, step_ms_5c=None):
     return {n: total.get(n, 0) for n in KERNELS}
 
 
+# ----------------------------------------------------------------------------
+# phase 10: pipelined events and the camera-batch step
+# ----------------------------------------------------------------------------
+
+
+def event_running(trainer) -> bool:
+    """A pipelined event's worker is still at its device work."""
+    p = trainer._pending_event
+    return p is not None and p.future is not None and not p.future.done()
+
+
+def pipelined_trainer(views, params, frozen, engine, pcd, K, event_worker: bool, span: int,
+                      model_path: str = "") -> GuidedTrainer:
+    """Phase 5c's trainer with pipeline_guidance, an event every `span`
+    steps from step 1, pseudo views from the first step, no densification."""
+    state = G.GaussianState.fresh(G.GaussianParams(**{k: v.clone() for k, v in params.tensors().items()}))
+    far = 100 * span
+    opt = OptimizationParams(iterations=far, start_sample_pseudo=0, end_sample_pseudo=far, guidance_vd_iter=span,
+                             densify_from_iter=far, densify_until_iter=far)
+    return GuidedTrainer(views, state, opt, PipelineParams(), ModelParams(model_path=model_path), frozen, engine,
+                         pcd[0], pcd[1], K, pipeline_guidance=True, event_worker=event_worker)
+
+
+def count_step_renders(trainer, counter: dict) -> None:
+    """Count the renders of the trainer's steps (2 with a pseudo view)."""
+    pick = trainer._pick_pseudo
+
+    def counted(it):
+        cam = pick(it)
+        counter["renders"] = counter.get("renders", 0) + 1 + (cam is not None)
+        return cam
+
+    trainer._pick_pseudo = counted
+
+
+def trainer_bits(trainer) -> dict:
+    """Everything a pipelined run leaves that the same run must leave bit
+    for bit: the state's tensors, both stacks, the random streams."""
+    st = trainer.state
+    out = {f"p/{k}": v for k, v in st.params.tensors().items()}
+    out.update({f"m/{k}": v for k, v in st.adam_m.items()})
+    out.update({f"v/{k}": v for k, v in st.adam_v.items()})
+    out.update(max_radii2d=st.max_radii2d, accum=st.xyz_gradient_accum, denom=st.denom)
+    for name, stack in (("cur", trainer.pseudo_stack), ("alltime", trainer.pseudo_stack_alltime)):
+        out[f"{name}/frames"] = torch.stack([c.pseudo_gt for c in stack])
+        out[f"{name}/masks"] = torch.stack([c.mask for c in stack])
+    out["generator"] = trainer.generator.get_state()
+    out["host"] = (json.dumps(trainer.rng_np.bit_generator.state), trainer.rng.getstate(), trainer.vd_indices,
+                   trainer.events_run, st.step)
+    return out
+
+
+def check_same_bits(what: str, a: dict, b: dict) -> None:
+    differ = [k for k in a if (not torch.equal(a[k], b[k]) if torch.is_tensor(a[k]) else a[k] != b[k])]
+    if differ:
+        raise AssertionError(f"{what}: not bitwise equal in {differ}")
+
+
+def pipeline_oracle(dev, work: Path, room, pcd) -> tuple[dict, list]:
+    """10a: the oracle engine at phase 5c's sizes, PIPE_BOUNDARIES event
+    boundaries PIPE_SPAN steps apart and the drain, inline (the lagged order
+    on one thread: the serial run), with the worker, and with the worker
+    and the trainer on a stream of higher priority. Returns the launches of
+    the worker's run and the lines."""
+    gt, pcams, params = room
+    views = train_views(gt, pcams, dev)
+    npz = work / "gt_gaussians_10a.npz"
+    synthetic.write_gt_npz(str(npz), gt)
+    frozen = FrozenRenderer(params, 3)
+    engine = OracleDiffusionEngine(str(npz), EVENT_FRAMES, HEIGHT, WIDTH, device=dev)
+    frames = {}
+    count_renders(frozen, frames, "frozen")
+    count_renders(engine.renderer, frames, "oracle")
+    K = guidance_intrinsic(views.cams[0])
+    last = (PIPE_BOUNDARIES - 1) * PIPE_SPAN + 1
+    runs = {}
+    for mode in ("inline", "worker", "worker_prio"):
+        trainer = pipelined_trainer(views, params, frozen, engine, pcd, K, mode != "inline", PIPE_SPAN)
+        counter = {}
+        count_step_renders(trainer, counter)
+        frames.clear()
+        prio = torch.cuda.Stream(device=dev, priority=-1) if mode == "worker_prio" else None
+        if prio is not None:
+            prio.wait_stream(torch.cuda.current_stream())
+        torch.cuda.synchronize()
+        step_ms = {"event": [], "idle": [], "boundary": []}
+        span_t = []
+        _build.reset_launches()
+        with torch.cuda.stream(prio) if prio is not None else contextlib.nullcontext():
+            trainer.init_trajectory_pool()
+            stream_sync()
+            t0 = time.perf_counter()
+            for it in range(1, last + 1):
+                boundary = (it - 1) % PIPE_SPAN == 0
+                busy = event_running(trainer)
+                t = time.perf_counter()
+                if boundary:
+                    span_t.append(t)
+                trainer.step(it)
+                stream_sync()
+                step_ms["boundary" if boundary else ("event" if busy else "idle")].append(
+                    (time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            trainer.close_event_worker()
+            stream_sync()
+            t_end = time.perf_counter()
+        if prio is not None:
+            torch.cuda.current_stream().wait_stream(prio)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        renders = frames.get("frozen", 0) + frames.get("oracle", 0)
+        want = {n: counter["renders"] + (renders if n in FORWARD_KERNELS else 0) for n in GAUSSIAN_KERNELS}
+        if any(launches[n] != want[n] for n in GAUSSIAN_KERNELS) or any(
+                launches[n] for n in ("flash_attn_fwd",) + L1_BWD_KERNELS):
+            raise AssertionError(f"10a {mode}: launches {launches}, expected {want}: K1-K6 once a render of "
+                                 f"the steps ({counter['renders']}), K1, K3, K4 once more a frozen or oracle "
+                                 f"frame ({frames})")
+        if trainer.events_run != PIPE_BOUNDARIES or len(trainer.pseudo_stack) != EVENT_FRAMES - 1 \
+                or trainer._executor is not None:
+            raise AssertionError(f"10a {mode}: {trainer.events_run} events, stack {len(trainer.pseudo_stack)}")
+        runs[mode] = dict(bits=trainer_bits(trainer), spans=[b - a for a, b in zip(span_t, span_t[1:] + [t])],
+                          drain=t_end - t, total=t_end - t0, step_ms=step_ms, wait=trainer.event_wait_s,
+                          phases=dict(trainer.event_phase_s), launches=launches, frames=dict(frames))
+        del trainer
+    for mode in ("worker", "worker_prio"):
+        check_same_bits(f"10a {mode} against inline", runs[mode]["bits"], runs["inline"]["bits"])
+    med = lambda xs: statistics.median(xs) if xs else float("nan")  # noqa: E731
+    lines = [f"the oracle engine at phase 5c's sizes ({N_SCENE} Gaussians frozen, {EVENT_FRAMES}-frame events, "
+             f"{WIDTH}x{HEIGHT}, 6 train views), pipeline_guidance: boundaries every {PIPE_SPAN} steps at 1, "
+             f"{PIPE_SPAN + 1}, {last}, then the drain; inline (the same order on one thread, serial), worker, "
+             f"worker with the trainer on a priority -1 stream: state, stacks and random streams bitwise equal "
+             f"across the three"]
+    for mode, r in runs.items():
+        sm = r["step_ms"]
+        lines.append(
+            f"{mode}: spans s " + ", ".join(f"{x:.3f}" for x in r["spans"]) + f" (the last: the third boundary "
+            f"step), drain {r['drain']:.3f} s, total {r['total']:.3f} s; finalize waited {r['wait']:.3f} s; "
+            f"step host ms median while an event runs {med(sm['event']):.3f} ({len(sm['event'])} steps), while "
+            f"none does {med(sm['idle']):.3f} ({len(sm['idle'])}), boundary steps "
+            + ", ".join(f"{x:.1f}" for x in sm["boundary"]) + "; event s " + ", ".join(
+                f"{k} {v:.3f}" for k, v in r["phases"].items() if v) + f"; frames {r['frames']}; launches "
+            f"{ {n: r['launches'][n] for n in GAUSSIAN_KERNELS} }")
+    serial, over = runs["inline"]["total"], runs["worker"]["total"]
+    lines.append(f"overlap: {last} steps and {PIPE_BOUNDARIES} events {serial:.3f} s serial (inline), {over:.3f} s "
+                 f"with the worker ({serial - over:.3f} s hidden), {runs['worker_prio']['total']:.3f} s with the "
+                 "trainer's stream at priority -1")
+    return runs["worker"]["launches"], lines
+
+
+def pipeline_viewcrafter(dev, work: Path, room, pcd) -> tuple[dict, list, float]:
+    """10b: the ViewCrafter engine at 7b's widths (random bf16 weights,
+    GUIDED_STEPS guided steps) in phase 5c's trainer with the worker: a
+    first event alone (warm-up), a second alone (nothing steps beside it),
+    then one with the trainer's steps beside it on the same card until its
+    worker is done, on the default stream and on a stream of priority -1,
+    each followed by PIPE_IDLE_STEPS steps without an event. Returns the
+    launches, the lines and the guided step's ms alone."""
+    gt, pcams, params = room
+    views = train_views(gt, pcams, dev)
+    frozen = FrozenRenderer(params, 3)
+    gparams, _ = gen_params(dev)
+    mcfg = LatentDiffusionConfig(compute_dtype="bfloat16")
+    width = port_guided_cli.engine_width(OptimizationParams(), HEIGHT, WIDTH)
+    engine = ViewCrafterEngine(gparams, mcfg, synthesis.SynthesisConfig(ddim_steps=GUIDED_STEPS),
+                               video_length=EVENT_FRAMES, height=GEN_H, width=width)
+    trainer = pipelined_trainer(views, params, frozen, engine, pcd, guidance_intrinsic(views.cams[0]), True,
+                                10 ** 6)
+    frames, counter = {}, {}
+    count_renders(frozen, frames, "frozen")
+    count_step_renders(trainer, counter)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    trainer.init_trajectory_pool()
+    alone_s, alone_ms = [], []
+    for it in (1, 2):
+        ms = []
+        with timed(ddim_guidance, "guided_step", ms):
+            t = time.perf_counter()
+            trainer.finalize_diffusion_event(trainer.submit_diffusion_event(it))
+            stream_sync()
+            alone_s.append(time.perf_counter() - t)
+        alone_ms.append(ms)
+    step_alone = statistics.median(alone_ms[1])
+    it = 2
+    beside = {}
+    for name, prio in (("default stream", None), ("priority -1", torch.cuda.Stream(device=dev, priority=-1))):
+        r = dict(step_ms=[], during=[], idle=[])
+        wait0 = trainer.event_wait_s
+        if prio is not None:
+            prio.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(prio) if prio is not None else contextlib.nullcontext():
+            with timed(ddim_guidance, "guided_step", r["step_ms"]):
+                it += 1
+                t0 = time.perf_counter()
+                pending = trainer.submit_diffusion_event(it)
+                while not pending.future.done():
+                    it += 1
+                    t = time.perf_counter()
+                    trainer.step(it)
+                    stream_sync()
+                    r["during"].append((time.perf_counter() - t) * 1e3)
+                trainer.finalize_diffusion_event(pending)
+                stream_sync()
+                r["event_s"] = time.perf_counter() - t0
+            for _ in range(PIPE_IDLE_STEPS):
+                it += 1
+                t = time.perf_counter()
+                trainer.step(it)
+                stream_sync()
+                r["idle"].append((time.perf_counter() - t) * 1e3)
+        if prio is not None:
+            torch.cuda.current_stream().wait_stream(prio)
+        r["wait"] = trainer.event_wait_s - wait0
+        beside[name] = r
+    trainer.close_event_worker()
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = dict(_build.LAUNCHES)
+    fwd, bwd = guided_launches(mcfg.unet, GUIDED_STEPS, GEN_FRAMES, DECODE_CHUNK)
+    events = 2 + len(beside)
+    want = {n: counter["renders"] + (frames["frozen"] if n in FORWARD_KERNELS else 0) for n in GAUSSIAN_KERNELS}
+    want.update(flash_attn_fwd=events * (fwd + 2), flash_attn_bwd_dkv=events * bwd, flash_attn_bwd_dq=events * bwd)
+    if launches != want:
+        raise AssertionError(f"10b: launches {launches}, expected {want}: {events} events' L1 and frozen frames, "
+                             f"K1-K6 once a render of the steps")
+    if trainer.events_run != events or not all(r["during"] for r in beside.values()) or peak_gb >= 80.0:
+        raise AssertionError(f"10b: {trainer.events_run} events, steps beside "
+                             f"{[len(r['during']) for r in beside.values()]}, peak {peak_gb:.2f} GB")
+    video = torch.stack([c.pseudo_gt for c in trainer.pseudo_stack])
+    if not bool(torch.isfinite(video).all()) or float(video.min()) < 0.0 or float(video.max()) > 1.0:
+        raise AssertionError("10b: the event's frames are not finite values in [0, 1]")
+    lines = [
+        f"the ViewCrafter engine ({EVENT_FRAMES}x{GEN_H}x{width} bf16, random weights, {GUIDED_STEPS} guided DDIM "
+        f"steps) in phase 5c's trainer ({N_SCENE} Gaussians), pipeline_guidance with the worker: event alone "
+        f"{alone_s[1]:.3f} s (warm-up event {alone_s[0]:.3f} s), guided DDIM step ms alone "
+        + ", ".join(f"{x:.1f}" for x in alone_ms[1]) + f" (median {step_alone:.1f})"]
+    for name, r in beside.items():
+        during, idle = statistics.median(r["during"]), statistics.median(r["idle"])
+        # the same work one after the other: the event alone, then the steps at their idle pace
+        serial = alone_s[1] + len(r["during"]) * idle / 1e3
+        lines.append(
+            f"beside the trainer on the {name}: event {r['event_s']:.3f} s to its finalize, guided DDIM step ms "
+            + ", ".join(f"{x:.1f}" for x in r["step_ms"]) + f" (median {statistics.median(r['step_ms']):.1f}, "
+            f"{statistics.median(r['step_ms']) / step_alone:.3f}x alone); {len(r['during'])} trainer steps meanwhile, "
+            f"host ms median {during:.3f} (max {max(r['during']):.1f}) against {idle:.3f} with no event "
+            f"({PIPE_IDLE_STEPS} steps after; {during / idle:.3f}x); the same work serial {serial:.3f} s, so "
+            f"{serial - r['event_s']:.3f} s hidden; finalize waited {r['wait']:.3f} s")
+    lines.append(
+        f"peak allocated (engine weights, trainer state, stacks, the guided steps beside the trainer's): "
+        f"{peak_gb:.2f} GB of 80; launches {launches} (exactly: L1 {fwd + 2} / {bwd} / {bwd} an event, "
+        f"frozen frames {frames['frozen']}, step renders {counter['renders']})")
+    del trainer, engine, gparams
+    torch.cuda.empty_cache()
+    return launches, lines, step_alone
+
+
+@contextlib.contextmanager
+def plain_gaussian_kernels():
+    """The rasterizer's kernel wrappers routed to their plain versions on
+    the card (the comparison of 10c; nothing on the main path does so)."""
+    bin_gaussians = tiling.bin_gaussians
+    with mock.patch.object(preprocess_fused, "preprocess_fused_fwd", preprocess_fused.preprocess_table_plain), \
+            mock.patch.object(preprocess_fused, "preprocess_fused_bwd", preprocess_fused.preprocess_fused_bwd_plain), \
+            mock.patch.object(raster_tiles, "_run_fwd", raster_tiles.blend_fwd_plain), \
+            mock.patch.object(raster_tiles, "_run_bwd", raster_tiles.blend_bwd_plain), \
+            mock.patch.object(segsum, "segment_sum_sorted", segsum.segment_sum_sorted_plain), \
+            mock.patch.object(tiling, "bin_gaussians",
+                              functools.partial(bin_gaussians, expand_fn=expand.expand_instances_plain)):
+        yield
+
+
+def pipeline_dp(dev, room) -> tuple[dict, list]:
+    """10c: `train_step_dp` of the 6 train views at phase 5b's room (1M
+    Gaussians, SH 3): DP_STEPS steps on the main path (each of K1-K6
+    exactly 6 times a step), then one step without Adam from the same state
+    through the kernels and through their plain versions."""
+    gt, pcams, params = room
+    views = train_views(gt, pcams, dev)
+    cams = stack_cameras([c.raster_camera(dev) for c in views.cams])
+    gts = torch.stack([torch.from_numpy(np.ascontiguousarray(c.image, np.float32)) for c in views.cams]).to(dev)
+    bg = torch.zeros(3, device=dev)
+    opt = OptimizationParams()
+    lrs = lrs_for(opt, opt.position_lr_init * views.cameras_extent)
+
+    def fresh():
+        return G.GaussianState.fresh(G.GaussianParams(**{k: v.clone() for k, v in params.tensors().items()}))
+
+    state = fresh()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    ms, losses = [], []
+    for _ in range(DP_STEPS):
+        t = time.perf_counter()
+        m = train_step_dp(state, cams, gts, bg, lrs, 3, opt.lambda_dssim)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(m["loss"]))
+    launches = dict(_build.LAUNCHES)
+    b = len(views.cams)
+    if any(launches[n] != b * DP_STEPS for n in GAUSSIAN_KERNELS) or any(
+            launches[n] for n in ("flash_attn_fwd",) + L1_BWD_KERNELS):
+        raise AssertionError(f"10c: launches {launches}: each of K1-K6 exactly {b} a step ({DP_STEPS} steps)")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"10c: losses {losses}")
+    # against the plain chain: six renders and the mean through the plain versions
+    a, p = fresh(), fresh()
+    ma = train_step_dp(a, cams, gts, bg, lrs, 3, opt.lambda_dssim, apply_adam=False)
+    before = dict(_build.LAUNCHES)
+    with plain_gaussian_kernels():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mp = train_step_dp(p, cams, gts, bg, lrs, 3, opt.lambda_dssim, apply_adam=False)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+    if dict(_build.LAUNCHES) != before:
+        raise AssertionError("10c: the plain chain launched a kernel")
+    errs = {}
+    for name in G.PARAM_NAMES:
+        g, w = getattr(a.params, name).grad, getattr(p.params, name).grad
+        errs[name] = float((g - w).norm() / w.norm().clamp_min(1e-30))
+    errs["accum"] = float((a.xyz_gradient_accum - p.xyz_gradient_accum).norm()
+                          / p.xyz_gradient_accum.norm().clamp_min(1e-30))
+    loss_err = abs(float(ma["loss"]) - float(mp["loss"]))
+    rows = {k: int((getattr(a, k) != getattr(p, k)).flatten().sum()) for k in ("denom", "max_radii2d")}
+    if max(errs.values()) > DP_GRAD_TOL or loss_err > DP_LOSS_TOL \
+            or max(rows.values()) > DP_ROW_FRACTION * a.num_gaussians:
+        raise AssertionError(f"10c against the plain chain: gradient errors {errs} (tol {DP_GRAD_TOL}), loss "
+                             f"{float(ma['loss'])} vs {float(mp['loss'])} (tol {DP_LOSS_TOL}), rows differing "
+                             f"{rows} (at most {DP_ROW_FRACTION} of {a.num_gaussians})")
+    lines = [
+        f"train_step_dp of the {b} train views ({N_SCENE} Gaussians, SH 3, {WIDTH}x{HEIGHT}): step host ms "
+        + ", ".join(f"{x:.2f}" for x in ms) + f"; loss {losses[0]:.5f} -> {losses[-1]:.5f}; launches "
+        f"{ {n: launches[n] for n in GAUSSIAN_KERNELS} } (exactly {b} a step)",
+        f"against its plain chain (the same step without Adam, {b} renders through the plain versions, "
+        f"{plain_ms:.1f} ms): loss {float(ma['loss']):.7f} vs {float(mp['loss']):.7f} (|err| {loss_err:.2e}, tol "
+        f"{DP_LOSS_TOL}), gradients' error in L2 norm over the plain's " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                                                         errs.items())
+        + f" (tol {DP_GRAD_TOL}); rows of denom / max radii differing {rows['denom']} / {rows['max_radii2d']}",
+    ]
+    return launches, lines
+
+
+def pipeline_cli(dev, work: Path, src: Path, base: Path) -> dict:
+    """10d: train_guidedvd --pipeline_guidance with the oracle on phase 6's
+    scene and baseline, PIPE_CLI_ITERS iterations, an event every
+    PIPE_CLI_EVERY, a checkpoint while an event is in flight; launches
+    exact (the steps' renders and the FrozenRenderer frames counted, the
+    evaluation's views); then the ViewCrafter CLI of 6c with the flag."""
+    mdl = work / "synthetic_guided_pipelined"
+    counts = {"renders": 0, "frames": 0, "submitted": 0}
+    pick, render, submit = GuidedTrainer._pick_pseudo, FrozenRenderer.render, GuidedTrainer.submit_diffusion_event
+
+    def counted_pick(self, it):
+        cam = pick(self, it)
+        counts["renders"] += 1 + (cam is not None)
+        return cam
+
+    def counted_render(self, *args, **kwargs):
+        counts["frames"] += 1
+        return render(self, *args, **kwargs)
+
+    def counted_submit(self, it):
+        pending = submit(self, it)
+        counts["submitted"] += pending is not None
+        return pending
+
+    ckpt_at = PIPE_CLI_EVERY + PIPE_CLI_EVERY // 2  # the second event in flight
+    _build.reset_launches()
+    with mock.patch.object(GuidedTrainer, "_pick_pseudo", counted_pick), \
+            mock.patch.object(FrozenRenderer, "render", counted_render), \
+            mock.patch.object(GuidedTrainer, "submit_diffusion_event", counted_submit):
+        t0 = time.perf_counter()
+        trainer = port_guided_cli.main([
+            "-s", str(src), "-m", str(mdl), "--dataset", "colmap", "--n_views", "6", "--eval",
+            "--iterations", str(PIPE_CLI_ITERS), "--test_iterations", str(PIPE_CLI_ITERS),
+            "--save_iterations", str(PIPE_CLI_ITERS), "--baseline_path", str(base),
+            "--baseline_iteration", str(CLI_ITERS), "--oracle_gt_npz", str(src / "gt_gaussians.npz"),
+            "--guidance_vd_iter", str(PIPE_CLI_EVERY), "--start_sample_pseudo", "2",
+            "--end_sample_pseudo", str(PIPE_CLI_ITERS - 2), "--checkpoint_iterations", str(ckpt_at),
+            "--pipeline_guidance", "--device", dev.type,
+        ])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    timing = json.loads((mdl / "timing_summary.json").read_text())
+    n_eval = len(trainer.train_cams) + len(trainer.scene.getTestCameras())
+    want = {n: counts["renders"] + (counts["frames"] + n_eval if n in FORWARD_KERNELS else 0)
+            for n in GAUSSIAN_KERNELS}
+    if any(launches[n] != want[n] for n in GAUSSIAN_KERNELS) or trainer.events_run != counts["submitted"] \
+            or trainer.events_run < 3 or not timing["pipeline_guidance"] or trainer._executor is not None \
+            or not (mdl / f"chkpnt{ckpt_at}.ckpt.guided.npz").exists():
+        raise AssertionError(f"10d: launches {launches}, expected {want}; events {trainer.events_run} of "
+                             f"{counts['submitted']} submitted; timing {timing}")
+    port_render.main(["-m", str(mdl), "--skip_train", "--iteration", str(PIPE_CLI_ITERS), "--device", dev.type])
+    port_metrics.evaluate([str(mdl)], device=dev.type)
+    res = json.loads((mdl / "results.json").read_text())[f"ours_{PIPE_CLI_ITERS}"]
+    if not (math.isfinite(res["PSNR"]) and math.isfinite(res["SSIM"])):
+        raise AssertionError(f"10d scores {res}")
+    log(f"phase 10d oracle CLI --pipeline_guidance (phase 6's scene and baseline): train_guidedvd "
+        f"{PIPE_CLI_ITERS} iterations {train_s:.1f} s (training {timing['train_s']:.3f} s; events "
+        + ", ".join(f"{k} {v:.3f}" for k, v in timing["event_phase_s"].items())
+        + f" on the worker; finalize waited {timing['event_wait_s']:.3f} s) | events {trainer.events_run}, "
+        f"checkpoint at {ckpt_at} with an event in flight | test PSNR {res['PSNR']:.4f} SSIM {res['SSIM']:.5f} | "
+        f"launches {launches} (exactly: step renders {counts['renders']}, frozen and oracle frames "
+        f"{counts['frames']}, evaluation views {n_eval})")
+    vc = phase_vc_cli(dev, work, src, base, extra=("--pipeline_guidance",), tag="10d")
+    return {n: launches.get(n, 0) + vc.get(n, 0) for n in KERNELS}
+
+
+def phase_pipeline(dev, work: Path, cli=None):
+    """Phase 10 (see the module's docstring). Returns its launches, and
+    the guided DDIM step's ms alone in 10b."""
+    room = dense_room(dev)
+    gt = room[0]
+    rng = np.random.default_rng(SEED + 5)
+    cols = np.clip(SH2RGB(gt["features_dc"][:, 0]), 0, 1).astype(np.float32)
+    pcd = synthetic.init_cloud(gt["xyz"], cols, N_SCENE, rng)
+    total = {}
+    launches, lines = pipeline_oracle(dev, work, room, pcd)
+    for line in lines:
+        log("phase 10a " + line)
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    launches, lines, step_alone = pipeline_viewcrafter(dev, work, room, pcd)
+    for line in lines:
+        log("phase 10b " + line)
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    launches, lines = pipeline_dp(dev, room)
+    for line in lines:
+        log("phase 10c " + line)
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    del room
+    if cli is None:  # phase 6's scene and baseline, made here when phase 6 did not run
+        cli = phase_cli(dev, work)[:2]
+    for k, v in pipeline_cli(dev, work, *cli).items():
+        total[k] = total.get(k, 0) + v
+    return {n: total.get(n, 0) for n in KERNELS}, step_alone
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--generate-only", type=int, metavar="STEPS", default=None,
@@ -3190,6 +3683,9 @@ def main() -> None:
     parser.add_argument("--geometry-only", action="store_true",
                         help="run phases 1, 2 and 9 alone: raw data to the DUSt3R cloud and training, the "
                              "append path, the two-scale CFG, --nan_debug and the viewer")
+    parser.add_argument("--pipeline-only", action="store_true",
+                        help="run phases 1, 2 and 10 alone: pipelined events (the oracle's, the "
+                             "ViewCrafter's beside the trainer) and the camera-batch step")
     args = parser.parse_args()
     start = time.perf_counter()
     secs = {}
@@ -3238,6 +3734,10 @@ def main() -> None:
             run("9", phase_geometry, dev, work)
             log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
             return
+        if args.pipeline_only:
+            run("10", phase_pipeline, dev, work)
+            log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+            return
         res = run("3", phase_kernels, dev)
         if args.gaussian_only:
             run("5", phase_train, dev)
@@ -3258,10 +3758,13 @@ def main() -> None:
         res.update(run("8a", phase_l1_bwd, dev))
         by_phase["8b"], step_8b = run("8b-8c", phase_guided, dev, GUIDED_STEPS)
         by_phase["9"] = run("9", phase_geometry, dev, work, c5["host_ms"])
+        by_phase["10"], step_10b = run("10", phase_pipeline, dev, work, (cli_src, base))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"phase 5d vs 8b: a guided DDIM step ({GUIDED_STEPS}-step request, 25x320x448 bf16) "
         f"{vc['step_ms']:.1f} ms inside the trainer (5d), {step_8b:.1f} ms alone (8b), in this call")
+    log(f"phase 10b vs 8b: a guided DDIM step {step_10b:.1f} ms in the pipelined trainer's event with nothing "
+        f"beside it (10b), {step_8b:.1f} ms alone (8b), in this call")
     launches = {name: sum(ph.get(name, 0) for ph in by_phase.values()) for name in KERNELS}
     for name in KERNELS:
         res[name].setdefault("extra", {})["launches_by_phase"] = {k: ph[name] for k, ph in by_phase.items()

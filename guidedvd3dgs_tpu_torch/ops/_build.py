@@ -10,6 +10,13 @@ is never loaded.
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `launch` raises on a non-zero code and only then
 counts the launch in `LAUNCHES`, so a count says the kernel really ran.
+
+Two threads may launch at once (the guided trainer's steps and a diffusion
+event on its worker): the library is built and loaded once under a lock,
+and the counts are kept under another. The one cache a kernel keeps, K2's
+and K3's resident-block query per (kernel, device, smem)
+(`csrc/common.cuh::resident_blocks`), holds its own mutex, and the runtime
+keeps the error `cudaGetLastError()` reads per host thread.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -52,13 +60,16 @@ SIGNATURES = {
 
 # Launch counts of each kernel in this process; `launch` is the only writer.
 LAUNCHES = {name: 0 for name in SIGNATURES}
+_launch_lock = threading.Lock()
 
 _lib = None  # the loaded library, once built
+_lib_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _launch_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -129,17 +140,22 @@ def build() -> tuple[Path, float, str]:
 
 
 def library() -> ctypes.CDLL:
+    """The loaded library, built on the first call; a second thread's first
+    call waits for that build instead of starting its own."""
     global _lib
-    if _lib is None:
-        path, _, _ = build()
-        lib = ctypes.CDLL(str(path))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, f"gvd_{name}")
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.gvd_error_string.argtypes = [ctypes.c_int]
-        lib.gvd_error_string.restype = ctypes.c_char_p
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _lib_lock:
+        if _lib is None:
+            path, _, _ = build()
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, f"gvd_{name}")
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.gvd_error_string.argtypes = [ctypes.c_int]
+            lib.gvd_error_string.restype = ctypes.c_char_p
+            _lib = lib
     return _lib
 
 
@@ -154,7 +170,8 @@ def launch(name: str, *args) -> None:
     if rc != 0:
         msg = lib.gvd_error_string(rc).decode()
         raise RuntimeError(f"kernel {name} failed to launch: CUDA error {rc} ({msg})")
-    LAUNCHES[name] += 1
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, device: torch.device,

@@ -38,17 +38,25 @@ pseudo term (`vgg_loss_fn`); exact checkpoints (train/guided_checkpoint.py);
 with append_pcd_from_video_diffusion and a `depth_estimator`, each event's
 unobserved pixels lifted to new Gaussians (guidance/depth_lift.py,
 models/gaussians.py::add_points; reference train_guidedvd.py:569-612).
+With `pipeline_guidance` the events lag one boundary, as the JAX
+package's pipelined events (its guided.py:1103-1107, 1676-1683, 1698-1702,
+1724-1733): an event is submitted at its boundary and finalized at the
+next, so its device work (the renders, the artifacts, the engine's video)
+runs on a worker thread and its own CUDA stream while the trainer steps;
+the host draws stay on the trainer's thread in the reference's order.
 Not carried from the reference: its lax.scan chunk trainer and device
-pseudo-frame pool, its pipelined events and its capacity regrowth.
+pseudo-frame pool, and its capacity regrowth.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
 import time
-from dataclasses import dataclass
+from concurrent.futures import Future, ThreadPoolExecutor
+from dataclasses import dataclass, field
 from types import SimpleNamespace
 from typing import Callable, Dict, List, Optional, Protocol
 
@@ -197,9 +205,11 @@ class ViewCrafterEngine:
 
 
 def _sync(device: torch.device) -> None:
-    """Wait for the device, so a host clock reads the work queued before."""
+    """Wait for the work queued before on the calling thread's stream of
+    `device`, so a host clock reads it. Only that stream: a pipelined
+    event's worker and the trainer each time their own work."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 # ----------------------------------------------------------------------------
@@ -307,6 +317,45 @@ class TrajEntry:
     scale_idx: int
     obj_c2w: np.ndarray  # (1, 4, 4) the source pose in the object frame
     transform_back: np.ndarray  # (4, 4)
+
+
+@dataclass
+class EventInputs:
+    """What an event's device work needs, fixed by its host prelude."""
+
+    iteration: int
+    view: int
+    traj: np.ndarray  # (T, 4, 4) c2w
+    w2cs: np.ndarray  # (T, 4, 4)
+    event_dir: str
+    sw: float  # the guidance-weight schedule's factor
+    video_key: Optional[tuple]
+    stored: Optional[str]  # the stored video read instead of a request
+    train_image: torch.Tensor  # (3, H, W): the trajectory's frame 0
+    live: Optional["FrozenRenderer"]  # the training Gaussians' renderer, or None
+
+
+@dataclass
+class EventRecord:
+    """An event's outputs, as finalize takes them."""
+
+    view: int
+    traj: np.ndarray
+    video: torch.Tensor  # (T, 3, H, W) float32 in [0, 1] on the trainer's device
+    gs_alpha: torch.Tensor  # (T, 1, H, W), 1 where unobserved
+    gs_depth: torch.Tensor  # (T, 1, H, W)
+    event_dir: str
+    video_key: Optional[tuple]
+    phase_s: Dict[str, float] = field(default_factory=dict)
+
+
+@dataclass
+class PendingEvent:
+    """A submitted event: its record, or the worker's future of (record,
+    the CUDA event its stream recorded at the end)."""
+
+    record: Optional[EventRecord] = None
+    future: Optional[Future] = None
 
 
 def select_topk_candidates(areas: np.ndarray, mask_thresh: float, top_k: int) -> np.ndarray:
@@ -450,14 +499,27 @@ class GuidedTrainer(BaselineTrainer):
     `depth_estimator` (frames (T, H, W, 3) in [-1, 1] -> (T, H, W) relative
     inverse depth, guidance/dpt.py::make_depth_estimator) lifts each event's
     video to new Gaussians when the options ask for
-    append_pcd_from_video_diffusion; `points_added` counts them."""
+    append_pcd_from_video_diffusion; `points_added` counts them.
+
+    `pipeline_guidance` lags each event one boundary (the JAX package's
+    pipelined events): at a boundary the pending event is finalized, then
+    the new one submitted; `train` finalizes the last one before the
+    artifact writes drain and `write_checkpoint` before it writes. Its
+    device work runs on a worker thread with its own CUDA stream, or, with
+    `event_worker` False, at once on this thread (the same lagged order;
+    the two give the same bits). `event_wait_s` counts the seconds a
+    finalize waited for the worker. The engine's torch `Generator` is used
+    only by the device work. The steps stay on the caller's stream at its
+    priority: a stream of higher priority for them showed no consistent
+    gain on one card (chip_smoke.py phase 10 measures both)."""
 
     def __init__(self, scene, state: G.GaussianState, opt, pipe, model_params,
                  frozen: FrozenRenderer, engine: DiffusionEngine, pcd_points: np.ndarray,
                  pcd_colors: np.ndarray, guidance_intrinsic: np.ndarray, background=None,
                  seed: int = 1, elevation: float = 5.0, hybrid_traj: bool = False,
                  vgg_loss_fn: Optional[Callable] = None, frozen_mask: Optional[FrozenRenderer] = None,
-                 depth_estimator: Optional[Callable] = None):
+                 depth_estimator: Optional[Callable] = None, pipeline_guidance: bool = False,
+                 event_worker: bool = True):
         super().__init__(scene, state, opt, pipe, model_params, background)
         self.frozen = frozen
         self.frozen_mask = frozen_mask
@@ -494,10 +556,21 @@ class GuidedTrainer(BaselineTrainer):
         self._cur_video_key = None  # (scale_idx, view, cand_idx) of the event's pool entry
         self.artifact_writer = AsyncArtifactWriter()
         self.last_metrics = None
+        self.pipeline_guidance = pipeline_guidance
+        self.event_worker = event_worker
+        self.event_wait_s = 0.0
+        self._pending_event: Optional[PendingEvent] = None
+        self._executor: Optional[ThreadPoolExecutor] = None
+        self._streams: Optional[List[torch.cuda.Stream]] = None
 
     def write_checkpoint(self, path: str, iteration: int) -> None:
+        """The guided checkpoint; an event in flight is finalized first, so
+        the checkpoint holds its stacks (a checkpointed run's stream then
+        parts from the same run without checkpoints; its resume is bitwise
+        the run that wrote it, as in the JAX package, guided.py:1724-1733)."""
         from guidedvd3dgs_tpu_torch.train.guided_checkpoint import save_guided_checkpoint
 
+        self.flush_pending_event()
         save_guided_checkpoint(path, self, iteration)
         print(f"[ITER {iteration}] saved guided checkpoint {path} (+ .guided.npz)")
 
@@ -549,10 +622,12 @@ class GuidedTrainer(BaselineTrainer):
 
     # -- diffusion event -------------------------------------------------------
 
-    def pc_render_along(self, traj_c2ws: np.ndarray, view_idx: int) -> torch.Tensor:
+    def pc_render_along(self, traj_c2ws: np.ndarray, view_idx: int,
+                        train_image: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(T, H, W, 3): the point cloud splatted along the trajectory, frame
         0 replaced by the real train image (reference viewcrafter_wrapper.py:
-        469-548). By default only the points seen from the source view are
+        469-548; `train_image`, (3, H, W) on the device, where the caller
+        has it). By default only the points seen from the source view are
         splatted (the reference's pc_render_single_view); the mask is
         computed once per view."""
         w2cs = torch.from_numpy(np.stack([np.linalg.inv(c) for c in traj_c2ws]).astype(np.float32))
@@ -570,7 +645,9 @@ class GuidedTrainer(BaselineTrainer):
                                    point_mask=visible).image
                 for w2c in w2cs
             ])
-        frames[0] = self.camera_on_device(self.train_cams[view_idx])[1].permute(1, 2, 0)
+        if train_image is None:
+            train_image = self.camera_on_device(self.train_cams[view_idx])[1]
+        frames[0] = train_image.permute(1, 2, 0)
         return frames
 
     def run_diffusion_event(self, iteration: int) -> None:
@@ -603,21 +680,34 @@ class GuidedTrainer(BaselineTrainer):
         s, v, c = key
         return os.path.join(mp, f"video_files_scale{s}", str(v), f"{c}.npz")
 
-    def _guidance_renders(self, iteration: int, w2cs: np.ndarray):
-        """(rgb, alpha, depth) of the event's frames: the frozen baseline's;
-        the alpha of `frozen_mask` where there is one; from
-        guidance_with_training_gs_startiter on with guidance_with_training_gs,
-        rgb and depth of the current training Gaussians, and their alpha too
-        with guidance_with_training_gs_decide_mask (reference :493-524)."""
+    def _guidance_renderer(self, iteration: int) -> Optional[FrozenRenderer]:
+        """The renderer of the training Gaussians from
+        guidance_with_training_gs_startiter on with guidance_with_training_gs
+        (reference :493-524), else None (the frozen baseline's renders).
+        With pipeline_guidance it renders a copy of them taken now: the
+        trainer changes them in place (Adam, densification) while the
+        event's worker renders."""
         opt = self.opt
+        if not (getattr(opt, "guidance_with_training_gs", False)
+                and iteration >= getattr(opt, "guidance_with_training_gs_startiter", 0)):
+            return None
+        if self._live_renderer is None:
+            self._live_renderer = LiveRenderer(self.state, self.max_sh_degree, backend=self.frozen.backend)
+        self._live_renderer.state = self.state
+        if not self.pipeline_guidance:
+            return self._live_renderer
+        snapshot = {k: v.clone() for k, v in self.state.params.tensors().items()}
+        return FrozenRenderer(SimpleNamespace(**snapshot), self.max_sh_degree, backend=self.frozen.backend)
+
+    def _guidance_renders(self, w2cs: np.ndarray, live: Optional[FrozenRenderer]):
+        """(rgb, alpha, depth) of the event's frames: the frozen baseline's;
+        the alpha of `frozen_mask` where there is one; with `live` (see
+        `_guidance_renderer`), rgb and depth of the training Gaussians, and
+        their alpha too with guidance_with_training_gs_decide_mask."""
         args = (w2cs, self.intrinsic, self.H, self.W)
-        if getattr(opt, "guidance_with_training_gs", False) and \
-                iteration >= getattr(opt, "guidance_with_training_gs_startiter", 0):
-            if self._live_renderer is None:
-                self._live_renderer = LiveRenderer(self.state, self.max_sh_degree, backend=self.frozen.backend)
-            self._live_renderer.state = self.state
-            rgb, alpha, depth = self._live_renderer.render_many(*args)
-            if not getattr(opt, "guidance_with_training_gs_decide_mask", False):
+        if live is not None:
+            rgb, alpha, depth = live.render_many(*args)
+            if not getattr(self.opt, "guidance_with_training_gs_decide_mask", False):
                 _, alpha, _ = (self.frozen_mask or self.frozen).render_many(*args)
         else:
             rgb, alpha, depth = self.frozen.render_many(*args)
@@ -658,41 +748,43 @@ class GuidedTrainer(BaselineTrainer):
         self._cur_video_key = (entry.scale_idx, view, entry.cand_idx)
         return entry.traj_c2ws
 
-    def submit_diffusion_event(self, iteration: int):
-        """Render the event's inputs, write its artifacts and generate its
-        video, or read it from the store with guidance_videos_from_file
-        (reference train_guidedvd.py:431-559). Returns the record
-        `finalize_diffusion_event` takes, or None when the view has no
-        trajectory. Each phase's seconds (device included) add to
-        `event_phase_s`."""
+    def submit_diffusion_event(self, iteration: int) -> Optional["PendingEvent"]:
+        """Start one event (reference train_guidedvd.py:431-559): the host
+        prelude here (`_event_prelude`), then its device work
+        (`_event_device_work`): at once, or, with pipeline_guidance and
+        `event_worker`, on the worker thread and its own CUDA stream, this
+        returning at once. Returns what `finalize_diffusion_event` takes, or
+        None when the view has no trajectory."""
+        inputs = self._event_prelude(iteration)
+        if inputs is None:
+            return None
+        if not (self.pipeline_guidance and self.event_worker):
+            return PendingEvent(record=self._event_device_work(inputs))
+        ready = None
+        if self.device.type == "cuda":
+            streams = self._worker_streams()
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+            if inputs.live is not None:  # the snapshot, made on this stream, read on the worker's
+                for t in vars(inputs.live.params).values():
+                    t.record_stream(streams[-1])
+        if self._executor is None:
+            self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="guided-event")
+        return PendingEvent(future=self._executor.submit(self._worker_event, inputs, ready))
+
+    def _event_prelude(self, iteration: int) -> Optional["EventInputs"]:
+        """The event's host work, on the trainer's thread in the reference's
+        order: the view, the trajectory (every draw of `rng_np` and pool
+        pop), the store key, the engine's trajectory, the guidance-weight
+        schedule, the artifact directory and the stored video's path."""
         opt = self.opt
         view = self._next_view()
         self._cur_video_key = None
         traj = self._event_trajectory(view)
         if traj is None:
             return None
-        _sync(self.device)
-        t = time.perf_counter()
-        pc_renders = self.pc_render_along(traj, view)
-        _sync(self.device)
-        t_pc = time.perf_counter() - t
-
-        t = time.perf_counter()
         w2cs = np.stack([np.linalg.inv(traj[i]) for i in range(traj.shape[0])])
-        rgb, alpha, depth = self._guidance_renders(iteration, w2cs)
-        gs_rgb = torch.clamp(rgb, 0, 1)  # (T, 3, H, W)
-        gs_alpha = (torch.clamp(alpha, 0, 1) < 0.9).to(torch.float32)[:, None]  # unobserved
-        gs_depth = depth[:, None]
-        _sync(self.device)
-        t_frozen = time.perf_counter() - t
-
-        t = time.perf_counter()
         event_dir = self._event_dir(iteration)
-        if event_dir:
-            self._save_event_artifacts(event_dir, pc_renders, gs_rgb, gs_alpha, gs_depth)
-        t_art = time.perf_counter() - t
-
-        t = time.perf_counter()
         sw = guidance_weight_schedule(iteration) if getattr(opt, "scale_guidance_weight", False) else 1.0
         if hasattr(self.engine, "set_trajectory"):
             self.engine.set_trajectory(w2cs, self.intrinsic)
@@ -702,15 +794,47 @@ class GuidedTrainer(BaselineTrainer):
                 else None
             self.engine.artifact_writer = self.artifact_writer
         vf = self._video_file_path() if getattr(opt, "guidance_videos_from_file", False) else None
-        if vf is not None and os.path.exists(vf):
+        return EventInputs(
+            iteration=iteration, view=view, traj=traj, w2cs=w2cs, event_dir=event_dir, sw=sw,
+            video_key=self._cur_video_key, stored=vf if vf is not None and os.path.exists(vf) else None,
+            train_image=self.camera_on_device(self.train_cams[view])[1],
+            live=self._guidance_renderer(iteration))
+
+    def _event_device_work(self, inp: "EventInputs") -> "EventRecord":
+        """Render the event's inputs, write its artifacts and generate its
+        video, or read it from the store with guidance_videos_from_file
+        (reference train_guidedvd.py:431-559). Each phase's seconds (its
+        device work included) go into the record."""
+        opt, iteration = self.opt, inp.iteration
+        _sync(self.device)
+        t = time.perf_counter()
+        pc_renders = self.pc_render_along(inp.traj, inp.view, inp.train_image)
+        _sync(self.device)
+        t_pc = time.perf_counter() - t
+
+        t = time.perf_counter()
+        rgb, alpha, depth = self._guidance_renders(inp.w2cs, inp.live)
+        gs_rgb = torch.clamp(rgb, 0, 1)  # (T, 3, H, W)
+        gs_alpha = (torch.clamp(alpha, 0, 1) < 0.9).to(torch.float32)[:, None]  # unobserved
+        gs_depth = depth[:, None]
+        _sync(self.device)
+        t_frozen = time.perf_counter() - t
+
+        t = time.perf_counter()
+        if inp.event_dir:
+            self._save_event_artifacts(inp.event_dir, pc_renders, gs_rgb, gs_alpha, gs_depth)
+        t_art = time.perf_counter() - t
+
+        t = time.perf_counter()
+        if inp.stored is not None:
             # a stored video instead of a request (reference --guidance_videos_from_file)
-            video = torch.from_numpy(np.load(vf)["video"]).to(self.device)
-            print(f"  [event it{iteration}] video from file {vf}", flush=True)
+            video = torch.from_numpy(np.load(inp.stored)["video"]).to(self.device)
+            print(f"  [event it{iteration}] video from file {inp.stored}", flush=True)
         else:
             video = self.engine.generate(pc_renders, gs_rgb, 1.0 - gs_alpha, gs_depth,
                                          generator=self.generator,
                                          no_guidance=getattr(opt, "no_guidance", False),
-                                         scale_guidance_weight=sw)  # (T, 3, h, w) in [0, 1]
+                                         scale_guidance_weight=inp.sw)  # (T, 3, h, w) in [0, 1]
             # the engine may run on another card and in bf16: the pseudo
             # ground truth is float32 on the trainer's
             video = video.to(self.device, torch.float32)
@@ -719,13 +843,55 @@ class GuidedTrainer(BaselineTrainer):
                 video = resize_renders(video.permute(0, 2, 3, 1), self.H, self.W).permute(0, 3, 1, 2)
         _sync(self.device)
         t_gen = time.perf_counter() - t
-        print(f"  [event it{iteration}] pc_render {t_pc:.3f}s frozen x{traj.shape[0]} {t_frozen:.3f}s "
+        print(f"  [event it{iteration}] pc_render {t_pc:.3f}s frozen x{inp.traj.shape[0]} {t_frozen:.3f}s "
               f"artifacts {t_art:.3f}s generate {t_gen:.3f}s", flush=True)
-        for k, v in (("pc_render", t_pc), ("frozen", t_frozen), ("artifacts", t_art), ("generate", t_gen)):
-            self.event_phase_s[k] += v
-        return iteration, view, traj, video, gs_alpha, gs_depth, event_dir, self._cur_video_key
+        return EventRecord(inp.view, inp.traj, video, gs_alpha, gs_depth, inp.event_dir,
+                           inp.video_key, {"pc_render": t_pc, "frozen": t_frozen, "artifacts": t_art,
+                                           "generate": t_gen})
 
-    def finalize_diffusion_event(self, pending) -> None:
+    def _worker_streams(self) -> List[torch.cuda.Stream]:
+        """The worker's CUDA streams, made once: one on the engine's card
+        where that is another, then one on the trainer's (the last entered,
+        so that it is the worker's current device)."""
+        if self._streams is None:
+            eng = torch.device(getattr(self.engine, "device", self.device))
+            self._streams = [torch.cuda.Stream(device=d) for d in dict.fromkeys([eng, self.device])]
+        return self._streams
+
+    def _worker_event(self, inp: "EventInputs", ready: Optional[torch.cuda.Event]):
+        """On the worker thread: the event's device work on the worker's
+        streams once they have waited for the trainer's work up to the
+        submission (`ready`). Returns the record and the CUDA event its
+        stream records at the end (None on the CPU)."""
+        if ready is None:
+            return self._event_device_work(inp), None
+        streams = self._worker_streams()
+        with contextlib.ExitStack() as stack:
+            for st in streams:
+                stack.enter_context(torch.cuda.stream(st))
+                st.wait_event(ready)
+            record = self._event_device_work(inp)
+            done = torch.cuda.Event()
+            done.record(streams[-1])
+        return record, done
+
+    def _join_event(self, pending: "PendingEvent") -> "EventRecord":
+        """The record of a submitted event; a worker's is waited for (the
+        seconds add to `event_wait_s`) and the trainer's stream made to wait
+        for the worker's, its tensors marked as used on it."""
+        if pending.future is None:
+            return pending.record
+        t = time.perf_counter()
+        record, done = pending.future.result()
+        self.event_wait_s += time.perf_counter() - t
+        if done is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(done)
+            for x in (record.video, record.gs_alpha, record.gs_depth):
+                x.record_stream(cur)
+        return record
+
+    def finalize_diffusion_event(self, pending: "PendingEvent") -> None:
         """Write the event's video (diffusion0 with the artifacts; the store
         with guidance_save_videos, synchronously, so that a later event of
         this run may read it), lift its unobserved pixels to new Gaussians
@@ -733,18 +899,21 @@ class GuidedTrainer(BaselineTrainer):
         rebuild the pseudo stacks from it: every frame but the first, a
         fifth of them also to the all-time stack (reference
         train_guidedvd.py:557-636)."""
-        _, view, traj, video, gs_alpha, gs_depth, event_dir, video_key = pending
+        rec = self._join_event(pending)
+        for k, v in rec.phase_s.items():
+            self.event_phase_s[k] += v
+        view, traj, video, gs_alpha, event_dir = rec.view, rec.traj, rec.video, rec.gs_alpha, rec.event_dir
         if event_dir:
             self.artifact_writer.submit(save_video, video_u8(video), os.path.join(event_dir, "diffusion0.mp4"))
         if getattr(self.opt, "guidance_save_videos", False):
-            vf = self._video_file_path(video_key)
+            vf = self._video_file_path(rec.video_key)
             if vf is None and event_dir:
                 vf = os.path.join(event_dir, f"video_view{view}.npz")  # no pool entry (txt mode)
             if vf:
                 os.makedirs(os.path.dirname(vf), exist_ok=True)
                 np.savez_compressed(vf, video=video.cpu().numpy())
         if getattr(self.opt, "append_pcd_from_video_diffusion", False) and self.depth_estimator is not None:
-            self.append_lifted_points(video, gs_alpha, gs_depth, traj)
+            self.append_lifted_points(video, gs_alpha, rec.gs_depth, traj)
         fovx, fovy = self.train_cams[view].FoVx, self.train_cams[view].FoVy
         self.pseudo_stack = []
         for i in range(1, traj.shape[0]):  # frame 0 is the conditioning image
@@ -759,6 +928,19 @@ class GuidedTrainer(BaselineTrainer):
                 alt.pseudo_gt, alt.mask = video[i].clone(), gs_alpha[i].clone()
                 self.pseudo_stack_alltime.append(alt)
         self.events_run += 1
+
+    def flush_pending_event(self) -> None:
+        """Finalize the event in flight, if one is (pipeline_guidance)."""
+        if self._pending_event is not None:
+            pending, self._pending_event = self._pending_event, None
+            self.finalize_diffusion_event(pending)
+
+    def close_event_worker(self) -> None:
+        """Finalize the event in flight and stop the worker thread."""
+        self.flush_pending_event()
+        if self._executor is not None:
+            self._executor.shutdown(wait=True)
+            self._executor = None
 
     def append_lifted_points(self, video: torch.Tensor, gs_alpha: torch.Tensor, gs_depth: torch.Tensor,
                              traj: np.ndarray) -> int:
@@ -835,18 +1017,29 @@ class GuidedTrainer(BaselineTrainer):
             G.reset_opacity(self.state)
         # a diffusion event after the step (reference :431)
         if (iteration - 1) % opt.guidance_vd_iter == 0 and iteration < opt.end_sample_pseudo:
-            self.run_diffusion_event(iteration)
+            if self.pipeline_guidance:
+                self.flush_pending_event()
+                self._pending_event = self.submit_diffusion_event(iteration)
+            else:
+                self.run_diffusion_event(iteration)
         self.ema_loss = 0.4 * metrics["loss"] + 0.6 * self.ema_loss
         self.last_metrics = metrics
         return StepStats(loss=metrics["loss"], l1=metrics["l1"], psnr=metrics["psnr"],
                          num_active=self.state.num_gaussians, num_instances=metrics["num_instances"])
 
     def train(self, iterations=None, start_iteration=0, **kwargs):
-        """BaselineTrainer.train, then the artifact writes drained (a failed
-        write raises here) and `<model>/timing_summary.json`: the run's
-        seconds split into events (by phase) and training."""
+        """BaselineTrainer.train, then the event in flight finalized and the
+        worker stopped, the artifact writes drained (a failed write raises
+        here) and `<model>/timing_summary.json`: the run's seconds split
+        into events (by phase) and training."""
         t0 = time.perf_counter()
-        out = super().train(iterations, start_iteration=start_iteration, **kwargs)
+        try:
+            out = super().train(iterations, start_iteration=start_iteration, **kwargs)
+            self.close_event_worker()
+        finally:
+            if self._executor is not None:  # a step raised: stop the worker all the same
+                self._executor.shutdown(wait=True)
+                self._executor = None
         self.artifact_writer.drain()
         _sync(self.device)
         total_s = time.perf_counter() - t0
@@ -858,15 +1051,23 @@ class GuidedTrainer(BaselineTrainer):
         if not mp:
             return
         event_s = sum(self.event_phase_s.values())
+        # the trainer's thread spends an event's seconds on it, but a
+        # worker's run beside training: there only the waits and the lift
+        on_trainer = event_s
+        if self.pipeline_guidance and self.event_worker:
+            on_trainer = self.event_wait_s + self.event_phase_s["lift"]
         summary = {
             "iterations": iterations,
             "total_s": total_s,
-            "train_s": total_s - event_s,
+            "train_s": total_s - on_trainer,
             "event_s": event_s,
             "events_run": self.events_run,
             "it_per_s": iterations / max(total_s, 1e-9),
             "train_res": [self.H, self.W],
             "event_phase_s": dict(self.event_phase_s),
+            # pipelined events: the seconds finalize waited for the worker
+            "event_wait_s": self.event_wait_s,
+            "pipeline_guidance": self.pipeline_guidance,
             "engine": type(self.engine).__name__,
         }
         with open(os.path.join(mp, "timing_summary.json"), "w") as f:

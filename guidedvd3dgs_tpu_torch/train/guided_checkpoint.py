@@ -72,7 +72,11 @@ def _cams_from(data, name: str, height: int, width: int, device) -> list:
 
 
 def save_guided_checkpoint(path: str, trainer, iteration: int) -> None:
-    """Write `<path>` (the Gaussian state) and `<path>.guided.npz`."""
+    """Write `<path>` (the Gaussian state) and `<path>.guided.npz`. A
+    pipelined event in flight is finalized first: the files hold the state
+    after it (its stacks, its promotions' draws), and the resumed run starts
+    with no event in flight, as the run that wrote them goes on."""
+    trainer.flush_pending_event()
     save_checkpoint(path, trainer.state, iteration)
     train_cams = list(trainer.scene.getTrainCameras())
     cam_ids = {id(c): i for i, c in enumerate(train_cams)}

@@ -32,9 +32,13 @@ lifts each event's unobserved pixels to new Gaussians by DPT-large's depth
 `--checkpoint_iterations` write guided checkpoints
 (`chkpnt<it>.ckpt` and its `.guided.npz`) and `--start_checkpoint`
 resumes one exactly; a plain checkpoint resumes its Gaussian state and
-builds the trajectory pool anew. Not ported: `--guidance_tp` and
-`--pipeline_guidance` (the JAX package's TPU mesh and overlapped events;
-refused). Writes what train_baseline writes plus the event artifacts, the
+builds the trajectory pool anew. `--pipeline_guidance` overlaps each
+diffusion event with training: the event is finalized one boundary late
+and its device work runs on a worker thread with its own CUDA stream, on
+the engine's card (`cuda:<guidance_gpu_id>` where the host has it, else
+beside the trainer). `--guidance_tp N > 1` (the JAX package's tensor-
+parallel engine over a device mesh) waits for a multi-card host and is
+refused. Writes what train_baseline writes plus the event artifacts, the
 video store and `timing_summary.json`.
 """
 
@@ -178,7 +182,8 @@ def main(argv: Optional[List[str]] = None) -> GuidedTrainer:
     # (reference utils/midas_depth_estimator.py:9-39)
     parser.add_argument("--dpt_weights", type=str, default=None)
     parser.add_argument("--pipeline_guidance", action="store_true",
-                        help="not ported: the JAX package's overlapped events")
+                        help="overlap diffusion generation with training (one-event pseudo-stack lag; "
+                             "the engine on the guidance_gpu_id device)")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
@@ -186,9 +191,9 @@ def main(argv: Optional[List[str]] = None) -> GuidedTrainer:
     dataset = ModelParams.extract(args)
     opt = OptimizationParams.extract(args)
     pipe = PipelineParams.extract(args)
-    if args.pipeline_guidance or opt.guidance_tp > 1:
-        raise ValueError("--pipeline_guidance and --guidance_tp > 1 (the JAX package's overlapped events "
-                         "and TPU mesh) are not ported")
+    if opt.guidance_tp > 1:
+        raise ValueError("--guidance_tp > 1 (the JAX package's tensor-parallel engine over a device mesh) "
+                         "waits for a multi-card host: not ported yet")
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
 
@@ -228,7 +233,7 @@ def main(argv: Optional[List[str]] = None) -> GuidedTrainer:
         scene, state, opt, pipe, dataset, frozen=frozen, engine=engine,
         pcd_points=np.asarray(pcd.points, np.float32), pcd_colors=np.asarray(pcd.colors, np.float32),
         guidance_intrinsic=K, seed=args.seed, hybrid_traj=args.hybrid_traj, vgg_loss_fn=vgg_fn,
-        frozen_mask=frozen_mask, depth_estimator=depth_estimator,
+        frozen_mask=frozen_mask, depth_estimator=depth_estimator, pipeline_guidance=args.pipeline_guidance,
     )
     first_iter = 0
     if args.start_checkpoint:

@@ -22,8 +22,9 @@ A third run (`reference_capacity`) trains the guided model on the
 reference's images again, from the same baseline, with the oracle's
 frames rendered as the reference's oracle renders them: each group of
 five frames one chain of that capacity, slots given frame by frame in
-Gaussian order, the Gaussians past the capacity dropped (whole, where the
-reference keeps a straddling Gaussian's first slots). `--runs` picks the
+Gaussian order, the Gaussians past the capacity dropped, and the one that
+straddles it kept in its first slots: the first tiles of its rectangle
+walked row by row (`render_group_as_reference`). `--runs` picks the
 runs; `--seed` goes to both CLIs (the train views' order, the pool's and
 the events' draws; the scene is the same at every seed), so runs at
 several seeds measure the spread. The last line is one JSON object of
@@ -58,6 +59,7 @@ from guidedvd3dgs_tpu_torch.scene.cameras import camera_from_w2c_K  # noqa: E402
 
 GROUP = 5  # frames the reference's FrozenRenderer.render_many binds into one chain
 QUANTUM = 512
+TILE = 16
 
 
 def _reference_gt():
@@ -112,22 +114,58 @@ class ReferenceCapacityOracle:
         self.oracle.set_trajectory(w2cs, K)
 
     def generate(self, *args, **kwargs):
-        params, dev = self.renderer.params, self.renderer.device
-        n = params.xyz.shape[0]
+        n = self.renderer.params.xyz.shape[0]
         w2cs, K = self.oracle._w2cs, self.oracle._K
         frames = []
         for g0 in range(0, len(w2cs), GROUP):
-            group = w2cs[g0:g0 + GROUP]
-            cams = [camera_from_w2c_K(w, K, self.height, self.width).raster_camera(dev) for w in group]
-            counts = torch.cat([self.ref.tile_counts(params, c, self.width, self.height) for c in cams])
-            kept, dropped, _ = self.ref.reference_drop(counts, chain_capacity(n))
+            group, dropped = render_group_as_reference(self.renderer, w2cs[g0:g0 + GROUP], K, self.height,
+                                                       self.width, chain_capacity(n), self.ref)
             self.dropped.append(dropped)
-            for j, w in enumerate(group):
-                keep = kept[j * n:(j + 1) * n]
-                sub = GaussianParams(**{k: v[keep] for k, v in params.tensors().items()})
-                frozen = type(self.renderer)(sub, self.renderer.sh_degree, backend=self.renderer.backend)
-                frames.append(frozen.render(w, K, self.height, self.width)[0])
+            frames += group
         return torch.clamp(torch.stack(frames), 0.0, 1.0)
+
+
+def render_group_as_reference(renderer, w2cs, K, height: int, width: int, capacity: int, ref):
+    """The colour (3, H, W) of each frame of one chain of the reference's
+    batched renderer, and the instances it drops. The frames' Gaussians
+    take max(tiles, 1) slots each, frame by frame in index order; slots
+    from `capacity` on are dropped. A Gaussian whose slots lie past it is
+    left out; the one that straddles it keeps its first slots, the first
+    tiles of its rectangle walked row by row. A tile's pixels depend only on
+    the instances binned to it, so that frame is the render without the
+    straddler where it lost its tile and the render with it where it kept
+    it."""
+    params, dev = renderer.params, renderer.device
+    n = params.xyz.shape[0]
+    rects = [ref.tile_rects(params, camera_from_w2c_K(w, K, height, width).raster_camera(dev), width, height)
+             for w in w2cs]
+    counts = torch.cat([r[3] for r in rects]).long()
+    kept, dropped, _ = ref.reference_drop(counts, capacity)
+    end = torch.cumsum(torch.clamp(counts, min=1), 0)
+    start = end - torch.clamp(counts, min=1)
+    straddle = torch.nonzero((start < capacity) & (end > capacity) & (counts > 0)).flatten()
+
+    def render(keep, w):
+        sub = GaussianParams(**{k: v[keep] for k, v in params.tensors().items()})
+        return type(renderer)(sub, renderer.sh_degree, backend=renderer.backend).render(w, K, height, width)[0]
+
+    frames = []
+    for j, w in enumerate(w2cs):
+        keep = kept[j * n:(j + 1) * n].clone()
+        img = render(keep, w)
+        for g in straddle.tolist():
+            if g // n != j:
+                continue
+            i = g - j * n
+            rmx, rmy, rw, _, _ = (x[i] if torch.is_tensor(x) else x for x in rects[j])
+            tiles = torch.zeros((-(-height // TILE), -(-width // TILE)), dtype=torch.bool, device=dev)
+            for slot in range(capacity - int(start[g])):
+                tiles[int(rmy) + slot // int(rw), int(rmx) + slot % int(rw)] = True
+            pix = tiles.repeat_interleave(TILE, 0).repeat_interleave(TILE, 1)[:height, :width]
+            keep[i] = True
+            img = torch.where(pix, render(keep, w), img)
+        frames.append(img)
+    return frames, dropped
 
 
 def run_scene(name: str, src: Path, out: Path, iters: int, dev, ref, base: Path = None,

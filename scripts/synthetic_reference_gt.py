@@ -52,13 +52,23 @@ def reference_capacity(n: int) -> int:
     return -(-max(4 * n, 1 << 14) // REFERENCE_QUANTUM) * REFERENCE_QUANTUM
 
 
-def tile_counts(params, cam, width: int, height: int) -> torch.Tensor:
-    """(N,) tiles each Gaussian covers in this view (0 if culled)."""
+def tile_rects(params, cam, width: int, height: int):
+    """Each Gaussian's tile rectangle in this view: (rect_min_x, rect_min_y,
+    width in tiles, tiles covered (0 if culled), each (N,); the grid's
+    width in tiles). The reference walks a rectangle row by row, so its
+    slot i is tile (rect_min_x + i % w, rect_min_y + i // w)."""
     with torch.no_grad():
         acts = (params.xyz, params.get_scaling, params.get_rotation, params.get_opacity,
                 params.get_features)
         tab = preprocess_fused.preprocess_table_plain(*acts, cam, 3, 1.0)
-        return tiling.expand_inputs(tab, preprocess_fused.visible_radii(tab), width, height)[3]
+        rmx, rmy, w, count, _, gx, _, _ = tiling.expand_inputs(tab, preprocess_fused.visible_radii(tab),
+                                                               width, height)
+        return rmx, rmy, w, count, gx
+
+
+def tile_counts(params, cam, width: int, height: int) -> torch.Tensor:
+    """(N,) tiles each Gaussian covers in this view (0 if culled)."""
+    return tile_rects(params, cam, width, height)[3]
 
 
 def reference_drop(count: torch.Tensor, capacity: int):

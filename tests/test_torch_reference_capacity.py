@@ -1,9 +1,18 @@
-"""The reference tool's ground-truth instance drop, as
-scripts/synthetic_reference_gt.py reckons it, against the JAX package.
+"""The reference's instance drop, as scripts/synthetic_reference_gt.py and
+scripts/guided_oracle_e2e.py reckon it, against the JAX package.
 
 The tool-default synthetic scene (150,000 Gaussians, 624x352, seed 7) needs
 more (Gaussian, tile) instances in test camera 15 than the reference's
 default capacity holds; PERF.md cites these counts.
+
+The oracle's emulation (`render_group_as_reference`) renders a group of
+five frames as the reference's batched chain does at a capacity that ends
+inside a Gaussian of the second frame (200 Gaussians, 64x48, capacity 512:
+that Gaussian keeps 3 of its 4 tiles, the frames after it lose every
+Gaussian): each frame within 5e-5 of the JAX package's
+`rasterize_tiles_multi` at that capacity (interpret mode, exact fields,
+the tile tolerance of tests/test_torch_raster.py), where dropping the
+straddling Gaussian whole misses it by more.
 """
 
 import sys
@@ -14,11 +23,18 @@ import numpy as np
 import torch
 
 from guidedvd3dgs_tpu.ops import projection as jax_projection
+from guidedvd3dgs_tpu.ops import raster_tiles as jax_raster_tiles
 from guidedvd3dgs_tpu.ops import tiling as jax_tiling
+from guidedvd3dgs_tpu.parallel.data_parallel import stack_cameras as jax_stack_cameras
 from guidedvd3dgs_tpu_torch.convert import params_from_numpy
+from guidedvd3dgs_tpu_torch.scene import cameras as port_cameras
 from guidedvd3dgs_tpu_torch.scene import synthetic
+from guidedvd3dgs_tpu_torch.train.guided import FrozenRenderer
+
+from helpers import activated, make_camera, random_gaussians
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
+import guided_oracle_e2e as e2e  # noqa: E402
 import synthetic_reference_gt as ref_gt  # noqa: E402
 
 N_GT = 150_000
@@ -56,3 +72,62 @@ def test_camera_15_drop_counts():
     assert slots == 1_884_103
     assert dropped == 1_242_078
     assert int((~kept).sum()) == 3_511
+
+
+def _jax_camera(rc):
+    return jax_projection.RasterCamera(
+        jnp.asarray(rc.viewmatrix.numpy()), jnp.asarray(rc.projmatrix.numpy()),
+        jnp.asarray(rc.campos.numpy()), rc.tanfovx, rc.tanfovy, rc.height, rc.width,
+    )
+
+
+def test_the_oracle_chain_keeps_the_straddling_gaussians_first_slots():
+    h, w, capacity = 48, 64, 512
+    raw = random_gaussians(n=200, seed=2, spread=1.0)
+    xyz, ls, rots, opl, sh = raw
+    params = params_from_numpy(dict(xyz=xyz, features_dc=sh[:, :1], features_rest=sh[:, 1:], scaling=ls,
+                                    rotation=rots, opacity=opl), "cpu")
+    cams = []
+    for i in range(e2e.GROUP):
+        c = make_camera(height=h, width=w, look_noise=0.3, seed=i)
+        cams.append(port_cameras.Camera(colmap_id=0, R=c.R, T=c.T, FoVx=c.FoVx, FoVy=c.FoVy,
+                                        image=np.zeros((3, h, w), np.float32)))
+    w2cs = np.stack([np.asarray(c.world_view_transform).T for c in cams])
+    fx = w / (2 * np.tan(cams[0].FoVx / 2))
+    fy = h / (2 * np.tan(cams[0].FoVy / 2))
+    K = np.array([[fx, 0, w / 2], [0, fy, h / 2], [0, 0, 1]])
+    renderer = FrozenRenderer(params, 3, backend="tiles")
+    frames, dropped = e2e.render_group_as_reference(renderer, w2cs, K, h, w, capacity, ref_gt)
+
+    # the reference's chain at that capacity
+    rcs = [pc.raster_camera("cpu") for pc in
+           (port_cameras.camera_from_w2c_K(m, K, h, w) for m in w2cs)]
+    counts = torch.cat([ref_gt.tile_counts(params, rc, w, h) for rc in rcs]).long()
+    end = torch.cumsum(counts.clamp(min=1), 0)
+    g = int(torch.nonzero((end - counts.clamp(min=1) < capacity) & (end > capacity)).flatten()[0])
+    kept_slots = capacity - int(end[g] - counts[g])
+    assert g // 200 == 1 and int(counts[g]) == 4 and kept_slots == 3
+    assert dropped == int(counts.sum()) - int(counts[:g].sum()) - kept_slots
+    prev = jax_raster_tiles._INTERPRET[0]
+    jax_raster_tiles.set_interpret(True)
+    jax_tiling.set_pack_fields(False)
+    jax_raster_tiles.set_pack_grads(False)
+    try:
+        acts = [jnp.asarray(a) for a in activated(*raw)]
+        want = jax_raster_tiles.rasterize_tiles_multi(
+            *acts, jax_stack_cameras([_jax_camera(rc) for rc in rcs]), jnp.zeros(3), 3,
+            max_instances=capacity)
+    finally:
+        jax_raster_tiles.set_interpret(prev)
+        jax_tiling.set_pack_fields(True)
+        jax_raster_tiles.set_pack_grads(True)
+    want = np.asarray(want.color)
+    assert int(np.asarray(want.shape[0])) == e2e.GROUP
+    for j, got in enumerate(frames):
+        np.testing.assert_allclose(got.detach().numpy(), want[j], atol=5e-5, rtol=0, err_msg=f"frame {j}")
+    # the straddler matters: dropped whole, frame 1 misses the chain's
+    keep = torch.ones(200, dtype=torch.bool)
+    keep[g - 200:] = False
+    whole = FrozenRenderer(type(params)(**{k: v[keep] for k, v in params.tensors().items()}), 3,
+                           backend="tiles").render(w2cs[1], K, h, w)[0]
+    assert float(np.abs(whole.numpy() - want[1]).max()) > 1e-3

@@ -15,7 +15,8 @@ package on the CPU.
 - The CLI's ViewCrafter branch with the loader stubbed: the engine width
   rule, the guidance_mean_loss refusal, recur_steps, recon_loss, the DDIM
   steps, the engine's settings from the options, the VGG term of the
-  guidance only with weights, the refused TPU options.
+  guidance only with weights, --guidance_tp refused and --pipeline_guidance
+  accepted.
 - A tiny checkpoint in the ViewCrafter layout (sub-model and CLIP
   prefixes, framestride_embed, Lightning's state_dict nesting, a buffer)
   loads through the CLI into an engine whose request equals the in-memory
@@ -163,11 +164,14 @@ def test_cli_viewcrafter_branch(toy, monkeypatch, tmp_path):
     torch.testing.assert_close(got, torch.stack([vgg(d[i:i + 1].permute(0, 3, 1, 2),
                                                      g[i:i + 1].permute(0, 3, 1, 2))[0] for i in range(3)]))
 
-    # the JAX package's TPU mesh and overlapped events are refused
-    for flag in (["--pipeline_guidance"], ["--guidance_tp", "2"]):
-        with pytest.raises(ValueError, match="not ported"):
-            port_cli.main(["-s", str(tmp_path), "-m", str(tmp_path / "m"), "--baseline_path", str(tmp_path),
-                           "--device", "cpu"] + flag)
+    # the JAX package's tensor-parallel engine waits for a multi-card host;
+    # pipelined events are accepted (the CLI goes on to read the scene,
+    # which this directory lacks; tests/test_torch_pipeline_guidance.py runs them)
+    argv = ["-s", str(tmp_path), "-m", str(tmp_path / "m"), "--baseline_path", str(tmp_path), "--device", "cpu"]
+    with pytest.raises(ValueError, match="multi-card host"):
+        port_cli.main(argv + ["--guidance_tp", "2"])
+    with pytest.raises(ValueError, match="Could not recognize scene type"):
+        port_cli.main(argv + ["--pipeline_guidance"])
 
 
 def test_a_viewcrafter_layout_checkpoint_loads_into_the_engine(toy, monkeypatch, tmp_path):
