@@ -58,11 +58,13 @@ and the exit code is non-zero; there is no CPU fallback):
               pool (its seconds and frames), one diffusion event of 25
               frames (pc_render, frozen, generate seconds; the splat's
               device ms traced alone), then 24 guided steps that each take
-              a pseudo view (train view + pseudo view, one backward): host
-              ms per step, 10 steps traced by stage with the idle share and
-              the torch.cat kernels (no CatBackward, at most 6 a step);
-              K1-K6 launched twice a step, K1, K3, K4 once more a frozen or
-              oracle frame, exactly; every loss finite, pseudo_l1 > 0
+              a pseudo view (train view + pseudo view, one chain, one
+              backward): host ms per step, 10 steps traced by stage with the
+              idle share and the torch.cat kernels (no CatBackward, at most
+              6 a step); K1 and K2 twice a step, K3-K6 once, K1 once more a
+              frozen or oracle frame and K3, K4 once more a chain of them
+              (FrozenRenderer.GROUP frames), exactly; every loss finite,
+              pseudo_l1 > 0
   5d. ViewCrafter-guided trainer  the same trainer and room with the
               ViewCrafterEngine in place of the oracle (random bf16 weights,
               25x320x448, GUIDED_STEPS guided DDIM steps of the default 50)
@@ -210,6 +212,23 @@ and the exit code is non-zero; there is no CPU fallback):
               train_guidedvd --pipeline_guidance with the oracle on phase
               6's scene (a checkpoint with an event in flight, launches
               exact) and with 6c's ViewCrafter checkpoint
+ 11. the B-camera chain (ops/raster_tiles.py::rasterize_tiles_multi) on
+              phase 5b's room: 11a B = 2, 5 and 11 orbit cameras (11 x
+              1,200 tiles: past K3's shared histogram) as one chain against
+              B single renders: the images and radii bitwise, the chain's
+              launches exactly (K1 and K2 a camera, K3-K6 once), the
+              gradients at B = 2 and 5 within MULTI_GRAD_TOL, the forward's
+              ms both ways; at B = 2 and 5 the chain against itself on the
+              plain versions (the images by phase 3's K4_TOL, the radii by
+              its K1 rule, the summed and the (B, N, 2) offset gradients
+              within MULTI_PLAIN_GRAD_TOL, which a K2 that overwrote
+              instead of adding would exceed); 11b phase 5c's trainer: an
+              oracle event's launches (K3 and K4 once a chain of 5
+              frames), guided steps in timed blocks per-view (each view
+              its own render, the step before the chain), chain, chain,
+              per-view, launches exactly each step, host ms, one traced
+              step each way (device ms by stage, sorts and read-backs a
+              step)
 `python3 chip_smoke.py --generate-only STEPS` runs phases 1, 2 and 7b
 alone with STEPS DDIM steps; `--guided-only STEPS` phases 1, 2 and 8b
 (the 50-step requests of PERF.md); `--backward-only` phases 1, 2, 8a and
@@ -220,10 +239,10 @@ and the trainer); `--guided-trainer-only` phases 1, 2 and 5c (the guided
 trainer); `--vc-trainer-only STEPS` phases 1, 2 and 5d with STEPS guided
 DDIM steps (50: a real event's time); `--chain-only` phases 1, 2 and 6d
 (the published scripts' chain); `--geometry-only` phases 1, 2 and 9;
-`--pipeline-only` phases 1, 2 and 10.
+`--pipeline-only` phases 1, 2 and 10; `--multi-only` phases 1, 2 and 11.
 The line before the last is the JSON kernel table (each kernel's launches
 summed over the phases that drive a path: K1-K6 over 4, 5, 5b, 5c, 5d, 6,
-6b, 6c, 6d, 9 and 10, L1's forward over 5d, 6c, 7b, 8b, 9 and 10, its
+6b, 6c, 6d, 9, 10 and 11, L1's forward over 5d, 6c, 7b, 8b, 9 and 10, its
 backward over 5d, 6c, 8b and 10; each phase's count in `launches_by_phase`; for
 K1-K6 `host_ms` beside `ms` and `ms_dense` and `bound_ms_dense` from
 phase 5b's view; for K1 also `ms_full_table`, `bound_ms_all_rows` and
@@ -289,7 +308,7 @@ from guidedvd3dgs_tpu_torch.geometry import pipeline as geometry_pipeline  # noq
 from guidedvd3dgs_tpu_torch.guidance import dpt  # noqa: E402
 from guidedvd3dgs_tpu_torch.guidance.loss_guidance import make_guidance_fn, resize_guidance  # noqa: E402
 from guidedvd3dgs_tpu_torch.models import gaussians as G  # noqa: E402
-from guidedvd3dgs_tpu_torch.models.render import eval_render  # noqa: E402
+from guidedvd3dgs_tpu_torch.models.render import RenderResult, eval_render, render_gaussians  # noqa: E402
 from guidedvd3dgs_tpu_torch.ops import _build, expand, preprocess_fused, raster_tiles, segsum, tiling  # noqa: E402
 from guidedvd3dgs_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from guidedvd3dgs_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain  # noqa: E402
@@ -299,6 +318,7 @@ from guidedvd3dgs_tpu_torch.scene.ply import load_gaussian_ply  # noqa: E402
 from guidedvd3dgs_tpu_torch.scene.scene import Scene  # noqa: E402
 from guidedvd3dgs_tpu_torch.parallel import stack_cameras, train_step_dp  # noqa: E402
 from guidedvd3dgs_tpu_torch.train.baseline import BaselineTrainer, lrs_for  # noqa: E402
+from guidedvd3dgs_tpu_torch.train import guided as guided_module  # noqa: E402
 from guidedvd3dgs_tpu_torch.train.guided import (  # noqa: E402
     FrozenRenderer,
     GuidedTrainer,
@@ -411,8 +431,9 @@ DENSE_SELECT = 0.1
 EVENT_FRAMES = 25
 GUIDED_TRAINER_STEPS = 24
 GUIDED_TRACE = range(8, 18)  # iterations; the steps are iterations 2-25
-# torch.cat kernels a guided step may launch: the baseline step's 3 (phases
-# 5 and 5b) for each of its two renders
+# torch.cat kernels a guided step may launch: K1's and K2's camera rows, 4
+# (the baseline step's 2 a view), the screen offsets' gradient and the two
+# views' gradients stacked by one UnbindBackward
 GUIDED_CAT_KERNELS = 6
 # phase 6: iterations of the CLI run on the tool-default synthetic scene;
 # 6b: the guided CLI on it with the oracle, pseudo views between these
@@ -613,7 +634,7 @@ def plain_chain(params, cam, bg):
         tab = preprocess_fused.preprocess_table_plain(*activations(params), cam, 3, 1.0)
         binning = tiling.bin_gaussians(tab, preprocess_fused.visible_radii(tab), cam.width,
                                        cam.height, expand_fn=expand.expand_instances_plain)
-        out = raster_tiles.blend_fwd_plain(tab, binning, bg, cam.width, cam.height)
+        out = tuple(x[0] for x in raster_tiles.blend_fwd_plain(tab, binning, bg, cam.width, cam.height))
     return out, binning.num_instances
 
 
@@ -805,9 +826,9 @@ def bwd_inputs(acts, cam, tab, binning, image, gen):
     K4 image: seeded cotangents of the image (dC, 0.1 dD, dA) and of the
     table's ten rows (none on culled rows, as the rasterizer hands them)."""
     dev, h, w = tab.device, cam.height, cam.width
-    dC = torch.randn((3, h, w), generator=gen, device=dev)
-    dD = 0.1 * torch.randn((h, w), generator=gen, device=dev)
-    dA = torch.randn((h, w), generator=gen, device=dev)
+    dC = torch.randn((1, 3, h, w), generator=gen, device=dev)
+    dD = 0.1 * torch.randn((1, h, w), generator=gen, device=dev)
+    dA = torch.randn((1, h, w), generator=gen, device=dev)
     visible = (preprocess_fused.visible_radii(tab) > 0).float()
     cot = torch.randn((10, tab.shape[1]), generator=gen, device=dev) * visible
     return (tab, binning, *image, dC, dD, dA, w, h), (*acts, cam, 3, 1.0, cot)
@@ -1438,15 +1459,46 @@ def guidance_intrinsic(cam) -> np.ndarray:
     return np.array([[fx, 0, w / 2], [0, fy, h / 2], [0, 0, 1]])
 
 
+def chains_of(frames: int) -> int:
+    """The chains of a FrozenRenderer.render_many of `frames` frames."""
+    return -(-frames // FrozenRenderer.GROUP)
+
+
+def launches_of(steps: int = 0, pseudo_steps: int = 0, frames: int = 0, chains: int = 0) -> dict:
+    """K1-K6 launches of `steps` training steps, `pseudo_steps` of them with
+    a pseudo view (a step is one chain: K3-K6 once, K1 and K2 once a view),
+    and of forward renders of `frames` frames in `chains` chains (K1 once a
+    frame, K3 and K4 once a chain)."""
+    return {"preprocess_fwd": steps + pseudo_steps + frames, "expand": steps + chains,
+            "blend_fwd": steps + chains, "blend_bwd": steps, "segsum": steps,
+            "preprocess_bwd": steps + pseudo_steps}
+
+
 def count_renders(renderer: FrozenRenderer, counter: dict, key: str) -> None:
-    """Count the renderer's frames under `key`."""
-    render = renderer.render
+    """Count the renderer's frames under `key` and its chains under
+    `key` + "_chains" (a render is one of each; render_many a chain of
+    FrozenRenderer.GROUP frames at a time)."""
+    render, render_many = renderer.render, renderer.render_many
+
+    def add(frames):
+        counter[key] = counter.get(key, 0) + frames
+        counter[key + "_chains"] = counter.get(key + "_chains", 0) + chains_of(frames)
 
     def counted(*args, **kwargs):
-        counter[key] = counter.get(key, 0) + 1
+        add(1)
         return render(*args, **kwargs)
 
-    renderer.render = counted
+    def counted_many(w2cs, *args, **kwargs):
+        add(len(w2cs))
+        return render_many(w2cs, *args, **kwargs)
+
+    renderer.render, renderer.render_many = counted, counted_many
+
+
+def frames_and_chains(counter: dict) -> tuple[int, int]:
+    """All frames and chains count_renders counted into `counter`."""
+    return (sum(v for k, v in counter.items() if not k.endswith("_chains")),
+            sum(v for k, v in counter.items() if k.endswith("_chains")))
 
 
 def phase_guided_trainer(dev, work: Path):
@@ -1498,19 +1550,21 @@ def phase_guided_trainer(dev, work: Path):
         on_step=lambda it: pseudo_l1.append(float(trainer.last_metrics["pseudo_l1"])))
     launches = dict(_build.LAUNCHES)
     steps = GUIDED_TRAINER_STEPS
-    renders = frames["frozen"] + frames["oracle"]
-    want = {n: 2 * steps + (renders if n in FORWARD_KERNELS else 0) for n in GAUSSIAN_KERNELS}
+    renders, chains = frames_and_chains(frames)
+    want = launches_of(steps, steps, renders, chains)
     if any(launches[n] != want[n] for n in GAUSSIAN_KERNELS) or any(
             launches[n] for n in ("flash_attn_fwd",) + L1_BWD_KERNELS):
-        raise AssertionError(f"launches {launches}, expected {want}: each of K1-K6 twice a guided step, "
-                             f"K1, K3, K4 once more a frozen or oracle frame ({renders})")
+        raise AssertionError(f"launches {launches}, expected {want}: a guided step one chain of two views (K1 "
+                             f"and K2 twice, K3-K6 once), K1 once more a frozen or oracle frame ({renders}), K3 "
+                             f"and K4 once more a chain of them ({chains})")
     if not all(math.isfinite(float(v)) for v in losses) or not all(p > 0.0 for p in pseudo_l1):
         raise AssertionError(f"losses {[float(v) for v in losses]}, pseudo_l1 {pseudo_l1}")
     dev_ms, idle, rb_ms, rbs, concat = trace_summary(prof, len(GUIDED_TRACE))
     check_no_sh_split(concat)
     if concat["kernels"] > GUIDED_CAT_KERNELS:
         raise AssertionError(f"{concat['kernels']:g} torch.cat kernels a guided step "
-                             f"(at most {GUIDED_CAT_KERNELS}: the baseline step's three a render)")
+                             f"(at most {GUIDED_CAT_KERNELS}: the camera rows of K1 and K2 a view, the "
+                             f"offsets' gradient, the views' gradients)")
     untraced = [ms for it, ms in step_ms.items() if it not in GUIDED_TRACE and it > 2]
     # the splat of one event's trajectory alone, traced: its device ms
     traj = trainer.trajectory_pool[0][0].traj_c2ws
@@ -1544,13 +1598,13 @@ def phase_guided_trainer(dev, work: Path):
     return launches, dict(host_ms=statistics.median(untraced), device_ms=sum(dev_ms.values()))
 
 
-def vc_trainer_launches(ucfg, steps: int, renders: int, train_steps: int) -> dict:
-    """K1-K6 and L1's launches of phase 5d: K1-K6 twice a guided step, K1,
-    K3, K4 once more a frozen frame; one guided request of `steps` guided
-    steps (L1's forward 20 a step and 2 for the VAE's encode and decode,
-    each backward kernel 15 a step)."""
+def vc_trainer_launches(ucfg, steps: int, renders: int, chains: int, train_steps: int) -> dict:
+    """K1-K6 and L1's launches of phase 5d: a guided step one chain of two
+    views, the frozen frames in their chains (launches_of); one guided
+    request of `steps` guided steps (L1's forward 20 a step and 2 for the
+    VAE's encode and decode, each backward kernel 15 a step)."""
     fwd, bwd = guided_launches(ucfg, steps, GEN_FRAMES, ddim_guidance.GuidedSampleConfig().decode_chunk)
-    want = {n: 2 * train_steps + (renders if n in FORWARD_KERNELS else 0) for n in GAUSSIAN_KERNELS}
+    want = launches_of(train_steps, train_steps, renders, chains)
     want.update(flash_attn_fwd=fwd + 2, flash_attn_bwd_dkv=bwd, flash_attn_bwd_dq=bwd)
     return want
 
@@ -1642,9 +1696,9 @@ def phase_vc_trainer(dev, work: Path, steps: int, c5=None):
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = dict(_build.LAUNCHES)
-    want = vc_trainer_launches(mcfg.unet, steps, frames["frozen"], GUIDED_TRAINER_STEPS)
+    want = vc_trainer_launches(mcfg.unet, steps, frames["frozen"], frames["frozen_chains"], GUIDED_TRAINER_STEPS)
     if launches != want:
-        raise AssertionError(f"launches {launches}, expected {want}: K1-K6 twice a guided step, K1, K3, K4 once "
+        raise AssertionError(f"launches {launches}, expected {want}: a chain of two views a guided step, K1, K3, K4 "
                              f"more a frozen frame ({frames['frozen']}), L1 in event 1 only")
     if not all(math.isfinite(float(v)) for v in losses) or not all(p > 0.0 for p in pseudo_l1) \
             or not all(v > 0.0 for v in pseudo_vgg):
@@ -1853,15 +1907,17 @@ def phase_guided_cli(dev, work: Path, src: Path, base: Path, base_scores):
     if events < CLI_MIN_EVENTS or len(trainer.pseudo_stack) != EVENT_FRAMES - 1:
         raise AssertionError(f"{events} events, a pseudo stack of {len(trainer.pseudo_stack)}")
     # every step renders the train view; the steps strictly inside
-    # CLI_PSEUDO (the first event comes after step 1) a pseudo view too
+    # CLI_PSEUDO (the first event comes after step 1) a pseudo view too, in
+    # the same chain
     pseudo_steps = CLI_PSEUDO[1] - CLI_PSEUDO[0] - 1
-    backward = CLI_ITERS + pseudo_steps
-    # K1, K3, K4 also render: the centre depth of each train view and its 3
-    # scales x 20 pool candidates, the frozen and the oracle frames of each
-    # event, the test and train views of the evaluation at CLI_ITERS
+    # K1, K3, K4 also render: the centre depth of each train view (one view
+    # a chain) and its 3 scales x 20 pool candidates, the frozen and the
+    # oracle frames of each event (chains of FrozenRenderer.GROUP frames),
+    # the test and train views of the evaluation at CLI_ITERS (one a chain)
     n_train, n_test = len(trainer.train_cams), len(trainer.scene.getTestCameras())
-    forward = backward + n_train * (1 + 3 * 20) + 2 * EVENT_FRAMES * events + n_test + n_train
-    want = {n: forward if n in FORWARD_KERNELS else backward for n in GAUSSIAN_KERNELS}
+    want = launches_of(CLI_ITERS, pseudo_steps,
+                       n_train * (1 + 3 * 20) + 2 * EVENT_FRAMES * events + n_test + n_train,
+                       n_train * (1 + 3 * chains_of(20)) + 2 * chains_of(EVENT_FRAMES) * events + n_test + n_train)
     if any(launches[n] != want[n] for n in GAUSSIAN_KERNELS):
         raise AssertionError(f"guided CLI launches {launches}, expected {want}")
     port_render.main(["-m", str(mdl), "--skip_train", "--iteration", str(CLI_ITERS), "--device", dev.type])
@@ -1909,8 +1965,11 @@ def add_launches(total: dict) -> dict:
     return now
 
 
-def check_chain_launches(what: str, got: dict, forward: int, backward: int) -> None:
-    want = {n: forward if n in FORWARD_KERNELS else backward for n in GAUSSIAN_KERNELS}
+def check_chain_launches(what: str, got: dict, forward: int = 0, backward: int = 0, want: dict = None) -> None:
+    """K1-K6 launched `want` times, or, without it, K1, K3, K4 `forward` and
+    K2, K5, K6 `backward` times (single-view renders and steps); no L1."""
+    if want is None:
+        want = {n: forward if n in FORWARD_KERNELS else backward for n in GAUSSIAN_KERNELS}
     if any(got[n] != want[n] for n in GAUSSIAN_KERNELS) or any(
             got[n] for n in ("flash_attn_fwd",) + L1_BWD_KERNELS):
         raise AssertionError(f"{what}: launches {got}, expected {want}")
@@ -2072,8 +2131,8 @@ def chain_resume(dev, work: Path, total: dict) -> list:
     torch.cuda.synchronize()
     launches_a, frames_a = add_launches(total), dict(frames)
     # step 1 renders the train view only (its event comes after it), every later step a pseudo view too
-    check_chain_launches("run A", launches_a, 2 * RESUME_STEPS - 1 + frames_a["frozen"] + frames_a["oracle"],
-                         2 * RESUME_STEPS - 1)
+    check_chain_launches("run A", launches_a,
+                         want=launches_of(RESUME_STEPS, RESUME_STEPS - 1, *frames_and_chains(frames_a)))
 
     b = trainer()
     frames.clear()
@@ -2088,8 +2147,7 @@ def chain_resume(dev, work: Path, total: dict) -> list:
     torch.cuda.synchronize()
     launches_b = add_launches(total)
     check_chain_launches("run B", launches_b,
-                         2 * (RESUME_STEPS - it) + frames.get("frozen", 0) + frames.get("oracle", 0),
-                         2 * (RESUME_STEPS - it))
+                         want=launches_of(RESUME_STEPS - it, RESUME_STEPS - it, *frames_and_chains(frames)))
     if not (0 < events_at < a.events_run == b.events_run):
         raise AssertionError(f"events: {events_at} at the checkpoint, A {a.events_run}, B {b.events_run}")
     differ = [n for n in G.PARAM_NAMES if not torch.equal(getattr(a.state.params, n), getattr(b.state.params, n))]
@@ -3056,8 +3114,8 @@ def geometry_append(dev, work: Path, step_ms_5c, total: dict) -> list:
                              f"{len(dpt_ms)} DPT calls; unobserved pixels of the event's frames {unobserved}")
     step_ms, losses, _, _ = run_steps(trainer, last, range(-1, 0), first=2)  # none traced
     launches = add_launches(total)
-    renders = sum(frames.values()) - sum(pool_frames.values())
-    want = {n: 2 * GUIDED_TRAINER_STEPS + (renders if n in FORWARD_KERNELS else 0) for n in GAUSSIAN_KERNELS}
+    renders, chains = (a - b for a, b in zip(frames_and_chains(frames), frames_and_chains(pool_frames)))
+    want = launches_of(GUIDED_TRAINER_STEPS, GUIDED_TRAINER_STEPS, renders, chains)
     if any(launches[n] != want[n] for n in GAUSSIAN_KERNELS) or not all(math.isfinite(float(v)) for v in losses):
         raise AssertionError(f"9b: launches {launches}, expected {want}; losses {[float(v) for v in losses]}")
     ms = statistics.median(list(step_ms.values())[1:])
@@ -3244,12 +3302,14 @@ def pipelined_trainer(views, params, frozen, engine, pcd, K, event_worker: bool,
 
 
 def count_step_renders(trainer, counter: dict) -> None:
-    """Count the renders of the trainer's steps (2 with a pseudo view)."""
+    """Count the trainer's steps ("steps") and those with a pseudo view
+    ("pseudo")."""
     pick = trainer._pick_pseudo
 
     def counted(it):
         cam = pick(it)
-        counter["renders"] = counter.get("renders", 0) + 1 + (cam is not None)
+        counter["steps"] = counter.get("steps", 0) + 1
+        counter["pseudo"] = counter.get("pseudo", 0) + (cam is not None)
         return cam
 
     trainer._pick_pseudo = counted
@@ -3330,13 +3390,12 @@ def pipeline_oracle(dev, work: Path, room, pcd) -> tuple[dict, list]:
             torch.cuda.current_stream().wait_stream(prio)
         torch.cuda.synchronize()
         launches = dict(_build.LAUNCHES)
-        renders = frames.get("frozen", 0) + frames.get("oracle", 0)
-        want = {n: counter["renders"] + (renders if n in FORWARD_KERNELS else 0) for n in GAUSSIAN_KERNELS}
+        want = launches_of(counter["steps"], counter["pseudo"], *frames_and_chains(frames))
         if any(launches[n] != want[n] for n in GAUSSIAN_KERNELS) or any(
                 launches[n] for n in ("flash_attn_fwd",) + L1_BWD_KERNELS):
-            raise AssertionError(f"10a {mode}: launches {launches}, expected {want}: K1-K6 once a render of "
-                                 f"the steps ({counter['renders']}), K1, K3, K4 once more a frozen or oracle "
-                                 f"frame ({frames})")
+            raise AssertionError(f"10a {mode}: launches {launches}, expected {want}: a chain a step "
+                                 f"({counter}), K1 once more a frozen or oracle frame, K3 and K4 a chain of "
+                                 f"them ({frames})")
         if trainer.events_run != PIPE_BOUNDARIES or len(trainer.pseudo_stack) != EVENT_FRAMES - 1 \
                 or trainer._executor is not None:
             raise AssertionError(f"10a {mode}: {trainer.events_run} events, stack {len(trainer.pseudo_stack)}")
@@ -3441,11 +3500,11 @@ def pipeline_viewcrafter(dev, work: Path, room, pcd) -> tuple[dict, list, float]
     launches = dict(_build.LAUNCHES)
     fwd, bwd = guided_launches(mcfg.unet, GUIDED_STEPS, GEN_FRAMES, DECODE_CHUNK)
     events = 2 + len(beside)
-    want = {n: counter["renders"] + (frames["frozen"] if n in FORWARD_KERNELS else 0) for n in GAUSSIAN_KERNELS}
+    want = launches_of(counter["steps"], counter["pseudo"], frames["frozen"], frames["frozen_chains"])
     want.update(flash_attn_fwd=events * (fwd + 2), flash_attn_bwd_dkv=events * bwd, flash_attn_bwd_dq=events * bwd)
     if launches != want:
         raise AssertionError(f"10b: launches {launches}, expected {want}: {events} events' L1 and frozen frames, "
-                             f"K1-K6 once a render of the steps")
+                             f"a chain a step")
     if trainer.events_run != events or not all(r["during"] for r in beside.values()) or peak_gb >= 80.0:
         raise AssertionError(f"10b: {trainer.events_run} events, steps beside "
                              f"{[len(r['during']) for r in beside.values()]}, peak {peak_gb:.2f} GB")
@@ -3471,7 +3530,7 @@ def pipeline_viewcrafter(dev, work: Path, room, pcd) -> tuple[dict, list, float]
     lines.append(
         f"peak allocated (engine weights, trainer state, stacks, the guided steps beside the trainer's): "
         f"{peak_gb:.2f} GB of 80; launches {launches} (exactly: L1 {fwd + 2} / {bwd} / {bwd} an event, "
-        f"frozen frames {frames['frozen']}, step renders {counter['renders']})")
+        f"frozen frames {frames['frozen']} in {frames['frozen_chains']} chains, steps {counter})")
     del trainer, engine, gparams
     torch.cuda.empty_cache()
     return launches, lines, step_alone
@@ -3570,17 +3629,25 @@ def pipeline_cli(dev, work: Path, src: Path, base: Path) -> dict:
     exact (the steps' renders and the FrozenRenderer frames counted, the
     evaluation's views); then the ViewCrafter CLI of 6c with the flag."""
     mdl = work / "synthetic_guided_pipelined"
-    counts = {"renders": 0, "frames": 0, "submitted": 0}
-    pick, render, submit = GuidedTrainer._pick_pseudo, FrozenRenderer.render, GuidedTrainer.submit_diffusion_event
+    counts = {"steps": 0, "pseudo": 0, "frames": 0, "chains": 0, "submitted": 0}
+    pick, submit = GuidedTrainer._pick_pseudo, GuidedTrainer.submit_diffusion_event
+    render, render_many = FrozenRenderer.render, FrozenRenderer.render_many
 
     def counted_pick(self, it):
         cam = pick(self, it)
-        counts["renders"] += 1 + (cam is not None)
+        counts["steps"] += 1
+        counts["pseudo"] += cam is not None
         return cam
 
     def counted_render(self, *args, **kwargs):
         counts["frames"] += 1
+        counts["chains"] += 1
         return render(self, *args, **kwargs)
+
+    def counted_many(self, w2cs, *args, **kwargs):
+        counts["frames"] += len(w2cs)
+        counts["chains"] += chains_of(len(w2cs))
+        return render_many(self, w2cs, *args, **kwargs)
 
     def counted_submit(self, it):
         pending = submit(self, it)
@@ -3591,6 +3658,7 @@ def pipeline_cli(dev, work: Path, src: Path, base: Path) -> dict:
     _build.reset_launches()
     with mock.patch.object(GuidedTrainer, "_pick_pseudo", counted_pick), \
             mock.patch.object(FrozenRenderer, "render", counted_render), \
+            mock.patch.object(FrozenRenderer, "render_many", counted_many), \
             mock.patch.object(GuidedTrainer, "submit_diffusion_event", counted_submit):
         t0 = time.perf_counter()
         trainer = port_guided_cli.main([
@@ -3607,8 +3675,7 @@ def pipeline_cli(dev, work: Path, src: Path, base: Path) -> dict:
     launches = dict(_build.LAUNCHES)
     timing = json.loads((mdl / "timing_summary.json").read_text())
     n_eval = len(trainer.train_cams) + len(trainer.scene.getTestCameras())
-    want = {n: counts["renders"] + (counts["frames"] + n_eval if n in FORWARD_KERNELS else 0)
-            for n in GAUSSIAN_KERNELS}
+    want = launches_of(counts["steps"], counts["pseudo"], counts["frames"] + n_eval, counts["chains"] + n_eval)
     if any(launches[n] != want[n] for n in GAUSSIAN_KERNELS) or trainer.events_run != counts["submitted"] \
             or trainer.events_run < 3 or not timing["pipeline_guidance"] or trainer._executor is not None \
             or not (mdl / f"chkpnt{ckpt_at}.ckpt.guided.npz").exists():
@@ -3624,8 +3691,8 @@ def pipeline_cli(dev, work: Path, src: Path, base: Path) -> dict:
         + ", ".join(f"{k} {v:.3f}" for k, v in timing["event_phase_s"].items())
         + f" on the worker; finalize waited {timing['event_wait_s']:.3f} s) | events {trainer.events_run}, "
         f"checkpoint at {ckpt_at} with an event in flight | test PSNR {res['PSNR']:.4f} SSIM {res['SSIM']:.5f} | "
-        f"launches {launches} (exactly: step renders {counts['renders']}, frozen and oracle frames "
-        f"{counts['frames']}, evaluation views {n_eval})")
+        f"launches {launches} (exactly: steps {counts['steps']}, {counts['pseudo']} of them with a pseudo view, "
+        f"frozen and oracle frames {counts['frames']} in {counts['chains']} chains, evaluation views {n_eval})")
     vc = phase_vc_cli(dev, work, src, base, extra=("--pipeline_guidance",), tag="10d")
     return {n: launches.get(n, 0) + vc.get(n, 0) for n in KERNELS}
 
@@ -3662,6 +3729,252 @@ def phase_pipeline(dev, work: Path, cli=None):
     return {n: total.get(n, 0) for n in KERNELS}, step_alone
 
 
+# phase 11: the B-camera chain at full width. 11 cameras of 640x480 make
+# 11 x 1,200 tiles, past K3's shared histogram of 12,288 bins
+MULTI_BATCHES = (2, 5, 11)
+MULTI_GRAD_BATCHES = (2, 5)
+K3_HIST_CAP = 12288
+# the chain's gradients against the sum of B single renders' (the same
+# per-camera K2 outputs added in the same camera order): max abs error
+# over max |grad| of each input
+MULTI_GRAD_TOL = 1e-5
+# the chain against itself on the plain versions: each gradient's error in
+# L2 norm over the plain's (10c's DP_GRAD_TOL, for the same reasons); a K2
+# that overwrote instead of adding would leave the last camera's gradients
+# alone, an error of |sum of the other cameras'| / |sum|, which must exceed it
+MULTI_PLAIN_GRAD_TOL = DP_GRAD_TOL
+MULTI_STEPS = 8  # guided steps a timed block; blocks per-view, chain, chain, per-view
+MULTI_CLOUD = N_SCENE // 10  # the event's point cloud (its splat is not this phase's subject)
+
+
+def per_view_multi(params, cams, bg, active_sh_degree, means2d_offset=None, confidence=None,
+                   use_confidence=False, backend="auto", **_):
+    """render_gaussians_multi's result from one render_gaussians a camera:
+    the guided step's renders before the chain, kept here as its yardstick
+    (the two renders' fields are stacked: two small copies a field)."""
+    outs = [render_gaussians(params, cam, bg, active_sh_degree, means2d_offset=means2d_offset[c],
+                             confidence=confidence, use_confidence=use_confidence, backend=backend)
+            for c, cam in enumerate(cams)]
+    return RenderResult(*(torch.stack(x) for x in zip(*(o[:5] for o in outs))),
+                        sum(o.num_instances for o in outs))
+
+
+def multi_against_singles(dev, acts, cams, bg, grads: bool) -> dict:
+    """One chain of `cams` against their single renders: the images and
+    radii bitwise, the chain's launches exactly (K1 a camera, K3 and K4
+    once; backward K5 and K6 once, K2 a camera), the forward's ms both ways;
+    with `grads`, the gradients of a fixed random loss both ways, and the
+    chain's images, radii and gradients against the same chain on the
+    plain versions."""
+    b = len(cams)
+    n = acts[0].shape[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + b)
+    wc = torch.randn((b, 3, HEIGHT, WIDTH), generator=gen, device=dev)
+    wd = torch.randn((b, HEIGHT, WIDTH), generator=gen, device=dev) * 0.1
+    wa = torch.randn((b, HEIGHT, WIDTH), generator=gen, device=dev)
+
+    def leaves():
+        flat = [t.detach().clone().requires_grad_(grads) for t in acts[:4] + acts[4]]
+        return flat[:4] + [tuple(flat[4:])]
+
+    lv = leaves()
+    off = torch.zeros((b, n, 2), device=dev, requires_grad=grads)
+    _build.reset_launches()
+    chain = raster_tiles.rasterize_tiles_multi(*lv, cams, bg, means2d_offset=off)
+    fwd = dict(_build.LAUNCHES)
+    want = launches_of(frames=b, chains=1)
+    if any(fwd[k] != want[k] for k in GAUSSIAN_KERNELS):
+        raise AssertionError(f"11a B={b}: forward launches {fwd}, expected {want}")
+    out = dict(cameras=b, tiles=b * ((WIDTH + 15) // 16) * ((HEIGHT + 15) // 16),
+               instances=chain.num_instances)
+    differ = []
+    with torch.no_grad():
+        singles = [raster_tiles.rasterize_tiles(*acts, cam, bg) for cam in cams]
+    for c, one in enumerate(singles):
+        for name in ("color", "depth", "alpha", "radii"):
+            if not torch.equal(getattr(chain, name)[c], getattr(one, name)):
+                differ.append(f"{name}[{c}]")
+    if differ or chain.num_instances != sum(o.num_instances for o in singles):
+        raise AssertionError(f"11a B={b}: the chain's forward is not bitwise its single renders in {differ}; "
+                             f"instances {chain.num_instances} against {[o.num_instances for o in singles]}")
+    with torch.no_grad():
+        out["chain_fwd_ms"] = median_ms(lambda: raster_tiles.rasterize_tiles_multi(*acts, cams, bg), runs=5)
+        out["singles_fwd_ms"] = median_ms(lambda: [raster_tiles.rasterize_tiles(*acts, c, bg) for c in cams],
+                                          runs=5)
+    if not grads:
+        return out
+
+    def loss(color, depth, alpha, cams=slice(None)):
+        return (color * wc[cams]).sum() + (depth * wd[cams]).sum() + (alpha * wa[cams]).sum()
+
+    _build.reset_launches()
+    loss(chain.color, chain.depth, chain.alpha).backward()
+    bwd = dict(_build.LAUNCHES)
+    want = {"preprocess_fwd": 0, "expand": 0, "blend_fwd": 0, "blend_bwd": 1, "segsum": 1, "preprocess_bwd": b}
+    if any(bwd[k] != want[k] for k in GAUSSIAN_KERNELS):
+        raise AssertionError(f"11a B={b}: backward launches {bwd}, expected {want}")
+    got = [t.grad for t in lv[:4] + list(lv[4])] + [off.grad]
+    ls = leaves()
+    offs = [torch.zeros((n, 2), device=dev, requires_grad=True) for _ in cams]
+    rs = [raster_tiles.rasterize_tiles(*ls, cam, bg, means2d_offset=o) for cam, o in zip(cams, offs)]
+    # the cameras before the last first: what an overwriting K2 would lose
+    loss(torch.stack([r.color for r in rs[:-1]]), torch.stack([r.depth for r in rs[:-1]]),
+         torch.stack([r.alpha for r in rs[:-1]]), slice(0, b - 1)).backward()
+    lost = [t.grad.clone() for t in ls[:4] + list(ls[4])]
+    loss(rs[-1].color[None], rs[-1].depth[None], rs[-1].alpha[None], slice(b - 1, b)).backward()
+    ref = [t.grad for t in ls[:4] + list(ls[4])] + [torch.stack([o.grad for o in offs])]
+    names = ("means", "scales", "rotations", "opacity", "features_dc", "features_rest", "offsets")
+    errs = {k: float((g - r).abs().max() / r.abs().max().clamp(min=1e-30)) for k, g, r in zip(names, got, ref)}
+    if not all(math.isfinite(e) and e <= MULTI_GRAD_TOL for e in errs.values()) \
+            or float(ref[-1].abs().max()) == 0.0:
+        raise AssertionError(f"11a B={b}: gradient errors {errs} (tol {MULTI_GRAD_TOL})")
+    out.update(grad_err=errs, grads_bitwise=[k for k, g, r in zip(names, got, ref) if torch.equal(g, r)])
+
+    # the same chain on the plain versions: K1 into its columns, K3 and the
+    # blends over the bands, K2 adding camera by camera
+    lp = leaves()
+    off_p = torch.zeros((b, n, 2), device=dev, requires_grad=True)
+    before = dict(_build.LAUNCHES)
+    with plain_gaussian_kernels():
+        plain = raster_tiles.rasterize_tiles_multi(*lp, cams, bg, means2d_offset=off_p)
+        loss(plain.color, plain.depth, plain.alpha).backward()
+    if dict(_build.LAUNCHES) != before:
+        raise AssertionError(f"11a B={b}: the plain chain launched a kernel")
+    out["plain_img_err"] = {k: check_k4(k, getattr(chain, k), getattr(plain, k))
+                            for k in ("color", "depth", "alpha")}
+    out["plain_radii_differ"] = int((chain.radii != plain.radii).sum())
+    if out["plain_radii_differ"] > max(10, b * n // 10000):
+        raise AssertionError(f"11a B={b}: radii differ from the plain chain's on {out['plain_radii_differ']} "
+                             f"of {b * n}")
+    plain_g = [t.grad for t in lp[:4] + list(lp[4])] + [off_p.grad]
+    perr = {k: float((g - p).norm() / p.norm().clamp(min=1e-30)) for k, g, p in zip(names, got, plain_g)}
+    overwrite = {k: float(x.norm() / r.norm().clamp(min=1e-30)) for k, x, r in zip(names, lost, ref)}
+    if not all(math.isfinite(e) and e <= MULTI_PLAIN_GRAD_TOL for e in perr.values()) \
+            or not min(overwrite.values()) > MULTI_PLAIN_GRAD_TOL:
+        raise AssertionError(f"11a B={b}: gradients against the plain chain {perr} (tol {MULTI_PLAIN_GRAD_TOL}); "
+                             f"an overwriting K2's error {overwrite} must exceed the tolerance")
+    out.update(plain_grad_err=perr, overwrite_err=overwrite)
+    return out
+
+
+def phase_multi(dev, work: Path) -> dict:
+    """Phase 11: the B-camera chain at full width on phase 5b's room (1M
+    Gaussians, SH 3, 640x480). 11a the chain of B = 2, 5 and 11 orbit
+    cameras against B single renders (forward bitwise; at B = 2 and 5 the
+    gradients within MULTI_GRAD_TOL; B = 11 past K3's shared histogram).
+    11b phase 5c's trainer (the oracle, txt trajectories, a point cloud of
+    MULTI_CLOUD points): one event's launches (K3 and K4 once a chain of
+    FrozenRenderer.GROUP frames), then guided steps with a pseudo view in
+    timed blocks of MULTI_STEPS, per-view (each view its own render, as
+    before the chain), chain, chain, per-view: launches exactly each step,
+    host ms, and one traced step each way (device ms by stage, sorts and
+    read-backs). Returns the phase's launches."""
+    total = {}
+    gt, pcams, params = dense_room(dev)
+    acts = activations(params)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    lines = []
+    for b in MULTI_BATCHES:
+        cams = [pcams[i * N_CAMS // b].raster_camera(dev) for i in range(b)]
+        r = multi_against_singles(dev, acts, cams, bg, grads=b in MULTI_GRAD_BATCHES)
+        add_launches(total)
+        lines.append(
+            f"11a B={b} ({r['tiles']} tiles{', past K3 shared histogram' if r['tiles'] > K3_HIST_CAP else ''}, "
+            f"{r['instances']} instances): forward bitwise the single renders; forward ms chain "
+            f"{r['chain_fwd_ms']:.3f} against {r['singles_fwd_ms']:.3f} for the {b} single renders (host clock, "
+            f"synchronised, median of 5)"
+            + (f"; gradients' max abs error over max |grad| "
+               + ", ".join(f"{k} {v:.2e}" for k, v in r["grad_err"].items())
+               + f" (tol {MULTI_GRAD_TOL}), bitwise: {r['grads_bitwise']}; against the chain on the plain "
+               f"versions: images' max abs error " + ", ".join(f"{k} {v:.2e}" for k, v in r["plain_img_err"].items())
+               + f" (K4_TOL), radii differing {r['plain_radii_differ']}, gradients' error in L2 norm over the "
+               f"plain's " + ", ".join(f"{k} {v:.2e}" for k, v in r["plain_grad_err"].items())
+               + f" (tol {MULTI_PLAIN_GRAD_TOL}; a K2 that overwrote would err by "
+               + ", ".join(f"{k} {v:.3f}" for k, v in r["overwrite_err"].items()) + ")"
+               if "grad_err" in r else ""))
+    del acts
+
+    views = train_views(gt, pcams, dev)
+    npz = work / "gt_gaussians_11.npz"
+    synthetic.write_gt_npz(str(npz), gt)
+    cols = np.clip(SH2RGB(gt["features_dc"][:, 0]), 0, 1).astype(np.float32)
+    pcd_pts, pcd_cols = synthetic.init_cloud(gt["xyz"], cols, MULTI_CLOUD, np.random.default_rng(SEED + 11))
+    frozen = FrozenRenderer(params, 3)
+    engine = OracleDiffusionEngine(str(npz), EVENT_FRAMES, HEIGHT, WIDTH, device=dev)
+    last = 4 * MULTI_STEPS + 3
+    opt = OptimizationParams(iterations=10 * last, start_sample_pseudo=0, end_sample_pseudo=10 * last,
+                             guidance_vd_iter=10 * last, densify_from_iter=10 * last,
+                             densify_until_iter=10 * last, use_trajectory_pool=False)
+    state = G.GaussianState.fresh(G.GaussianParams(**{k: v.clone() for k, v in params.tensors().items()}))
+    trainer = GuidedTrainer(views, state, opt, PipelineParams(), ModelParams(), frozen, engine, pcd_pts,
+                            pcd_cols, guidance_intrinsic(views.cams[0]))
+    trainer.init_view_geometry()
+    add_launches(total)
+    _build.reset_launches()
+    trainer.run_diffusion_event(1)
+    event = add_launches(total)
+    want = launches_of(frames=2 * EVENT_FRAMES, chains=2 * chains_of(EVENT_FRAMES))
+    if any(event[k] != want[k] for k in GAUSSIAN_KERNELS) or len(trainer.pseudo_stack) != EVENT_FRAMES - 1:
+        raise AssertionError(f"11b event: launches {event}, expected {want} (the frozen and the oracle's "
+                             f"{EVENT_FRAMES} frames, chains of {FrozenRenderer.GROUP})")
+    lines.append(f"11b an oracle event: K1 {event['preprocess_fwd']}, K3 {event['expand']}, K4 "
+                 f"{event['blend_fwd']} (the frozen renders' {EVENT_FRAMES} frames and the oracle's, each "
+                 f"{chains_of(EVENT_FRAMES)} chains of {FrozenRenderer.GROUP}; one a frame before the chain: "
+                 f"K3 {2 * EVENT_FRAMES})")
+
+    per_view = mock.patch.object(guided_module, "render_gaussians_multi", per_view_multi)
+    it = 1
+    host = {"per_view": [], "chain": []}
+    for way in ("per_view", "chain", "chain", "per_view"):
+        with per_view if way == "per_view" else contextlib.nullcontext():
+            for _ in range(MULTI_STEPS):
+                it += 1
+                _build.reset_launches()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                st = trainer.step(it)
+                torch.cuda.synchronize()
+                host[way].append((time.perf_counter() - t) * 1e3)
+                got = add_launches(total)
+                # per-view: two single-view chains; the chain: one of two views
+                want = launches_of(2) if way == "per_view" else launches_of(1, 1)
+                if any(got[k] != want[k] for k in GAUSSIAN_KERNELS) or not math.isfinite(float(st.loss)) \
+                        or not float(trainer.last_metrics["pseudo_l1"]) > 0.0:
+                    raise AssertionError(f"11b {way} step {it}: launches {got}, expected {want}; loss "
+                                         f"{float(st.loss)}, pseudo_l1 {float(trainer.last_metrics['pseudo_l1'])}")
+    traced = {}
+    for way in ("per_view", "chain"):
+        with per_view if way == "per_view" else contextlib.nullcontext():
+            it += 1
+            trainer.step(it)  # warm
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=PROFILER_ACTIVITIES) as prof:
+                it += 1
+                trainer.step(it)
+                torch.cuda.synchronize()
+            add_launches(total)
+        dev_ms, idle, rb_ms, rbs, concat = trace_summary(prof, 1)
+        sorts = sum(1 for e in prof.events() if e.name == "aten::sort")
+        traced[way] = dict(dev_ms=dev_ms, idle=idle, readbacks=rbs, sorts=sorts, concat=concat)
+    for way in ("per_view", "chain"):
+        t = traced[way]
+        lines.append(f"11b guided step {way}: host ms median {statistics.median(host[way]):.3f} (blocks "
+                     + ", ".join(f"{statistics.median(host[way][i:i + MULTI_STEPS]):.3f}"
+                                 for i in range(0, len(host[way]), MULTI_STEPS))
+                     + f"); traced device ms " + fmt_stages(t["dev_ms"]) + f", idle share {t['idle']:.3f}; "
+                     f"sorts/step {t['sorts']}, read-backs/step {t['readbacks']:g}; {fmt_concat(t['concat'], 'step')}")
+    lines.append(f"11b chain against per-view: host ms {statistics.median(host['chain']):.3f} / "
+                 f"{statistics.median(host['per_view']):.3f}, device ms {sum(traced['chain']['dev_ms'].values()):.3f}"
+                 f" / {sum(traced['per_view']['dev_ms'].values()):.3f} a guided step (blocks in turns: per-view, "
+                 f"chain, chain, per-view)")
+    for line in lines:
+        log("phase " + line)
+    if traced["chain"]["sorts"] >= traced["per_view"]["sorts"] or \
+            traced["chain"]["readbacks"] >= traced["per_view"]["readbacks"]:
+        raise AssertionError(f"11b: sorts and read-backs a step, chain against per-view: {traced}")
+    return {n: total.get(n, 0) for n in KERNELS}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--generate-only", type=int, metavar="STEPS", default=None,
@@ -3686,6 +3999,9 @@ def main() -> None:
     parser.add_argument("--pipeline-only", action="store_true",
                         help="run phases 1, 2 and 10 alone: pipelined events (the oracle's, the "
                              "ViewCrafter's beside the trainer) and the camera-batch step")
+    parser.add_argument("--multi-only", action="store_true",
+                        help="run phases 1, 2 and 11 alone: the B-camera chain against single renders, "
+                             "its launches in the guided step and an event, the step's ms both ways")
     args = parser.parse_args()
     start = time.perf_counter()
     secs = {}
@@ -3738,6 +4054,10 @@ def main() -> None:
             run("10", phase_pipeline, dev, work)
             log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
             return
+        if args.multi_only:
+            run("11", phase_multi, dev, work)
+            log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+            return
         res = run("3", phase_kernels, dev)
         if args.gaussian_only:
             run("5", phase_train, dev)
@@ -3759,6 +4079,7 @@ def main() -> None:
         by_phase["8b"], step_8b = run("8b-8c", phase_guided, dev, GUIDED_STEPS)
         by_phase["9"] = run("9", phase_geometry, dev, work, c5["host_ms"])
         by_phase["10"], step_10b = run("10", phase_pipeline, dev, work, (cli_src, base))
+        by_phase["11"] = run("11", phase_multi, dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"phase 5d vs 8b: a guided DDIM step ({GUIDED_STEPS}-step request, 25x320x448 bf16) "

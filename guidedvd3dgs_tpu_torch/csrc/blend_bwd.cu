@@ -128,7 +128,7 @@ __global__ void __launch_bounds__(TILE_PIX)
                      const float* __restrict__ fwd_alpha,
                      const float* __restrict__ d_color, const float* __restrict__ d_depth,
                      const float* __restrict__ d_alpha, int gx, int width, int height,
-                     float* __restrict__ grad) {
+                     float* __restrict__ grad, int gy_cam) {
   // per instance: (mx, my, a, b) (c, op, r, g) (b, d, -, -)
   __shared__ float4 s_f[TILE_PIX][3];
   __shared__ float s_part[NWARP][SUB][NS];
@@ -137,8 +137,10 @@ __global__ void __launch_bounds__(TILE_PIX)
   const int lin = threadIdx.x;
   const int lane = lin & 31, warp = lin >> 5;
   const int slot = pair_slot(lane);
-  const int px = (t % gx) * TILE + lin % TILE;
-  const int py = (t / gx) * TILE + lin / TILE;
+  // the tile's camera (band) and its pixel in that camera's image
+  const int cam = t / (gx * gy_cam), tl = t - cam * (gx * gy_cam);
+  const int px = (tl % gx) * TILE + lin % TILE;
+  const int py = (tl / gx) * TILE + lin / TILE;
   const bool inside = px < width && py < height;
   const float pxf = (float)px, pyf = (float)py;
   const int start = tile_start[t];
@@ -148,14 +150,15 @@ __global__ void __launch_bounds__(TILE_PIX)
   float dcr = 0.0f, dcg = 0.0f, dcb = 0.0f, dd = 0.0f, da = 0.0f, U = 0.0f;
   if (inside) {
     const size_t hw = (size_t)height * width;
-    const size_t p = (size_t)py * width + px;
+    const size_t p = (size_t)cam * 3 * hw + (size_t)py * width + px;
+    const size_t pa = (size_t)cam * hw + (size_t)py * width + px;
     dcr = d_color[p];
     dcg = d_color[hw + p];
     dcb = d_color[2 * hw + p];
-    dd = d_depth[p];
-    da = d_alpha[p];
+    dd = d_depth[pa];
+    da = d_alpha[pa];
     U = fwd_color[p] * dcr + fwd_color[hw + p] * dcg + fwd_color[2 * hw + p] * dcb;
-    U = U + fwd_depth[p] * dd + fwd_alpha[p] * da;
+    U = U + fwd_depth[pa] * dd + fwd_alpha[pa] * da;
   }
 
   float T = 1.0f, prefix = 0.0f;
@@ -268,16 +271,21 @@ __global__ void __launch_bounds__(TILE_PIX)
 }  // namespace gvd
 
 // tile_order: the tiles in the order their blocks start (a permutation)
+// gy_cam: the tile rows of one camera; gy = B gy_cam stacks B cameras' grids
+// as bands, with the images and cotangents (B, 3, height, width) and
+// (B, height, width) (one camera: gy_cam = gy)
 GVD_API int gvd_blend_bwd(const float* tab, int n, const int* inst_gauss, const int* perm,
                           const int* tile_start, const int* tile_count, const int* tile_order,
                           const float* fwd_color, const float* fwd_depth, const float* fwd_alpha,
                           const float* d_color, const float* d_depth, const float* d_alpha, int gx,
-                          int gy, int width, int height, float* grad, cudaStream_t stream) {
+                          int gy, int width, int height, float* grad, int gy_cam,
+                          cudaStream_t stream) {
   const int num_tiles = gx * gy;
+  if (gy_cam <= 0 || gy % gy_cam) return (int)cudaErrorInvalidValue;
   if (num_tiles > 0) {
     gvd::blend_bwd_kernel<<<num_tiles, gvd::TILE_PIX, 0, stream>>>(
         tab, n, inst_gauss, perm, tile_start, tile_count, tile_order, fwd_color, fwd_depth,
-        fwd_alpha, d_color, d_depth, d_alpha, gx, width, height, grad);
+        fwd_alpha, d_color, d_depth, d_alpha, gx, width, height, grad, gy_cam);
   }
   return (int)cudaGetLastError();
 }

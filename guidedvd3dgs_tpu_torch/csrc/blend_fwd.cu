@@ -73,7 +73,7 @@ __global__ void __launch_bounds__(TILE_PIX, K4_MIN_BLOCKS)
                      const int* __restrict__ tile_start, const int* __restrict__ tile_count,
                      const int* __restrict__ tile_order, const float* __restrict__ bg, int gx,
                      int width, int height, float* __restrict__ out_color,
-                     float* __restrict__ out_depth, float* __restrict__ out_alpha) {
+                     float* __restrict__ out_depth, float* __restrict__ out_alpha, int gy_cam) {
   __shared__ float4 s_f[2][ROUND][3];
   const int t = tile_order[blockIdx.x];
   const int lin = threadIdx.x;
@@ -81,8 +81,10 @@ __global__ void __launch_bounds__(TILE_PIX, K4_MIN_BLOCKS)
   const int cnt = tile_count[t];
   const size_t N = (size_t)n;
 
-  const int px = (t % gx) * TILE + lin % TILE;
-  const int py = (t / gx) * TILE + lin / TILE;
+  // the tile's camera (band) and its pixel in that camera's image
+  const int cam = t / (gx * gy_cam), tl = t - cam * (gx * gy_cam);
+  const int px = (tl % gx) * TILE + lin % TILE;
+  const int py = (tl / gx) * TILE + lin / TILE;
   const bool inside = px < width && py < height;
   const float pxf = (float)px, pyf = (float)py;
   float T = 1.0f, acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_d = 0.0f, acc_a = 0.0f;
@@ -152,12 +154,13 @@ __global__ void __launch_bounds__(TILE_PIX, K4_MIN_BLOCKS)
 
   if (inside) {
     const size_t hw = (size_t)height * width;
-    const size_t q = (size_t)py * width + px;
+    const size_t q = (size_t)cam * 3 * hw + (size_t)py * width + px;
+    const size_t qa = (size_t)cam * hw + (size_t)py * width + px;
     out_color[q] = acc_r + T * bg[0];
     out_color[hw + q] = acc_g + T * bg[1];
     out_color[2 * hw + q] = acc_b + T * bg[2];
-    out_depth[q] = acc_d;
-    out_alpha[q] = acc_a;
+    out_depth[qa] = acc_d;
+    out_alpha[qa] = acc_a;
   }
 }
 
@@ -165,15 +168,19 @@ __global__ void __launch_bounds__(TILE_PIX, K4_MIN_BLOCKS)
 }  // namespace gvd
 
 // tile_order: the tiles in the order their blocks start (a permutation)
+// gy_cam: the tile rows of one camera; gy = B gy_cam stacks B cameras' grids
+// as bands, and the outputs are (B, 3, height, width), (B, height, width)
+// and (B, height, width) (one camera: gy_cam = gy)
 GVD_API int gvd_blend_fwd(const float* tab, int n, const int* inst_gauss, const int* tile_start,
                           const int* tile_count, const int* tile_order, const float* bg, int gx,
                           int gy, int width, int height, float* out_color, float* out_depth,
-                          float* out_alpha, cudaStream_t stream) {
+                          float* out_alpha, int gy_cam, cudaStream_t stream) {
   const int num_tiles = gx * gy;
+  if (gy_cam <= 0 || gy % gy_cam) return (int)cudaErrorInvalidValue;
   if (num_tiles > 0) {
     gvd::blend_fwd_kernel<<<num_tiles, gvd::TILE_PIX, 0, stream>>>(
         tab, n, inst_gauss, tile_start, tile_count, tile_order, bg, gx, width, height, out_color,
-        out_depth, out_alpha);
+        out_depth, out_alpha, gy_cam);
   }
   return (int)cudaGetLastError();
 }

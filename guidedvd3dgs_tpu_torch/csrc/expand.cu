@@ -107,7 +107,8 @@ __global__ void __launch_bounds__(K3_THREADS, K3_MIN_BLOCKS)
                   const int* __restrict__ rect_min_y, const int* __restrict__ rect_w,
                   const int* __restrict__ count, const int* __restrict__ offsets, int gx,
                   int num_tiles, int total, int chunk, bool shared_hist,
-                  int64_t* __restrict__ keys, int* __restrict__ owners, int* __restrict__ hist) {
+                  int64_t* __restrict__ keys, int* __restrict__ owners, int* __restrict__ hist,
+                  int gy_cam) {
   extern __shared__ __align__(16) unsigned char smem[];
   Staged* s_win = reinterpret_cast<Staged*>(smem);  // two buffers
   int* s_hist = reinterpret_cast<int*>(smem + 2 * sizeof(Staged));
@@ -235,7 +236,8 @@ __global__ void __launch_bounds__(K3_THREADS, K3_MIN_BLOCKS)
           return 0.5f * (ca * dx * dx + cc * dy * dy) + cb * dx * dy;
         };
         const int ty = sw.y0[p] + q;
-        const float ey0 = (float)ty * 16.0f - my;
+        // the row within the camera's band: the table's means are the camera's own
+        const float ey0 = (float)(ty - (ty / gy_cam) * gy_cam) * 16.0f - my;
         const float ey1 = ey0 + 15.0f;
         const int tx = sw.x0[p] + rem;
         const int tile = ty * gx + tx;
@@ -275,12 +277,17 @@ __global__ void __launch_bounds__(K3_THREADS, K3_MIN_BLOCKS)
 }  // namespace
 }  // namespace gvd
 
-// total: the sum of count (the number of slots); hist must be zeroed
+// total: the sum of count (the number of slots); hist must be zeroed.
+// gy_cam: the tile rows of one camera. A B-camera chain stacks its cameras'
+// grids as bands of gy_cam rows (num_tiles = gx gy_cam B): Gaussian rows
+// and tile rows are the chain's, each Gaussian's means its own camera's, so
+// the cull reads the tile's row within its band (one camera: gy_cam = gy).
 GVD_API int gvd_expand(const float* tab, int n, const int* rect_min_x, const int* rect_min_y,
                        const int* rect_w, const int* count, const int* offsets, int gx,
                        int num_tiles, int total, int64_t* keys, int* owners, int* hist,
-                       cudaStream_t stream) {
+                       int gy_cam, cudaStream_t stream) {
   if (n <= 0 || total <= 0) return (int)cudaGetLastError();
+  if (gy_cam <= 0) return (int)cudaErrorInvalidValue;
   const bool shared_hist = num_tiles <= gvd::HIST_CAP;
   const int threads = gvd::K3_THREADS;
   const int smem = (int)(2 * sizeof(gvd::Staged)) + (shared_hist ? num_tiles * (int)sizeof(int) : 0);
@@ -298,6 +305,6 @@ GVD_API int gvd_expand(const float* tab, int n, const int* rect_min_x, const int
   const int chunk = (int)((windows + blocks - 1) / blocks) * threads;
   gvd::expand_kernel<<<(int)((total + (int64_t)chunk - 1) / chunk), threads, smem, stream>>>(
       tab, n, rect_min_x, rect_min_y, rect_w, count, offsets, gx, num_tiles, total, chunk,
-      shared_hist, keys, owners, hist);
+      shared_hist, keys, owners, hist, gy_cam);
   return (int)cudaGetLastError();
 }

@@ -99,13 +99,13 @@ __host__ __device__ inline int smem_floats_per_row(int k_total) { return 10 + od
 template <int D>
 __device__ __forceinline__ void grad_one(float* mean, float* scale, float4* rot, float* sh,
                                          const float* __restrict__ cam,
-                                         const float* __restrict__ cot, int n, int i, int k_total,
+                                         const float* __restrict__ cot, int ld, int i, int k_total,
                                          int active_degree, float scale_modifier, int width,
                                          int height) {
   constexpr int n_coef = (D + 1) * (D + 1);
   const float* V = cam + CAM_V;
   const float* P = cam + CAM_P;
-  const size_t N = (size_t)n;
+  const size_t N = (size_t)ld;
   const float c_mx = cot[i], c_my = cot[N + i], c_ca = cot[2 * N + i], c_cb = cot[3 * N + i],
               c_cc = cot[4 * N + i], c_op = cot[5 * N + i], c_r = cot[6 * N + i],
               c_g = cot[7 * N + i], c_b = cot[8 * N + i], c_dep = cot[9 * N + i];
@@ -400,7 +400,8 @@ __global__ void __launch_bounds__(K2_THREADS, K2_MIN_BLOCKS)
                           int k_total, int active_degree, float scale_modifier, int width,
                           int height, float* __restrict__ g_means, float* __restrict__ g_scales,
                           float* __restrict__ g_rots, float* __restrict__ g_opac,
-                          float* __restrict__ g_dc, float* __restrict__ g_rest) {
+                          float* __restrict__ g_dc, float* __restrict__ g_rest, int cot_ld,
+                          bool acc) {
   extern __shared__ float4 smem4[];
   const int kw = 3 * k_total, ssh = odd_stride(kw), rw = kw - 3;
   const int nslab = (n + K2_THREADS - 1) / K2_THREADS;
@@ -435,16 +436,17 @@ __global__ void __launch_bounds__(K2_THREADS, K2_MIN_BLOCKS)
     if (t < rows) {
       const int i = i0 + t;
       grad_one<D>(s_mean + 3 * t, s_scale + 3 * t, reinterpret_cast<float4*>(s_rot) + t,
-                  s_sh + t * ssh, cam, cot, n, i, k_total, active_degree, scale_modifier, width,
-                  height);
-      g_opac[i] = cot[5 * (size_t)n + i];
+                  s_sh + t * ssh, cam, cot, cot_ld, i, k_total, active_degree, scale_modifier,
+                  width, height);
+      const float g_op = cot[5 * (size_t)cot_ld + i];
+      g_opac[i] = acc ? g_opac[i] + g_op : g_op;
     }
     __syncthreads();
-    store_slab(s_rot, g_rots + 4 * (size_t)i0, 4 * rows, 4, 4);
-    store_slab(s_mean, g_means + 3 * (size_t)i0, 3 * rows, 3, 3);
-    store_slab(s_scale, g_scales + 3 * (size_t)i0, 3 * rows, 3, 3);
-    store_slab(s_sh, g_dc + 3 * (size_t)i0, rows * 3, 3, ssh);
-    if (rw > 0) store_slab(s_sh + 3, g_rest + (size_t)i0 * rw, rows * rw, rw, ssh);
+    store_slab(s_rot, g_rots + 4 * (size_t)i0, 4 * rows, 4, 4, acc);
+    store_slab(s_mean, g_means + 3 * (size_t)i0, 3 * rows, 3, 3, acc);
+    store_slab(s_scale, g_scales + 3 * (size_t)i0, 3 * rows, 3, 3, acc);
+    store_slab(s_sh, g_dc + 3 * (size_t)i0, rows * 3, 3, ssh, acc);
+    if (rw > 0) store_slab(s_sh + 3, g_rest + (size_t)i0 * rw, rows * rw, rw, ssh, acc);
     __syncthreads();  // before this buffer takes the slab after next
   }
 }
@@ -454,15 +456,20 @@ __global__ void __launch_bounds__(K2_THREADS, K2_MIN_BLOCKS)
 
 // SH rows: band 0 at sh_dc, bands 1..k_total-1 at sh_rest, dc_stride and
 // rest_stride floats from one Gaussian's row to the next; the SH gradient
-// goes to g_dc (n, 1, 3) and g_rest (n, k_total - 1, 3), contiguous
+// goes to g_dc (n, 1, 3) and g_rest (n, k_total - 1, 3), contiguous.
+// cot_ld >= n: the floats from one row of the cotangents at cot to the
+// next (a camera's columns of a B-camera chain's (10, B n) sums). With
+// accumulate, every gradient is added to what its output holds (old + new,
+// the sum over a chain's cameras in camera order), else written.
 GVD_API int gvd_preprocess_bwd(const float* means, const float* scales, const float* rots,
                                const float* sh_dc, int dc_stride, const float* sh_rest,
                                int rest_stride, const float* cam, const float* cot, int n,
                                int k_total, int sh_degree, int active_degree,
                                float scale_modifier, int width, int height, float* g_means,
                                float* g_scales, float* g_rots, float* g_opac, float* g_dc,
-                               float* g_rest, cudaStream_t stream) {
+                               float* g_rest, int cot_ld, int accumulate, cudaStream_t stream) {
   if (n <= 0) return (int)cudaGetLastError();
+  if (cot_ld < n) return (int)cudaErrorInvalidValue;
   decltype(&gvd::preprocess_bwd_kernel<0>) kernel;
   switch (sh_degree) {
     case 0: kernel = gvd::preprocess_bwd_kernel<0>; break;
@@ -485,6 +492,6 @@ GVD_API int gvd_preprocess_bwd(const float* means, const float* scales, const fl
   kernel<<<nslab < resident ? nslab : (int)resident, threads, smem, stream>>>(
       means, scales, rots, sh_dc, dc_stride, sh_rest, rest_stride, cam, cot, n, k_total,
       active_degree, scale_modifier, width, height, g_means, g_scales, g_rots, g_opac, g_dc,
-      g_rest);
+      g_rest, cot_ld, accumulate != 0);
   return (int)cudaGetLastError();
 }

@@ -111,7 +111,7 @@ __global__ void __launch_bounds__(K1_THREADS)
                           const float* __restrict__ sh_rest, int rest_stride,
                           const float* __restrict__ cam, const float* __restrict__ offset,
                           float* __restrict__ out, int n, int active_degree, float scale_modifier,
-                          int width, int height, int skip) {
+                          int width, int height, int skip, int ld) {
   constexpr int n_coef = (D + 1) * (D + 1);
   constexpr int SHW = 3 * n_coef;   // SH floats a Gaussian's colour reads
   constexpr int SHS = SHW | 1;      // their row stride in shared memory (odd)
@@ -132,7 +132,7 @@ __global__ void __launch_bounds__(K1_THREADS)
   __syncthreads();
 
   const int t = threadIdx.x, i = i0 + t;
-  const size_t N = (size_t)n;
+  const size_t N = (size_t)ld;  // the table's row stride: n, or B n in a B-camera chain
   float* o = out + i;
   int slot = -1;                      // this Gaussian's row of s_sh, if it has one
   float dx = 0.0f, dy = 0.0f, dz = 0.0f;  // its unit view direction
@@ -324,14 +324,17 @@ __global__ void __launch_bounds__(K1_THREADS)
 // SH rows: band 0 at sh_dc, bands 1..(sh_degree + 1)^2 - 1 at sh_rest,
 // dc_stride and rest_stride floats from one Gaussian's row to the next.
 // offset: (n, 2) screen offsets or null. skip: rows 6-8 of the Gaussians
-// without a tile are 0 and their SH is not read.
+// without a tile are 0 and their SH is not read. ld >= n: the floats from
+// one row of the table at out to the next (a camera's columns of a B-camera
+// table start at out = table + c n, with ld = B n).
 GVD_API int gvd_preprocess_fwd(const float* means, const float* scales, const float* rots,
                                const float* opac, const float* sh_dc, int dc_stride,
                                const float* sh_rest, int rest_stride, const float* cam,
                                const float* offset, float* out, int n, int sh_degree,
                                int active_degree, float scale_modifier, int width, int height,
-                               int skip, cudaStream_t stream) {
+                               int skip, int ld, cudaStream_t stream) {
   if (n <= 0) return (int)cudaGetLastError();
+  if (ld < n) return (int)cudaErrorInvalidValue;
   decltype(&gvd::preprocess_fwd_kernel<0>) kernel;
   switch (sh_degree) {
     case 0: kernel = gvd::preprocess_fwd_kernel<0>; break;
@@ -344,6 +347,6 @@ GVD_API int gvd_preprocess_fwd(const float* means, const float* scales, const fl
   kernel<<<blocks, gvd::K1_THREADS, 0, stream>>>(means, scales, rots, opac, sh_dc, dc_stride,
                                                    sh_rest, rest_stride, cam, offset, out, n,
                                                    active_degree, scale_modifier, width, height,
-                                                   skip);
+                                                   skip, ld);
   return (int)cudaGetLastError();
 }

@@ -74,22 +74,34 @@ __device__ inline void fetch_rows(const float* __restrict__ src, int sstride, fl
 // dst, with the block's threads: 16-byte stores from the first aligned
 // float on, single floats before and after. A lane gathers the four
 // floats of its vector in an order rotated by (lane / 8) % 4, so the 32
-// lanes of each 4-byte shared read hit 32 banks.
-__device__ inline void store_slab(const float* src, float* __restrict__ dst, int len, int w, int ss) {
+// lanes of each 4-byte shared read hit 32 banks. With acc, each float is
+// added to the one dst holds (dst + src, read by the same 16-byte access).
+__device__ inline void store_slab(const float* src, float* __restrict__ dst, int len, int w, int ss,
+                                  bool acc = false) {
   const int head = head_floats(dst, len);
   const int nvec = (len - head) >> 2;
   const int rot = (threadIdx.x >> 3) & 3;
-  for (int e = threadIdx.x; e < head; e += blockDim.x) dst[e] = src[(e / w) * ss + e % w];
+  for (int e = threadIdx.x; e < head; e += blockDim.x) {
+    const float x = src[(e / w) * ss + e % w];
+    dst[e] = acc ? dst[e] + x : x;
+  }
   float4* v = reinterpret_cast<float4*>(dst + head);
   SlabWalk pos(head, w);
   for (int q = threadIdx.x; q < nvec; q += blockDim.x, pos.next(w)) {
     float xs[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) xs[u] = src[pos.index((u + rot) & 3, w, ss)];
-    v[q] = rotl4(make_float4(xs[0], xs[1], xs[2], xs[3]), (4 - rot) & 3);
+    float4 x = rotl4(make_float4(xs[0], xs[1], xs[2], xs[3]), (4 - rot) & 3);
+    if (acc) {
+      const float4 o = v[q];
+      x = make_float4(o.x + x.x, o.y + x.y, o.z + x.z, o.w + x.w);
+    }
+    v[q] = x;
   }
-  for (int e = head + 4 * nvec + threadIdx.x; e < len; e += blockDim.x)
-    dst[e] = src[(e / w) * ss + e % w];
+  for (int e = head + 4 * nvec + threadIdx.x; e < len; e += blockDim.x) {
+    const float x = src[(e / w) * ss + e % w];
+    dst[e] = acc ? dst[e] + x : x;
+  }
 }
 
 }  // namespace gvd

@@ -47,12 +47,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of every kernel entry point (the trailing pointer is the stream)
 SIGNATURES = {
-    "preprocess_fwd": [_P] * 5 + [_I, _P, _I] + [_P] * 3 + [_I] * 3 + [_F, _I, _I, _I, _P],
-    "expand": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
-    "blend_fwd": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "blend_bwd": [_P, _I] + [_P] * 11 + [_I] * 4 + [_P, _P],
+    "preprocess_fwd": [_P] * 5 + [_I, _P, _I] + [_P] * 3 + [_I] * 3 + [_F, _I, _I, _I, _I, _P],
+    "expand": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
+    "blend_fwd": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    "blend_bwd": [_P, _I] + [_P] * 11 + [_I] * 4 + [_P, _I, _P],
     "segsum": [_P, _P, _P, _I, _P, _P],
-    "preprocess_bwd": [_P] * 4 + [_I, _P, _I, _P, _P] + [_I] * 4 + [_F, _I, _I] + [_P] * 6 + [_P],
+    "preprocess_bwd": [_P] * 4 + [_I, _P, _I, _P, _P] + [_I] * 4 + [_F, _I, _I] + [_P] * 6 + [_I, _I, _P],
     "flash_attn_fwd": [_P] * 5 + [_I] * 4 + [_F, _P],
     "flash_attn_bwd_dkv": [_P] * 8 + [_I] * 4 + [_F, _P],
     "flash_attn_bwd_dq": [_P] * 7 + [_I] * 4 + [_F, _P],

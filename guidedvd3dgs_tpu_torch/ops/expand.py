@@ -8,10 +8,17 @@ instance histogram. An instance whose maximum alpha over its tile is
 provably below 1/255 (the reference kernel's conservative tile cull) keys
 to the past-the-end tile `num_tiles` and is left out of the histogram.
 
+A chain of B cameras (ops/raster_tiles.py) stacks their tile grids as
+bands of `gy_cam` rows: the table's rows and the rectangles are the
+chain's (a camera's rectangles start in its band), each Gaussian's means
+its own camera's, so the cull takes the tile's row within its band.
+
 The CUDA kernel is csrc/expand.cu.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -29,10 +36,12 @@ def expand_instances_plain(
     gx: int,
     num_tiles: int,
     total: int,
+    gy_cam: Optional[int] = None,
 ):
     """Plain PyTorch version of K3: `repeat_interleave` and index
     arithmetic. Returns (keys (total,) int64, owners (total,) int32,
     hist (num_tiles,) int32)."""
+    gy_cam = num_tiles // gx if gy_cam is None else gy_cam
     dev = tab.device
     n = tab.shape[1]
     owners = torch.repeat_interleave(
@@ -52,7 +61,7 @@ def expand_instances_plain(
     op = tab[F_OP][gid]
     ex0 = tx.float() * 16.0 - mx
     ex1 = ex0 + 15.0
-    ey0 = ty.float() * 16.0 - my
+    ey0 = (ty % gy_cam).float() * 16.0 - my
     ey1 = ey0 + 15.0
     inside = (ex0 <= 0.0) & (0.0 <= ex1) & (ey0 <= 0.0) & (0.0 <= ey1)
     caf = torch.clamp(ca, min=1e-12)
@@ -86,14 +95,17 @@ def expand_instances(
     gx: int,
     num_tiles: int,
     total: int,
+    gy_cam: Optional[int] = None,
 ):
     """tab: the (16, N) K1 table; rect_min_x/rect_min_y/rect_w/count/
     offsets: (N,) int32, `count` instances of Gaussian g start at
-    offsets[g]; total: sum of count. CPU tensors take the plain version;
+    offsets[g]; total: sum of count; gy_cam: the tile rows of one camera
+    (by default all, num_tiles / gx). CPU tensors take the plain version;
     CUDA tensors launch kernel K3."""
+    gy_cam = num_tiles // gx if gy_cam is None else gy_cam
     if tab.device.type == "cpu":
         return expand_instances_plain(
-            tab, rect_min_x, rect_min_y, rect_w, count, offsets, gx, num_tiles, total
+            tab, rect_min_x, rect_min_y, rect_w, count, offsets, gx, num_tiles, total, gy_cam
         )
     if tab.device.type != "cuda":
         raise ValueError(f"no expand kernel for device {tab.device}")
@@ -110,6 +122,6 @@ def expand_instances(
         "expand",
         tab.data_ptr(), n, rect_min_x.data_ptr(), rect_min_y.data_ptr(), rect_w.data_ptr(),
         count.data_ptr(), offsets.data_ptr(), gx, num_tiles, total,
-        keys.data_ptr(), owners.data_ptr(), hist.data_ptr(), _build.stream_of(tab),
+        keys.data_ptr(), owners.data_ptr(), hist.data_ptr(), gy_cam, _build.stream_of(tab),
     )
     return keys, owners, hist

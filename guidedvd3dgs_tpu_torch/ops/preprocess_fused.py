@@ -28,6 +28,13 @@ caller: the screen offset of densification added to rows 0-1
 (`means2d_offset`), and, with `skip_unbinned`, rows 6-8 (the colour) only
 for the Gaussians that ops/tiling.py::tile_rects gives a tile, 0 for the
 others, whose SH is then not read (no later kernel reads their colour).
+
+A chain of B cameras (ops/raster_tiles.py) keeps one (16, B N) table: K1
+runs once a camera and writes its columns [c N, (c + 1) N) in place
+(`out`, `col0`), each camera's means its own; K2 runs once a camera on its
+columns of the (10, B N) cotangents (a strided view) and, from the second
+camera on, adds its gradients to the first's (`accumulate`), in camera
+order.
 """
 
 from __future__ import annotations
@@ -112,8 +119,9 @@ def preprocess_table_plain(
     means3d, scales, rotations, opacities, shs: SH, cam: RasterCamera,
     sh_degree: int, scale_modifier: float, active_degree: Optional[int] = None,
     means2d_offset: Optional[torch.Tensor] = None, skip_unbinned: bool = False,
+    out: Optional[torch.Tensor] = None, col0: int = 0,
 ) -> torch.Tensor:
-    """Plain PyTorch version of K1."""
+    """Plain PyTorch version of K1 (`preprocess_fused_fwd`'s arguments)."""
     fields10, radius, visible, ext_x, ext_y = preprocess_field_rows(
         means3d, scales, rotations, opacities, concat_sh(shs), cam, sh_degree, scale_modifier,
         active_degree=active_degree,
@@ -132,7 +140,10 @@ def preprocess_table_plain(
         count = tile_rects(tab[F_MX], tab[F_MY], visible_radii(tab), tab[ROW_EXT_X],
                            tab[ROW_EXT_Y], cam.width, cam.height)[4]
         tab[F_R:F_D, count == 0] = 0.0
-    return tab
+    if out is None:
+        return tab
+    out[:, col0:col0 + tab.shape[1]] = tab
+    return out
 
 
 def preprocess_fused_fwd(
@@ -147,24 +158,31 @@ def preprocess_fused_fwd(
     active_degree: Optional[int] = None,
     means2d_offset: Optional[torch.Tensor] = None,
     skip_unbinned: bool = False,
+    out: Optional[torch.Tensor] = None,
+    col0: int = 0,
 ) -> torch.Tensor:
     """(16, N) preprocess table. Inputs post-activation: means/scales
     (N, 3), rotations (N, 4), opacities (N,) or (N, 1), SH (N, K, 3) or
     its (features_dc, features_rest) pair with K >= (sh_degree + 1)**2;
     `means2d_offset` (N, 2) is added to rows 0-1 times (W/2, H/2); with
     `skip_unbinned`, rows 6-8 are 0 for the Gaussians without a tile.
-    CPU tensors take the plain version; CUDA tensors launch kernel K1."""
+    With `out`, a contiguous (16, L) table, the rows go to its columns
+    [col0, col0 + N) and `out` is returned. CPU tensors take the plain
+    version; CUDA tensors launch kernel K1."""
+    n = means3d.shape[0]
+    if out is not None and (out.dim() != 2 or out.shape[0] != NUM_ROWS or not out.is_contiguous()
+                            or not 0 <= col0 <= out.shape[1] - n):
+        raise ValueError(f"out {tuple(out.shape)} has no contiguous columns [{col0}, {col0 + n})")
     if means3d.device.type == "cpu":
         return preprocess_table_plain(
             means3d, scales, rotations, opacities, shs, cam, sh_degree,
-            scale_modifier, active_degree, means2d_offset, skip_unbinned,
+            scale_modifier, active_degree, means2d_offset, skip_unbinned, out, col0,
         )
     if means3d.device.type != "cuda":
         raise ValueError(f"no preprocess kernel for device {means3d.device}")
     if not 0 <= sh_degree <= 3:
         raise ValueError(f"sh_degree {sh_degree} not in [0, 3]")
     dev = means3d.device
-    n = means3d.shape[0]
     _build.check_cuda("means3d", means3d, torch.float32, dev, (n, 3))
     _build.check_cuda("scales", scales, torch.float32, dev, (n, 3))
     _build.check_cuda("rotations", rotations, torch.float32, dev, (n, 4))
@@ -177,15 +195,18 @@ def preprocess_fused_fwd(
     if cam.device != dev:
         raise ValueError(f"camera on {cam.device}, Gaussians on {dev}")
     camc = cam_consts(cam)
-    out = torch.empty((NUM_ROWS, n), dtype=torch.float32, device=dev)
+    if out is None:
+        out = torch.empty((NUM_ROWS, n), dtype=torch.float32, device=dev)
+    else:
+        _build.check_cuda("out", out, torch.float32, dev, (NUM_ROWS, None))
     act = sh_degree if active_degree is None else int(active_degree)
     _build.launch(
         "preprocess_fwd",
         means3d.data_ptr(), scales.data_ptr(), rotations.data_ptr(), opacities.data_ptr(),
         *sh_args, camc.data_ptr(),
-        None if means2d_offset is None else means2d_offset.data_ptr(), out.data_ptr(),
-        n, sh_degree, act, float(scale_modifier), cam.width, cam.height, int(skip_unbinned),
-        _build.stream_of(out),
+        None if means2d_offset is None else means2d_offset.data_ptr(),
+        out.data_ptr() + 4 * col0, n, sh_degree, act, float(scale_modifier), cam.width, cam.height,
+        int(skip_unbinned), out.shape[1], _build.stream_of(out),
     )
     return out
 
@@ -193,11 +214,12 @@ def preprocess_fused_fwd(
 def preprocess_fused_bwd_plain(
     means3d, scales, rotations, opacities, shs: SH, cam: RasterCamera,
     sh_degree: int, scale_modifier: float, cot10: torch.Tensor,
-    active_degree: Optional[int] = None,
+    active_degree: Optional[int] = None, accumulate=None,
 ):
-    """Plain PyTorch version of K2: torch.autograd.grad of the ten field
-    rows of preprocess_field_rows against the cotangent rows. The SH
-    gradient comes in the form the SH was given (a tensor or a pair)."""
+    """Plain PyTorch version of K2 (`preprocess_fused_bwd`'s arguments):
+    torch.autograd.grad of the ten field rows of preprocess_field_rows
+    against the cotangent rows. The SH gradient comes in the form the SH
+    was given (a tensor or a pair)."""
     pair = not isinstance(shs, torch.Tensor)
     sh_in = list(shs) if pair else [shs]
     prims = [t.detach().requires_grad_(True) for t in [means3d, scales, rotations, opacities] + sh_in]
@@ -207,7 +229,12 @@ def preprocess_fused_bwd_plain(
             active_degree=active_degree,
         )
         grads = torch.autograd.grad(fields10, prims, grad_outputs=tuple(cot10[:10]))
-    return grads[:4] + ((tuple(grads[4:]),) if pair else grads[4:])
+    grads = grads[:4] + ((tuple(grads[4:]),) if pair else grads[4:])
+    if accumulate is None:
+        return grads
+    for old, new in zip(_flat_grads(accumulate), _flat_grads(grads)):
+        old.add_(new)
+    return accumulate
 
 
 def preprocess_fused_bwd(
@@ -221,16 +248,21 @@ def preprocess_fused_bwd(
     scale_modifier: float,
     cot10: torch.Tensor,
     active_degree: Optional[int] = None,
+    accumulate=None,
 ):
     """VJP of the preprocess: cot10 is the (>= 10, N) cotangent of table
-    rows 0-9 (rows past 10 are ignored). Returns the gradients of (means3d,
-    scales, rotations, opacities, shs), shaped like them (the SH's as a
-    (features_dc, features_rest) pair where the SH was given so). CPU
-    tensors take the plain version; CUDA tensors launch kernel K2."""
+    rows 0-9 (rows past 10 are ignored; a view whose rows are contiguous,
+    such as one camera's columns of a chain's sums, is read in place).
+    Returns the gradients of (means3d, scales, rotations, opacities, shs),
+    shaped like them (the SH's as a (features_dc, features_rest) pair where
+    the SH was given so). With `accumulate`, the gradients of an earlier
+    call on the same inputs, these are added to them in place (old + new)
+    and returned. CPU tensors take the plain version; CUDA tensors launch
+    kernel K2."""
     if means3d.device.type == "cpu":
         return preprocess_fused_bwd_plain(
             means3d, scales, rotations, opacities, shs, cam, sh_degree, scale_modifier,
-            cot10, active_degree,
+            cot10, active_degree, accumulate,
         )
     if means3d.device.type != "cuda":
         raise ValueError(f"no preprocess backward kernel for device {means3d.device}")
@@ -245,17 +277,31 @@ def preprocess_fused_bwd(
     if opacities.numel() != n:
         raise ValueError(f"opacities has {opacities.numel()} values for {n} Gaussians")
     sh_args, k_total = _sh_rows(shs, dev, n, (sh_degree + 1) ** 2)
-    cot = cot10[:10].contiguous()
-    _build.check_cuda("cot10", cot, torch.float32, dev, (10, n))
+    cot = cot10[:10]
+    if cot.stride(1) != 1 or cot.stride(0) < n:
+        cot = cot.contiguous()
+    if cot.device != dev or cot.dtype != torch.float32 or tuple(cot.shape) != (10, n):
+        raise ValueError(f"cot10 must be (>= 10, {n}) float32 on {dev}, got {tuple(cot10.shape)} "
+                         f"{cot10.dtype} on {cot10.device}")
     if cam.device != dev:
         raise ValueError(f"camera on {cam.device}, Gaussians on {dev}")
     camc = cam_consts(cam)
-    g_means = torch.empty_like(means3d)
-    g_scales = torch.empty_like(scales)
-    g_rots = torch.empty_like(rotations)
-    g_opac = torch.empty_like(opacities)
-    g_dc = torch.empty((n, 1, 3), dtype=torch.float32, device=dev)
-    g_rest = torch.empty((n, k_total - 1, 3), dtype=torch.float32, device=dev)
+    if accumulate is None:
+        g_means = torch.empty_like(means3d)
+        g_scales = torch.empty_like(scales)
+        g_rots = torch.empty_like(rotations)
+        g_opac = torch.empty_like(opacities)
+        g_dc = torch.empty((n, 1, 3), dtype=torch.float32, device=dev)
+        g_rest = torch.empty((n, k_total - 1, 3), dtype=torch.float32, device=dev)
+    else:
+        if isinstance(shs, torch.Tensor):
+            raise ValueError("accumulate takes the SH as the (features_dc, features_rest) pair")
+        g_means, g_scales, g_rots, g_opac, (g_dc, g_rest) = accumulate
+        for name, g, like in (("means3d", g_means, means3d), ("scales", g_scales, scales),
+                              ("rotations", g_rots, rotations), ("opacities", g_opac, opacities)):
+            _build.check_cuda(f"the gradient of {name}", g, torch.float32, dev, tuple(like.shape))
+        _build.check_cuda("the gradient of features_dc", g_dc, torch.float32, dev, (n, 1, 3))
+        _build.check_cuda("the gradient of features_rest", g_rest, torch.float32, dev, (n, k_total - 1, 3))
     act = sh_degree if active_degree is None else int(active_degree)
     _build.launch(
         "preprocess_bwd",
@@ -263,7 +309,14 @@ def preprocess_fused_bwd(
         camc.data_ptr(), cot.data_ptr(), n, k_total, sh_degree, act,
         float(scale_modifier), cam.width, cam.height,
         g_means.data_ptr(), g_scales.data_ptr(), g_rots.data_ptr(), g_opac.data_ptr(),
-        g_dc.data_ptr(), g_rest.data_ptr(), _build.stream_of(g_means),
+        g_dc.data_ptr(), g_rest.data_ptr(), cot.stride(0), int(accumulate is not None),
+        _build.stream_of(g_means),
     )
     g_shs = torch.cat([g_dc, g_rest], dim=1) if isinstance(shs, torch.Tensor) else (g_dc, g_rest)
     return g_means, g_scales, g_rots, g_opac, g_shs
+
+
+def _flat_grads(grads):
+    """The five gradients of K2 with the SH's as one or two tensors."""
+    *head, g_shs = grads
+    return head + ([g_shs] if isinstance(g_shs, torch.Tensor) else list(g_shs))

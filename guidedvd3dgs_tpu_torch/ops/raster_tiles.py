@@ -32,11 +32,24 @@ bands 1.. (features_rest) apart, and its gradient leaves K2 the same way:
 no concatenation in front of K1, no split of the gradient after K2. K1
 adds the screen offset to its mean rows and leaves the colour of the
 Gaussians without a tile at 0 (no kernel of the chain reads it).
+
+`rasterize_tiles_multi` renders B cameras of the same Gaussians through
+one chain (JAX `rasterize_tiles_multi`, its `_raster_multi_fwd_impl` /
+`_raster_multi_bwd`): K1 once a camera into the columns of one (16, B N)
+table, one K3, one sort and one K4 over the B cameras' tile grids stacked
+as bands (ops/tiling.py), the images (B, 3, H, W), (B, H, W), (B, H, W);
+backward one K5 and one K6 over the B N rows, then K2 once a camera on its
+columns of the sums, the gradients added over the cameras in camera order
+(K2's accumulate mode). Each tile's instance list is the one a single
+render of its camera gives, so the images and each camera's per-Gaussian
+sums (and so the screen-offset gradients) are bitwise B single renders;
+the parameter gradients differ from B single renders' by the order of
+the sum over cameras. `rasterize_tiles` is the chain of one camera.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -59,6 +72,13 @@ def _tiles_to_planes(tiles: torch.Tensor, gx: int, gy: int) -> torch.Tensor:
     return x.permute(2, 0, 3, 1, 4).reshape(r, gy * TILE, gx * TILE)
 
 
+def _unband(planes: torch.Tensor, n_cams: int, height: int, width: int) -> torch.Tensor:
+    """(R, n_cams * Hp, Wp) stacked bands -> (n_cams, R, height, width)."""
+    r, hv, wp = planes.shape
+    x = planes.reshape(r, n_cams, hv // n_cams, wp)[:, :, :height, :width]
+    return x.permute(1, 0, 2, 3)
+
+
 class TileBatch(NamedTuple):
     """K4's per-pixel rule in closed form over the tiles [t0, t1) of a
     binning: B tiles, K = their largest instance count, P = 256 pixels."""
@@ -79,7 +99,7 @@ class TileBatch(NamedTuple):
 
 def tile_batch(tab, binning: TileBinning, t0: int, t1: int) -> TileBatch:
     dev = tab.device
-    gx = binning.grid_x
+    gx, gy_cam = binning.grid_x, binning.grid_y // binning.n_cams
     cnt = binning.tile_count[t0:t1].long()
     k = max(int(cnt.max()), 1)
     ks = torch.arange(k, device=dev)
@@ -93,7 +113,8 @@ def tile_batch(tab, binning: TileBinning, t0: int, t1: int) -> TileBatch:
     tids = torch.arange(t0, t1, device=dev)
     lin = torch.arange(TILE_PIX, device=dev)
     pixx = ((tids % gx)[:, None] * TILE + lin[None, :] % TILE).float()  # (B, P)
-    pixy = ((tids // gx)[:, None] * TILE + lin[None, :] // TILE).float()
+    # each camera's own pixel rows: a tile row's place in its band
+    pixy = (((tids // gx) % gy_cam)[:, None] * TILE + lin[None, :] // TILE).float()
 
     mx, my, ca, cb, cc, op = (f[i][:, :, None] for i in range(preprocess_fused.F_R))
     dx = mx - pixx[:, None, :]
@@ -126,10 +147,11 @@ def _blend_tiles_plain(tab, binning: TileBinning, t0, t1, bg):
 
 
 def _planes_to_tiles(planes: torch.Tensor, gx: int, gy: int) -> torch.Tensor:
-    """(R, H, W) -> (gy * gx, R, TILE_PIX), zero-padded to whole tiles."""
-    r, h, w = planes.shape
-    x = torch.zeros((r, gy * TILE, gx * TILE), dtype=planes.dtype, device=planes.device)
-    x[:, :h, :w] = planes
+    """(B, R, H, W) B cameras' planes -> (gy * gx, R, TILE_PIX), each
+    camera's band of gy / B tile rows zero-padded to whole tiles."""
+    b, r, h, w = planes.shape
+    x = torch.zeros((r, b, gy // b * TILE, gx * TILE), dtype=planes.dtype, device=planes.device)
+    x[:, :, :h, :w] = planes.transpose(0, 1)
     x = x.reshape(r, gy, TILE, gx, TILE).permute(1, 3, 0, 2, 4)
     return x.reshape(gy * gx, r, TILE_PIX)
 
@@ -149,14 +171,15 @@ def _tile_batches(counts, budget: int):
 
 
 def blend_fwd_plain(tab, binning: TileBinning, bg, width: int, height: int):
-    """Plain PyTorch version of K4, in batches of tiles to bound memory."""
+    """Plain PyTorch version of K4, in batches of tiles to bound memory
+    (`_run_fwd`'s shapes)."""
     gx, gy = binning.grid_x, binning.grid_y
     num_tiles = gx * gy
     tiles = torch.empty((num_tiles, 5, TILE_PIX), dtype=torch.float32, device=tab.device)
     for t0, t1 in _tile_batches(binning.tile_count.tolist(), PLAIN_BATCH_ELEMS):
         tiles[t0:t1] = _blend_tiles_plain(tab, binning, t0, t1, bg)
-    planes = _tiles_to_planes(tiles, gx, gy)[:, :height, :width]
-    return planes[0:3], planes[3], planes[4]
+    planes = _unband(_tiles_to_planes(tiles, gx, gy), binning.n_cams, height, width)
+    return planes[:, 0:3].contiguous(), planes[:, 3].contiguous(), planes[:, 4].contiguous()
 
 
 def _blend_bwd_tiles_plain(tab, binning: TileBinning, fwd, cot, t0, t1):
@@ -195,10 +218,10 @@ def blend_bwd_plain(tab, binning: TileBinning, color, depth, alpha, dC, dD, dA,
                     width: int, height: int):
     """Plain PyTorch version of K5: (M, 10) per-instance gradients in
     expansion-slot order (zero for instances no pixel reached), in batches
-    of tiles."""
+    of tiles (`_run_bwd`'s shapes)."""
     gx, gy = binning.grid_x, binning.grid_y
-    fwd = _planes_to_tiles(torch.cat([color, depth[None], alpha[None]]), gx, gy)
-    cot = _planes_to_tiles(torch.cat([dC, dD[None], dA[None]]), gx, gy)
+    fwd = _planes_to_tiles(torch.cat([color, depth[:, None], alpha[:, None]], 1), gx, gy)
+    cot = _planes_to_tiles(torch.cat([dC, dD[:, None], dA[:, None]], 1), gx, gy)
     grad = torch.zeros((binning.num_instances, segsum.NF), dtype=torch.float32, device=tab.device)
     for t0, t1 in _tile_batches(binning.tile_count.tolist(), PLAIN_BATCH_ELEMS // 2):
         out, valid, idx = _blend_bwd_tiles_plain(tab, binning, fwd[t0:t1], cot[t0:t1], t0, t1)
@@ -207,8 +230,9 @@ def blend_bwd_plain(tab, binning: TileBinning, color, depth, alpha, dC, dD, dA,
 
 
 def _run_fwd(tab: torch.Tensor, binning: TileBinning, bg: torch.Tensor, width: int, height: int):
-    """Kernel K4: blend the binned instances into (color (3, H, W),
-    depth (H, W), alpha (H, W)). CPU tensors take the plain version."""
+    """Kernel K4: blend the binned instances of the binning's B cameras
+    into color (B, 3, H, W), depth (B, H, W) and alpha (B, H, W). CPU
+    tensors take the plain version."""
     if tab.device.type == "cpu":
         return blend_fwd_plain(tab, binning, bg, width, height)
     if tab.device.type != "cuda":
@@ -223,17 +247,18 @@ def _run_fwd(tab: torch.Tensor, binning: TileBinning, bg: torch.Tensor, width: i
     _build.check_cuda("tile_count", binning.tile_count, torch.int32, dev, (num_tiles,))
     _build.check_cuda("tile_order", binning.tile_order, torch.int32, dev, (num_tiles,))
     _build.check_cuda("bg", bg, torch.float32, dev, (3,))
-    if gx != (width + TILE - 1) // TILE or gy != (height + TILE - 1) // TILE:
-        raise ValueError(f"binning grid {gx}x{gy} does not cover {width}x{height}")
-    color = torch.empty((3, height, width), dtype=torch.float32, device=dev)
-    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
-    alpha = torch.empty((height, width), dtype=torch.float32, device=dev)
+    b = binning.n_cams
+    if gx != (width + TILE - 1) // TILE or gy != b * ((height + TILE - 1) // TILE):
+        raise ValueError(f"binning grid {gx}x{gy} does not cover {b} images of {width}x{height}")
+    color = torch.empty((b, 3, height, width), dtype=torch.float32, device=dev)
+    depth = torch.empty((b, height, width), dtype=torch.float32, device=dev)
+    alpha = torch.empty((b, height, width), dtype=torch.float32, device=dev)
     _build.launch(
         "blend_fwd",
         tab.data_ptr(), n, binning.inst_gauss.data_ptr(), binning.tile_start.data_ptr(),
         binning.tile_count.data_ptr(), binning.tile_order.data_ptr(), bg.data_ptr(), gx, gy,
         width, height,
-        color.data_ptr(), depth.data_ptr(), alpha.data_ptr(), _build.stream_of(tab),
+        color.data_ptr(), depth.data_ptr(), alpha.data_ptr(), gy // b, _build.stream_of(tab),
     )
     return color, depth, alpha
 
@@ -242,8 +267,8 @@ def _run_bwd(tab: torch.Tensor, binning: TileBinning, color, depth, alpha, dC, d
              width: int, height: int) -> torch.Tensor:
     """Kernel K5: the (M, 10) per-instance gradients (F_* order: mean2D x/y,
     conic a/b/c, opacity, r/g/b, depth) at each instance's expansion slot,
-    from the forward's outputs and their cotangents. CPU tensors take the
-    plain version."""
+    from the forward's outputs and their cotangents, shaped as `_run_fwd`
+    gives the outputs. CPU tensors take the plain version."""
     if tab.device.type == "cpu":
         return blend_bwd_plain(tab, binning, color, depth, alpha, dC, dD, dA, width, height)
     if tab.device.type != "cuda":
@@ -259,12 +284,13 @@ def _run_bwd(tab: torch.Tensor, binning: TileBinning, color, depth, alpha, dC, d
     _build.check_cuda("tile_start", binning.tile_start, torch.int32, dev, (num_tiles,))
     _build.check_cuda("tile_count", binning.tile_count, torch.int32, dev, (num_tiles,))
     _build.check_cuda("tile_order", binning.tile_order, torch.int32, dev, (num_tiles,))
-    for name, t, shape in (("color", color, (3, height, width)), ("depth", depth, (height, width)),
-                           ("alpha", alpha, (height, width)), ("dC", dC, (3, height, width)),
-                           ("dD", dD, (height, width)), ("dA", dA, (height, width))):
+    b = binning.n_cams
+    for name, t, shape in (("color", color, (b, 3, height, width)), ("depth", depth, (b, height, width)),
+                           ("alpha", alpha, (b, height, width)), ("dC", dC, (b, 3, height, width)),
+                           ("dD", dD, (b, height, width)), ("dA", dA, (b, height, width))):
         _build.check_cuda(name, t, torch.float32, dev, shape)
-    if gx != (width + TILE - 1) // TILE or gy != (height + TILE - 1) // TILE:
-        raise ValueError(f"binning grid {gx}x{gy} does not cover {width}x{height}")
+    if gx != (width + TILE - 1) // TILE or gy != b * ((height + TILE - 1) // TILE):
+        raise ValueError(f"binning grid {gx}x{gy} does not cover {b} images of {width}x{height}")
     # instances the blend never reaches (culled, or past every pixel's stop)
     # keep this zero
     grad = torch.zeros((m, segsum.NF), dtype=torch.float32, device=dev)
@@ -274,7 +300,7 @@ def _run_bwd(tab: torch.Tensor, binning: TileBinning, color, depth, alpha, dC, d
         binning.tile_start.data_ptr(), binning.tile_count.data_ptr(),
         binning.tile_order.data_ptr(),
         color.data_ptr(), depth.data_ptr(), alpha.data_ptr(), dC.data_ptr(), dD.data_ptr(),
-        dA.data_ptr(), gx, gy, width, height, grad.data_ptr(), _build.stream_of(tab),
+        dA.data_ptr(), gx, gy, width, height, grad.data_ptr(), gy // b, _build.stream_of(tab),
     )
     return grad
 
@@ -286,47 +312,74 @@ def _reduce_per_gaussian(grad_inst: torch.Tensor, binning: TileBinning) -> torch
 
 
 class _RasterizeTiles(torch.autograd.Function):
-    """K1 -> binning -> K4 forward; K5 -> K6 -> K2 backward. The SH is the
-    pair (sh_dc (N, 1, 3), sh_rest (N, K - 1, 3))."""
+    """B cameras: K1 x B -> binning -> K4 forward; K5 -> K6 -> K2 x B
+    backward. The SH is the pair (sh_dc (N, 1, 3), sh_rest (N, K - 1, 3));
+    `means2d_offset` is (B, N, 2) or None."""
 
     @staticmethod
     def forward(ctx, means3d, scales, rotations, opacities, sh_dc, sh_rest, means2d_offset, cfg):
-        cam, bg, sh_degree, scale_modifier, active_degree = cfg
-        # the screen offset (means2d + offset * (W/2, H/2)) is added by K1
-        tab = preprocess_fused.preprocess_fused_fwd(
-            means3d, scales, rotations, opacities, (sh_dc, sh_rest), cam, sh_degree,
-            scale_modifier, active_degree=active_degree, means2d_offset=means2d_offset,
-            skip_unbinned=True,
-        )
+        cams, bg, sh_degree, scale_modifier, active_degree = cfg
+        n, b = means3d.shape[0], len(cams)
+        width, height = cams[0].width, cams[0].height
+        tab = torch.empty((preprocess_fused.NUM_ROWS, b * n), dtype=torch.float32,
+                          device=means3d.device)
+        for c, cam in enumerate(cams):
+            # the screen offset (means2d + offset * (W/2, H/2)) is added by K1
+            preprocess_fused.preprocess_fused_fwd(
+                means3d, scales, rotations, opacities, (sh_dc, sh_rest), cam, sh_degree,
+                scale_modifier, active_degree=active_degree,
+                means2d_offset=None if means2d_offset is None else means2d_offset[c],
+                skip_unbinned=True, out=tab, col0=c * n,
+            )
         radii = preprocess_fused.visible_radii(tab)
-        binning = tiling.bin_gaussians(tab, radii, cam.width, cam.height)
-        color, depth, alpha = _run_fwd(tab, binning, bg, cam.width, cam.height)
+        binning = tiling.bin_gaussians(tab, radii, width, height, n_cams=b)
+        color, depth, alpha = _run_fwd(tab, binning, bg, width, height)
         ctx.save_for_backward(means3d, scales, rotations, opacities, sh_dc, sh_rest, color, depth,
                               alpha)
         ctx.tab, ctx.binning, ctx.cfg = tab, binning, cfg
+        radii = radii.reshape(b, n)
         ctx.mark_non_differentiable(radii)
         return color, depth, alpha, radii, binning.num_instances
 
     @staticmethod
     def backward(ctx, d_color, d_depth, d_alpha, _d_radii, _d_num):
         means3d, scales, rotations, opacities, sh_dc, sh_rest, color, depth, alpha = ctx.saved_tensors
-        cam, _bg, sh_degree, scale_modifier, active_degree = ctx.cfg
+        cams, _bg, sh_degree, scale_modifier, active_degree = ctx.cfg
+        n = means3d.shape[0]
+        width, height = cams[0].width, cams[0].height
 
         def cot(g, like):
             return torch.zeros_like(like) if g is None else g.contiguous()
 
         grad_inst = _run_bwd(ctx.tab, ctx.binning, color, depth, alpha, cot(d_color, color),
-                             cot(d_depth, depth), cot(d_alpha, alpha), cam.width, cam.height)
-        acc = _reduce_per_gaussian(grad_inst, ctx.binning)
-        g_means, g_scales, g_rots, g_opac, (g_dc, g_rest) = preprocess_fused.preprocess_fused_bwd(
-            means3d, scales, rotations, opacities, (sh_dc, sh_rest), cam, sh_degree,
-            scale_modifier, acc, active_degree=active_degree,
-        )
+                             cot(d_depth, depth), cot(d_alpha, alpha), width, height)
+        acc = _reduce_per_gaussian(grad_inst, ctx.binning)  # (10, B N)
+        grads = None
+        for c, cam in enumerate(cams):
+            # camera c's columns of the sums, read in place; from the second
+            # camera on K2 adds to the first's gradients
+            grads = preprocess_fused.preprocess_fused_bwd(
+                means3d, scales, rotations, opacities, (sh_dc, sh_rest), cam, sh_degree,
+                scale_modifier, acc[:, c * n:(c + 1) * n], active_degree=active_degree,
+                accumulate=grads,
+            )
+        g_means, g_scales, g_rots, g_opac, (g_dc, g_rest) = grads
         g_off = None
         if ctx.needs_input_grad[6]:
             # the offset is additive on the mean rows: the same rows, rescaled
-            g_off = torch.stack([acc[0] * (0.5 * cam.width), acc[1] * (0.5 * cam.height)], dim=-1)
+            rows = acc[:2].reshape(2, len(cams), n)
+            g_off = torch.stack([rows[0] * (0.5 * width), rows[1] * (0.5 * height)], dim=-1)
         return g_means, g_scales, g_rots, g_opac, g_dc, g_rest, g_off, None
+
+
+def _check_inputs(shs, colors_precomp, cov3d_precomp):
+    if colors_precomp is not None or cov3d_precomp is not None:
+        raise NotImplementedError(
+            "precomputed colors / cov3D are not supported by the tile rasterizer yet"
+        )
+    if shs is None:
+        raise ValueError("the tile rasterizer needs SH features")
+    return (shs[:, :1], shs[:, 1:]) if isinstance(shs, torch.Tensor) else shs
 
 
 def rasterize_tiles(
@@ -352,14 +405,40 @@ def rasterize_tiles(
     require grad, is added to the screen means scaled by (W/2, H/2), and
     its gradient is the viewspace gradient that densification reads. CUDA
     tensors run the kernels, CPU tensors their plain versions."""
-    if colors_precomp is not None or cov3d_precomp is not None:
-        raise NotImplementedError(
-            "precomputed colors / cov3D are not supported by the tile rasterizer yet"
-        )
-    if shs is None:
-        raise ValueError("the tile rasterizer needs SH features")
-    sh_dc, sh_rest = (shs[:, :1], shs[:, 1:]) if isinstance(shs, torch.Tensor) else shs
-    cfg = (cam, bg, sh_degree, float(scale_modifier), active_degree)
+    sh_dc, sh_rest = _check_inputs(shs, colors_precomp, cov3d_precomp)
+    cfg = ((cam,), bg, sh_degree, float(scale_modifier), active_degree)
+    color, depth, alpha, radii, num_instances = _RasterizeTiles.apply(
+        means3d, scales, rotations, opacities, sh_dc, sh_rest,
+        None if means2d_offset is None else means2d_offset.unsqueeze(0), cfg
+    )
+    # views of the chain's (1, ...) outputs, whose gradients are views too
+    color, depth, alpha, radii = (x.squeeze(0) for x in (color, depth, alpha, radii))
+    return RenderOutput(color, depth, alpha, radii, radii > 0, 0, num_instances)
+
+
+def rasterize_tiles_multi(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    rotations: torch.Tensor,
+    opacities: torch.Tensor,
+    shs: preprocess_fused.SH,
+    cams: Sequence[RasterCamera],
+    bg: torch.Tensor,
+    sh_degree: int = 3,
+    scale_modifier: float = 1.0,
+    means2d_offset: Optional[torch.Tensor] = None,
+    active_degree: Optional[int] = None,
+) -> RenderOutput:
+    """Render the B cameras `cams` (one resolution) of the same Gaussians
+    through one chain (module docstring): color (B, 3, H, W), depth and
+    alpha (B, H, W), radii and visibility (B, N); num_instances is the
+    chain's. `means2d_offset` is (B, N, 2), each camera's screen offset;
+    the parameter gradients are summed over the cameras. SH path only, as
+    `rasterize_tiles`."""
+    sh_dc, sh_rest = _check_inputs(shs, None, None)
+    if len({(c.height, c.width) for c in cams}) != 1:
+        raise ValueError("the cameras of a chain must share one resolution")
+    cfg = (tuple(cams), bg, sh_degree, float(scale_modifier), active_degree)
     color, depth, alpha, radii, num_instances = _RasterizeTiles.apply(
         means3d, scales, rotations, opacities, sh_dc, sh_rest, means2d_offset, cfg
     )

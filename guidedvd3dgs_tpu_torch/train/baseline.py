@@ -259,6 +259,11 @@ class BaselineTrainer:
             l1s.append(float(l1_loss(img, gt)))
         return {"psnr": float(np.mean(psnrs)), "l1": float(np.mean(l1s))} if psnrs else {}
 
+    def log_scalars(self, stats: StepStats) -> dict:
+        """The scalars `train` logs every log_every steps (as train/<name>)."""
+        return {"loss": float(stats.loss), "l1": float(stats.l1), "psnr": float(stats.psnr),
+                "total_points": stats.num_active}
+
     def train(
         self,
         iterations=None,
@@ -298,15 +303,7 @@ class BaselineTrainer:
                     flush=True,
                 )
                 if self.logger is not None:
-                    self.logger.scalars(
-                        it,
-                        {
-                            "loss": float(stats.loss), "l1": float(stats.l1),
-                            "psnr": float(stats.psnr), "total_points": stats.num_active,
-                            "it_per_s": rate,
-                        },
-                        prefix="train/",
-                    )
+                    self.logger.scalars(it, {**self.log_scalars(stats), "it_per_s": rate}, prefix="train/")
             if it in test_iterations:
                 m = self.evaluate(self.scene.getTestCameras())
                 if m:

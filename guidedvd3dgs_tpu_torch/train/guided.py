@@ -3,9 +3,11 @@
 Counterpart of `guidedvd3dgs_tpu/train/guided.py`'s per-step path
 (reference train_guidedvd.py:48-636), with the same semantics:
   * `FrozenRenderer`: the frozen baseline renders rgb / alpha / depth for
-    any w2c + K (reference utils/easy_renderer.py:15-78), frame by frame
-    with exactly sized buffers (the reference groups five frames into one
-    batched chain of a fixed capacity);
+    any w2c + K (reference utils/easy_renderer.py:15-78), a trajectory in
+    groups of five frames, each group one chain of the tile rasterizer
+    (ops/raster_tiles.py::rasterize_tiles_multi) with exactly sized
+    buffers (the JAX package's groups have a fixed capacity and pad the
+    last group; the port's last group is short);
   * the trajectory pool (Eq. 7): per train view and each of 3 centre
     scales, a (phi, theta) grid of candidates rendered by the frozen
     model; the alpha < 0.7 mask eroded by 5; the largest unobserved areas
@@ -13,8 +15,9 @@ Counterpart of `guidedvd3dgs_tpu/train/guided.py`'s per-step path
     trajectory (reference :121-298);
   * per iteration: the train view's loss plus `pseudo_cam_weight` times a
     pseudo view's L1 [+ SSIM], the pseudo view drawn half the time from
-    the all-time stack (reference :343-381); the densification statistics
-    of both views in one (:403-416);
+    the all-time stack (reference :343-381), the two views rendered as one
+    chain as the JAX package's default trainer (`train_scan`) renders
+    them; the densification statistics of both views in one (:403-416);
   * every `guidance_vd_iter` iterations a diffusion event: the scene's
     point cloud splatted along a pooled trajectory, the frozen model
     rendered along it, the engine's video, and a new pseudo stack of its
@@ -45,7 +48,8 @@ next, so its device work (the renders, the artifacts, the engine's video)
 runs on a worker thread and its own CUDA stream while the trainer steps;
 the host draws stay on the trainer's thread in the reference's order.
 Not carried from the reference: its lax.scan chunk trainer and device
-pseudo-frame pool, and its capacity regrowth.
+pseudo-frame pool (the steps are its per-step semantics, which its chunks
+keep), and its capacity regrowth.
 """
 
 from __future__ import annotations
@@ -82,7 +86,7 @@ from guidedvd3dgs_tpu_torch.guidance.loss_guidance import (
     resize_guidance,
 )
 from guidedvd3dgs_tpu_torch.models import gaussians as G
-from guidedvd3dgs_tpu_torch.models.render import render_gaussians, render_state
+from guidedvd3dgs_tpu_torch.models.render import RenderResult, render_gaussians, render_gaussians_multi
 from guidedvd3dgs_tpu_torch.ops.point_splat import splat_points_world, visible_points_mask
 from guidedvd3dgs_tpu_torch.ops.projection import RasterCamera
 from guidedvd3dgs_tpu_torch.scene.cameras import PseudoCamera, camera_from_w2c_K
@@ -219,7 +223,11 @@ def _sync(device: torch.device) -> None:
 
 class FrozenRenderer:
     """Renders frozen Gaussian parameters for guidance, under no_grad, on
-    the parameters' device (reference utils/easy_renderer.py:15-78)."""
+    the parameters' device (reference utils/easy_renderer.py:15-78); a
+    trajectory in chains of GROUP frames (JAX FrozenRenderer._render_many,
+    train/guided.py:102-135)."""
+
+    GROUP = 5
 
     def __init__(self, params: G.GaussianParams, sh_degree: int, bg=None, backend: str = "auto"):
         self.params = params
@@ -237,26 +245,39 @@ class FrozenRenderer:
                              backend=self.backend)
         return r.color, r.alpha, r.depth
 
+    @torch.no_grad()
     def render_many(self, w2cs: np.ndarray, K: np.ndarray, height: int, width: int):
         """The frames of a (T, 4, 4) trajectory: (color (T, 3, H, W),
-        alpha (T, H, W), depth (T, H, W))."""
-        frames = [self.render(w, K, height, width) for w in w2cs]
-        return tuple(torch.stack(x) for x in zip(*frames))
+        alpha (T, H, W), depth (T, H, W)); each group of GROUP frames (the
+        last one shorter) one chain."""
+        cams = [camera_from_w2c_K(np.asarray(w), np.asarray(K), height, width).raster_camera(self.device)
+                for w in w2cs]
+        groups = [render_gaussians_multi(self.params, cams[i:i + self.GROUP], self.bg, self.sh_degree,
+                                         backend=self.backend)
+                  for i in range(0, len(cams), self.GROUP)]
+        return tuple(torch.cat(x) for x in zip(*((r.color, r.alpha, r.depth) for r in groups)))
 
 
 class LiveRenderer(FrozenRenderer):
     """The training Gaussians as they are at each call (the reference's
     guidance_with_training_gs, train_guidedvd.py:493-517): `state` is the
-    trainer's state itself, rendered from detached copies of its
-    parameters under no_grad, so no training graph or gradient is held."""
+    trainer's state itself, its parameters taken once a call (detached,
+    under no_grad, so no training graph or gradient is held)."""
 
     def __init__(self, state: G.GaussianState, sh_degree: int, bg=None, backend: str = "auto"):
         super().__init__(state.params, sh_degree, bg, backend)
         self.state = state
 
-    def render(self, w2c: np.ndarray, K: np.ndarray, height: int, width: int):
+    def _snapshot(self) -> None:
         self.params = SimpleNamespace(**self.state.params.tensors())  # the six, detached
+
+    def render(self, w2c: np.ndarray, K: np.ndarray, height: int, width: int):
+        self._snapshot()
         return super().render(w2c, K, height, width)
+
+    def render_many(self, w2cs: np.ndarray, K: np.ndarray, height: int, width: int):
+        self._snapshot()
+        return super().render_many(w2cs, K, height, width)
 
 
 class MockDiffusionEngine:
@@ -430,25 +451,24 @@ def train_step_guided(
     loss = (1 - l) L1 + l (1 - SSIM) of the train view + pseudo_weight *
     the pseudo view's L1 (its (1 - l) L1 + l (1 - SSIM) with pseudo_ssim),
     plus pseudo_cam_lpips_weight times the perceptual `vgg_loss_fn` of the
-    clamped render and pseudo ground truth when given (:368-371). Each
-    render has its own zero screen offset for the densification
-    statistics; one backward pass. Returns the metrics (loss, l1,
-    pseudo_l1, pseudo_vgg, psnr as device tensors; num_instances, the
-    larger render's)."""
+    clamped render and pseudo ground truth when given (:368-371). The
+    views are one chain (models/render.py::render_gaussians_multi, as the
+    JAX package's train_scan body renders them, its train/guided.py:
+    897-916), each with its own zero screen offset for the densification
+    statistics; one backward pass. Returns the metrics (loss, l1, pseudo_l1,
+    pseudo_vgg, psnr as device tensors; num_instances, the chain's)."""
     dev = state.device
-
-    def render(c, offset):
-        return render_state(state, c, bg, sh_degree, means2d_offset=offset,
-                            use_confidence=use_confidence, backend=backend)
-
-    offset = torch.zeros((state.num_gaussians, 2), device=dev, requires_grad=True)
-    r = render(cam, offset)
+    cams = [cam] if pseudo_cam is None else [cam, pseudo_cam]
+    offsets = torch.zeros((len(cams), state.num_gaussians, 2), device=dev, requires_grad=True)
+    rm = render_gaussians_multi(state.params, cams, bg, sh_degree, means2d_offset=offsets,
+                                confidence=state.confidence, use_confidence=use_confidence, backend=backend)
+    # the views' fields: one UnbindBackward node stacks their gradients
+    r, *rest = (RenderResult(*fields, rm.num_instances) for fields in zip(*(x.unbind(0) for x in rm[:5])))
+    rp = rest[0] if rest else None
+    pl1, pvgg = torch.zeros((), device=dev), torch.zeros((), device=dev)
     ll1 = l1_loss(r.color, gt_image)
     loss = (1.0 - lambda_dssim) * ll1 + lambda_dssim * (1.0 - ssim(r.color, gt_image))
-    rp, pl1, pvgg = None, torch.zeros((), device=dev), torch.zeros((), device=dev)
-    if pseudo_cam is not None:
-        offset_p = torch.zeros((state.num_gaussians, 2), device=dev, requires_grad=True)
-        rp = render(pseudo_cam, offset_p)
+    if rp is not None:
         pl1 = l1_loss(rp.color, pseudo_gt)
         if pseudo_ssim:
             ploss = (1.0 - lambda_dssim) * pl1 + lambda_dssim * (1.0 - ssim(rp.color, pseudo_gt))
@@ -464,19 +484,16 @@ def train_step_guided(
         G.update_max_radii(state, r.radii, r.visibility_filter)
         if rp is not None:
             G.update_max_radii(state, rp.radii, rp.visibility_filter)
-            G.add_densification_stats_with_novel_pose(state, offset.grad, r.visibility_filter,
-                                                      offset_p.grad, rp.visibility_filter)
+            G.add_densification_stats_with_novel_pose(state, offsets.grad[0], r.visibility_filter,
+                                                      offsets.grad[1], rp.visibility_filter)
         else:
-            G.add_densification_stats(state, offset.grad, r.visibility_filter)
+            G.add_densification_stats(state, offsets.grad[0], r.visibility_filter)
     if apply_adam:
         G.adam_step(state, {n: getattr(state.params, n).grad for n in G.PARAM_NAMES}, lrs)
-    num_instances = r.num_instances
-    if rp is not None and rp.num_instances is not None:
-        num_instances = max(num_instances, rp.num_instances)
     with torch.no_grad():
         return {"loss": loss.detach(), "l1": ll1.detach(), "pseudo_l1": pl1.detach(),
                 "pseudo_vgg": pvgg.detach(), "psnr": psnr(r.color, gt_image)[0, 0],
-                "num_instances": num_instances}
+                "num_instances": r.num_instances}
 
 
 # ----------------------------------------------------------------------------
@@ -1026,6 +1043,11 @@ class GuidedTrainer(BaselineTrainer):
         self.last_metrics = metrics
         return StepStats(loss=metrics["loss"], l1=metrics["l1"], psnr=metrics["psnr"],
                          num_active=self.state.num_gaussians, num_instances=metrics["num_instances"])
+
+    def log_scalars(self, stats: StepStats) -> dict:
+        """BaselineTrainer's scalars and the last step's pseudo_l1 (as the
+        JAX package's train_scan logs it; 0 without a pseudo view)."""
+        return {**super().log_scalars(stats), "pseudo_l1": float(self.last_metrics["pseudo_l1"])}
 
     def train(self, iterations=None, start_iteration=0, **kwargs):
         """BaselineTrainer.train, then the event in flight finalized and the

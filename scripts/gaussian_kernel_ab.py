@@ -102,8 +102,8 @@ K4_PERSISTENT = (
      "  __shared__ int s_i;\n  for (;;) {\n  __syncthreads();\n"
      "  if (threadIdx.x == 0) s_i = atomicAdd(&g_next_tile, 1);\n  __syncthreads();\n"
      "  if (s_i >= num_tiles) break;\n  const int t = tile_order[s_i];"),
-    ("    out_alpha[q] = acc_a;\n  }\n}",
-     "    out_alpha[q] = acc_a;\n  }\n  }\n"
+    ("    out_alpha[qa] = acc_a;\n  }\n}",
+     "    out_alpha[qa] = acc_a;\n  }\n  }\n"
      "  if (threadIdx.x == 0 && atomicAdd(&g_left, 1) == (int)gridDim.x - 1) {\n"
      "    g_next_tile = 0;\n    g_left = 0;\n  }\n}"),
     ("    gvd::blend_fwd_kernel<<<num_tiles, gvd::TILE_PIX, 0, stream>>>(\n"
@@ -241,13 +241,20 @@ def load(path: Path, src_dir: Path) -> ctypes.CDLL:
     tile_count), `lib.k3_total` whether its K3 takes the instance total (an
     argument after num_tiles), `lib.k1_pair` and `lib.k2_pair` whether its
     K1 and K2 take the SH as two row sources (this tree's signatures) or
-    as one tensor."""
+    as one tensor; `lib.k1_ld`, `lib.k2_acc` and `lib.bands` whether its
+    K1 takes the table's row stride, its K2 the cotangents' row stride and
+    the accumulate flag, and its K3, K4 and K5 the tile rows of a camera
+    (the B-camera chain's arguments, the last before the stream)."""
     lib = ctypes.CDLL(str(path))
     lib.k5_order = "tile_order" in (src_dir / "blend_bwd.cu").read_text()
     lib.k4_order = "tile_order" in (src_dir / "blend_fwd.cu").read_text()
     lib.k3_total = "int total" in (src_dir / "expand.cu").read_text()
     lib.k1_pair = "sh_rest" in (src_dir / "preprocess_fwd.cu").read_text()
     lib.k2_pair = "sh_rest" in (src_dir / "preprocess_bwd.cu").read_text()
+    lib.k1_ld = "int ld" in (src_dir / "preprocess_fwd.cu").read_text()
+    lib.k2_acc = "cot_ld" in (src_dir / "preprocess_bwd.cu").read_text()
+    lib.bands = {name: "gy_cam" in (src_dir / f"{name}.cu").read_text()
+                 for name in ("expand", "blend_fwd", "blend_bwd")}
     for name in KERNELS.values():
         pair = {"preprocess_fwd": lib.k1_pair, "preprocess_bwd": lib.k2_pair}.get(name, True)
         argtypes = list(_build.SIGNATURES[name] if pair else ONE_TENSOR_SIGNATURES[name])
@@ -257,6 +264,12 @@ def load(path: Path, src_dir: Path) -> ctypes.CDLL:
             del argtypes[5]
         if name == "expand" and not lib.k3_total:
             del argtypes[9]
+        if name in lib.bands and not lib.bands[name]:
+            del argtypes[-2]
+        if name == "preprocess_fwd" and pair and not lib.k1_ld:
+            del argtypes[-2]
+        if name == "preprocess_bwd" and pair and not lib.k2_acc:
+            del argtypes[-3:-1]
         fn = getattr(lib, f"gvd_{name}")
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -314,25 +327,29 @@ def calls(lib, k3_args, k5_args, k2_args, k6_grad, tile_count=None, fields=None)
                                 else (f_dc.data_ptr(), 3, f_rest.data_ptr(), 3 * (kt - 1)))
         check(lib.gvd_preprocess_fwd(means.data_ptr(), scales.data_ptr(), rots.data_ptr(), opac.data_ptr(),
                                      dc, dcs, rest, rests, camc.data_ptr(), None, out.data_ptr(), n_all,
-                                     sh_degree, sh_degree, sm, w, h, int(reading == "K1s"), stream), "K1")
+                                     sh_degree, sh_degree, sm, w, h, int(reading == "K1s"),
+                                     *([n_all] if lib.k1_ld else []), stream), "K1")
 
     def k3():
         hist.zero_()
         check(lib.gvd_expand(tab.data_ptr(), n, rmx.data_ptr(), rmy.data_ptr(), rw.data_ptr(), count.data_ptr(),
                              offsets.data_ptr(), gx, num_tiles, *([total] if lib.k3_total else []),
-                             keys.data_ptr(), owners.data_ptr(), hist.data_ptr(), stream), "K3")
+                             keys.data_ptr(), owners.data_ptr(), hist.data_ptr(),
+                             *([num_tiles // gx] if lib.bands["expand"] else []), stream), "K3")
 
     def k4():
         check(lib.gvd_blend_fwd(k4_tab.data_ptr(), k4_tab.shape[1], k4_ids.data_ptr(), binning.tile_start.data_ptr(),
                                 counts.data_ptr(), *([order.data_ptr()] if lib.k4_order else []), bg.data_ptr(),
-                                binning.grid_x, binning.grid_y, w, h, *[t.data_ptr() for t in img], stream), "K4")
+                                binning.grid_x, binning.grid_y, w, h, *[t.data_ptr() for t in img],
+                                *([binning.grid_y] if lib.bands["blend_fwd"] else []), stream), "K4")
 
     def k5():
         check(lib.gvd_blend_bwd(tab.data_ptr(), n, binning.inst_gauss.data_ptr(),
                                 binning.perm.data_ptr(), binning.tile_start.data_ptr(), counts.data_ptr(),
                                 *([order.data_ptr()] if lib.k5_order else []), color.data_ptr(), depth.data_ptr(),
                                 alpha.data_ptr(), dC.data_ptr(), dD.data_ptr(), dA.data_ptr(), binning.grid_x,
-                                binning.grid_y, w, h, grad.data_ptr(), stream), "K5")
+                                binning.grid_y, w, h, grad.data_ptr(),
+                                *([binning.grid_y] if lib.bands["blend_bwd"] else []), stream), "K5")
 
     def k6():
         check(lib.gvd_segsum(k6_grad.data_ptr(), binning.offsets.data_ptr(), binning.count.data_ptr(), n_all,
@@ -343,7 +360,7 @@ def calls(lib, k3_args, k5_args, k2_args, k6_grad, tile_count=None, fields=None)
         check(lib.gvd_preprocess_bwd(means.data_ptr(), scales.data_ptr(), rots.data_ptr(), *sh_args,
                                      camc.data_ptr(), cot.data_ptr(), n_all, kt, sh_degree,
                                      sh_degree, sm, cam.width, cam.height, *[t.data_ptr() for t in g],
-                                     stream), "K2")
+                                     *([n_all, 0] if lib.k2_acc else []), stream), "K2")
 
     fns = {"K1": lambda: k1("K1"), "K1s": lambda: k1("K1s"), "K3": k3, "K4": k4, "K5": k5, "K6": k6, "K2": k2}
     outs = {"K1": (k1_out["K1"],), "K1s": (k1_out["K1s"],), "K3": (keys, owners, hist), "K4": img,

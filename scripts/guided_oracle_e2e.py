@@ -12,23 +12,31 @@ flags otherwise: events every 260 iterations, pseudo views between 2000
 and 9500), and scores both with the render and metrics CLIs. It prints the
 test PSNR / SSIM of each (and the PSNR of each test view), the guided run's split between training and
 events (`timing_summary.json`), and the capacity count: every frame of
-every pool trajectory (the trajectories an event draws from), in the
-groups of five the reference's frozen renderer binds into one batched
-chain, against that chain's fixed capacity of max(4 N 5, 16384) slots
-(N = the state's rows: the oracle's ground truth, the frozen baseline's
-power-of-two capacity), each Gaussian taking max(tiles, 1) slots. A group
-above its capacity is a group whose reference render dropped instances.
-A third run (`reference_capacity`) trains the guided model on the
-reference's images again, from the same baseline, with the oracle's
-frames rendered as the reference's oracle renders them: each group of
-five frames one chain of that capacity, slots given frame by frame in
-Gaussian order, the Gaussians past the capacity dropped, and the one that
-straddles it kept in its first slots: the first tiles of its rectangle
-walked row by row (`render_group_as_reference`). `--runs` picks the
+every pool trajectory (the trajectories an event draws from) as the JAX
+package's CLI renders it, against the fixed capacity of its chain, each
+Gaussian taking max(tiles, 1) slots. The frozen baseline (the tile
+backend) binds groups of five frames into one chain of max(4 N 5, 16384)
+slots (N = its state's power-of-two capacity); the oracle (its CLI's
+--oracle_backend auto, whose FrozenRenderer renders frame by frame) one
+frame into max(4 N, 16384) slots (N = the ground truth's 150,000 rows),
+the capacity the scene's reference images were rendered at. A group or
+frame above its capacity dropped instances. A third run
+(`reference_capacity`) trains the guided model on the reference's images
+again, from the same baseline, with the oracle's frames rendered as the
+JAX package's oracle renders them: each frame its own chain of that
+capacity, slots given in Gaussian order, the Gaussians past the capacity
+dropped, and the one that straddles it kept in its first slots: the
+first tiles of its rectangle walked row by row
+(`render_group_as_reference`). `--runs reference_capacity` alone trains
+the baseline of the reference images and this run. `--runs` picks the
 runs; `--seed` goes to both CLIs (the train views' order, the pool's and
 the events' draws; the scene is the same at every seed), so runs at
-several seeds measure the spread. The last line is one JSON object of
-these numbers; it is also written to `<out>/guided_e2e.json`.
+several seeds measure the spread. Each guided run's pseudo-L1 curve is
+read from its `metrics.jsonl` every 100 iterations: train/pseudo_l1 (the
+logged step's, as the JAX package's train_scan logs it), printed beside
+the JAX package's own run of the same scene where its log is in the
+repository (`output/synthetic_oracle_e2e_r5`, a TPU run). The last line is one JSON object of these
+numbers; it is also written to `<out>/guided_e2e.json`.
 """
 
 from __future__ import annotations
@@ -57,7 +65,10 @@ from guidedvd3dgs_tpu_torch.render import resolve_device  # noqa: E402
 from guidedvd3dgs_tpu_torch.scene import synthetic  # noqa: E402
 from guidedvd3dgs_tpu_torch.scene.cameras import camera_from_w2c_K  # noqa: E402
 
-GROUP = 5  # frames the reference's FrozenRenderer.render_many binds into one chain
+GROUP = 5  # frames the reference's FrozenRenderer.render_many binds into one chain (tile backend)
+ORACLE_GROUP = 1  # frames its oracle's renderer binds (backend auto: frame by frame)
+JAX_LOG = ROOT / "output" / "synthetic_oracle_e2e_r5" / "metrics.jsonl"
+CURVE_ITERS = (2100, 2600, 3000, 5000, 8000, 9500)  # where the JAX run's pseudo_l1 is quoted
 QUANTUM = 512
 TILE = 16
 
@@ -70,8 +81,10 @@ def _reference_gt():
     return mod
 
 
-def chain_capacity(rows: int) -> int:
-    return -(-max(4 * rows * GROUP, 1 << 14) // QUANTUM) * QUANTUM
+def chain_capacity(rows: int, frames: int = GROUP) -> int:
+    """The reference's default capacity of a chain of `frames` frames of a
+    state of `rows` rows."""
+    return -(-max(4 * rows * frames, 1 << 14) // QUANTUM) * QUANTUM
 
 
 def pow2_capacity(n: int) -> int:
@@ -79,11 +92,11 @@ def pow2_capacity(n: int) -> int:
     return 1 << max(10, int(np.ceil(np.log2(max(n, 1) * 4))))
 
 
-def capacity_count(trainer, params, rows: int, ref) -> dict:
-    """Slots each GROUP-frame group of every pool trajectory takes (padding
-    rows beyond the params' own take one slot a frame) against
-    chain_capacity(rows)."""
-    cap = chain_capacity(rows)
+def capacity_count(trainer, params, rows: int, ref, group: int = GROUP) -> dict:
+    """Slots each `group`-frame group of every pool trajectory takes
+    (padding rows beyond the params' own take one slot a frame) against
+    chain_capacity(rows, group)."""
+    cap = chain_capacity(rows, group)
     pad = rows - params.xyz.shape[0]
     demand = []
     for entries in trainer.trajectory_pool.values():
@@ -93,7 +106,7 @@ def capacity_count(trainer, params, rows: int, ref) -> dict:
                 cam = camera_from_w2c_K(np.linalg.inv(c2w), trainer.intrinsic, trainer.H, trainer.W)
                 count = ref.tile_counts(params, cam.raster_camera(params.xyz.device), trainer.W, trainer.H)
                 slots.append(int(torch.clamp(count, min=1).sum()) + pad)
-            demand += [sum(slots[i:i + GROUP]) for i in range(0, len(slots), GROUP)]
+            demand += [sum(slots[i:i + group]) for i in range(0, len(slots), group)]
     demand = np.asarray(demand)
     return dict(rows=rows, capacity=cap, groups=int(demand.size), groups_over=int((demand > cap).sum()),
                 max_slots=int(demand.max()), max_share=float(demand.max() / cap),
@@ -117,9 +130,9 @@ class ReferenceCapacityOracle:
         n = self.renderer.params.xyz.shape[0]
         w2cs, K = self.oracle._w2cs, self.oracle._K
         frames = []
-        for g0 in range(0, len(w2cs), GROUP):
-            group, dropped = render_group_as_reference(self.renderer, w2cs[g0:g0 + GROUP], K, self.height,
-                                                       self.width, chain_capacity(n), self.ref)
+        for g0 in range(0, len(w2cs), ORACLE_GROUP):
+            group, dropped = render_group_as_reference(self.renderer, w2cs[g0:g0 + ORACLE_GROUP], K, self.height,
+                                                       self.width, chain_capacity(n, ORACLE_GROUP), self.ref)
             self.dropped.append(dropped)
             frames += group
         return torch.clamp(torch.stack(frames), 0.0, 1.0)
@@ -168,10 +181,21 @@ def render_group_as_reference(renderer, w2cs, K, height: int, width: int, capaci
     return frames, dropped
 
 
+def pseudo_l1_curve(metrics_jsonl: Path) -> dict:
+    """{iteration: pseudo_l1} of a guided run's log (the train/ scalars
+    every 100 iterations)."""
+    curve = {}
+    for line in metrics_jsonl.read_text().splitlines():
+        rec = json.loads(line)
+        if "train/pseudo_l1" in rec:
+            curve[int(rec["step"])] = rec["train/pseudo_l1"]
+    return curve
+
+
 def run_scene(name: str, src: Path, out: Path, iters: int, dev, ref, base: Path = None,
-              reference_capacity: bool = False, seed: int = 1) -> dict:
-    """Train the baseline (unless `base` is given), then the guided run on
-    it; score both."""
+              reference_capacity: bool = False, seed: int = 1, guided_run: bool = True) -> dict:
+    """Train the baseline (unless `base` is given), then, with `guided_run`,
+    the guided run on it; score both."""
     guided = out / f"{name}_guided"
     common = ["-s", str(src), "--dataset", "colmap", "--n_views", "6", "--eval",
               "--iterations", str(iters), "--test_iterations", str(iters),
@@ -184,6 +208,8 @@ def run_scene(name: str, src: Path, out: Path, iters: int, dev, ref, base: Path 
         port_train_cli.main(common + ["-m", str(base)])
         sync()
         base_s = time.perf_counter() - t0
+    if not guided_run:
+        return dict(scene=name, iterations=iters, seed=seed, baseline_s=base_s)
     build_engine = port_guided_cli.build_engine
     if reference_capacity:
         port_guided_cli.build_engine = lambda *a: ReferenceCapacityOracle(build_engine(*a), ref)
@@ -197,21 +223,26 @@ def run_scene(name: str, src: Path, out: Path, iters: int, dev, ref, base: Path 
     sync()
     guided_s = time.perf_counter() - t0
     scores = {}
+    # the renders are named by their place among the test cameras
+    test_ids = json.loads((src / "train_test_split_6.json").read_text())["test_ids"]
+    camera_names = [f"{test_ids.index(i):05d}.png" for i in (5, 15, 35)]
     for mdl in (base, guided):
         port_render.main(["-m", str(mdl), "--skip_train", "--device", dev.type])
         port_metrics.evaluate([str(mdl)], device=dev.type)
         res = json.loads((mdl / "results.json").read_text())[f"ours_{iters}"]
         per_view = json.loads((mdl / "per_view.json").read_text())[f"ours_{iters}"]["PSNR"]
         scores[mdl.name] = {"PSNR": res["PSNR"], "SSIM": res["SSIM"],
-                            "PSNR_per_view": [per_view[k] for k in sorted(per_view)]}
+                            "PSNR_per_view": [per_view[k] for k in sorted(per_view)],
+                            "PSNR_cameras_5_15_35": [per_view[k] for k in camera_names]}
     frozen_n = trainer.frozen.params.xyz.shape[0]
     out_rec = dict(
         scene=name, iterations=iters, seed=seed, baseline_s=base_s, guided_s=guided_s, scores=scores,
         timing=json.loads((guided / "timing_summary.json").read_text()),
         events_run=trainer.events_run, gaussians=trainer.state.num_gaussians,
         capacity_oracle=capacity_count(trainer, trainer.engine.renderer.params,
-                                       trainer.engine.renderer.params.xyz.shape[0], ref),
+                                       trainer.engine.renderer.params.xyz.shape[0], ref, ORACLE_GROUP),
         capacity_frozen=capacity_count(trainer, trainer.frozen.params, pow2_capacity(frozen_n), ref),
+        pseudo_l1=pseudo_l1_curve(guided / "metrics.jsonl"),
     )
     if reference_capacity:
         out_rec["oracle_dropped_per_group"] = trainer.engine.dropped
@@ -238,7 +269,8 @@ def main(argv=None) -> None:
     records = []
     if "reference" in runs or "reference_capacity" in runs:
         ref.main(["--out", str(s_ref), "--device", dev.type])
-        records.append(run_scene("reference", s_ref, out, a.iterations, dev, ref, seed=a.seed))
+        records.append(run_scene("reference", s_ref, out, a.iterations, dev, ref, seed=a.seed,
+                                 guided_run="reference" in runs))
     if "exact" in runs:
         synthetic.make_scene(str(s_exact), device=dev)
         records.append(run_scene("exact", s_exact, out, a.iterations, dev, ref, seed=a.seed))
@@ -246,6 +278,8 @@ def main(argv=None) -> None:
         records.append(run_scene("reference_capacity", s_ref, out, a.iterations, dev, ref,
                                  base=out / "reference_baseline", reference_capacity=True, seed=a.seed))
     for r in records:
+        if "scores" not in r:
+            continue  # the baseline of reference_capacity alone: scored in its record
         b = r["scores"].get(f"{r['scene']}_baseline") or r["scores"]["reference_baseline"]
         g = r["scores"][f"{r['scene']}_guided"]
         t = r["timing"]
@@ -253,7 +287,15 @@ def main(argv=None) -> None:
               f"PSNR {g['PSNR']:.4f} SSIM {g['SSIM']:.5f}; guided run {t['total_s']:.3f} s = training "
               f"{t['train_s']:.3f} + events {t['event_s']:.3f} ({t['events_run']} events: "
               + ", ".join(f"{k} {v:.3f}" for k, v in t["event_phase_s"].items())
-              + f"); capacity: oracle {r['capacity_oracle']}, frozen {r['capacity_frozen']}", flush=True)
+              + f"); cameras 5 / 15 / 35: baseline {b['PSNR_cameras_5_15_35']}, guided "
+              f"{g['PSNR_cameras_5_15_35']}; capacity: oracle {r['capacity_oracle']}, frozen {r['capacity_frozen']}",
+              flush=True)
+        jax_curve = pseudo_l1_curve(JAX_LOG) if JAX_LOG.exists() else {}
+        if r["pseudo_l1"]:
+            print(f"{r['scene']} pseudo_l1 at " + "; ".join(
+                f"{it}: {r['pseudo_l1'][it]:.5f} (JAX r5 "
+                + (f"{jax_curve[it]:.5f})" if it in jax_curve else "-)")
+                for it in CURVE_ITERS if it in r["pseudo_l1"]), flush=True)
         if not (math.isfinite(g["PSNR"]) and math.isfinite(b["PSNR"])):
             raise AssertionError(f"non-finite scores: {r['scores']}")
     line = json.dumps({"guided_e2e": records})

@@ -1,4 +1,5 @@
-"""Does the JAX package's packed raster arithmetic move the guided result?
+"""Does the JAX package's packed raster arithmetic, or its chunked
+trainer, move the guided result?
 
     python scripts/pack_fields_parity.py [--steps 1000] [--out build/pack_parity]   (CPU)
 
@@ -6,19 +7,24 @@ The JAX package trains on its tile rasterizer with opacity and RGB carried
 through the binning sort as f16 pairs (`guidedvd3dgs_tpu/ops/tiling.py`,
 `set_pack_fields`) and its per-instance gradients reduced as bf16 pairs
 (`ops/raster_tiles.py`, `set_pack_grads`), both on by default; the port
-has neither. This script trains the JAX guided trainer on the tile path in
-interpret mode three times, with both packings on (`jax_pack`, the
-default), the fields' off (`jax_nopack`) and both off (`jax_exact`), and
-the port's trainer once (`port`), from the same start: the three 40x40
+has neither. JAX's CLI trains through `GuidedTrainer.train_scan` (every
+span between schedule events one scan, the train and pseudo views one
+B-camera chain), not through its `step`. This script trains the JAX guided
+trainer on the tile path in interpret mode three times step by step, with
+both packings on (`jax_pack`, the default), the fields' off (`jax_nopack`)
+and both off (`jax_exact`), once through `train_scan` with both off
+(`jax_scan`), and the port's trainer once (`port`), from the same start: the three 40x40
 views and the anisotropic 96-point start of
 tests/test_torch_guided_densify.py at SH degree 0, the oracle engine on
 the 80 ground-truth Gaussians that render the views (5-frame events every
 40 steps), pseudo views from the first step, densification every 50 steps
 up to 160 (the split noise of the JAX package's keys in both), `--steps`
-guided steps. Each run is its own process (the packing switches are
-read when JAX traces). It prints, for each pair of runs, the Gaussian
-counts, each parameter's max abs difference over its largest magnitude,
-the largest difference of a step's loss, and the exact test PSNR (the
+guided steps (the last without Adam, as `train_scan` ends). Each run is
+its own process (the packing switches are read when JAX traces). It
+prints, for each pair of runs, the Gaussian counts (at every step, or at
+each boundary of the scan where `jax_scan` is one of the pair), each
+parameter's max abs difference over its largest magnitude, the largest
+difference of a step's loss (at those steps), and the exact test PSNR (the
 port's dense renderer on each final state, three held-out views rendered
 from the ground truth); the last line is one JSON object of these.
 """
@@ -38,7 +44,7 @@ sys.path.insert(0, str(ROOT / "tests"))
 
 import numpy as np  # noqa: E402
 
-MODES = ("jax_pack", "jax_nopack", "jax_exact", "port")
+MODES = ("jax_pack", "jax_nopack", "jax_exact", "jax_scan", "port")
 PARAMS = ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity")
 CAPACITY = 4096
 TEST_Z = (-4.2, -3.8, -4.4)
@@ -63,7 +69,7 @@ def run(mode: str, steps: int, out: Path) -> None:
     from test_train_guided import GuidedOpt, _intrinsic
 
     torch.set_num_threads(2)
-    opt = lambda: GuidedOpt(iterations=steps + 10, start_sample_pseudo=0, end_sample_pseudo=steps + 5,  # noqa: E731
+    opt = lambda: GuidedOpt(iterations=steps, start_sample_pseudo=0, end_sample_pseudo=steps + 5,  # noqa: E731
                             densification_interval=50, densify_from_iter=2, prune_from_iter=2,
                             densify_until_iter=160, densify_grad_threshold=2e-5, opacity_reset_interval=10 ** 6,
                             guidance_vd_iter=40, position_lr_max_steps=steps + 10)
@@ -94,7 +100,7 @@ def run(mode: str, steps: int, out: Path) -> None:
     if mode.startswith("jax"):
         jrt.set_interpret(True)
         jtiling.set_pack_fields(mode == "jax_pack")
-        jrt.set_pack_grads(mode != "jax_exact")
+        jrt.set_pack_grads(mode in ("jax_pack", "jax_nopack"))
         tr = jg.GuidedTrainer(
             FakeScene(cams, extent=3.0), jstate, opt(), FakePipe(raster_backend="tiles"),
             FakeModelParams(sh_degree=0), frozen=jg.FrozenRenderer(gt_state, sh_degree=0, backend="dense"),
@@ -121,9 +127,18 @@ def run(mode: str, steps: int, out: Path) -> None:
     tr.init_trajectory_pool()
     t0 = time.time()
     log = []
-    for it in range(1, steps + 1):
-        s = tr.step(it)
-        log.append((it, float(s.loss), int(s.num_active), int(tr.events_run)))
+    if mode == "jax_scan":
+        class Boundaries:  # what train_scan logs at each boundary of its spans
+            def scalars(self, step, values, prefix=""):
+                if "total_points" in values:
+                    log.append((step, values["loss"], int(values["total_points"]), int(tr.events_run)))
+
+        tr.attach_logger(Boundaries())
+        tr.train_scan(iterations=steps, log_every=1)
+    else:
+        for it in range(1, steps + 1):
+            s = tr.step(it)
+            log.append((it, float(s.loss), int(s.num_active), int(tr.events_run)))
     if mode.startswith("jax"):
         st = jax.device_get(tr.state)
         act = np.asarray(st.active)
@@ -147,11 +162,14 @@ def compare(out: Path) -> dict:
            for m, r in runs.items()}
     pairs = []
     for a, b in (("jax_pack", "jax_nopack"), ("jax_nopack", "jax_exact"), ("jax_pack", "jax_exact"),
-                 ("jax_exact", "port"), ("jax_pack", "port")):
+                 ("jax_exact", "port"), ("jax_pack", "port"), ("jax_scan", "jax_exact"), ("jax_scan", "port")):
         ra, rb = runs[a], runs[b]
         la, lb = ra["log"], rb["log"]
-        pr = dict(a=a, b=b, psnr_diff=rec[a]["test_psnr"] - rec[b]["test_psnr"],
-                  counts_equal_every_step=bool((la[:, 2] == lb[:, 2]).all()),
+        # the steps both logged: every step, or the scan's boundaries
+        its = np.intersect1d(la[:, 0], lb[:, 0])
+        la, lb = (l[np.searchsorted(l[:, 0], its)] for l in (la, lb))
+        pr = dict(a=a, b=b, psnr_diff=rec[a]["test_psnr"] - rec[b]["test_psnr"], compared_steps=int(its.size),
+                  counts_equal=bool((la[:, 2] == lb[:, 2]).all()),
                   max_loss_diff=float(np.abs(la[:, 1] - lb[:, 1]).max()))
         if ra["xyz"].shape == rb["xyz"].shape:
             pr["param_err"] = {n: float(np.abs(ra[n] - rb[n]).max() / max(np.abs(ra[n]).max(), 1e-30))

@@ -17,7 +17,9 @@ bitwise-equal outputs on two launches, and K2 on rows that start past a
 (features_dc, features_rest) is bitwise K1 from one (N, K, 3) tensor, and
 with the skip and a screen offset bitwise that table plus the offset,
 rows 6-8 zero where no tile; K2 with the SH pair is bitwise K2 with one
-tensor. L1 (flash
+tensor. The B-camera chain (K1 into a table's columns, K3, K4 and K5 over
+the cameras' bands, K2 accumulating over a strided view of K6's sums) is
+bitwise its single views, also past K3's shared histogram. L1 (flash
 attention) within 2e-5 of its plain version in float32 and 1e-2 in
 bfloat16 (the plain version from the same bf16 inputs) on unit-normal
 inputs (other sum orders; the plain version rounds the weights to bf16);
@@ -177,7 +179,7 @@ def test_k4_matches_plain(dev, opaque):
     out = raster_tiles.rasterize_tiles(*acts, cam, bg)
     tab = preprocess_fused.preprocess_fused_fwd(*acts, cam, 3, 1.0)
     binning = tiling.bin_gaussians(tab, out.radii, W, H)
-    c, d, a = raster_tiles.blend_fwd_plain(tab, binning, bg, W, H)
+    c, d, a = (x[0] for x in raster_tiles.blend_fwd_plain(tab, binning, bg, W, H))
     torch.testing.assert_close(out.color, c, atol=2e-5, rtol=1e-4)
     torch.testing.assert_close(out.alpha, a, atol=2e-5, rtol=1e-4)
     torch.testing.assert_close(out.depth, d, atol=2e-4, rtol=1e-4)
@@ -313,7 +315,7 @@ def test_k4_ragged_image_matches_plain(dev, width, height):
     pixels outside the image count as done and are not written."""
     tab, binning, bg = k4_case(dev, 32, width, height)
     color, depth, alpha = check_k4(tab, binning, bg, width, height)
-    assert color.shape == (3, height, width) and depth.shape == alpha.shape == (height, width)
+    assert color.shape == (1, 3, height, width) and depth.shape == alpha.shape == (1, height, width)
     assert float(alpha.max()) > 0.5
 
 
@@ -383,8 +385,8 @@ def bwd_case(dev, opaque, n=30000):
     tab = preprocess_fused.preprocess_fused_fwd(*acts, cam, 3, 1.0)
     binning = tiling.bin_gaussians(tab, preprocess_fused.visible_radii(tab), W, H)
     color, depth, alpha = raster_tiles._run_fwd(tab, binning, bg, W, H)
-    cot = (torch.randn((3, H, W), device=dev), torch.randn((H, W), device=dev),
-           torch.randn((H, W), device=dev))
+    cot = (torch.randn((1, 3, H, W), device=dev), torch.randn((1, H, W), device=dev),
+           torch.randn((1, H, W), device=dev))
     return (tab, binning, color, depth, alpha, *cot, W, H), binning
 
 
@@ -531,6 +533,86 @@ L1_SHAPES = [(2, 3, 1200, 64), (1, 1, 300, 512), (3, 2, 77, 32), (1, 2, 200, 128
 # D = 512
 RAGGED = (1, 31, 33, 63, 65, 129, 1100)
 FWD_SHAPES = L1_SHAPES + [(1, 2, n, 64) for n in RAGGED] + [(1, 1, n, 512) for n in RAGGED] + [(3, 1, 1100, 512)]
+
+
+def chain_cameras(dev, b, width=W, height=H):
+    return [PseudoCamera(R=np.eye(3), T=np.array([0.1 + 0.2 * c, -0.1 + 0.1 * c, 4.0 - 0.3 * c]),
+                         FoVx=1.2, FoVy=1.2 * height / width, width=width, height=height).raster_camera(dev)
+            for c in range(b)]
+
+
+def test_chain_matches_single_views(dev):
+    """A chain of 3 cameras at a ragged size (136 rows: bands of 9 tile
+    rows, 8 of them padding): K1 into its columns of one table (a row
+    stride of 3 N) bitwise its single tables; K3 on the chain bitwise its
+    plain version; K4's images bitwise the single renders'; K5 + K6's
+    per-camera sums bitwise the single renders' (each Gaussian's slots
+    hold the same instances in the same order); K2 over a strided view of
+    the sums, accumulating, bitwise the sum in camera order of its single
+    launches."""
+    acts, _ = scene(30000, 21, dev)
+    acts[3] = acts[3].reshape(-1)
+    cams = chain_cameras(dev, 3)
+    n = acts[0].shape[0]
+    pair = (acts[4][:, :1], acts[4][:, 1:])
+    singles = [preprocess_fused.preprocess_fused_fwd(*acts[:4], pair, c, 3, 1.0, skip_unbinned=True)
+               for c in cams]
+    chain = torch.empty((16, 3 * n), device=dev)
+    for c, cam in enumerate(cams):
+        preprocess_fused.preprocess_fused_fwd(*acts[:4], pair, cam, 3, 1.0, skip_unbinned=True, out=chain,
+                                              col0=c * n)
+    torch.cuda.synchronize()
+    assert torch.equal(chain, torch.cat(singles, 1))
+    radii = preprocess_fused.visible_radii(chain)
+    args = tiling.expand_inputs(chain, radii, W, H, n_cams=3)
+    gy_cam = (H + 15) // 16
+    got = expand.expand_instances(chain, *args, gy_cam=gy_cam)
+    want = expand.expand_instances_plain(chain, *args, gy_cam=gy_cam)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    bg = torch.tensor([0.2, 0.4, 0.6], device=dev)
+    binning = tiling.bin_gaussians(chain, radii, W, H, n_cams=3)
+    color, depth, alpha = raster_tiles._run_fwd(chain, binning, bg, W, H)
+    assert color.shape == (3, 3, H, W) and depth.shape == alpha.shape == (3, H, W)
+    cot = (torch.randn((3, 3, H, W), device=dev), torch.randn((3, H, W), device=dev),
+           torch.randn((3, H, W), device=dev))
+    acc = segsum.segment_sum_sorted(raster_tiles._run_bwd(chain, binning, color, depth, alpha, *cot, W, H),
+                                    binning.offsets, binning.count)
+    grads, want_grads = None, None
+    for c, (cam, tab) in enumerate(zip(cams, singles)):
+        b1 = tiling.bin_gaussians(tab, preprocess_fused.visible_radii(tab), W, H)
+        one = raster_tiles._run_fwd(tab, b1, bg, W, H)
+        for x, y in zip(one, (color[c:c + 1], depth[c:c + 1], alpha[c:c + 1])):
+            assert torch.equal(x, y)
+        acc1 = segsum.segment_sum_sorted(
+            raster_tiles._run_bwd(tab, b1, *one, *(x[c:c + 1] for x in cot), W, H), b1.offsets, b1.count)
+        assert torch.equal(acc[:, c * n:(c + 1) * n], acc1)
+        grads = preprocess_fused.preprocess_fused_bwd(*acts[:4], pair, cam, 3, 1.0, acc[:, c * n:(c + 1) * n],
+                                                      accumulate=grads)
+        g1 = preprocess_fused.preprocess_fused_bwd(*acts[:4], pair, cam, 3, 1.0, acc1)
+        flat = list(g1[:4]) + list(g1[4])
+        want_grads = flat if want_grads is None else [w + g for w, g in zip(want_grads, flat)]
+    torch.cuda.synchronize()
+    for g, w in zip(list(grads[:4]) + list(grads[4]), want_grads):
+        assert torch.equal(g, w)
+
+
+def test_chain_past_the_shared_histogram(dev):
+    """11 cameras of 640 x 480 make 11 x 1,200 tiles, past K3's shared
+    histogram of 12,288 bins: K3 takes its global histogram, and the
+    chain's images are still bitwise the single renders'."""
+    acts, _ = scene(20000, 22, dev)
+    pair = (acts[4][:, :1], acts[4][:, 1:])
+    width, height = 640, 480
+    cams = chain_cameras(dev, 11, width, height)
+    bg = torch.tensor([0.2, 0.4, 0.6], device=dev)
+    multi = raster_tiles.rasterize_tiles_multi(*acts[:4], pair, cams, bg)
+    assert 11 * 40 * 30 > 12288
+    for c, cam in enumerate(cams):
+        one = raster_tiles.rasterize_tiles(*acts[:4], pair, cam, bg)
+        assert torch.equal(multi.color[c], one.color) and torch.equal(multi.alpha[c], one.alpha)
+        assert torch.equal(multi.depth[c], one.depth) and torch.equal(multi.radii[c], one.radii)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 1e-2)])

@@ -169,8 +169,8 @@ def test_blend_ignores_tile_order():
     for a, b in zip(fwd, raster_tiles._run_fwd(tab, ident, bg, W, H)):
         assert torch.equal(a, b)
     gen = torch.Generator().manual_seed(0)
-    cot = (torch.randn((3, H, W), generator=gen), torch.randn((H, W), generator=gen),
-           torch.randn((H, W), generator=gen))
+    cot = (torch.randn((1, 3, H, W), generator=gen), torch.randn((1, H, W), generator=gen),
+           torch.randn((1, H, W), generator=gen))
     grads = [raster_tiles._run_bwd(tab, b, *fwd, *cot, W, H) for b in (port, ident)]
     assert grads[0].shape == (port.num_instances, 10) and float(grads[0].abs().max()) > 0
     assert torch.equal(grads[0], grads[1])

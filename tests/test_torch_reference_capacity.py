@@ -12,12 +12,18 @@ that Gaussian keeps 3 of its 4 tiles, the frames after it lose every
 Gaussian): each frame within 5e-5 of the JAX package's
 `rasterize_tiles_multi` at that capacity (interpret mode, exact fields,
 the tile tolerance of tests/test_torch_raster.py), where dropping the
-straddling Gaussian whole misses it by more.
+straddling Gaussian whole misses it by more. The JAX package's CLI
+renders its oracle's frames one at a time (its --oracle_backend auto
+takes the per-frame path of FrozenRenderer._render_many, each frame
+`rasterize_tiles` at its default capacity max(4 N, 16384)), so the e2e
+script emulates the oracle one frame a chain: that frame within 5e-5 of
+JAX's `rasterize_tiles` at such a capacity.
 """
 
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -131,3 +137,76 @@ def test_the_oracle_chain_keeps_the_straddling_gaussians_first_slots():
     whole = FrozenRenderer(type(params)(**{k: v[keep] for k, v in params.tensors().items()}), 3,
                            backend="tiles").render(w2cs[1], K, h, w)[0]
     assert float(np.abs(whole.numpy() - want[1]).max()) > 1e-3
+
+
+def test_the_cli_oracle_renders_frame_by_frame_at_the_default_capacity(monkeypatch):
+    """JAX's OracleDiffusionEngine as its CLI builds it (backend "auto"),
+    above the dense backend's limit: tracing its render_many of 7 frames
+    calls the single-camera rasterize_tiles at the default capacity, never
+    the B-camera chain."""
+    from guidedvd3dgs_tpu.ops import raster as jax_raster
+    from guidedvd3dgs_tpu.train import guided as jg
+
+    n = jax_raster._AUTO_DENSE_MAX + 904
+    calls = []
+    single, multi = jax_raster_tiles.rasterize_tiles, jax_raster_tiles.rasterize_tiles_multi
+
+    def spy(name, fn):
+        def wrapped(means3d, *args, **kwargs):
+            calls.append((name, means3d.shape[0], kwargs.get("max_instances", 0)))
+            return fn(means3d, *args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(jax_raster_tiles, "rasterize_tiles", spy("single", single))
+    monkeypatch.setattr(jax_raster_tiles, "rasterize_tiles_multi", spy("multi", multi))
+    xyz, ls, rots, opl, sh = random_gaussians(n=n, seed=4)
+    path = Path(__file__).resolve().parents[1] / "build" / "oracle_path_test.npz"
+    path.parent.mkdir(exist_ok=True)
+    np.savez(path, xyz=xyz, f_dc=sh[:, :1], f_rest=sh[:, 1:], scaling=ls, rotation=rots, opacity=opl)
+    try:
+        oracle = jg.OracleDiffusionEngine(str(path), video_length=7, height=48, width=64, backend="auto")
+    finally:
+        path.unlink()
+    h, w = 48, 64
+    rcs = [make_camera(height=h, width=w, look_noise=0.3, seed=i).raster_camera() for i in range(7)]
+    stacked = jax_stack_cameras(rcs)
+    r = oracle.renderer
+    jax.eval_shape(lambda *a: r._render_many(r.state, *a, height=h, width=w), stacked.viewmatrix,
+                   stacked.projmatrix, stacked.campos, rcs[0].tanfovx, rcs[0].tanfovy)
+    assert calls and all(c == ("single", n, 0) for c in calls), calls
+    # max_instances 0: rasterize_tiles' default, max(4 N, 16384) rounded up to its quantum
+    assert ref_gt.reference_capacity(n) == e2e.chain_capacity(n, e2e.ORACLE_GROUP)
+
+
+def test_one_frame_emulation_matches_the_reference_render_at_capacity():
+    h, w, capacity = 48, 64, 512
+    raw = random_gaussians(n=400, seed=2, spread=1.0, scale_lo=-3.5, scale_hi=-2.0)
+    xyz, ls, rots, opl, sh = raw
+    params = params_from_numpy(dict(xyz=xyz, features_dc=sh[:, :1], features_rest=sh[:, 1:], scaling=ls,
+                                    rotation=rots, opacity=opl), "cpu")
+    c = make_camera(height=h, width=w, look_noise=0.3, seed=1)
+    cam = port_cameras.Camera(colmap_id=0, R=c.R, T=c.T, FoVx=c.FoVx, FoVy=c.FoVy,
+                              image=np.zeros((3, h, w), np.float32))
+    w2c = np.asarray(cam.world_view_transform).T
+    fx = w / (2 * np.tan(cam.FoVx / 2))
+    fy = h / (2 * np.tan(cam.FoVy / 2))
+    K = np.array([[fx, 0, w / 2], [0, fy, h / 2], [0, 0, 1]])
+    rc = port_cameras.camera_from_w2c_K(w2c, K, h, w).raster_camera("cpu")
+    count = ref_gt.tile_counts(params, rc, w, h)
+    assert int(count.clamp(min=1).sum()) > capacity  # the frame overflows
+    (frame,), dropped = e2e.render_group_as_reference(FrozenRenderer(params, 3, backend="tiles"), w2c[None], K,
+                                                      h, w, capacity, ref_gt)
+    assert dropped > 0
+    prev = jax_raster_tiles._INTERPRET[0]
+    jax_raster_tiles.set_interpret(True)
+    jax_tiling.set_pack_fields(False)
+    jax_raster_tiles.set_pack_grads(False)
+    try:
+        acts = [jnp.asarray(a) for a in activated(*raw)]
+        want = jax_raster_tiles.rasterize_tiles(*acts, _jax_camera(rc), jnp.zeros(3), 3, max_instances=capacity)
+    finally:
+        jax_raster_tiles.set_interpret(prev)
+        jax_tiling.set_pack_fields(True)
+        jax_raster_tiles.set_pack_grads(True)
+    assert int(want.overflow) == int(count.clamp(min=1).sum()) - capacity  # slots past it, empty ones too
+    np.testing.assert_allclose(frame.detach().numpy(), np.asarray(want.color), atol=5e-5, rtol=0)
