@@ -229,6 +229,36 @@ and the exit code is non-zero; there is no CPU fallback):
               per-view, launches exactly each step, host ms, one traced
               step each way (device ms by stage, sorts and read-backs a
               step)
+ 12. the device mesh and the last modules: 12a the ViewCrafter engine at
+              7b's widths with its weights split over a (1, MESH_TP) mesh
+              (cuda:0, cuda:1 where the host has two cards, else cuda:0
+              twice; printed): one UNet forward of the guided pair, each
+              engine's bf16 against the f32 forward (the sharded error at
+              most MESH_BF16_RATIO times the unsharded one's); 8b's guided
+              request both ways, each twice (seconds cold and warm, each
+              card's peak, the videos
+              within MESH_VIDEO_RATIO times the yardstick of the unsharded
+              request with its x_T moved by bf16's rounding, L1 launched
+              exactly by (kernel, card, heads)); the pair's forward in
+              float32 both ways within MESH_F32_TOL, and on
+              STEP32_FRAMES frames each branch's float32 UNet VJP within
+              MESH_F32_TOL and the sampler's pair VJP within
+              MESH_VJP_RATIO times its yardstick of x moved by 2^-24; a level-1
+              transformer block on level 0's tokens,
+              whose 10 heads split: L1 forward and backward once a card with
+              5 heads, output and dL/dx each against the f32 block
+              within MESH_BF16_RATIO of the unsharded one's error; 12b
+              make_dp_train_step of phase 5b's 6 views on a (2, 1) mesh
+              against train_step_dp (loss, gradients within
+              MESH_DP_GRAD_TOL in L2, statistics exact, K1-K6 exactly 6 a
+              step, host ms in turns); 12c rasterize_tiles with
+              colors_precomp, then cov3d_precomp, at phase 4's room: K3-K6
+              once each and K1, K2 not at all, the images and gradients
+              against the same call on the plain versions (K4_TOL,
+              DP_GRAD_TOL) and, on a centred PRECOMP_CROP window, against
+              the dense backend; 12d train_baseline --profile_dir for
+              PROFILE_ITERS iterations on phase 6's scene: K1-K6 exactly
+              once a step, the trace naming K1, K4 and K5
 `python3 chip_smoke.py --generate-only STEPS` runs phases 1, 2 and 7b
 alone with STEPS DDIM steps; `--guided-only STEPS` phases 1, 2 and 8b
 (the 50-step requests of PERF.md); `--backward-only` phases 1, 2, 8a and
@@ -239,11 +269,12 @@ and the trainer); `--guided-trainer-only` phases 1, 2 and 5c (the guided
 trainer); `--vc-trainer-only STEPS` phases 1, 2 and 5d with STEPS guided
 DDIM steps (50: a real event's time); `--chain-only` phases 1, 2 and 6d
 (the published scripts' chain); `--geometry-only` phases 1, 2 and 9;
-`--pipeline-only` phases 1, 2 and 10; `--multi-only` phases 1, 2 and 11.
+`--pipeline-only` phases 1, 2 and 10; `--multi-only` phases 1, 2 and 11;
+`--parallel-only` phases 1, 2 and 12.
 The line before the last is the JSON kernel table (each kernel's launches
 summed over the phases that drive a path: K1-K6 over 4, 5, 5b, 5c, 5d, 6,
-6b, 6c, 6d, 9, 10 and 11, L1's forward over 5d, 6c, 7b, 8b, 9 and 10, its
-backward over 5d, 6c, 8b and 10; each phase's count in `launches_by_phase`; for
+6b, 6c, 6d, 9, 10, 11 and 12 (K1 and K2 not in 12c), L1's forward over 5d,
+6c, 7b, 8b, 9, 10 and 12, its backward over 5d, 6c, 8b, 10 and 12; each phase's count in `launches_by_phase`; for
 K1-K6 `host_ms` beside `ms` and `ms_dense` and `bound_ms_dense` from
 phase 5b's view; for K1 also `ms_full_table`, `bound_ms_all_rows` and
 their `_dense` twins);
@@ -269,6 +300,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import Optional
 from unittest import mock
 
 import numpy as np
@@ -316,7 +348,9 @@ from guidedvd3dgs_tpu_torch.ops.knn import dist_knn3  # noqa: E402
 from guidedvd3dgs_tpu_torch.scene import cameras, dataset_readers, synthetic  # noqa: E402
 from guidedvd3dgs_tpu_torch.scene.ply import load_gaussian_ply  # noqa: E402
 from guidedvd3dgs_tpu_torch.scene.scene import Scene  # noqa: E402
-from guidedvd3dgs_tpu_torch.parallel import stack_cameras, train_step_dp  # noqa: E402
+from guidedvd3dgs_tpu_torch.ops import raster_dense  # noqa: E402
+from guidedvd3dgs_tpu_torch.parallel import make_dp_train_step, make_mesh, stack_cameras, train_step_dp  # noqa: E402
+from guidedvd3dgs_tpu_torch.parallel.model_parallel import Sharded, shard_params  # noqa: E402
 from guidedvd3dgs_tpu_torch.train.baseline import BaselineTrainer, lrs_for  # noqa: E402
 from guidedvd3dgs_tpu_torch.train import guided as guided_module  # noqa: E402
 from guidedvd3dgs_tpu_torch.train.guided import (  # noqa: E402
@@ -331,6 +365,7 @@ from guidedvd3dgs_tpu_torch.train.guided_checkpoint import load_guided_checkpoin
 from guidedvd3dgs_tpu_torch.train.project_cam import ProjectCamTrainer  # noqa: E402
 from guidedvd3dgs_tpu_torch.utils.lpips import load_lpips, write_random_lpips  # noqa: E402
 from guidedvd3dgs_tpu_torch.utils import graphics  # noqa: E402
+from guidedvd3dgs_tpu_torch.utils.general import build_rotation  # noqa: E402
 from guidedvd3dgs_tpu_torch.utils.image_io import save_images  # noqa: E402
 from guidedvd3dgs_tpu_torch.utils.sh import SH2RGB  # noqa: E402
 from guidedvd3dgs_tpu_torch.viewer import network_gui  # noqa: E402
@@ -3975,6 +4010,523 @@ def phase_multi(dev, work: Path) -> dict:
     return {n: total.get(n, 0) for n in KERNELS}
 
 
+# --- phase 12: the device mesh, precomputed colours, --profile_dir ---------------------------------
+
+MESH_TP = 2  # the engine's model axis
+# 12a: one UNet forward of the guided pair, sharded and unsharded, both in
+# bf16, each against the same forward in f32 (unsharded, TF32 off): the
+# sharded one's error may be at most MESH_BF16_RATIO times the unsharded
+# one's (as tests/test_torch_diffusion_models.py::test_unet_bf16 holds the
+# port's bf16 to JAX's)
+MESH_BF16_RATIO = 1.5
+# 12a: the bf16 request at full width parts at the scale of its own rounding
+# (PERF.md, phase 12): its video moves as far when x_T moves by 2^-9 of each
+# value, bf16's rounding, as when the weights are split. The sharded
+# request's video may stand at most MESH_VIDEO_RATIO times that yardstick
+# from the unsharded one's; the sharded arithmetic itself is held by the
+# pair's forward in f32 (MESH_F32_TOL) and by the block below
+MESH_VIDEO_RATIO = 2.0
+# 12a: a transformer block at level 1 (640 channels, 10 heads of 64) on
+# level 0's 2240 tokens: its self-attention takes L1, split 5 heads a
+# device; forward and backward each held to the f32 block as the pair
+MESH_BLOCK = "input_blocks.4.1.transformer_blocks.0"
+MESH_BLOCK_TOKENS = (GEN_H // 8) * (GEN_W // 8)
+# 12a: in float32 (TF32 off, cuDNN deterministic), sharded against
+# unsharded, in L2 over the unsharded (the partial sums added in another
+# order): the pair's UNet forward, and each branch's UNet VJP (dL/dx for a
+# cotangent on v from SEED + 13: every split layer's backward) on the first
+# STEP32_FRAMES frames
+MESH_F32_TOL = 1e-4
+# 12a: the pair's VJP in float32 (ddim_guidance.pair_vjp: dL/dx of pred_x0,
+# the gradient the guided sampler uses) on the same frames: the CFG
+# combination subtracts the branches' nearly equal gradients (cfg_scale
+# 7.5), which amplifies their rounding, so it is held to its own yardstick,
+# the unsharded VJP with x moved by 2^-24 of each value (f32's rounding):
+# the sharded one may stand at most MESH_VJP_RATIO times as far (at the
+# toy widths of tests/test_torch_model_parallel.py 1.9e-5 against 1.8e-5)
+MESH_VJP_RATIO = 2.0
+# 12b: the camera batch split over two devices; the parameters' gradients
+# sum each camera's contributions in another order on two cards (f32: a
+# few ulps of each sum), bitwise on one card
+MESH_DP_GRAD_TOL = 1e-5
+MESH_DP_STEPS = 3  # steps a timed block: mesh, single, single, mesh
+# 12c: the crop of the dense comparison (width, height), centred
+PRECOMP_CROP = (200, 136)
+PROFILE_ITERS = 60  # 12d: train_baseline --profile_dir traces steps 50-60
+PROFILE_KERNELS = ("preprocess_fwd_kernel", "blend_fwd_kernel", "blend_bwd_kernel")
+
+
+def mesh_devices(n: int) -> list:
+    """n cards: cuda:0 .. cuda:n-1 where the host has them, else cuda:0 n
+    times (the sharded program on one card)."""
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i if count >= n else 0) for i in range(n)]
+
+
+def sync_devices(devs) -> None:
+    for d in dict.fromkeys(devs):
+        torch.cuda.synchronize(d)
+
+
+@contextlib.contextmanager
+def l1_launch_log(record: list):
+    """Within it each launch of L1's three kernels appends (kernel, card
+    index, heads) to `record` (the wrappers themselves still count it)."""
+    wraps = {"_launch_fwd": "flash_attn_fwd", "bwd_dkv_kernel": "flash_attn_bwd_dkv",
+             "bwd_dq_kernel": "flash_attn_bwd_dq"}
+    real = {fn: getattr(fa, fn) for fn in wraps}
+
+    def wrap(fn):
+        def call(q, *args, **kwargs):
+            record.append((wraps[fn], q.device.index, q.shape[1]))
+            return real[fn](q, *args, **kwargs)
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for fn in wraps:
+            stack.enter_context(mock.patch.object(fa, fn, wrap(fn)))
+        yield
+
+
+def count_by(record: list) -> dict:
+    out = {}
+    for key in record:
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def rel_errs(got: torch.Tensor, want: torch.Tensor) -> dict:
+    g, w = got.float(), want.float()
+    return {"max_abs": float((g - w).abs().max()), "rel_l2": float((g - w).norm() / w.norm().clamp_min(1e-30))}
+
+
+def expected_l1(mcfg, steps: int, mesh) -> dict:
+    """L1's launches of a guided request of `steps` steps by (kernel, card,
+    heads): the UNet's level-0 attentions on every device of the model axis
+    with heads / n_model heads where the heads split, else on the home
+    device with all of them; the VAE's (single head) on the home device."""
+    ucfg = mcfg.unet
+    heads = ucfg.model_channels // ucfg.num_head_channels
+    fwd, bwd = guided_launches(ucfg, steps, GEN_FRAMES, DECODE_CHUNK)
+    chunks = steps * -(-GEN_FRAMES // DECODE_CHUNK)
+    unet = {"flash_attn_fwd": fwd - chunks, "flash_attn_bwd_dkv": bwd - chunks, "flash_attn_bwd_dq": bwd - chunks}
+    vae = {"flash_attn_fwd": chunks + 2, "flash_attn_bwd_dkv": chunks, "flash_attn_bwd_dq": chunks}
+    devs = mesh.model_devices
+    out = {}
+    for name in unet:
+        where = [(d, heads // len(devs)) for d in devs] if heads % len(devs) == 0 else [(mesh.home, heads)]
+        for d, h in where:
+            out[(name, d.index, h)] = out.get((name, d.index, h), 0) + unet[name]
+        out[(name, mesh.home.index, 1)] = out.get((name, mesh.home.index, 1), 0) + vae[name]
+    return out
+
+
+def mesh_engine(dev) -> dict:
+    """12a: the ViewCrafter engine at full width with its weights split over
+    a (1, MESH_TP) mesh against the unsharded engine on the same inputs."""
+    devs = mesh_devices(MESH_TP)
+    mesh = make_mesh(n_data=1, n_model=MESH_TP, devices=devs)
+    where = "two cards" if devs[0] != devs[1] else "one card twice (the host has one)"
+    mcfg = LatentDiffusionConfig(compute_dtype="bfloat16")
+    scfg = synthesis.SynthesisConfig(ddim_steps=GUIDED_STEPS)
+    params, _ = gen_params(dev)
+    base = ViewCrafterEngine(params, mcfg, scfg, video_length=GEN_FRAMES, height=GEN_H, width=GEN_W)
+    sync_devices(devs)
+    t = time.perf_counter()
+    tp = ViewCrafterEngine(params, mcfg, scfg, video_length=GEN_FRAMES, height=GEN_H, width=GEN_W, mesh=mesh)
+    sync_devices(devs)
+    shard_s = time.perf_counter() - t
+    n_split = sum(isinstance(v, Sharded) for part in tp.params for v in part.values())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 10)
+    renders, images, masks, depths = guided_inputs(dev, gen)
+    gcfg = base.guided_cfg
+    f = 2 ** (len(mcfg.vae.ch_mult) - 1)
+    lat = (GEN_FRAMES, GEN_H // f, GEN_W // f, 4)
+    noise = synthesis.SynthesisNoise(
+        encode_eps=torch.randn(lat, generator=gen, device=dev),
+        x_T=torch.randn((1,) + lat, generator=gen, device=dev),
+        steps=torch.randn((GUIDED_STEPS * (2 * gcfg.recur_steps - 1), 1) + lat, generator=gen, device=dev))
+    def say(line: str) -> None:
+        log(f"phase 12a {line}")
+    say(f"mesh (1, {MESH_TP}) on {[str(d) for d in devs]}: {where}; {n_split} weights split, shard_params "
+        f"{shard_s:.2f} s")
+
+    # one UNet forward of the guided pair: both engines' bf16 against the f32 forward
+    sched, pr, cond, uncond, x, _, index = guided_step_inputs(dev, params, mcfg, scfg, base, renders)
+    with torch.no_grad():
+        pair = {k: ddim_guidance.pair_forward(e.params, mcfg, pr, cond, uncond, x, index)
+                for k, e in (("unsharded", base), ("sharded", tp))}
+        p32 = params._replace(unet={k: v.float() for k, v in params.unet.items()})
+        m32 = dataclasses.replace(mcfg, compute_dtype="float32")
+        s32 = shard_params(p32, mesh)
+        truth = ddim_guidance.pair_forward(p32, m32, pr, cond, uncond, x, index)
+        truth_tp = ddim_guidance.pair_forward(s32, m32, pr, cond, uncond, x, index)
+    torch.cuda.empty_cache()
+    errs = {k: [rel_errs(v, t) for v, t in zip(pair[k], truth)] for k in pair}
+    between = [rel_errs(a, b) for a, b in zip(pair["sharded"], pair["unsharded"])]
+    err32 = [rel_errs(a, b) for a, b in zip(truth_tp, truth)]
+    for branch in (0, 1):
+        s, u = errs["sharded"][branch]["rel_l2"], errs["unsharded"][branch]["rel_l2"]
+        if not (math.isfinite(s) and s <= MESH_BF16_RATIO * u):
+            raise AssertionError(f"12a UNet pair branch {branch}: the sharded bf16 forward errs by {s:.4g} of the "
+                                 f"f32 one in L2, the unsharded by {u:.4g} (allowed {MESH_BF16_RATIO}x)")
+        if not err32[branch]["rel_l2"] <= MESH_F32_TOL:
+            raise AssertionError(f"12a UNet pair branch {branch}: in float32 the sharded forward differs from the "
+                                 f"unsharded one by {err32[branch]} (tol {MESH_F32_TOL} in L2)")
+    say("UNet forward of the guided pair (bf16, index " + str(index) + "), error in L2 over the f32 forward's, "
+        "cond / uncond: sharded " + " / ".join(f"{e['rel_l2']:.4g}" for e in errs["sharded"])
+        + ", unsharded " + " / ".join(f"{e['rel_l2']:.4g}" for e in errs["unsharded"])
+        + f" (allowed {MESH_BF16_RATIO}x); sharded against unsharded: "
+        + " / ".join(f"max abs {e['max_abs']:.4g}, L2 {e['rel_l2']:.4g}" for e in between)
+        + "; in float32 sharded against unsharded: "
+        + " / ".join(f"max abs {e['max_abs']:.4g}, L2 {e['rel_l2']:.4g}" for e in err32) + f" (tol {MESH_F32_TOL})")
+
+    # in float32 on STEP32_FRAMES frames, sharded against unsharded: each
+    # branch's UNet VJP, and the pair's VJP beside its yardstick
+    t = STEP32_FRAMES
+    c5, u5 = (Conditioning(c.context, c.concat[:, :t].contiguous(), c.fs) for c in (cond, uncond))
+    x5 = x[:, :t].contiguous()
+    g13 = torch.Generator(device=dev).manual_seed(SEED + 13)
+    cot = torch.randn(x5.shape, generator=g13, device=dev)
+    sgn = torch.randint(0, 2, x5.shape, generator=g13, device=dev).float() * 2.0 - 1.0
+    tt = pr.timesteps[index].expand(1)
+
+    def branch_vjp(p, c):
+        with torch.enable_grad():
+            xg = x5.detach().requires_grad_()
+            return torch.autograd.grad(apply_model(p, m32, xg, tt, c), xg, cot)[0]
+
+    def sampler_vjp(p, xv):
+        v_cond, v_uncond = ddim_guidance.pair_forward(p, m32, pr, c5, u5, xv, index)
+        return ddim_guidance.pair_vjp(p, m32, sched, pr, c5, u5, gcfg, xv, index, v_cond, v_uncond, cot)
+
+    with deterministic_cudnn():
+        berr = [rel_errs(branch_vjp(s32, c), branch_vjp(p32, c)) for c in (c5, u5)]
+        gx = {"unsharded": sampler_vjp(p32, x5), "sharded": sampler_vjp(s32, x5),
+              "moved": sampler_vjp(p32, x5 * (1.0 + 2.0 ** -24 * sgn))}
+    sync_devices(devs)
+    del p32, s32
+    torch.cuda.empty_cache()
+    gerr, gyard = rel_errs(gx["sharded"], gx["unsharded"]), rel_errs(gx["moved"], gx["unsharded"])
+    if not all(e["rel_l2"] <= MESH_F32_TOL for e in berr):
+        raise AssertionError(f"12a: each branch's f32 UNet VJP sharded against unsharded {berr} "
+                             f"(tol {MESH_F32_TOL} in L2)")
+    if not (bool(torch.isfinite(gx["sharded"]).all()) and gerr["rel_l2"] <= MESH_VJP_RATIO * gyard["rel_l2"]):
+        raise AssertionError(f"12a: the pair's f32 VJP sharded differs from the unsharded one by {gerr}, more than "
+                             f"{MESH_VJP_RATIO}x the {gyard} of x moved by 2^-24")
+    say(f"in float32 on {t} frames at {GEN_H}x{GEN_W} (index {index}, cuDNN deterministic), sharded against "
+        f"unsharded: each branch's UNet VJP, cond / uncond, " + " / ".join(
+            f"max abs {e['max_abs']:.4g}, L2 {e['rel_l2']:.4g}" for e in berr) + f" (tol {MESH_F32_TOL}); "
+        f"the pair's VJP (the sampler's dL/dx, |dL/dx| {float(gx['unsharded'].norm()):.4g}) max abs "
+        f"{gerr['max_abs']:.4g}, L2 {gerr['rel_l2']:.4g} (allowed {MESH_VJP_RATIO}x the next), the unsharded one's "
+        f"with x moved by 2^-24 max abs {gyard['max_abs']:.4g}, L2 {gyard['rel_l2']:.4g}")
+    del gx
+
+    # the request both ways, L1's launches by card and heads
+    def request(eng, noise_):
+        """eng's guided request on 8b's inputs: the video, its seconds, each
+        card's peak, L1's launches by (kernel, card, heads), all launches."""
+        record = []
+        for d in dict.fromkeys(devs):
+            torch.cuda.reset_peak_memory_stats(d)
+        _build.reset_launches()
+        with l1_launch_log(record):
+            sync_devices(devs)
+            t = time.perf_counter()
+            video = eng.generate(renders, images, masks, depths, no_guidance=False, noise=noise_)
+            sync_devices(devs)
+            sec = time.perf_counter() - t
+        got = dict(_build.LAUNCHES)
+        if any(got[n] for n in GAUSSIAN_KERNELS) or \
+                len(record) != sum(got[n] for n in ("flash_attn_fwd",) + L1_BWD_KERNELS):
+            raise AssertionError(f"12a: launches {got}, L1 by card and heads {count_by(record)}")
+        peak = {str(d): torch.cuda.max_memory_allocated(d) / 1e9 for d in dict.fromkeys(devs)}
+        return video, sec, peak, count_by(record), got
+
+    videos, secs, peaks, logs = {}, {}, {}, {}
+    for name, eng in (("unsharded", base), ("sharded", tp)):
+        videos[name], secs[name], peaks[name], logs[name], got = request(eng, noise)
+        if name == "sharded":
+            total_launches = got
+    single = make_mesh(n_data=1, n_model=1, devices=devs[:1])
+    for name, m in (("unsharded", single), ("sharded", mesh)):
+        want = expected_l1(mcfg, GUIDED_STEPS * gcfg.recur_steps, m)
+        if logs[name] != want:
+            raise AssertionError(f"12a {name}: L1 launches by (kernel, card, heads) {logs[name]}, expected {want}")
+    heads0 = mcfg.unet.model_channels // mcfg.unet.num_head_channels
+    v = videos["sharded"]
+    if tuple(v.shape) != (GEN_FRAMES, 3, GEN_H, GEN_W) or not bool(torch.isfinite(v).all()):
+        raise AssertionError(f"12a: sharded video shape {tuple(v.shape)}, finite {bool(torch.isfinite(v).all())}")
+    # the yardstick: the unsharded request with its start x_T moved by
+    # 2^-9 of each value (bf16's rounding), as far as two roundings part
+    sgn = torch.randint(0, 2, noise.x_T.shape, generator=gen, device=dev).float() * 2.0 - 1.0
+    moved, moved_s = request(base, noise._replace(x_T=noise.x_T * (1.0 + 2.0 ** -9 * sgn)))[:2]
+    again, again_s = request(tp, noise)[:2]  # warm: the first of each met its shapes cold
+    verr = rel_errs(videos["sharded"], videos["unsharded"])
+    yard = rel_errs(moved, videos["unsharded"])
+    if not verr["rel_l2"] <= MESH_VIDEO_RATIO * yard["rel_l2"]:
+        raise AssertionError(f"12a: the sharded request's video differs from the unsharded one's by {verr}, "
+                             f"more than {MESH_VIDEO_RATIO}x the {yard} of x_T moved by 2^-9")
+    say(f"guided request ({GEN_FRAMES}x{GEN_H}x{GEN_W} bf16, {GUIDED_STEPS} guided steps, 8b's inputs "
+                 f"and noise): seconds sharded {secs['sharded']:.3f} and {again_s:.3f} (first, again: bitwise "
+                 f"{torch.equal(again, videos['sharded'])}) against unsharded {secs['unsharded']:.3f} and "
+                 f"{moved_s:.3f} (first, again with x_T moved); "
+                 f"video sharded against unsharded max abs {verr['max_abs']:.4g}, L2 {verr['rel_l2']:.4g} (allowed "
+                 f"{MESH_VIDEO_RATIO}x the next), the unsharded one's with x_T moved by 2^-9 max abs {yard['max_abs']:.4g}, "
+                 f"L2 {yard['rel_l2']:.4g}; peak GB by card sharded {peaks['sharded']}, unsharded "
+                 f"{peaks['unsharded']}; L1 launches by (kernel, card, heads) sharded {logs['sharded']}, unsharded "
+                 f"{logs['unsharded']} (exact: level 0's {heads0} heads "
+                 f"{'split' if heads0 % MESH_TP == 0 else 'do not split'} over {MESH_TP}; the VAE's single head "
+                 f"attends on the home card)")
+
+    # the heads split: a level-1 block on MESH_BLOCK_TOKENS tokens, forward and backward
+    p_unet = {k: v for k, v in params.unet.items() if k.startswith(MESH_BLOCK)}
+    s_unet = {k: v for k, v in tp.params.unet.items() if k.startswith(MESH_BLOCK)}
+    c = p_unet[f"{MESH_BLOCK}.attn1.to_q.weight"].shape[0]
+    heads = c // mcfg.unet.num_head_channels
+    g2 = torch.Generator(device=dev).manual_seed(SEED + 12)
+    xb = torch.randn((2, MESH_BLOCK_TOKENS, c), generator=g2, device=dev).to(BF16)
+    ctx = torch.randn((2, mcfg.unet.text_context_len + mcfg.unet.image_tokens_per_frame, mcfg.unet.context_dim),
+                      generator=g2, device=dev).to(BF16)
+    wout = torch.randn((2, MESH_BLOCK_TOKENS, c), generator=g2, device=dev)
+    block = {}
+    for name, p in (("unsharded", p_unet), ("sharded", s_unet),
+                    ("f32", {k: v.float() for k, v in p_unet.items()})):
+        record = []
+        dt = torch.float32 if name == "f32" else BF16
+        xin = xb.to(dt, copy=True).requires_grad_(True)
+        with l1_launch_log(record):
+            out = d_attention.basic_transformer_block(p, MESH_BLOCK, xin, ctx.to(dt), heads,
+                                                      mcfg.unet.num_head_channels, image_cross_attention=True)
+            (out.float() * wout).sum().backward()
+        sync_devices(devs)
+        block[name] = (out.detach(), xin.grad, count_by(record))
+    want = {}
+    for kernel in ("flash_attn_fwd",) + L1_BWD_KERNELS:
+        for d in devs:
+            want[(kernel, d.index, heads // MESH_TP)] = want.get((kernel, d.index, heads // MESH_TP), 0) + 1
+    if block["sharded"][2] != want or block["unsharded"][2] != {(k, dev.index, heads): 1 for k in
+                                                                ("flash_attn_fwd",) + L1_BWD_KERNELS}:
+        raise AssertionError(f"12a block: L1 launches by (kernel, card, heads) sharded {block['sharded'][2]} "
+                             f"(expected {want}), unsharded {block['unsharded'][2]}")
+    parts = ((0, "output"), (1, "dL/dx"))
+    berr = {k: rel_errs(block["sharded"][i], block["unsharded"][i]) for i, k in parts}
+    terr = {w: {k: rel_errs(block[w][i], block["f32"][i])["rel_l2"] for i, k in parts} for w in ("sharded", "unsharded")}
+    for _, k in parts:
+        if not terr["sharded"][k] <= MESH_BF16_RATIO * terr["unsharded"][k]:
+            raise AssertionError(f"12a block {k}: the sharded bf16 errs by {terr['sharded'][k]:.4g} of the f32 one "
+                                 f"in L2, the unsharded by {terr['unsharded'][k]:.4g} (allowed {MESH_BF16_RATIO}x)")
+    say(f"the heads split: {MESH_BLOCK} ({c} channels, {heads} heads) on {MESH_BLOCK_TOKENS} tokens, bf16, forward "
+        f"and backward: L1 by (kernel, card, heads) sharded {block['sharded'][2]}, unsharded {block['unsharded'][2]}; "
+        "error in L2 over the f32 block's, " + ", ".join(
+            f"{k} sharded {terr['sharded'][k]:.4g}, unsharded {terr['unsharded'][k]:.4g}" for _, k in parts)
+        + f" (allowed {MESH_BF16_RATIO}x); sharded against unsharded: " + ", ".join(
+            f"{k} max abs {berr[k]['max_abs']:.4g}, L2 {berr[k]['rel_l2']:.4g}" for _, k in parts))
+    del tp, base
+    torch.cuda.empty_cache()
+    launches = {n: total_launches.get(n, 0) for n in KERNELS}
+    for (kernel, _, _), k in block["sharded"][2].items():
+        launches[kernel] += k
+    return launches
+
+
+def mesh_dp(dev) -> dict:
+    """12b: make_dp_train_step of phase 5b's room (6 views, 1M Gaussians,
+    SH 3, 640x480) on a (2, 1) mesh against train_step_dp on one device:
+    the first step's loss, gradients and statistics, K1-K6 exactly 6 a step,
+    then host ms in turns."""
+    devs = mesh_devices(2)
+    mesh = make_mesh(n_data=2, n_model=1, devices=devs)
+    gt, pcams, params = dense_room(dev)
+    views = train_views(gt, pcams, dev)
+    cams = stack_cameras([c.raster_camera(dev) for c in views.cams])
+    gts = torch.stack([torch.from_numpy(np.ascontiguousarray(c.image, np.float32)) for c in views.cams]).to(dev)
+    bg = torch.zeros(3, device=dev)
+    opt = OptimizationParams()
+    lrs = lrs_for(opt, opt.position_lr_init * views.cameras_extent)
+    b = len(views.cams)
+    states = {k: G.GaussianState.fresh(G.GaussianParams(**{n: v.clone() for n, v in params.tensors().items()}))
+              for k in ("mesh", "single")}
+    step = make_dp_train_step(mesh, 3, opt.lambda_dssim)
+    run = {"mesh": lambda s: step(s, cams, gts, bg, lrs),
+           "single": lambda s: train_step_dp(s, cams, gts, bg, lrs, 3, opt.lambda_dssim)}
+    total, first, ms = {}, {}, {"mesh": [], "single": []}
+    for way in ("mesh", "single", "single", "mesh"):
+        for _ in range(MESH_DP_STEPS):
+            _build.reset_launches()
+            sync_devices(devs)
+            t = time.perf_counter()
+            m = run[way](states[way])
+            sync_devices(devs)
+            ms[way].append((time.perf_counter() - t) * 1e3)
+            got = add_launches(total) if way == "mesh" else dict(_build.LAUNCHES)  # single: the reference
+            if any(got[n] != b for n in GAUSSIAN_KERNELS) or not math.isfinite(float(m["loss"])):
+                raise AssertionError(f"12b {way}: launches {got} (each of K1-K6 exactly {b}), loss {float(m['loss'])}")
+            if way not in first:
+                st = states[way]
+                first[way] = dict(loss=float(m["loss"]), stats={k: getattr(st, k).clone() for k in
+                                                               ("xyz_gradient_accum", "denom", "max_radii2d")},
+                                  grads={n: getattr(st.params, n).grad.clone() for n in G.PARAM_NAMES})
+    a, s = first["mesh"], first["single"]
+    errs = {n: float((a["grads"][n] - s["grads"][n]).norm() / s["grads"][n].norm().clamp_min(1e-30))
+            for n in G.PARAM_NAMES}
+    errs["accum"] = float((a["stats"]["xyz_gradient_accum"] - s["stats"]["xyz_gradient_accum"]).norm()
+                          / s["stats"]["xyz_gradient_accum"].norm().clamp_min(1e-30))
+    bitwise = all(torch.equal(a["grads"][n], s["grads"][n]) for n in G.PARAM_NAMES)
+    rows = {k: int((a["stats"][k] != s["stats"][k]).sum()) for k in ("denom", "max_radii2d")}
+    if max(errs.values()) > MESH_DP_GRAD_TOL or abs(a["loss"] - s["loss"]) > DP_LOSS_TOL or any(rows.values()):
+        raise AssertionError(f"12b: the mesh step against train_step_dp: gradient errors {errs} (tol "
+                             f"{MESH_DP_GRAD_TOL}), loss {a['loss']} vs {s['loss']}, rows differing {rows}")
+    med = statistics.median
+    log(f"phase 12b make_dp_train_step on a (2, 1) mesh {[str(d) for d in devs]}, {b} views ({b // 2} a device), "
+        f"{N_SCENE} Gaussians, SH 3, {WIDTH}x{HEIGHT}: first step loss {a['loss']:.7f} against train_step_dp's "
+        f"{s['loss']:.7f}; gradients' error in L2 over train_step_dp's "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (tol {MESH_DP_GRAD_TOL}; bitwise {bitwise}); "
+        f"denom / max radii rows differing {rows['denom']} / {rows['max_radii2d']}; K1-K6 exactly {b} a step")
+    log(f"phase 12b step host ms in turns (mesh, single, single, mesh; {MESH_DP_STEPS} steps a block): mesh median "
+        f"{med(ms['mesh']):.2f} (" + ", ".join(f"{x:.2f}" for x in ms["mesh"]) + f"), single median "
+        f"{med(ms['single']):.2f} (" + ", ".join(f"{x:.2f}" for x in ms["single"]) + ")")
+    return {n: total.get(n, 0) for n in KERNELS}
+
+
+def crop_camera(cam, width: int, height: int):
+    """The centred width x height window of `cam`'s image as a camera of its own."""
+    fx, fy = cam.image_width / (2 * math.tan(cam.FoVx / 2)), cam.image_height / (2 * math.tan(cam.FoVy / 2))
+    K = np.array([[fx, 0.0, width / 2.0], [0.0, fy, height / 2.0], [0.0, 0.0, 1.0]])
+    w2c = np.eye(4)
+    w2c[:3, :3], w2c[:3, 3] = cam.R.T, cam.T
+    return cameras.camera_from_w2c_K(w2c, K, height, width)
+
+
+def precomp_render(leaves: dict, cam, bg, weights):
+    """rasterize_tiles of the leaves (means, opacity, offset; colours or
+    SH; cov3D or scales and rotations) and a fixed loss's backward: the
+    images and each leaf's gradient."""
+    out = raster_tiles.rasterize_tiles(
+        leaves["means"], leaves.get("scales"), leaves.get("rotations"), leaves["opacity"], leaves.get("sh"), cam,
+        bg, colors_precomp=leaves.get("colors"), cov3d_precomp=leaves.get("cov3d"), means2d_offset=leaves["offset"])
+    wc, wd, wa = weights
+    ((out.color * wc).sum() + (out.depth * wd).sum() + (out.alpha * wa).sum()).backward()
+    return out, {k: v.grad for k, v in leaves.items() if v is not None and v.requires_grad}
+
+
+def mesh_precomp(dev) -> dict:
+    """12c: rasterize_tiles with colors_precomp, then with cov3d_precomp, at
+    phase 4's 1M-Gaussian room and a test view: K3-K6 once each (K1 and K2
+    not at all), the images and gradients against the same call on the
+    plain versions (K4_TOL, DP_GRAD_TOL in L2) and, on the Gaussians that
+    reach a centred PRECOMP_CROP window, against the dense backend."""
+    gt = chain_room(dev)[0]
+    params = params_from_numpy(gt, dev)
+    means, scales, rots, opac, sh = activations(params)
+    _, ocams = synthetic.orbit(N_CAMS, WIDTH, HEIGHT, HFOV, None)
+    view = ocams[7]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    n = means.shape[0]
+    colors = torch.rand((n, 3), generator=gen, device=dev)
+    L = build_rotation(rots) * scales[:, None, :]
+    sig = L @ L.transpose(1, 2)
+    cov3d = torch.stack([sig[:, 0, 0], sig[:, 0, 1], sig[:, 0, 2], sig[:, 1, 1], sig[:, 1, 2], sig[:, 2, 2]], -1)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    cases = {"colors_precomp": dict(colors=colors, scales=scales, rotations=rots),
+             "cov3d_precomp": dict(sh=torch.cat(sh, 1), cov3d=cov3d)}
+    total = {}
+    for case, extra in cases.items():
+        def leaves(sel=slice(None)):
+            d = dict(means=means, opacity=opac, **extra)
+            out = {k: v[sel].detach().clone().requires_grad_(True) for k, v in d.items()}
+            out["offset"] = torch.zeros((out["means"].shape[0], 2), device=dev, requires_grad=True)
+            return out
+
+        for cam_kind, pcam in (("full", view), ("crop", crop_camera(view, *PRECOMP_CROP))):
+            cam = pcam.raster_camera(dev)
+            sel = slice(None)
+            if cam_kind == "crop":  # the Gaussians that reach a tile of the window
+                with torch.no_grad():
+                    tab = preprocess_fused.preprocess_table_plain(means, scales, rots, opac, sh, cam, 3, 1.0)
+                    count = tiling.tile_rects(tab[0], tab[1], preprocess_fused.visible_radii(tab), tab[12],
+                                              tab[13], cam.width, cam.height)[4]
+                sel = torch.nonzero(count > 0)[:, 0]
+            weights = (torch.randn((3, cam.height, cam.width), generator=gen, device=dev),
+                       torch.randn((cam.height, cam.width), generator=gen, device=dev) * 0.1,
+                       torch.randn((cam.height, cam.width), generator=gen, device=dev))
+            _build.reset_launches()
+            out, grads = precomp_render(leaves(sel), cam, bg, weights)
+            got = add_launches(total)
+            want = {"preprocess_fwd": 0, "preprocess_bwd": 0, "expand": 1, "blend_fwd": 1, "blend_bwd": 1,
+                    "segsum": 1}
+            if any(got[k] != want[k] for k in GAUSSIAN_KERNELS):
+                raise AssertionError(f"12c {case} {cam_kind}: launches {got}, expected {want}")
+            _build.reset_launches()
+            if cam_kind == "full":
+                with plain_gaussian_kernels():
+                    ref, ref_g = precomp_render(leaves(sel), cam, bg, weights)
+                against = "the plain versions"
+            else:
+                lv = leaves(sel)
+                ref = raster_dense.rasterize_dense(
+                    lv["means"], lv.get("scales"), lv.get("rotations"), lv["opacity"], lv.get("sh"), cam, bg,
+                    colors_precomp=lv.get("colors"), cov3d_precomp=lv.get("cov3d"), means2d_offset=lv["offset"])
+                wc, wd, wa = weights
+                ((ref.color * wc).sum() + (ref.depth * wd).sum() + (ref.alpha * wa).sum()).backward()
+                ref_g = {k: v.grad for k, v in lv.items() if v is not None and v.requires_grad}
+                against = "the dense backend"
+            if add_launches({}) != {k: 0 for k in _build.LAUNCHES}:
+                raise AssertionError(f"12c {case} {cam_kind}: {against} launched a kernel")
+            img = {k: check_k4(k, getattr(out, k), getattr(ref, k)) for k in ("color", "depth", "alpha")}
+            gerr = {k: float((grads[k] - ref_g[k]).norm() / ref_g[k].norm().clamp_min(1e-30)) for k in grads}
+            if not all(math.isfinite(e) and e <= DP_GRAD_TOL for e in gerr.values()) \
+                    or not all(float(g.abs().max()) > 0 for g in grads.values()):
+                raise AssertionError(f"12c {case} {cam_kind}: gradients against {against} {gerr} (tol {DP_GRAD_TOL})")
+            log(f"phase 12c {case}, {cam_kind} view ({cam.width}x{cam.height}, {out.radii.shape[0]} Gaussians, "
+                f"{out.num_instances} instances) against {against}: images' max abs error "
+                + ", ".join(f"{k} {v:.2e}" for k, v in img.items()) + " (K4_TOL); gradients' error in L2 over the "
+                "reference's " + ", ".join(f"{k} {v:.2e}" for k, v in gerr.items())
+                + f" (tol {DP_GRAD_TOL}); launches K3-K6 1 each, K1 and K2 0")
+    return {n: total.get(n, 0) for n in KERNELS}
+
+
+def mesh_profile(dev, work: Path, src: Optional[Path]) -> dict:
+    """12d: train_baseline --profile_dir for PROFILE_ITERS iterations on
+    phase 6's scene (made here when phase 6 did not run): K1-K6 exactly
+    once a step, and the trace written, naming K1, K4 and K5."""
+    if src is None:
+        src = work / "synthetic_12d"
+        synthetic.make_scene(str(src), device=dev)
+    mdl, prof = work / "profile_model", work / "profile_trace"
+    _build.reset_launches()
+    t = time.perf_counter()
+    port_train_cli.main(["-s", str(src), "-m", str(mdl), "--dataset", "colmap", "--n_views", "6",
+                         "--iterations", str(PROFILE_ITERS), "--test_iterations", str(PROFILE_ITERS + 1),
+                         "--save_iterations", str(PROFILE_ITERS), "--profile_dir", str(prof),
+                         "--device", dev.type])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = dict(_build.LAUNCHES)
+    if any(launches[n] != PROFILE_ITERS for n in GAUSSIAN_KERNELS):
+        raise AssertionError(f"12d: launches {launches}, each of K1-K6 exactly {PROFILE_ITERS}")
+    path = prof / "trace.json"
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(k in name for name in kernels) for k in PROFILE_KERNELS}
+    if not all(found.values()):
+        raise AssertionError(f"12d: the trace {path} names {found} of {PROFILE_KERNELS}")
+    log(f"phase 12d train_baseline --profile_dir, {PROFILE_ITERS} iterations on phase 6's scene in {secs:.1f} s: "
+        f"{path.stat().st_size / 1e6:.1f} MB trace of the steps 50-{PROFILE_ITERS}, {len(kernels)} kernel events, "
+        f"by name {found}; K1-K6 exactly {PROFILE_ITERS} each")
+    return launches
+
+
+def phase_mesh(dev, work: Path, src: Optional[Path] = None) -> dict:
+    """Phase 12 (see the module's docstring). Returns its launches."""
+    total = {}
+    for launches in (mesh_engine(dev), mesh_dp(dev), mesh_precomp(dev), mesh_profile(dev, work, src)):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return {n: total.get(n, 0) for n in KERNELS}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--generate-only", type=int, metavar="STEPS", default=None,
@@ -4002,6 +4554,9 @@ def main() -> None:
     parser.add_argument("--multi-only", action="store_true",
                         help="run phases 1, 2 and 11 alone: the B-camera chain against single renders, "
                              "its launches in the guided step and an event, the step's ms both ways")
+    parser.add_argument("--parallel-only", action="store_true",
+                        help="run phases 1, 2 and 12 alone: the sharded engine, the camera-sharded step, "
+                             "precomputed colours on the tile rasterizer and --profile_dir")
     args = parser.parse_args()
     start = time.perf_counter()
     secs = {}
@@ -4058,6 +4613,10 @@ def main() -> None:
             run("11", phase_multi, dev, work)
             log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
             return
+        if args.parallel_only:
+            run("12", phase_mesh, dev, work)
+            log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+            return
         res = run("3", phase_kernels, dev)
         if args.gaussian_only:
             run("5", phase_train, dev)
@@ -4080,6 +4639,7 @@ def main() -> None:
         by_phase["9"] = run("9", phase_geometry, dev, work, c5["host_ms"])
         by_phase["10"], step_10b = run("10", phase_pipeline, dev, work, (cli_src, base))
         by_phase["11"] = run("11", phase_multi, dev, work)
+        by_phase["12"] = run("12", phase_mesh, dev, work, cli_src)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"phase 5d vs 8b: a guided DDIM step ({GUIDED_STEPS}-step request, 25x320x448 bf16) "

@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from guidedvd3dgs_tpu_torch.diffusion.nnops import Params, attention, layer_norm, linear
+from guidedvd3dgs_tpu_torch.diffusion.nnops import Params, attention, conv2d, embedding, layer_norm, linear
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -65,7 +65,7 @@ def _resblock(p: Params, prefix: str, x: torch.Tensor, heads: int,
 def text_encode(p: Params, cfg: TextConfig, tokens: torch.Tensor) -> torch.Tensor:
     """tokens: (B, 77) int -> (B, 77, width) float32 features of the
     penultimate layer with ln_final (reference condition.py:213-231)."""
-    x = p["token_embedding.weight"][tokens].float()
+    x = embedding(p, "token_embedding.weight", tokens).float()
     x = x + p["positional_embedding"].float()
     n = tokens.shape[1]
     causal = torch.triu(torch.full((n, n), float("-inf"), device=x.device), diagonal=1)[None, None]
@@ -89,8 +89,7 @@ def image_encode(p: Params, cfg: VisionConfig, images: torch.Tensor) -> torch.Te
     """images: (B, H, W, 3) in [-1, 1] -> (B, 1 + grid^2, width) token
     features without ln_post (reference condition.py:341-373)."""
     x = image_preprocess(images, cfg.image_size)
-    w = p["conv1.weight"].to(x.dtype)  # OIHW, stride = patch, no bias
-    x = F.conv2d(x.permute(0, 3, 1, 2), w, stride=cfg.patch_size).permute(0, 2, 3, 1)
+    x = conv2d(p, "conv1", x, stride=cfg.patch_size, padding=0)  # OIHW, stride = patch, no bias
     b, gh, gw, c = x.shape
     x = x.reshape(b, gh * gw, c)
     cls = p["class_embedding"].to(x.dtype).expand(b, 1, c)

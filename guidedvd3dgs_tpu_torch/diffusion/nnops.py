@@ -6,7 +6,9 @@ dict keyed by the source checkpoint's state_dict names, in torch layouts
 at every public function: (N, H, W, C) and (B, T, H, W, C), as in the JAX
 package. A convolution permutes them to NCHW / NCDHW views, which are
 channels-last strided, so cuDNN runs its channels-last kernels and nothing
-is copied.
+is copied. A weight may be a `Sharded` holder (parallel/model_parallel.py):
+the layer then runs over the mesh's model axis and returns its output on
+the input's device.
 
 Reference semantics: third_party/ViewCrafter/lvdm/basics.py (GroupNorm32 in
 f32), lvdm/models/utils_diffusion.py:8-28 (timestep_embedding, [cos, sin]
@@ -22,6 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from guidedvd3dgs_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain_autograd
+from guidedvd3dgs_tpu_torch.parallel import model_parallel
+from guidedvd3dgs_tpu_torch.parallel.model_parallel import Sharded, column_apply, row_apply
 
 Params = dict  # flat {torch_name: tensor}
 
@@ -34,32 +38,49 @@ def _bias(p: Params, name: str, dtype: torch.dtype):
     return None if b is None else b.to(dtype)
 
 
+def _layer(p: Params, name: str, x: torch.Tensor, fn) -> torch.Tensor:
+    """fn(x, weight, bias) with the weight in x's dtype; a `Sharded` weight
+    runs column- or row-parallel (parallel/model_parallel.py)."""
+    w = p[f"{name}.weight"]
+    if isinstance(w, Sharded):
+        apply = column_apply if w.dim == 0 else row_apply
+        return apply(w, x, fn, p.get(f"{name}.bias"))
+    return fn(x, w.to(x.dtype), _bias(p, name, x.dtype))
+
+
 def linear(p: Params, name: str, x: torch.Tensor) -> torch.Tensor:
-    return F.linear(x, p[f"{name}.weight"].to(x.dtype), _bias(p, name, x.dtype))
+    return _layer(p, name, x, F.linear)
 
 
 def conv2d(p: Params, name: str, x: torch.Tensor, stride: int = 1, padding=1) -> torch.Tensor:
     """x: (N, H, W, C); weight: torch OIHW; padding an int or ((top,
     bottom), (left, right))."""
-    w = p[f"{name}.weight"].to(x.dtype)
-    xc = x.permute(0, 3, 1, 2)
-    if not isinstance(padding, int):
-        (t, b), (l, r) = padding
-        xc, padding = F.pad(xc, (l, r, t, b)), 0
-    y = F.conv2d(xc, w, _bias(p, name, x.dtype), stride=stride, padding=padding)
-    return y.permute(0, 2, 3, 1)
+
+    def fn(x, w, b, padding=padding):
+        xc = x.permute(0, 3, 1, 2)
+        if not isinstance(padding, int):
+            (t, bo), (l, r) = padding
+            xc, padding = F.pad(xc, (l, r, t, bo)), 0
+        return F.conv2d(xc, w, b, stride=stride, padding=padding).permute(0, 2, 3, 1)
+
+    return _layer(p, name, x, fn)
 
 
 def conv3d(p: Params, name: str, x: torch.Tensor, padding=(1, 0, 0)) -> torch.Tensor:
     """x: (N, T, H, W, C); weight: torch OIDHW (D = time)."""
-    w = p[f"{name}.weight"].to(x.dtype)
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, _bias(p, name, x.dtype), padding=tuple(padding))
-    return y.permute(0, 2, 3, 4, 1)
+    return _layer(p, name, x, lambda x, w, b: F.conv3d(x.permute(0, 4, 1, 2, 3), w, b, padding=tuple(padding))
+                  .permute(0, 2, 3, 4, 1))
 
 
 def conv1d_k1(p: Params, name: str, x: torch.Tensor) -> torch.Tensor:
     """Pointwise Conv1d (kernel_size=1) as a matmul. x: (..., C_in)."""
-    return F.linear(x, p[f"{name}.weight"][:, :, 0].to(x.dtype), _bias(p, name, x.dtype))
+    return _layer(p, name, x, lambda x, w, b: F.linear(x, w[:, :, 0], b))
+
+
+def embedding(p: Params, name: str, ids: torch.Tensor) -> torch.Tensor:
+    """The rows `ids` of table `name` (split or not)."""
+    w = p[name]
+    return model_parallel.embedding(w, ids) if isinstance(w, Sharded) else w[ids]
 
 
 def group_norm(p: Params, name: str, x: torch.Tensor, num_groups: int = 32,

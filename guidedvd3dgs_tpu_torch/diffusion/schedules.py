@@ -140,6 +140,13 @@ def predict_eps_from_z_and_v(sched: DiffusionSchedule, x_t, t, v):
     return a * v + b * x_t
 
 
+def q_sample(sched: DiffusionSchedule, x0, t, noise):
+    """The forward process: x_t = sqrt(abar_t) x0 + sqrt(1 - abar_t) noise
+    (reference ddpm3d.py q_sample)."""
+    a = _at(sched.sqrt_alphas_cumprod, t, x0.dim())
+    b = _at(sched.sqrt_one_minus_alphas_cumprod, t, x0.dim())
+    return a * x0 + b * noise
+
 
 def rescale_noise_cfg(noise_cfg, noise_pred_text, guidance_rescale: float = 0.0):
     """reference utils_diffusion.py:147-158; torch.std is Bessel-corrected,

@@ -159,7 +159,9 @@ def _temporal(p: Params, prefix: str, h: torch.Tensor, batch: int, heads: int, d
               cfg: UNetConfig, use_linear: bool, plain: bool) -> torch.Tensor:
     bt, hh, ww, c = h.shape
     hv = temporal_transformer(p, prefix, h.reshape(batch, bt // batch, hh, ww, c), heads, dim_head,
-                              depth=cfg.transformer_depth, use_linear=use_linear, plain=plain)
+                              depth=cfg.transformer_depth, use_linear=use_linear,
+                              relative_position=cfg.use_relative_position,
+                              temporal_length=cfg.temporal_length, plain=plain)
     return hv.reshape(bt, hh, ww, c)
 
 
@@ -193,8 +195,6 @@ def unet_apply(p: Params, cfg: UNetConfig, x: torch.Tensor, timesteps: torch.Ten
     timesteps: (B,); context: (B, 77 [+ T*16], context_dim); fs: (B,) int.
     Returns (B, T, H, W, out_channels). `plain=True` runs L1's plain version
     where the kernel would run."""
-    if cfg.use_relative_position:
-        raise NotImplementedError("use_relative_position is not used by the ViewCrafter config")
     b, t, hh, ww, _ = x.shape
     emb = linear(p, "time_embed.2",
                  silu(linear(p, "time_embed.0", timestep_embedding(timesteps, cfg.model_channels).to(x.dtype))))

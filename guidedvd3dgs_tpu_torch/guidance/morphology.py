@@ -45,3 +45,9 @@ def unobserved_regions(renders: torch.Tensor) -> torch.Tensor:
 def process_mask(masks: torch.Tensor, erode_size: int = 5) -> torch.Tensor:
     """(N, 1, H, W) masks eroded by `erode_size`."""
     return erode(masks, erode_size)
+
+
+def process_mask2(masks: torch.Tensor) -> torch.Tensor:
+    """(N, 1, H, W) masks eroded by 5, then dilated by 10 (reference
+    viewcrafter_wrapper.py:647-658)."""
+    return dilate(erode(masks, 5), 10)

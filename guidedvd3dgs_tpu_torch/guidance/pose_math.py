@@ -96,6 +96,18 @@ def interpolate_trajectory(c2w_obj: np.ndarray, d_phi: float, d_theta: float, d_
                         np.linspace(0, d_r * c2w_obj[0, 2, 3], frames))
 
 
+def interpolate_trajectory_loopclosure(c2w_obj: np.ndarray, d_phi: float, d_theta: float, d_r: float,
+                                       frames: int = 25) -> np.ndarray:
+    """A path out to the offset and back, splined through its half and
+    full offset with both ends pinned to the start, object frame
+    (reference viewcrafter_wrapper.py:442-467)."""
+    d_r = d_r * c2w_obj[0, 2, 3]
+    ths, phs, rs = (txt_interpolation([0, d / 2.0, d, 0], frames, "smooth") for d in (d_theta, d_phi, d_r))
+    for a in (ths, phs, rs):
+        a[0] = a[-1] = 0.0
+    return _poses_along(c2w_obj, ths, phs, rs)
+
+
 # preset trajectories: phi / theta / r control points (the reference
 # release's third_party/ViewCrafter/test/trajs/*.txt)
 TRAJ_PRESETS = {

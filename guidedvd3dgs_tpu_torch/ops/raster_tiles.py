@@ -45,6 +45,14 @@ render of its camera gives, so the images and each camera's per-Gaussian
 sums (and so the screen-offset gradients) are bitwise B single renders;
 the parameter gradients differ from B single renders' by the order of
 the sum over cameras. `rasterize_tiles` is the chain of one camera.
+
+With precomputed colours or cov3D (`override_color` of models/render.py)
+the table comes from the plain preprocess of ops/projection.py, as the
+JAX package's unfused `_preproc_screen` makes it: K3 bins it, K4 blends
+it, and its backward runs K5 and K6 and hands the table's gradient to
+autograd, which carries it through the preprocess to the colours, cov3D,
+means and opacity. K1 and K2 are not used on this path, as in JAX.
+`rasterize_tiles_multi` takes SH only, as JAX's.
 """
 
 from __future__ import annotations
@@ -54,7 +62,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from guidedvd3dgs_tpu_torch.ops import _build, preprocess_fused, segsum, tiling
-from guidedvd3dgs_tpu_torch.ops.projection import ALPHA_EPS, ALPHA_MAX, T_EPS, RasterCamera
+from guidedvd3dgs_tpu_torch.ops.projection import ALPHA_EPS, ALPHA_MAX, T_EPS, RasterCamera, preprocess_field_rows
 from guidedvd3dgs_tpu_torch.ops.raster_dense import RenderOutput
 from guidedvd3dgs_tpu_torch.ops.tiling import TILE, TileBinning
 
@@ -372,13 +380,62 @@ class _RasterizeTiles(torch.autograd.Function):
         return g_means, g_scales, g_rots, g_opac, g_dc, g_rest, g_off, None
 
 
-def _check_inputs(shs, colors_precomp, cov3d_precomp):
-    if colors_precomp is not None or cov3d_precomp is not None:
-        raise NotImplementedError(
-            "precomputed colors / cov3D are not supported by the tile rasterizer yet"
-        )
+class _BlendTable(torch.autograd.Function):
+    """The precomputed-input path: a (16, N) table whose rows 0-9 carry
+    autograd -> binning (K3 + sort) -> K4; backward K5 -> K6, the table's
+    gradient (rows 0-9, the rest zero), which autograd carries on through
+    the plain preprocess that made it."""
+
+    @staticmethod
+    def forward(ctx, tab, cfg):
+        bg, width, height = cfg
+        radii = preprocess_fused.visible_radii(tab)
+        binning = tiling.bin_gaussians(tab, radii, width, height)
+        color, depth, alpha = _run_fwd(tab, binning, bg, width, height)
+        ctx.save_for_backward(tab, color, depth, alpha)
+        ctx.binning, ctx.size = binning, (width, height)
+        ctx.mark_non_differentiable(radii)
+        return color, depth, alpha, radii, binning.num_instances
+
+    @staticmethod
+    def backward(ctx, d_color, d_depth, d_alpha, _d_radii, _d_num):
+        tab, color, depth, alpha = ctx.saved_tensors
+
+        def cot(g, like):
+            return torch.zeros_like(like) if g is None else g.contiguous()
+
+        grad_inst = _run_bwd(tab, ctx.binning, color, depth, alpha, cot(d_color, color), cot(d_depth, depth),
+                             cot(d_alpha, alpha), *ctx.size)
+        g_tab = torch.zeros_like(tab)
+        g_tab[:segsum.NF] = _reduce_per_gaussian(grad_inst, ctx.binning)
+        return g_tab, None
+
+
+def _rasterize_precomp(means3d, scales, rotations, opacities, shs, cam, bg, sh_degree, scale_modifier,
+                       colors_precomp, cov3d_precomp, means2d_offset, active_degree):
+    """rasterize_tiles with precomputed colours and/or cov3D (JAX
+    `_preproc_screen`, ops/raster_tiles.py:839-856): the table from the
+    plain preprocess (ops/projection.py), K1 and K2 not used."""
+    fields10, radius, visible, ext_x, ext_y = preprocess_field_rows(
+        means3d, scales, rotations, opacities, None if shs is None else preprocess_fused.concat_sh(shs), cam,
+        sh_degree, scale_modifier, active_degree=active_degree, colors_precomp=colors_precomp,
+        cov3d_precomp=cov3d_precomp)
+    fields = list(fields10)
+    if means2d_offset is not None:
+        # the screen-space hook of densification: means2d + offset * (W/2, H/2)
+        fields[0] = fields[0] + means2d_offset[:, 0] * (0.5 * cam.width)
+        fields[1] = fields[1] + means2d_offset[:, 1] * (0.5 * cam.height)
+    # the binning rows carry no gradient
+    zeros = torch.zeros_like(radius)
+    tab = torch.stack(fields + [t.detach() for t in (radius, visible.to(radius.dtype), ext_x, ext_y)]
+                      + [zeros, zeros]).contiguous()
+    color, depth, alpha, radii, num_instances = _BlendTable.apply(tab, (bg, cam.width, cam.height))
+    return RenderOutput(color[0], depth[0], alpha[0], radii, radii > 0, 0, num_instances)
+
+
+def _split_sh(shs):
     if shs is None:
-        raise ValueError("the tile rasterizer needs SH features")
+        raise ValueError("the tile rasterizer needs SH features or precomputed colours")
     return (shs[:, :1], shs[:, 1:]) if isinstance(shs, torch.Tensor) else shs
 
 
@@ -404,8 +461,16 @@ def rasterize_tiles(
     passed as its two slices); `means2d_offset` (N, 2), usually zeros that
     require grad, is added to the screen means scaled by (W/2, H/2), and
     its gradient is the viewspace gradient that densification reads. CUDA
-    tensors run the kernels, CPU tensors their plain versions."""
-    sh_dc, sh_rest = _check_inputs(shs, colors_precomp, cov3d_precomp)
+    tensors run the kernels, CPU tensors their plain versions. With
+    `colors_precomp` (N, 3) and/or `cov3d_precomp` (N, 6) the table comes
+    from the plain preprocess instead of K1, and its gradient flows back
+    through it instead of K2 (`_rasterize_precomp`); `shs` may then be
+    None where the colours are given."""
+    if colors_precomp is not None or cov3d_precomp is not None:
+        return _rasterize_precomp(means3d, scales, rotations, opacities, shs, cam, bg, sh_degree,
+                                  float(scale_modifier), colors_precomp, cov3d_precomp, means2d_offset,
+                                  active_degree)
+    sh_dc, sh_rest = _split_sh(shs)
     cfg = ((cam,), bg, sh_degree, float(scale_modifier), active_degree)
     color, depth, alpha, radii, num_instances = _RasterizeTiles.apply(
         means3d, scales, rotations, opacities, sh_dc, sh_rest,
@@ -435,7 +500,7 @@ def rasterize_tiles_multi(
     chain's. `means2d_offset` is (B, N, 2), each camera's screen offset;
     the parameter gradients are summed over the cameras. SH path only, as
     `rasterize_tiles`."""
-    sh_dc, sh_rest = _check_inputs(shs, None, None)
+    sh_dc, sh_rest = _split_sh(shs)
     if len({(c.height, c.width) for c in cams}) != 1:
         raise ValueError("the cameras of a chain must share one resolution")
     cfg = (tuple(cams), bg, sh_degree, float(scale_modifier), active_degree)

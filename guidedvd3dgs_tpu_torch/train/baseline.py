@@ -42,10 +42,14 @@ import torch
 from guidedvd3dgs_tpu_torch.models import gaussians as G
 from guidedvd3dgs_tpu_torch.models.render import render_gaussians, render_state
 from guidedvd3dgs_tpu_torch.ops.projection import RasterCamera
+from guidedvd3dgs_tpu_torch.train.logging import maybe_profiler_trace
 from guidedvd3dgs_tpu_torch.train.checkpoint import checkpoint_arrays, save_checkpoint, write_checkpoint_arrays
 from guidedvd3dgs_tpu_torch.utils.general import get_expon_lr_func
 from guidedvd3dgs_tpu_torch.utils.losses import l1_loss, psnr, ssim
 
+# --profile_dir traces the steps from PROFILE_WINDOW[0] to PROFILE_WINDOW[1]
+# after the start (JAX baseline.py:574-592).
+PROFILE_WINDOW = (50, 60)
 
 @dataclass
 class StepStats:
@@ -274,14 +278,20 @@ class BaselineTrainer:
         checkpoint_dir=None,
         start_iteration=0,
         nan_debug=False,
+        profile_dir=None,
     ):
         """The host schedule: steps, evaluation at test_iterations, ply
         snapshots, full checkpoints; with `nan_debug` the non-finite check
-        of every step (see the module's docstring)."""
+        of every step (see the module's docstring); with `profile_dir` a
+        torch.profiler trace of the steps of PROFILE_WINDOW after the start,
+        written when the window or the run ends."""
         iterations = iterations or self.opt.iterations
         t0 = time.time()
         snapshot = None
+        prof = None
         for it in range(start_iteration + 1, iterations + 1):
+            if it - start_iteration == PROFILE_WINDOW[0]:
+                prof = maybe_profiler_trace(profile_dir, True)
             if nan_debug and (snapshot is None or (it - 1) % self.opt.densification_interval == 0):
                 arrays = checkpoint_arrays(self.state, it - 1)
                 if self.device.type == "cpu":  # there the arrays share the live tensors' memory
@@ -290,6 +300,9 @@ class BaselineTrainer:
             if nan_debug:
                 sched = dict(iteration=it, xyz_lr=float(self.xyz_lr))
             stats = self.step(it)
+            if prof is not None and it - start_iteration == PROFILE_WINDOW[1]:
+                self._stop_trace(profile_dir, prof)
+                prof = None
             if nan_debug:
                 sched.update(camera=getattr(self.last_camera, "image_name", ""),
                              sh_degree=self.active_sh_degree, num_gaussians=self.state.num_gaussians)
@@ -319,4 +332,12 @@ class BaselineTrainer:
                 self.scene.save(it, self.state)
             if it in checkpoint_iterations and checkpoint_dir:
                 self.write_checkpoint(f"{checkpoint_dir}/chkpnt{it}.ckpt", it)
+        if prof is not None:
+            self._stop_trace(profile_dir, prof)
         return self.state
+
+    def _stop_trace(self, profile_dir: str, prof) -> None:
+        """The device's queued work done, the trace written."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        maybe_profiler_trace(profile_dir, False, prof)

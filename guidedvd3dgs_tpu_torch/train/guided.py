@@ -89,6 +89,8 @@ from guidedvd3dgs_tpu_torch.models import gaussians as G
 from guidedvd3dgs_tpu_torch.models.render import RenderResult, render_gaussians, render_gaussians_multi
 from guidedvd3dgs_tpu_torch.ops.point_splat import splat_points_world, visible_points_mask
 from guidedvd3dgs_tpu_torch.ops.projection import RasterCamera
+from guidedvd3dgs_tpu_torch.parallel.mesh import Mesh, device_scope
+from guidedvd3dgs_tpu_torch.parallel.model_parallel import shard_params
 from guidedvd3dgs_tpu_torch.scene.cameras import PseudoCamera, camera_from_w2c_K
 from guidedvd3dgs_tpu_torch.scene.synthetic import GT_NPZ_KEYS
 from guidedvd3dgs_tpu_torch.train.baseline import BaselineTrainer, StepStats, lrs_for
@@ -125,8 +127,11 @@ class DiffusionEngine(Protocol):
 
 class ViewCrafterEngine:
     """The ViewCrafter stack behind DiffusionEngine. `params` live on the
-    device the engine runs on; the prompt's text embeddings are computed
-    once here (the prompt is fixed). `guided_cfg` configures the guided
+    device the engine runs on, or, with a `mesh`, are split over its model
+    axis (parallel/model_parallel.py::shard_params) with the requests, their
+    guidance buffers and the activations on its home device (`device`;
+    `devices` lists every device the engine uses); the prompt's text
+    embeddings are computed once here (the prompt is fixed). `guided_cfg` configures the guided
     sampler; `w_recon`, `ssim_guidance`, `recon_loss` and `lpips_fn` the
     guidance loss (reference LossGuidance, viewcrafter_wrapper.py:47-99).
     `verbose` prints each request's settings. While `save_pred_x0_dir` is
@@ -137,8 +142,17 @@ class ViewCrafterEngine:
     def __init__(self, params: DiffusionParams, mcfg: LatentDiffusionConfig, scfg: SynthesisConfig,
                  guided_cfg: Optional[GuidedSampleConfig] = None, video_length: int = 25,
                  height: int = 320, width: int = 448, w_recon: float = 0.5,
-                 ssim_guidance: bool = False, lpips_fn=None, recon_loss: str = "l2"):
-        self.params, self.mcfg, self.scfg = params, mcfg, scfg
+                 ssim_guidance: bool = False, lpips_fn=None, recon_loss: str = "l2",
+                 mesh: Optional[Mesh] = None):
+        if mesh is not None:
+            # the weights split over the mesh's model axis, read piece by
+            # piece from `params` (JAX guided.py:340-343)
+            params = shard_params(params, mesh)
+            self.device, self.devices = mesh.home, tuple(dict.fromkeys(d for row in mesh.devices for d in row))
+        else:
+            self.device = params.unet["out.2.weight"].device
+            self.devices = (self.device,)
+        self.params, self.mcfg, self.scfg, self.mesh = params, mcfg, scfg, mesh
         self.guided_cfg = guided_cfg or GuidedSampleConfig()
         self.video_length, self.height, self.width = video_length, height, width
         self.w_recon, self.ssim_guidance, self.lpips_fn = w_recon, ssim_guidance, lpips_fn
@@ -149,8 +163,7 @@ class ViewCrafterEngine:
         self.verbose = False
         self.save_pred_x0_dir: Optional[str] = None
         self.artifact_writer: Optional[AsyncArtifactWriter] = None
-        self.device = params.unet["out.2.weight"].device
-        with torch.no_grad():
+        with torch.no_grad(), device_scope(self.device):
             self.text_pair = encode_text_pair(params, scfg, self.device)
 
     def generate(self, pc_renders, guidance_images=None, guidance_masks=None, guidance_depths=None,
@@ -161,8 +174,15 @@ class ViewCrafterEngine:
         size (resized to the engine's, reference guided.py:557-565); the
         guidance images (T, 3, Hg, Wg) in [0, 1], masks and depths (T, 1,
         Hg, Wg) at any size (resized by resize_guidance). Returns the
-        generated (T, 3, height, width) video in [0, 1]. `noise` injects the
-        request's noise; the rest is drawn from `generator`."""
+        generated (T, 3, height, width) video in [0, 1] on the engine's
+        device. `noise` injects the request's noise; the rest is drawn from
+        `generator`."""
+        with device_scope(self.device):
+            return self._generate(pc_renders, guidance_images, guidance_masks, guidance_depths, generator,
+                                  no_guidance, scale_guidance_weight, noise)
+
+    def _generate(self, pc_renders, guidance_images, guidance_masks, guidance_depths, generator,
+                  no_guidance, scale_guidance_weight, noise) -> torch.Tensor:
         dev = self.device
         with torch.no_grad():
             video = resize_renders(pc_renders.to(dev, torch.float32), self.height, self.width)
@@ -867,12 +887,15 @@ class GuidedTrainer(BaselineTrainer):
                                            "generate": t_gen})
 
     def _worker_streams(self) -> List[torch.cuda.Stream]:
-        """The worker's CUDA streams, made once: one on the engine's card
-        where that is another, then one on the trainer's (the last entered,
-        so that it is the worker's current device)."""
+        """The worker's CUDA streams, made once: one on each card of the
+        engine (every device of its mesh) that is not the trainer's, then
+        one on the trainer's (the last entered, so that it is the worker's
+        current device). PyTorch orders a copy between two cards on both
+        cards' current streams, which in the worker are these."""
         if self._streams is None:
-            eng = torch.device(getattr(self.engine, "device", self.device))
-            self._streams = [torch.cuda.Stream(device=d) for d in dict.fromkeys([eng, self.device])]
+            eng = getattr(self.engine, "devices", (getattr(self.engine, "device", self.device),))
+            devs = [d for d in dict.fromkeys(torch.device(e) for e in eng) if d != self.device]
+            self._streams = [torch.cuda.Stream(device=d) for d in devs + [self.device]]
         return self._streams
 
     def _worker_event(self, inp: "EventInputs", ready: Optional[torch.cuda.Event]):

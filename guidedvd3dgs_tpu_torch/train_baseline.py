@@ -2,8 +2,10 @@
 
 Counterpart of the reference package's root `train_baseline.py`, with its
 flags (the config tree, --test_iterations, --save_iterations,
---checkpoint_iterations, --start_checkpoint, --quiet, --nan_debug) except
-the TPU-only --no_scan and --profile_dir, plus --device (default cuda).
+--checkpoint_iterations, --start_checkpoint, --quiet, --nan_debug,
+--profile_dir) except the TPU-only --no_scan, plus --device (default
+cuda). --profile_dir <dir> writes a torch.profiler trace (CPU and CUDA
+activities) of steps 50-60 after the start as `<dir>/trace.json`.
 --nan_debug checks the parameters after every step and, on the first
 non-finite one, writes the state from the start of that densification
 interval (`<model>/nan_<it0>_<it>.ckpt`, which --start_checkpoint resumes)
@@ -46,6 +48,8 @@ def main(argv: Optional[List[str]] = None) -> BaselineTrainer:
     parser.add_argument("--save_iterations", nargs="+", type=int, default=[10_000])
     parser.add_argument("--checkpoint_iterations", nargs="+", type=int, default=[])
     parser.add_argument("--nan_debug", action="store_true")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="write a torch.profiler trace of steps 50-60 into this directory")
     parser.add_argument("--start_checkpoint", type=str, default=None)
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("--device", default="cuda")
@@ -81,6 +85,7 @@ def main(argv: Optional[List[str]] = None) -> BaselineTrainer:
             checkpoint_dir=dataset.model_path,
             start_iteration=first_iter,
             nan_debug=args.nan_debug,
+            profile_dir=args.profile_dir,
         )
     print("\nTraining complete.")
     return trainer

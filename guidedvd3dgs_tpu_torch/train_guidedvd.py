@@ -36,10 +36,15 @@ builds the trajectory pool anew. `--pipeline_guidance` overlaps each
 diffusion event with training: the event is finalized one boundary late
 and its device work runs on a worker thread with its own CUDA stream, on
 the engine's card (`cuda:<guidance_gpu_id>` where the host has it, else
-beside the trainer). `--guidance_tp N > 1` (the JAX package's tensor-
-parallel engine over a device mesh) waits for a multi-card host and is
-refused. Writes what train_baseline writes plus the event artifacts, the
-video store and `timing_summary.json`.
+beside the trainer). `--guidance_tp N > 1` splits the ViewCrafter
+engine's weights over N devices from `guidance_gpu_id` on (the model axis
+of a mesh, parallel/model_parallel.py), with its activations on the
+first: N CPU entries under `--device cpu`, N cards on CUDA. Where the
+host has fewer cards the CLI raises; the JAX CLI warns and falls back to
+one device instead, which would hide that the sharding did not happen.
+`--profile_dir <dir>` writes a torch.profiler trace of steps 50-60 there.
+Writes what train_baseline writes plus the event artifacts, the video
+store and `timing_summary.json`.
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ from guidedvd3dgs_tpu_torch.config import (
     save_cfg_args,
 )
 from guidedvd3dgs_tpu_torch.guidance.dpt import DPTConfig, load_hf_dpt_weights, make_depth_estimator, params_to_device
+from guidedvd3dgs_tpu_torch.parallel.mesh import Mesh, make_mesh
 from guidedvd3dgs_tpu_torch.render import resolve_device
 from guidedvd3dgs_tpu_torch.scene.scene import Scene
 from guidedvd3dgs_tpu_torch.train.guided_checkpoint import load_guided_checkpoint
@@ -88,6 +94,23 @@ def guidance_device(opt, device: torch.device) -> torch.device:
     return device
 
 
+def guidance_mesh(opt, device: torch.device) -> Optional[Mesh]:
+    """--guidance_tp N > 1: a (1, N) mesh for the engine's weights over N
+    devices from guidance_gpu_id on (JAX train_guidedvd.py:37-54): N CPU
+    entries for a CPU trainer, else N cards, raising where the host has
+    fewer; None for N <= 1."""
+    tp = int(getattr(opt, "guidance_tp", 1))
+    if tp <= 1:
+        return None
+    if device.type == "cpu":
+        return make_mesh(n_data=1, n_model=tp, devices=["cpu"] * tp)
+    idx = int(getattr(opt, "guidance_gpu_id", 0))
+    count = torch.cuda.device_count()
+    if idx + tp > count:
+        raise ValueError(f"--guidance_tp {tp} from card {idx} needs {idx + tp} cards; this host has {count}")
+    return make_mesh(n_data=1, n_model=tp, devices=[torch.device("cuda", idx + i) for i in range(tp)])
+
+
 def engine_width(opt, height: int, width: int) -> int:
     """The diffusion width at height 320 (reference viewcrafter_wrapper.py:
     251-281): 512 under scannetpp_newres, else 448 for aspect ratios within
@@ -102,23 +125,30 @@ def build_engine(args, opt, height: int, width: int, device):
         if getattr(opt, "guidance_mean_loss", False):
             # the reference's LossGuidance asserts it off (viewcrafter_wrapper.py:86)
             raise ValueError("guidance_mean_loss must stay False (the reference's LossGuidance asserts it)")
-        dev = guidance_device(opt, device)
+        mesh = guidance_mesh(opt, device)
+        dev = guidance_device(opt, device) if mesh is None else mesh.home
         # bf16 weights and compute on a card (the reference's fp16
-        # autocast); float32 on the CPU
+        # autocast); float32 on the CPU. A sharded engine reads its pieces
+        # from the host copy
         dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-        print(f"Loading ViewCrafter checkpoint {args.viewcrafter_ckpt} ({dtype}) onto {dev} ...")
-        split = load_viewcrafter_checkpoint(args.viewcrafter_ckpt, device=dev, dtype=dtype)
+        load_dev = dev if mesh is None else torch.device("cpu")
+        print(f"Loading ViewCrafter checkpoint {args.viewcrafter_ckpt} ({dtype}) onto {load_dev} ...")
+        split = load_viewcrafter_checkpoint(args.viewcrafter_ckpt, device=load_dev, dtype=dtype)
         params = DiffusionParams(unet=split["unet"], vae=split["vae"], resampler=split["resampler"],
                                  clip_text=split["clip_text"], clip_image=split["clip_image"])
         mcfg = LatentDiffusionConfig()
         if dtype == torch.bfloat16:
             mcfg = dataclasses.replace(mcfg, compute_dtype="bfloat16")
         d_w = engine_width(opt, height, width)
-        print(f"ViewCrafter engine on {dev}: 25x320x{d_w}, {opt.guidance_ddim_steps} guided DDIM steps "
+        where = dev if mesh is None else f"{[str(d) for d in mesh.model_devices]} (weights split)"
+        print(f"ViewCrafter engine on {where}: 25x320x{d_w}, {opt.guidance_ddim_steps} guided DDIM steps "
               f"(trainer on {device})")
         return ViewCrafterEngine(params, mcfg, SynthesisConfig(ddim_steps=opt.guidance_ddim_steps),
                                  guided_cfg=GuidedSampleConfig(recur_steps=opt.guidance_recur_steps),
-                                 video_length=25, height=320, width=d_w, recon_loss=opt.guidance_recon_loss)
+                                 video_length=25, height=320, width=d_w, recon_loss=opt.guidance_recon_loss,
+                                 mesh=mesh)
+    if getattr(opt, "guidance_tp", 1) > 1:
+        print("NOTE: --guidance_tp splits the ViewCrafter engine only; this engine runs on one device.")
     if args.oracle_gt_npz:
         print(f"Using ORACLE diffusion engine (GT gaussians from {args.oracle_gt_npz}) - "
               "guided-machinery validation mode.")
@@ -184,6 +214,8 @@ def main(argv: Optional[List[str]] = None) -> GuidedTrainer:
     parser.add_argument("--pipeline_guidance", action="store_true",
                         help="overlap diffusion generation with training (one-event pseudo-stack lag; "
                              "the engine on the guidance_gpu_id device)")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="write a torch.profiler trace of steps 50-60 into this directory")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
@@ -191,9 +223,6 @@ def main(argv: Optional[List[str]] = None) -> GuidedTrainer:
     dataset = ModelParams.extract(args)
     opt = OptimizationParams.extract(args)
     pipe = PipelineParams.extract(args)
-    if opt.guidance_tp > 1:
-        raise ValueError("--guidance_tp > 1 (the JAX package's tensor-parallel engine over a device mesh) "
-                         "waits for a multi-card host: not ported yet")
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
 
@@ -253,6 +282,7 @@ def main(argv: Optional[List[str]] = None) -> GuidedTrainer:
             checkpoint_iterations=set(args.checkpoint_iterations),
             checkpoint_dir=dataset.model_path,
             start_iteration=first_iter,
+            profile_dir=args.profile_dir,
         )
     print("\nGuided training complete.")
     return trainer

@@ -93,3 +93,10 @@ def resize_bilinear(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
         x = F.interpolate(x, size=(height, width), mode="bilinear", align_corners=False,
                           antialias=width < w)
     return x.permute(0, 2, 3, 1).reshape(*lead, height, width, c)
+
+
+def chamfer_dist(array1: torch.Tensor, array2: torch.Tensor) -> torch.Tensor:
+    """Symmetric mean nearest-neighbour distance between (N, D) and (M, D)
+    points, O(N M) (reference utils/general_utils.py:179-181)."""
+    d = torch.linalg.norm(array1[:, None, :] - array2[None, :, :], dim=-1)
+    return d.min(dim=1).values.mean() + d.min(dim=0).values.mean()

@@ -15,7 +15,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -97,3 +97,37 @@ def save_video(frames: np.ndarray, path: str, fps: int = 10) -> None:
             vw.release()
             return
     save_png_sequence(arr, os.path.splitext(path)[0])
+
+
+def jet_u8(values: np.ndarray) -> np.ndarray:
+    """uint8 (...) -> (..., 3) rgb by the JET colormap as OpenCV's
+    COLORMAP_JET tabulates it: ramps of 4 levels a step (its table holds 1
+    where the blue ramp gives 2 at index 159)."""
+    i = np.asarray(values).astype(np.int32)
+    ramps = (np.minimum(4 * i - 382, 1148 - 4 * i), np.minimum(4 * i - 128, 892 - 4 * i),
+             np.minimum(4 * i + 128, 638 - 4 * i))
+    return np.clip(np.stack(ramps, axis=-1), 0, 255).astype(np.uint8)
+
+
+def plot_image_grid(rows: Sequence[np.ndarray], path: str,
+                    weights: Optional[Sequence[Optional[np.ndarray]]] = None) -> None:
+    """Image rows ((3, H, W), (H, W, 3) or (H, W), float in [0, 1] or
+    uint8) stacked top to bottom into one PNG at `path`; after row i its
+    weight map weights[i] (H, W), where given, min-max normalised and
+    JET-coloured (reference utils/vis_utils.py:8-28, which colours with
+    cv2)."""
+    tiles = []
+    for i, row in enumerate(rows):
+        row = np.asarray(row)
+        if row.ndim == 3 and row.shape[0] in (1, 3):
+            row = np.transpose(row, (1, 2, 0))
+        if row.ndim == 2:
+            row = row[..., None]
+        if row.shape[-1] == 1:
+            row = np.repeat(row, 3, axis=-1)
+        tiles.append(to_uint8(row))
+        if weights is not None and i < len(weights) and weights[i] is not None:
+            wmap = np.asarray(weights[i], np.float32)
+            wmap = (wmap - wmap.min()) / max(float(wmap.max() - wmap.min()), 1e-8)
+            tiles.append(jet_u8((wmap * 255).astype(np.uint8)))
+    save_image(np.concatenate(tiles, axis=0), path)

@@ -8,7 +8,9 @@ in another order); the bf16 UNet held to the float32 result within 1.5x
 the JAX package's own bf16 error (bf16 rounds at other places in each
 package, through 20+ layers); the bf16 model glue 5e-2; image_preprocess 1e-4 absolute (the
 antialiased bicubic resize of each library); schedules 1e-6 relative
-(the same float64 numpy tables); the DDIM step 1e-5 absolute.
+(the same float64 numpy tables); the DDIM step 1e-5 absolute, q_sample
+1e-6 absolute; the relative-position attention 1e-5 and the UNet with it
+1e-4 (float32, as above).
 """
 
 import dataclasses
@@ -127,6 +129,68 @@ def test_unet_bf16(unet_case):
     assert got.dtype == torch.bfloat16
     jax_err = rel_err(torch.from_numpy(np.asarray(want, np.float32)), truth)
     assert rel_err(got, truth) <= 1.5 * jax_err
+
+
+def with_relative_tables(jp: dict, max_rel: int, dim_head: int, seed: int = 11) -> dict:
+    """jp with the relative_position_{k,v}.embeddings_table entries of
+    every attention (JAX's init makes none; the spatial ones' go unread):
+    (2 max_rel + 1, dim_head)."""
+    rng = np.random.default_rng(seed)
+    out = dict(jp)
+    for name in jp:
+        if name.endswith(".to_q.weight"):
+            pre = name[: -len(".to_q.weight")]
+            for kv in "kv":
+                out[f"{pre}.relative_position_{kv}.embeddings_table"] = rng.normal(
+                    scale=0.3, size=(2 * max_rel + 1, dim_head)).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_cross_attention_with_relative_position(masked):
+    """The relative-position bias on the logits and its term on the output
+    (reference attention.py:100-127), with and without the causal mask; the
+    distance clipped at temporal_length (3 here, of 6 tokens)."""
+    from guidedvd3dgs_tpu.diffusion import attention as jattn
+    from guidedvd3dgs_tpu_torch.diffusion import attention as pattn
+
+    rng = np.random.default_rng(12)
+    heads, dh, c, n, max_rel = 2, 8, 16, 6, 3
+    p = {f"a.{nm}.weight": rng.normal(scale=0.3, size=(heads * dh, c)).astype(np.float32)
+         for nm in ("to_q", "to_k", "to_v")}
+    p["a.to_out.0.weight"] = rng.normal(scale=0.3, size=(c, heads * dh)).astype(np.float32)
+    p["a.to_out.0.bias"] = rng.normal(scale=0.1, size=(c,)).astype(np.float32)
+    p = with_relative_tables(p, max_rel, dh)
+    x = rng.standard_normal((3, n, c)).astype(np.float32)
+    mask = np.broadcast_to(np.tril(np.ones((n, n), np.float32)), (3, n, n)) if masked else None
+    want = jattn.cross_attention({k: jnp.asarray(v) for k, v in p.items()}, "a", jnp.asarray(x), None, heads, dh,
+                                 mask=None if mask is None else jnp.asarray(mask), relative_position=True,
+                                 temporal_length=max_rel)
+    got = pattn.cross_attention({k: torch.from_numpy(v) for k, v in p.items()}, "a", torch.from_numpy(x), None,
+                                heads, dh, mask=None if mask is None else torch.from_numpy(mask.copy()),
+                                relative_position=True, temporal_length=max_rel)
+    assert rel_err(got, want) < 1e-5
+    plain = pattn.cross_attention({k: torch.from_numpy(v) for k, v in p.items()}, "a", torch.from_numpy(x), None,
+                                  heads, dh)
+    assert rel_err(plain, want) > 1e-2  # the tables change the output
+
+
+def test_unet_with_relative_position(unet_case):
+    """unet_apply with use_relative_position: every temporal transformer
+    (and init_attn) takes the tables, the spatial ones do not."""
+    jcfg, jp, _ = unet_case
+    jcfg = dataclasses.replace(jcfg, use_relative_position=True)
+    jp = with_relative_tables({k: np.asarray(v) for k, v in jp.items()}, T, jcfg.num_head_channels)
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((1, T, 8, 8, 8)).astype(np.float32)
+    ts = np.array([421], np.int32)
+    ctx = rng.standard_normal((1, 7 + 12, 16)).astype(np.float32)
+    want = junet.unet_apply({k: jnp.asarray(v) for k, v in jp.items()}, jcfg, jnp.asarray(x), jnp.asarray(ts),
+                            jnp.asarray(ctx))
+    got = unet3d.unet_apply({k: torch.from_numpy(v) for k, v in jp.items()}, port_cfg(unet3d.UNetConfig, jcfg),
+                            torch.from_numpy(x), torch.from_numpy(ts), torch.from_numpy(ctx))
+    assert got.shape == (1, T, 8, 8, 4)
+    assert rel_err(got, want) < 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -251,6 +315,16 @@ def test_schedules_and_ddim_params(zero_snr, dynamic):
         for f in dataclasses.fields(jp):
             np.testing.assert_allclose(getattr(tp, f.name).numpy(), np.asarray(getattr(jp, f.name)),
                                        rtol=1e-6, atol=0)
+
+
+def test_q_sample_matches_reference():
+    js, ts = jS.make_schedule(), S.make_schedule()
+    rng = np.random.default_rng(14)
+    x0, noise = (rng.standard_normal((3, T, 6, 7, 4)).astype(np.float32) for _ in range(2))
+    t = np.array([0, 421, 999], np.int32)
+    want = jS.q_sample(js, jnp.asarray(x0), jnp.asarray(t), jnp.asarray(noise))
+    got = S.q_sample(ts, torch.from_numpy(x0), torch.from_numpy(t).long(), torch.from_numpy(noise))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
 
 
 def test_ddim_step_and_cfg():

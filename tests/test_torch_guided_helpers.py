@@ -2,13 +2,15 @@
 
 Exact equality throughout (the same f32 operations, or host numpy):
   - erode / dilate at sizes 3, 5 and 10 (an even window is off centre),
-    unobserved_regions and process_mask, on random masks with set borders;
+    unobserved_regions, process_mask and process_mask2, on random masks
+    with set borders;
   - the point splat at 48x64 (camera space and world space), with planted
     depth ties that the lowest index must win: the winner masks, images
     and depths; visible_points_mask;
   - select_topk_candidates on areas with ties;
-  - pose_math: every TRAJ_PRESETS trajectory, the candidate grid and the
-    linear path, to 1e-10;
+  - pose_math: every TRAJ_PRESETS trajectory, the candidate grid, the
+    linear path and the loop-closure path, to 1e-10;
+  - chamfer_dist, within 1e-6 relative (a mean of float32 distances);
   - the ground-truth npz of the port's make_scene: the tool's keys, shapes,
     dtypes and values.
 """
@@ -22,10 +24,12 @@ from guidedvd3dgs_tpu.guidance import morphology as jax_morph
 from guidedvd3dgs_tpu.guidance import pose_math as jax_pm
 from guidedvd3dgs_tpu.ops import point_splat as jax_splat
 from guidedvd3dgs_tpu.train.guided import select_topk_candidates as jax_select
+from guidedvd3dgs_tpu.utils import general as jax_general
 from guidedvd3dgs_tpu_torch.guidance import morphology, pose_math
 from guidedvd3dgs_tpu_torch.ops import point_splat
 from guidedvd3dgs_tpu_torch.scene import synthetic
 from guidedvd3dgs_tpu_torch.train.guided import select_topk_candidates
+from guidedvd3dgs_tpu_torch.utils import general
 from tools import make_synthetic_scene as tool
 
 torch.set_num_threads(2)
@@ -69,6 +73,20 @@ def test_unobserved_regions_and_process_mask_match_reference():
     np.testing.assert_array_equal(
         morphology.process_mask(torch.from_numpy(masks)).numpy(),
         np.asarray(jax_morph.process_mask(jnp.asarray(masks))))
+
+
+def test_process_mask2_matches_reference():
+    masks = _masks(7)[:, None]
+    np.testing.assert_array_equal(morphology.process_mask2(torch.from_numpy(masks)).numpy(),
+                                  np.asarray(jax_morph.process_mask2(jnp.asarray(masks))))
+
+
+def test_chamfer_dist_matches_reference():
+    rng = np.random.default_rng(8)
+    a, b = rng.normal(size=(300, 3)).astype(np.float32), rng.normal(size=(170, 3)).astype(np.float32)
+    want = float(jax_general.chamfer_dist(jnp.asarray(a), jnp.asarray(b)))
+    got = float(general.chamfer_dist(torch.from_numpy(a), torch.from_numpy(b)))
+    assert abs(got - want) <= 1e-6 * abs(want)
 
 
 def _cloud(seed, n=3000):
@@ -187,6 +205,17 @@ def test_candidate_grid_and_linear_path_match_reference():
         np.testing.assert_allclose(pose_math.interpolate_trajectory(obj, ph, th, dr, frames=25),
                                    jax_pm.interpolate_trajectory(obj, ph, th, dr, frames=25),
                                    rtol=0, atol=1e-10)
+
+
+def test_loop_closure_path_matches_reference():
+    c2w = _obj_pose(5)
+    obj, _ = pose_math.world_to_obj(c2w[None], -1, 2.0, 5.0)
+    for d_phi, d_theta, d_r, frames in ((30.0, -12.0, 0.2, 25), (-20.0, 8.0, -0.1, 16)):
+        got = pose_math.interpolate_trajectory_loopclosure(obj, d_phi, d_theta, d_r, frames=frames)
+        want = jax_pm.interpolate_trajectory_loopclosure(obj, d_phi, d_theta, d_r, frames=frames)
+        assert got.shape == (frames, 4, 4)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-10)
+        np.testing.assert_allclose(got[0], got[-1], rtol=0, atol=1e-10)  # back where it started
 
 
 def test_make_scene_writes_the_tools_gt_npz(tmp_path):

@@ -48,8 +48,8 @@ RAW_DATA_MODULES = [
     "guidance.dpt", "guidance.depth_lift", "augment_ply_with_depth", "diffusion.samplers.ddim_multicond",
     "viewer.network_gui",
 ]
-# the camera-batch step
-PARALLEL_MODULES = ["parallel", "parallel.data_parallel"]
+# the camera-batch step, the device mesh and the sharded diffusion weights
+PARALLEL_MODULES = ["parallel", "parallel.data_parallel", "parallel.mesh", "parallel.model_parallel"]
 
 
 def test_every_port_module_imports_with_jax_blocked():
@@ -60,7 +60,7 @@ def test_every_port_module_imports_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
-    assert len(names) >= 87  # every module of the port
+    assert len(names) >= 89  # every module of the port
     missing = [m for m in DIFFUSION_MODULES + RAW_DATA_MODULES + PARALLEL_MODULES
                if f"guidedvd3dgs_tpu_torch.{m}" not in names]
     assert not missing, missing

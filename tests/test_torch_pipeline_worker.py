@@ -13,8 +13,9 @@ reset at 12, then the drain).
   as they were at its submission, whatever the trainer does to them while
   the worker runs.
 - The CLI with --pipeline_guidance on a tiny scene with the oracle (a
-  checkpoint with an event in flight, the drain), and --guidance_tp 2
-  refused.
+  checkpoint with an event in flight, the drain), and with --guidance_tp 2
+  (the toy ViewCrafter engine split over two CPU entries) through two
+  events and their artifacts.
 """
 
 import json
@@ -25,10 +26,11 @@ import numpy as np
 import pytest
 import torch
 
+from guidedvd3dgs_tpu.diffusion import init as jinit
 from guidedvd3dgs_tpu.models import gaussians as JG
 from guidedvd3dgs_tpu_torch import train_baseline as port_baseline_cli
 from guidedvd3dgs_tpu_torch import train_guidedvd as port_guided_cli
-from guidedvd3dgs_tpu_torch.convert import state_from_numpy
+from guidedvd3dgs_tpu_torch.convert import diffusion_params_from_numpy, state_from_numpy
 from guidedvd3dgs_tpu_torch.scene import cameras as port_cameras
 from guidedvd3dgs_tpu_torch.scene import synthetic
 from guidedvd3dgs_tpu_torch.train import guided as pg
@@ -36,7 +38,9 @@ from guidedvd3dgs_tpu_torch.train.guided_checkpoint import load_guided_checkpoin
 
 from helpers import activated, random_gaussians
 from test_torch_guided_densify import CAPACITY, _jax_split_noise, _opt
+from test_torch_diffusion_models import toy_configs
 from test_torch_pipeline_guidance import BOUNDARIES, LAST, _pipelined
+from test_torch_train_vc import sharded_cli_run
 from test_train_baseline import FakeModelParams, FakePipe, FakeScene, make_synthetic
 from test_train_guided import _intrinsic
 
@@ -196,6 +200,10 @@ def test_cli_runs_pipelined_with_the_oracle(tmp_path):
     assert timing["event_wait_s"] >= 0.0 and 0.0 < timing["train_s"] <= timing["total_s"]
     assert (mdl / "chkpnt20.ckpt.guided.npz").exists()
     assert (mdl / "point_cloud" / "iteration_40" / "point_cloud.ply").exists()
-    with pytest.raises(ValueError, match="multi-card host"):
-        port_guided_cli.main(common + ["-m", str(tmp_path / "tp"), "--baseline_path", str(base),
-                                       "--guidance_tp", "2"])
+    # --guidance_tp 2 pipelined: the worker runs the engine split over two
+    # CPU entries through both events (the drain finalizes the second)
+    jm, js, pm, ps = toy_configs()
+    tparams = diffusion_params_from_numpy(jinit.init_diffusion_params(jm, js, jax.random.key(0)), device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        tp = sharded_cli_run(tmp_path / "tp", mp, tparams, pm, ps, extra=("--pipeline_guidance",))
+    assert tp.pipeline_guidance and tp._executor is None and tp._pending_event is None

@@ -90,7 +90,9 @@ def test_tiles_match_reference_tiles(n, seed):
 
 def test_tiles_refuse_what_needs_a_backward():
     """The tile rasterizer is differentiable (the gradient reaches every
-    input and the screen offset); precomputed colors / cov3D still raise."""
+    input and the screen offset); precomputed colours render in place of
+    the SH (tests/test_torch_tile_precomp.py holds them to JAX's), and a
+    call with neither is refused."""
     cam, parts = setup(50, 3)
     t = [torch.from_numpy(p).requires_grad_(True) for p in parts]
     rc = raster_camera_from_numpy(cam)
@@ -103,8 +105,16 @@ def test_tiles_refuse_what_needs_a_backward():
         assert torch.isfinite(p.grad).all() and float(p.grad.abs().max()) > 0
     with torch.no_grad():
         assert raster_tiles.rasterize_tiles(*t, rc, bg).color.shape == (3, H, W)
-    with pytest.raises(NotImplementedError):
-        raster_tiles.rasterize_tiles(*t, rc, bg, colors_precomp=torch.zeros(50, 3))
+    # precomputed colours take the SH's place (the table of the plain
+    # preprocess): the same coverage, the gradient reaching the colours;
+    # neither SH nor colours is refused
+    colors = torch.full((50, 3), 0.5, requires_grad=True)
+    pre = raster_tiles.rasterize_tiles(*t[:4], None, rc, bg, colors_precomp=colors)
+    pre.color.sum().backward()
+    torch.testing.assert_close(pre.alpha, out.alpha.detach(), rtol=0, atol=1e-5)
+    assert colors.grad is not None and float(colors.grad.abs().max()) > 0
+    with pytest.raises(ValueError, match="SH features or precomputed colours"):
+        raster_tiles.rasterize_tiles(*t[:4], None, rc, bg)
 
 
 def test_render_sh_pair_matches_concatenated():

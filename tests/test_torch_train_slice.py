@@ -10,7 +10,10 @@
     counts agree exactly after every step, the losses within 1e-4, and
     every parameter (rows in order) within 1e-4 of its largest magnitude.
   - The port's CLI trains a tiny `make_scene` scene for 30 iterations; its
-    render and metrics CLIs read what it saved.
+    render and metrics CLIs read what it saved. With --profile_dir, 52
+    iterations write the torch.profiler trace of steps 50-52 (the window
+    closes at the run's end); MetricsLogger.images records its event
+    without TensorBoard.
   - `make_scene` builds the scene of tools/make_synthetic_scene.py (its
     draws in its order): the same Gaussians, cameras, init cloud and split.
 """
@@ -18,6 +21,7 @@
 import dataclasses
 import json
 import math
+import sys
 
 import jax
 import numpy as np
@@ -34,6 +38,7 @@ from guidedvd3dgs_tpu_torch.scene import cameras as port_cameras
 from guidedvd3dgs_tpu_torch.scene import synthetic
 from guidedvd3dgs_tpu_torch.scene.ply import fetch_ply
 from guidedvd3dgs_tpu_torch.train.baseline import BaselineTrainer
+from guidedvd3dgs_tpu_torch.train.logging import MetricsLogger
 from tools import make_synthetic_scene as tool
 
 from test_train_baseline import FakeModelParams, FakeOpt, FakePipe, FakeScene, make_synthetic
@@ -116,6 +121,23 @@ def test_cli_trains_a_tiny_scene_that_render_reads(tmp_path):
     port_metrics.evaluate([str(mdl)], device="cpu")
     res = json.loads((mdl / "results.json").read_text())["ours_30"]
     assert math.isfinite(res["PSNR"]) and math.isfinite(res["SSIM"]) and res["PSNR"] > 5.0
+
+
+def test_cli_profile_dir_writes_a_trace(tmp_path, monkeypatch):
+    src, mdl, prof = tmp_path / "scene", tmp_path / "model", tmp_path / "prof"
+    synthetic.make_scene(str(src), height=48, width=64, n_gt=3000, n_init=400, n_cams=12,
+                         n_train=3, device="cpu")
+    port_train_cli.main(["-s", str(src), "-m", str(mdl), "--dataset", "colmap", "--n_views", "3",
+                         "--iterations", "52", "--test_iterations", "52", "--save_iterations", "52",
+                         "--profile_dir", str(prof), "--device", "cpu"])
+    trace = json.loads((prof / "trace.json").read_text())
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert any(n.startswith("aten::") for n in names)
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)  # TensorBoard absent
+    with MetricsLogger(str(mdl)) as logger:
+        logger.images(52, "renders", torch.rand(2, 3, 4, 4))
+    last = json.loads((mdl / "metrics.jsonl").read_text().splitlines()[-1])
+    assert last == {"step": 52, "images": "renders"} and not (mdl / "tb").exists()
 
 
 def test_make_scene_builds_the_tools_scene(tmp_path):

@@ -15,8 +15,9 @@ package on the CPU.
 - The CLI's ViewCrafter branch with the loader stubbed: the engine width
   rule, the guidance_mean_loss refusal, recur_steps, recon_loss, the DDIM
   steps, the engine's settings from the options, the VGG term of the
-  guidance only with weights, --guidance_tp refused and --pipeline_guidance
-  accepted.
+  guidance only with weights, --pipeline_guidance accepted, and a run with
+  --guidance_tp 2 --device cpu (the engine's weights split over two CPU
+  entries) through two events with their artifacts.
 - A tiny checkpoint in the ViewCrafter layout (sub-model and CLIP
   prefixes, framestride_embed, Lightning's state_dict nesting, a buffer)
   loads through the CLI into an engine whose request equals the in-memory
@@ -35,11 +36,14 @@ import torch
 
 from guidedvd3dgs_tpu.diffusion import init as jinit
 from guidedvd3dgs_tpu.train import guided as jg
+from guidedvd3dgs_tpu_torch import train_baseline as port_baseline_cli
 from guidedvd3dgs_tpu_torch import train_guidedvd as port_cli
 from guidedvd3dgs_tpu_torch.config import OptimizationParams
 from guidedvd3dgs_tpu_torch.convert import diffusion_params_from_numpy, state_from_numpy
 from guidedvd3dgs_tpu_torch.models.gaussians import PARAM_NAMES
+from guidedvd3dgs_tpu_torch.parallel import model_parallel as pmp
 from guidedvd3dgs_tpu_torch.scene import cameras as port_cameras
+from guidedvd3dgs_tpu_torch.scene import synthetic
 from guidedvd3dgs_tpu_torch.train import guided as pg
 
 from test_torch_diffusion_models import T, toy_configs
@@ -164,14 +168,54 @@ def test_cli_viewcrafter_branch(toy, monkeypatch, tmp_path):
     torch.testing.assert_close(got, torch.stack([vgg(d[i:i + 1].permute(0, 3, 1, 2),
                                                      g[i:i + 1].permute(0, 3, 1, 2))[0] for i in range(3)]))
 
-    # the JAX package's tensor-parallel engine waits for a multi-card host;
-    # pipelined events are accepted (the CLI goes on to read the scene,
-    # which this directory lacks; tests/test_torch_pipeline_guidance.py runs them)
+    # --guidance_tp 2 on the CPU: the engine's weights split over two CPU
+    # entries, run through an event; pipelined events are accepted (the CLI
+    # goes on to read the scene, which this directory lacks;
+    # tests/test_torch_pipeline_guidance.py runs them)
+    trainer = sharded_cli_run(tmp_path / "tp", monkeypatch, tparams, pm, ps)
+    assert not trainer.pipeline_guidance
     argv = ["-s", str(tmp_path), "-m", str(tmp_path / "m"), "--baseline_path", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(ValueError, match="multi-card host"):
-        port_cli.main(argv + ["--guidance_tp", "2"])
     with pytest.raises(ValueError, match="Could not recognize scene type"):
         port_cli.main(argv + ["--pipeline_guidance"])
+
+
+def sharded_cli_run(tmp_path, monkeypatch, tparams, pm, ps, extra=()):
+    """The guided CLI with --guidance_tp 2 --device cpu on a tiny scene: the
+    toy ViewCrafter weights (the loader stubbed) split over a ["cpu",
+    "cpu"] mesh, a T-frame engine at 32x32, 20 iterations with events at 1
+    and 16. Checks the sharded engine, the events and their artifacts;
+    returns the trainer."""
+    _toy_cli(monkeypatch, pm, ps)
+    monkeypatch.setattr(port_cli, "load_viewcrafter_checkpoint",
+                        lambda path, device="cpu", dtype=None: dict(tparams._asdict(), buffers={}))
+
+    class ToyEngine(pg.ViewCrafterEngine):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **dict(kwargs, video_length=T, height=ENGINE, width=ENGINE))
+
+    monkeypatch.setattr(port_cli, "ViewCrafterEngine", ToyEngine)
+    src, base, mdl = tmp_path / "scene", tmp_path / "baseline", tmp_path / "guided"
+    synthetic.make_scene(str(src), height=48, width=64, n_gt=3000, n_init=400, n_cams=12, n_train=3,
+                         device="cpu")
+    common = ["-s", str(src), "--dataset", "colmap", "--n_views", "3", "--eval", "--device", "cpu"]
+    port_baseline_cli.main(common + ["-m", str(base), "--iterations", "30", "--test_iterations", "30",
+                                     "--save_iterations", "30"])
+    trainer = port_cli.main(common + [
+        "-m", str(mdl), "--baseline_path", str(base), "--baseline_iteration", "30",
+        "--viewcrafter_ckpt", "vc.ckpt", "--guidance_tp", "2", "--guidance_ddim_steps", "2",
+        "--iterations", "20", "--test_iterations", "20", "--save_iterations", "20",
+        "--start_sample_pseudo", "2", "--end_sample_pseudo", "18", "--guidance_vd_iter", "15", *extra])
+    eng = trainer.engine
+    assert isinstance(eng, pg.ViewCrafterEngine) and eng.mesh is not None
+    assert eng.mesh.model_devices == (torch.device("cpu"),) * 2 and eng.device == torch.device("cpu")
+    assert isinstance(eng.params.unet["out.2.weight"], pmp.Sharded)
+    assert trainer.events_run == 2
+    for it in (1, 16):
+        event = mdl / "diffusion_events" / f"train_iter{it}"
+        for name in ("render0", "gs_render", "gs_render_alpha", "gs_render_depth", "diffusion0"):
+            assert (event / f"{name}.mp4").exists() or (event / name).is_dir(), (it, name)
+    assert (mdl / "point_cloud" / "iteration_20" / "point_cloud.ply").exists()
+    return trainer
 
 
 def test_a_viewcrafter_layout_checkpoint_loads_into_the_engine(toy, monkeypatch, tmp_path):

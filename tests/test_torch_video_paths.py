@@ -9,6 +9,11 @@
     model), with cv2 absent: 240 PNG frames, each bitwise the quantised
     `eval_render` of its camera; the cameras those of the reference's
     render_video (the same w2c and K).
+  - `plot_image_grid`: image rows and JET weight maps stacked into one
+    PNG. The rows equal the JAX package's file exactly and the maps within
+    one level (the JAX side colours with cv2, whose JET table holds 1
+    where the port's ramp gives 2, at one of 256 entries); without cv2 the
+    port's file is held to its own rows and the JET end points.
 """
 
 import os
@@ -19,6 +24,7 @@ import torch
 
 from guidedvd3dgs_tpu.scene.cameras import camera_from_w2c_K as jax_camera_from_w2c_K
 from guidedvd3dgs_tpu.utils import pose_paths as jpaths
+from guidedvd3dgs_tpu.utils import video as jvideo
 from guidedvd3dgs_tpu_torch import render as port_render
 from guidedvd3dgs_tpu_torch.config import ModelParams, build_parser, save_cfg_args
 from guidedvd3dgs_tpu_torch.models.render import eval_render
@@ -26,7 +32,7 @@ from guidedvd3dgs_tpu_torch.scene import synthetic
 from guidedvd3dgs_tpu_torch.scene.scene import Scene
 from guidedvd3dgs_tpu_torch.utils import pose_paths as ppaths
 from guidedvd3dgs_tpu_torch.utils.image_io import read_png
-from guidedvd3dgs_tpu_torch.utils.video import video_u8
+from guidedvd3dgs_tpu_torch.utils.video import plot_image_grid, video_u8
 
 torch.set_num_threads(2)
 
@@ -88,3 +94,32 @@ def test_render_video_writes_240_frames_of_eval_render(tmp_path, monkeypatch):
     for cam, name in zip(cams, names):
         r = eval_render(params, cam.raster_camera("cpu"), torch.zeros(3), 3)
         np.testing.assert_array_equal(read_png(str(frames_dir / name)), video_u8(r.color[None])[0])
+
+
+def test_plot_image_grid_matches_reference(tmp_path):
+    rng = np.random.default_rng(21)
+    h, w = 12, 20
+    rows = [rng.uniform(size=(3, h, w)).astype(np.float32), rng.uniform(size=(h, w)).astype(np.float32),
+            (rng.uniform(size=(h, w, 3)) * 255).astype(np.uint8)]
+    ramp = np.tile(np.linspace(-1.0, 3.0, w, dtype=np.float32), (h, 1))
+    weights = [ramp, None, rng.uniform(size=(h, w)).astype(np.float32)]
+    plot_image_grid(rows, str(tmp_path / "port" / "grid.png"), weights)
+    got = read_png(str(tmp_path / "port" / "grid.png"))
+    assert got.shape == (5 * h, w, 3) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got[:h], (np.clip(rows[0].transpose(1, 2, 0), 0, 1) * 255 + 0.5).astype(np.uint8))
+    np.testing.assert_array_equal(got[2 * h:3 * h], np.repeat(
+        (np.clip(rows[1], 0, 1) * 255 + 0.5).astype(np.uint8)[..., None], 3, axis=-1))
+    np.testing.assert_array_equal(got[3 * h:4 * h], rows[2])
+    assert tuple(got[h, 0]) == (0, 0, 128) and tuple(got[h, -1]) == (128, 0, 0)  # JET's ends
+    try:
+        import cv2
+    except ImportError:
+        return
+    jvideo.plot_image_grid(rows, str(tmp_path / "jax.png"), weights)
+    want = cv2.imread(str(tmp_path / "jax.png"))[:, :, ::-1]
+    assert want.shape == got.shape
+    for r0, r1 in ((0, h), (2 * h, 4 * h)):  # the image rows
+        np.testing.assert_array_equal(got[r0:r1], want[r0:r1])
+    for r0, r1 in ((h, 2 * h), (4 * h, 5 * h)):  # the weight maps
+        assert np.abs(got[r0:r1].astype(int) - want[r0:r1]).max() <= 1
+
