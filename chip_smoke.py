@@ -327,10 +327,8 @@ from guidedvd3dgs_tpu_torch.config import (  # noqa: E402
 )
 from guidedvd3dgs_tpu_torch.convert import params_from_numpy  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion import attention as d_attention  # noqa: E402
-from guidedvd3dgs_tpu_torch.diffusion import nnops as d_nnops  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion import schedules as S  # noqa: E402
-from guidedvd3dgs_tpu_torch.diffusion import synthesis, unet3d  # noqa: E402
-from guidedvd3dgs_tpu_torch.diffusion import vae as d_vae  # noqa: E402
+from guidedvd3dgs_tpu_torch.diffusion import synthesis  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion.init import init_diffusion_params  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion.model import Conditioning, LatentDiffusionConfig, apply_model  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion.samplers import ddim, ddim_guidance, ddim_multicond  # noqa: E402
@@ -368,6 +366,7 @@ from guidedvd3dgs_tpu_torch.utils import graphics  # noqa: E402
 from guidedvd3dgs_tpu_torch.utils.general import build_rotation  # noqa: E402
 from guidedvd3dgs_tpu_torch.utils.image_io import save_images  # noqa: E402
 from guidedvd3dgs_tpu_torch.utils.sh import SH2RGB  # noqa: E402
+from guidedvd3dgs_tpu_torch.utils import tracing  # noqa: E402
 from guidedvd3dgs_tpu_torch.viewer import network_gui  # noqa: E402
 from guidedvd3dgs_tpu_torch.utils.vgg_loss import make_vgg_loss_fn, random_vgg19  # noqa: E402
 
@@ -520,9 +519,9 @@ STEP_TOL = 1e-3
 # 7.032e-5 with one key tile skipped; the weights left unrounded read
 # 3.541e-5, 2.625e-5, 5.715e-6, inside the kernels' own rounding gap
 STEP_TOL_BF16 = 6e-5
-# 7b's and 8b's traces: the stage of each diffusion function (by its module name)
-STAGE_FNS = {"attention": "attention", "conv2d": "conv", "conv3d": "conv",
-             "group_norm": "GroupNorm", "linear": "matmul", "conv1d_k1": "matmul"}
+# 7b's and 8b's traces: the stage of each range of the diffusion primitives
+# (diffusion/nnops.py, "span:<label>" from utils/tracing.py)
+STAGES = {"nn.attention": "attention", "nn.conv": "conv", "nn.group_norm": "GroupNorm", "nn.linear": "matmul"}
 STAGE_ORDER = ("L1 fwd", "L1 bwd", "attention", "conv", "GroupNorm", "matmul", "other")
 # phase 8: the guided request (GUIDED_STEPS of the default 50), its renders
 # and guidance at the train resolution of the Replica camera (the engine
@@ -2353,34 +2352,15 @@ def timed(module, name: str, record: list, outputs: list | None = None):
         yield
 
 
-@contextlib.contextmanager
-def labelled_stages():
-    """Run every diffusion function of STAGE_FNS inside a profiler range
-    "stage:<stage>", so that a trace can sort the kernels by stage."""
-    with contextlib.ExitStack() as stack:
-        for module in (d_nnops, d_attention, unet3d, d_vae):
-            for name, stage in STAGE_FNS.items():
-                fn = getattr(module, name, None)
-                if fn is None:
-                    continue
-
-                def run(*args, _fn=fn, _label=f"stage:{stage}", **kwargs):
-                    with torch.profiler.record_function(_label):
-                        return _fn(*args, **kwargs)
-
-                stack.enter_context(mock.patch.object(module, name, run))
-        yield
-
-
 def stage_summary(prof):
-    """Device ms per stage of a trace under labelled_stages: L1's forward
-    and backward by their kernel names; every other kernel by the
-    innermost "stage:" range above the op that launched it or, in a
-    backward pass, above the forward op whose autograd node it runs (the
-    profiler's sequence number and forward thread pair them, as torch's
-    own backward stack traces do); "other" takes what neither places.
-    Also the idle share of the traced span and the device ms of the
-    largest kernels of the "attention" stage by name."""
+    """Device ms per stage of a trace: L1's forward and backward by their
+    kernel names; every other kernel by the innermost range of STAGES
+    above the op that launched it or, in a backward pass, above the
+    forward op whose autograd node it runs (the profiler's sequence number
+    and forward thread pair them, as torch's own backward stack traces
+    do); "other" takes what neither places. Also the idle share of the
+    traced span and the device ms of the largest kernels of the
+    "attention" stage by name."""
     stage_us = dict.fromkeys(STAGE_ORDER, 0.0)
     attn_kernels = {}
     spans, first, last, total = [], math.inf, -math.inf, 0.0
@@ -2388,8 +2368,9 @@ def stage_summary(prof):
 
     def labelled(evt):
         while evt is not None:
-            if evt.name.startswith("stage:"):
-                return evt.name[len("stage:"):]
+            stage = STAGES.get(evt.name[len(tracing.PREFIX):]) if evt.name.startswith(tracing.PREFIX) else None
+            if stage is not None:
+                return stage
             evt = evt.cpu_parent
         return None
 
@@ -2409,7 +2390,7 @@ def stage_summary(prof):
                 fwd_stage.setdefault((evt.sequence_nr, evt.thread), stage)
     for evt in events:
         first = min(first, evt.time_range.start)
-        if evt.name.startswith("stage:"):
+        if evt.name.startswith(tracing.PREFIX):
             continue  # a range itself, also mirrored on the device's timeline
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             dur = evt.time_range.end - evt.time_range.start
@@ -2517,7 +2498,7 @@ def phase_generate(dev, steps: int, trace_and_f32: bool = True) -> int:
     with torch.no_grad():
         one_step(params, mcfg, scfg, cond, uncond, x, index, noise)
         torch.cuda.synchronize()
-        with labelled_stages(), torch.profiler.profile(activities=PROFILER_ACTIVITIES) as prof:
+        with torch.profiler.profile(activities=PROFILER_ACTIVITIES) as prof:
             one_step(params, mcfg, scfg, cond, uncond, x, index, noise)
             torch.cuda.synchronize()
     dev_ms, idle, top = stage_summary(prof)
@@ -2875,7 +2856,7 @@ def phase_guided(dev, steps: int, trace_and_f32: bool = True):
 
     step()
     torch.cuda.synchronize()
-    with labelled_stages(), torch.profiler.profile(activities=PROFILER_ACTIVITIES) as prof:
+    with torch.profiler.profile(activities=PROFILER_ACTIVITIES) as prof:
         step()
         torch.cuda.synchronize()
     dev_ms, idle, _ = stage_summary(prof)

@@ -32,6 +32,7 @@ from guidedvd3dgs_tpu_torch.diffusion.nnops import (
 )
 from guidedvd3dgs_tpu_torch.parallel.mesh import device_scope
 from guidedvd3dgs_tpu_torch.parallel.model_parallel import Sharded, shard_call, sum_partials
+from guidedvd3dgs_tpu_torch.utils.tracing import span
 
 
 def relative_position_bias(p: Params, name: str, length_q: int, length_k: int,
@@ -50,15 +51,16 @@ def _attend(qh, kh, vh, scale: float, mask, rel, plain: bool) -> torch.Tensor:
     the output need the weights explicitly (reference attention.py:
     100-127)."""
     if rel is None:
-        return attention(qh, kh, vh, scale, mask=mask, plain=plain)
+        return attention(qh, kh, vh, scale, mask=mask, plain=plain)  # its own "nn.attention"
     k2, v2 = rel
-    sim = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
-    sim = sim + torch.einsum("bhtd,tsd->bhts", qh.float(), k2.float()) * scale
-    if mask is not None:
-        sim = torch.where(mask, sim, torch.finfo(sim.dtype).min)
-    attn = torch.softmax(sim, dim=-1)
-    out = torch.matmul(attn.to(vh.dtype), vh)
-    return out + torch.einsum("bhts,tsd->bhtd", attn.to(v2.dtype), v2).to(out.dtype)
+    with span("nn.attention"):
+        sim = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+        sim = sim + torch.einsum("bhtd,tsd->bhts", qh.float(), k2.float()) * scale
+        if mask is not None:
+            sim = torch.where(mask, sim, torch.finfo(sim.dtype).min)
+        attn = torch.softmax(sim, dim=-1)
+        out = torch.matmul(attn.to(vh.dtype), vh)
+        return out + torch.einsum("bhts,tsd->bhtd", attn.to(v2.dtype), v2).to(out.dtype)
 
 
 def _head_parallel(p: Params, prefix: str, names, heads: int) -> Optional[Sharded]:

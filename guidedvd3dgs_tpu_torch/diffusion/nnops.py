@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from guidedvd3dgs_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain_autograd
 from guidedvd3dgs_tpu_torch.parallel import model_parallel
 from guidedvd3dgs_tpu_torch.parallel.model_parallel import Sharded, column_apply, row_apply
+from guidedvd3dgs_tpu_torch.utils.tracing import span
 
 Params = dict  # flat {torch_name: tensor}
 
@@ -38,18 +39,20 @@ def _bias(p: Params, name: str, dtype: torch.dtype):
     return None if b is None else b.to(dtype)
 
 
-def _layer(p: Params, name: str, x: torch.Tensor, fn) -> torch.Tensor:
-    """fn(x, weight, bias) with the weight in x's dtype; a `Sharded` weight
-    runs column- or row-parallel (parallel/model_parallel.py)."""
-    w = p[f"{name}.weight"]
-    if isinstance(w, Sharded):
-        apply = column_apply if w.dim == 0 else row_apply
-        return apply(w, x, fn, p.get(f"{name}.bias"))
-    return fn(x, w.to(x.dtype), _bias(p, name, x.dtype))
+def _layer(p: Params, name: str, x: torch.Tensor, fn, label: str) -> torch.Tensor:
+    """fn(x, weight, bias) with the weight in x's dtype, inside the range
+    "span:<label>"; a `Sharded` weight runs column- or row-parallel
+    (parallel/model_parallel.py)."""
+    with span(label):
+        w = p[f"{name}.weight"]
+        if isinstance(w, Sharded):
+            apply = column_apply if w.dim == 0 else row_apply
+            return apply(w, x, fn, p.get(f"{name}.bias"))
+        return fn(x, w.to(x.dtype), _bias(p, name, x.dtype))
 
 
 def linear(p: Params, name: str, x: torch.Tensor) -> torch.Tensor:
-    return _layer(p, name, x, F.linear)
+    return _layer(p, name, x, F.linear, "nn.linear")
 
 
 def conv2d(p: Params, name: str, x: torch.Tensor, stride: int = 1, padding=1) -> torch.Tensor:
@@ -63,18 +66,18 @@ def conv2d(p: Params, name: str, x: torch.Tensor, stride: int = 1, padding=1) ->
             xc, padding = F.pad(xc, (l, r, t, bo)), 0
         return F.conv2d(xc, w, b, stride=stride, padding=padding).permute(0, 2, 3, 1)
 
-    return _layer(p, name, x, fn)
+    return _layer(p, name, x, fn, "nn.conv")
 
 
 def conv3d(p: Params, name: str, x: torch.Tensor, padding=(1, 0, 0)) -> torch.Tensor:
     """x: (N, T, H, W, C); weight: torch OIDHW (D = time)."""
     return _layer(p, name, x, lambda x, w, b: F.conv3d(x.permute(0, 4, 1, 2, 3), w, b, padding=tuple(padding))
-                  .permute(0, 2, 3, 4, 1))
+                  .permute(0, 2, 3, 4, 1), "nn.conv")
 
 
 def conv1d_k1(p: Params, name: str, x: torch.Tensor) -> torch.Tensor:
     """Pointwise Conv1d (kernel_size=1) as a matmul. x: (..., C_in)."""
-    return _layer(p, name, x, lambda x, w, b: F.linear(x, w[:, :, 0], b))
+    return _layer(p, name, x, lambda x, w, b: F.linear(x, w[:, :, 0], b), "nn.linear")
 
 
 def embedding(p: Params, name: str, ids: torch.Tensor) -> torch.Tensor:
@@ -91,22 +94,23 @@ def group_norm(p: Params, name: str, x: torch.Tensor, num_groups: int = 32,
     statistics from one var_mean pass over the f32 copy and the fold as
     one addcmul (the activation is read and written as few times as the
     f32 form allows)."""
-    c = x.shape[-1]
-    g = num_groups
-    xg = x.reshape(x.shape[:-1] + (g, c // g))
-    red = tuple(range(1, x.dim() - 1)) + (x.dim(),)
-    w = p[f"{name}.weight"].float()
-    b = p[f"{name}.bias"].float()
-    if x.dtype == torch.float32:
-        mean = xg.mean(dim=red, keepdim=True)
-        var = xg.var(dim=red, keepdim=True, correction=0)
-        xg = (xg - mean) * torch.rsqrt(var + eps)
-        return xg.reshape(x.shape) * w + b
-    xf = xg.float()
-    var, mean = torch.var_mean(xf, dim=red, keepdim=True, correction=0)
-    scale = torch.rsqrt(var + eps) * w.reshape(g, c // g)
-    shift = b.reshape(g, c // g) - mean * scale
-    return torch.addcmul(shift, xf, scale).reshape(x.shape).to(x.dtype)
+    with span("nn.group_norm"):
+        c = x.shape[-1]
+        g = num_groups
+        xg = x.reshape(x.shape[:-1] + (g, c // g))
+        red = tuple(range(1, x.dim() - 1)) + (x.dim(),)
+        w = p[f"{name}.weight"].float()
+        b = p[f"{name}.bias"].float()
+        if x.dtype == torch.float32:
+            mean = xg.mean(dim=red, keepdim=True)
+            var = xg.var(dim=red, keepdim=True, correction=0)
+            xg = (xg - mean) * torch.rsqrt(var + eps)
+            return xg.reshape(x.shape) * w + b
+        xf = xg.float()
+        var, mean = torch.var_mean(xf, dim=red, keepdim=True, correction=0)
+        scale = torch.rsqrt(var + eps) * w.reshape(g, c // g)
+        shift = b.reshape(g, c // g) - mean * scale
+        return torch.addcmul(shift, xf, scale).reshape(x.shape).to(x.dtype)
 
 
 def layer_norm(p: Params, name: str, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -157,16 +161,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     plain backward. Everything else (cross-attention,
     masked or biased attention, shorter sequences) takes the einsum form of
     reference nnops.py:317-323."""
-    if bias is None and mask is None and q.shape[2] == k.shape[2] and q.shape[2] >= FLASH_MIN_SEQ:
-        args = (q.contiguous(), k.contiguous(), v.contiguous(), scale)
-        return flash_attention_plain_autograd(*args) if plain else flash_attention(*args)
-    sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if bias is not None:
-        sim = sim + bias
-    if mask is not None:
-        sim = torch.where(mask, sim, torch.finfo(sim.dtype).min)
-    attn = torch.softmax(sim, dim=-1)
-    return torch.matmul(attn.to(v.dtype), v)
+    with span("nn.attention"):
+        if bias is None and mask is None and q.shape[2] == k.shape[2] and q.shape[2] >= FLASH_MIN_SEQ:
+            args = (q.contiguous(), k.contiguous(), v.contiguous(), scale)
+            return flash_attention_plain_autograd(*args) if plain else flash_attention(*args)
+        sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+        if bias is not None:
+            sim = sim + bias
+        if mask is not None:
+            sim = torch.where(mask, sim, torch.finfo(sim.dtype).min)
+        attn = torch.softmax(sim, dim=-1)
+        return torch.matmul(attn.to(v.dtype), v)
 
 
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:

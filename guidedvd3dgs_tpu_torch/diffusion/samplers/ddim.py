@@ -20,6 +20,7 @@ from guidedvd3dgs_tpu_torch.diffusion.schedules import (
     predict_start_from_z_and_v,
     rescale_noise_cfg,
 )
+from guidedvd3dgs_tpu_torch.utils.tracing import span
 
 # apply_fn(x, t_batch) -> v prediction; the conditioning is closed over
 ApplyFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -35,25 +36,28 @@ class DDIMStepOut(NamedTuple):
 def cfg_model_output(apply_cond: ApplyFn, apply_uncond: ApplyFn, x: torch.Tensor, t: torch.Tensor,
                      cfg_scale: float, guidance_rescale: float):
     """reference ddim_guidance.py:266-272: (CFG output, v_cond - v_uncond)."""
-    v_cond = apply_cond(x, t)
-    v_uncond = apply_uncond(x, t)
-    out = v_uncond + cfg_scale * (v_cond - v_uncond)
-    correction = v_cond - v_uncond
-    return rescale_noise_cfg(out, v_cond, guidance_rescale), correction
+    with span("ddim.pair_forward"):
+        v_cond = apply_cond(x, t)
+        v_uncond = apply_uncond(x, t)
+    with span("ddim.update"):
+        out = v_uncond + cfg_scale * (v_cond - v_uncond)
+        correction = v_cond - v_uncond
+        return rescale_noise_cfg(out, v_cond, guidance_rescale), correction
 
 
 def ddim_step(sched: DiffusionSchedule, pr: DDIMParams, index: int, x: torch.Tensor,
               model_output: torch.Tensor, noise: torch.Tensor, temperature: float = 1.0) -> DDIMStepOut:
     """x_t -> x_{t-1} at DDIM index `index` (reference ddim_guidance.py:274-291)."""
-    t = pr.timesteps[index].expand(x.shape[0])
-    a_prev = pr.alphas_prev[index]
-    sigma_t = pr.sigmas[index]
-    e_t = predict_eps_from_z_and_v(sched, x, t, model_output)
-    pred_x0 = predict_start_from_z_and_v(sched, x, t, model_output)
-    pred_x0 = pred_x0 * (pr.scale_arr_prev[index] / pr.scale_arr[index])
-    dir_xt = torch.sqrt(torch.clamp(1.0 - a_prev - sigma_t ** 2, min=0.0)) * e_t
-    x_prev = torch.sqrt(a_prev) * pred_x0 + dir_xt + sigma_t * noise * temperature
-    return DDIMStepOut(x_prev, pred_x0, e_t, model_output)
+    with span("ddim.update"):
+        t = pr.timesteps[index].expand(x.shape[0])
+        a_prev = pr.alphas_prev[index]
+        sigma_t = pr.sigmas[index]
+        e_t = predict_eps_from_z_and_v(sched, x, t, model_output)
+        pred_x0 = predict_start_from_z_and_v(sched, x, t, model_output)
+        pred_x0 = pred_x0 * (pr.scale_arr_prev[index] / pr.scale_arr[index])
+        dir_xt = torch.sqrt(torch.clamp(1.0 - a_prev - sigma_t ** 2, min=0.0)) * e_t
+        x_prev = torch.sqrt(a_prev) * pred_x0 + dir_xt + sigma_t * noise * temperature
+        return DDIMStepOut(x_prev, pred_x0, e_t, model_output)
 
 
 def ddim_sample(sched: DiffusionSchedule, pr: DDIMParams, apply_cond: ApplyFn,

@@ -55,6 +55,7 @@ from guidedvd3dgs_tpu_torch.diffusion.schedules import (
     rescale_noise_cfg,
 )
 from guidedvd3dgs_tpu_torch.guidance.loss_guidance import GuidanceFn
+from guidedvd3dgs_tpu_torch.utils.tracing import span
 
 
 @dataclass(frozen=True)
@@ -79,18 +80,19 @@ def per_frame_guidance_grads(params: DiffusionParams, mcfg: LatentDiffusionConfi
     numel unless mean_loss; an empty mask gives a zero gradient."""
     n = zs.shape[0]
     ck = max(1, min(int(scfg.decode_chunk), n))
-    grads = torch.empty_like(zs)
-    for c0 in range(0, n, ck):
-        with torch.enable_grad():
-            z = zs[c0:c0 + ck].detach().requires_grad_()
-            frames = decode_video_frames(params, mcfg, z, plain=plain)
-            idx = torch.arange(c0, c0 + z.shape[0], device=zs.device)
-            loss, numel = guidance_fn(frames, index, idx)
-            (g,) = torch.autograd.grad(loss.sum(), z)
-        if not scfg.mean_loss:
-            nm = numel.detach().reshape(-1, 1, 1, 1)
-            g = torch.where(nm > 0, g / nm, torch.zeros_like(g))
-        grads[c0:c0 + ck] = g
+    with span("ddim.decode_grads"):
+        grads = torch.empty_like(zs)
+        for c0 in range(0, n, ck):
+            with torch.enable_grad():
+                z = zs[c0:c0 + ck].detach().requires_grad_()
+                frames = decode_video_frames(params, mcfg, z, plain=plain)
+                idx = torch.arange(c0, c0 + z.shape[0], device=zs.device)
+                loss, numel = guidance_fn(frames, index, idx)
+                (g,) = torch.autograd.grad(loss.sum(), z)
+            if not scfg.mean_loss:
+                nm = numel.detach().reshape(-1, 1, 1, 1)
+                g = torch.where(nm > 0, g / nm, torch.zeros_like(g))
+            grads[c0:c0 + ck] = g
     return grads
 
 
@@ -111,8 +113,8 @@ def pair_forward(params: DiffusionParams, mcfg: LatentDiffusionConfig, pr: DDIMP
     (v_cond, v_uncond)."""
     b = x.shape[0]
     t = pr.timesteps[index].expand(b)
-    cu = Conditioning(*(torch.cat([c, u]) for c, u in zip(cond, uncond)))
-    with torch.no_grad():
+    with span("ddim.pair_forward"), torch.no_grad():
+        cu = Conditioning(*(torch.cat([c, u]) for c, u in zip(cond, uncond)))
         vs = apply_model(params, mcfg, torch.cat([x, x]), torch.cat([t, t]), cu, plain=plain)
     return vs[:b], vs[b:]
 
@@ -126,7 +128,7 @@ def pair_vjp(params: DiffusionParams, mcfg: LatentDiffusionConfig, sched: Diffus
     branch's v; each branch then runs again under autograd at batch b and
     its VJP is added, so that one branch's graph is held at a time."""
     t = pr.timesteps[index].expand(x.shape[0])
-    with torch.enable_grad():
+    with span("ddim.pair_vjp"), torch.enable_grad():
         xl, vc, vu = (a.detach().requires_grad_() for a in (x, v_cond, v_uncond))
         pred_x0 = cfg_pred_x0(sched, pr, scfg, xl, index, vc, vu)[0]
         gx, g_cond, g_uncond = torch.autograd.grad(pred_x0, (xl, vc, vu), grads.to(pred_x0.dtype))
@@ -170,14 +172,16 @@ def guided_step(params: DiffusionParams, mcfg: LatentDiffusionConfig, sched: Dif
         raise ValueError(f"the guided sampler takes one video, got a latent batch of {b}")
     check_pair_batch(cond, uncond, b)
     v_cond, v_uncond = pair_forward(params, mcfg, pr, cond, uncond, x, index, plain)
-    pred_x0, mo = cfg_pred_x0(sched, pr, scfg, x, index, v_cond, v_uncond)
-    out = ddim_step(sched, pr, index, x, mo, noise, scfg.temperature)
+    with span("ddim.update"):
+        pred_x0, mo = cfg_pred_x0(sched, pr, scfg, x, index, v_cond, v_uncond)
+    out = ddim_step(sched, pr, index, x, mo, noise, scfg.temperature)  # its own "ddim.update"
     # the decode gradients start from pred_x0 without its graph: the
     # reference's detach, JAX's stop_gradient (:221)
     grads = per_frame_guidance_grads(params, mcfg, guidance_fn, pred_x0[0], index, scfg, plain)
     gx = pair_vjp(params, mcfg, sched, pr, cond, uncond, scfg, x, index, v_cond, v_uncond, grads[None],
                   plain)
-    x_prev, rho = guidance_update(out.x_prev, gx, v_cond - v_uncond, scfg, scale_guidance_weight)
+    with span("ddim.update"):
+        x_prev, rho = guidance_update(out.x_prev, gx, v_cond - v_uncond, scfg, scale_guidance_weight)
     return x_prev, out.pred_x0, rho
 
 

@@ -31,6 +31,7 @@ from torch import nn
 from guidedvd3dgs_tpu_torch.ops.knn import dist_knn3
 from guidedvd3dgs_tpu_torch.scene.ply import load_gaussian_ply
 from guidedvd3dgs_tpu_torch.utils.general import build_rotation, inverse_sigmoid
+from guidedvd3dgs_tpu_torch.utils import tracing
 from guidedvd3dgs_tpu_torch.utils.sh import RGB2SH
 
 PARAM_NAMES = ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity")
@@ -245,12 +246,15 @@ def update_max_radii(state: GaussianState, radii: torch.Tensor,
 
 def _append_rows(state: GaussianState, new: Dict[str, torch.Tensor], sel: torch.Tensor) -> None:
     """Append the `sel` rows of `new` (row-aligned with `sel`) at the end,
-    in index order: zero Adam moments and statistics, confidence 1."""
-    k = int(sel.sum())
+    in index order: zero Adam moments and statistics, confidence 1. The
+    selection is read back once."""
+    with tracing.readback():
+        idx = torch.nonzero(sel).squeeze(1)
+    k = idx.numel()
     if k == 0:
         return
     cur = state.params.tensors()
-    rows = {n: new[n][sel] for n in PARAM_NAMES}
+    rows = {n: new[n].index_select(0, idx) for n in PARAM_NAMES}
     state.params.set_tensors({n: torch.cat([cur[n], rows[n]]) for n in PARAM_NAMES})
     for mom in (state.adam_m, state.adam_v):
         for n in PARAM_NAMES:
@@ -263,9 +267,11 @@ def _append_rows(state: GaussianState, new: Dict[str, torch.Tensor], sel: torch.
 
 
 def _remove_rows(state: GaussianState, mask: torch.Tensor) -> None:
-    """Drop the `mask` rows, keeping the order of the others."""
-    keep = ~mask
-    if bool(keep.all()):
+    """Drop the `mask` rows, keeping the order of the others. The rows
+    kept are read back once."""
+    with tracing.readback():
+        keep = torch.nonzero(~mask).squeeze(1)
+    if keep.numel() == mask.numel():
         return
     state.params.set_tensors({n: t[keep] for n, t in state.params.tensors().items()})
     for mom in (state.adam_m, state.adam_v):

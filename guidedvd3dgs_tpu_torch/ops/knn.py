@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from guidedvd3dgs_tpu_torch.utils import tracing
+
 B = 128  # Morton block size
 PASSES = 3  # shifted-grid repeats
 # blocks per distance tile: bounds the (GB, B, 3B) f32 temporaries
@@ -55,7 +57,8 @@ def _top3_blocks(xs, cand, cpos, xp, cvalid):
     xc = torch.einsum("gid,gjd->gij", xs, cand)
     d2 = (xs * xs).sum(-1)[:, :, None] + (cand * cand).sum(-1)[:, None, :] - 2.0 * xc
     live = cvalid[:, None, :] & (cpos[:, None, :] != xp[:, :, None])
-    inf = torch.tensor(float("inf"), device=xs.device)
+    with tracing.readback():  # a blocking copy to the card
+        inf = torch.tensor(float("inf"), device=xs.device)
     d2 = torch.where(live, torch.clamp(d2, min=0.0), inf)
     cpos_b = cpos[:, None, :].expand_as(d2)
     outs_d, outs_p = [], []

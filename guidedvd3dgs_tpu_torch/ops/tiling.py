@@ -42,6 +42,7 @@ import torch
 
 from guidedvd3dgs_tpu_torch.ops import expand
 from guidedvd3dgs_tpu_torch.ops.preprocess_fused import F_MX, F_MY, ROW_EXT_X, ROW_EXT_Y
+from guidedvd3dgs_tpu_torch.utils import tracing
 
 TILE = 16
 _INT_SAFE = float(2**30)  # clamp before float -> int32 casts
@@ -106,7 +107,11 @@ def expand_inputs(tab: torch.Tensor, radii: torch.Tensor, width: int, height: in
     )
     cum = torch.cumsum(count, 0, dtype=torch.int64)
     # the one read-back per chain: sizes the instance buffers exactly
-    total = int(cum[-1]) if cum.numel() else 0
+    total = 0
+    if cum.numel():
+        with tracing.readback():
+            total = int(cum[-1])
+    tracing.count("raster.instances", total)
     if total >= 2**31:
         raise ValueError(f"{total} instances exceed the int32 instance index")
     offsets = (cum - count).to(torch.int32)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from guidedvd3dgs_tpu_torch.ops.projection import RasterCamera
+from guidedvd3dgs_tpu_torch.utils import tracing
 from guidedvd3dgs_tpu_torch.utils.graphics import getProjectionMatrix, getWorld2View2
 
 
@@ -32,15 +33,16 @@ def _raster_camera(cam, height: int, width: int, device) -> RasterCamera:
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
 
-    return RasterCamera(
-        viewmatrix=dev(cam.world_view_transform),
-        projmatrix=dev(cam.full_proj_transform),
-        campos=dev(cam.camera_center),
-        tanfovx=math.tan(cam.FoVx * 0.5),
-        tanfovy=math.tan(cam.FoVy * 0.5),
-        height=height,
-        width=width,
-    )
+    with tracing.readback(3):  # three blocking copies to the card
+        return RasterCamera(
+            viewmatrix=dev(cam.world_view_transform),
+            projmatrix=dev(cam.full_proj_transform),
+            campos=dev(cam.camera_center),
+            tanfovx=math.tan(cam.FoVx * 0.5),
+            tanfovy=math.tan(cam.FoVy * 0.5),
+            height=height,
+            width=width,
+        )
 
 
 @dataclasses.dataclass

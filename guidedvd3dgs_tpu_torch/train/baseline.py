@@ -46,6 +46,7 @@ from guidedvd3dgs_tpu_torch.train.logging import maybe_profiler_trace
 from guidedvd3dgs_tpu_torch.train.checkpoint import checkpoint_arrays, save_checkpoint, write_checkpoint_arrays
 from guidedvd3dgs_tpu_torch.utils.general import get_expon_lr_func
 from guidedvd3dgs_tpu_torch.utils.losses import l1_loss, psnr, ssim
+from guidedvd3dgs_tpu_torch.utils.tracing import span
 
 # --profile_dir traces the steps from PROFILE_WINDOW[0] to PROFILE_WINDOW[1]
 # after the start (JAX baseline.py:574-592).
@@ -79,20 +80,25 @@ def train_step(
 ) -> dict:
     """One baseline optimization step, updating `state` in place. Returns
     the metrics (loss, l1, psnr as device tensors; num_instances)."""
-    offset = torch.zeros((state.num_gaussians, 2), device=state.device, requires_grad=True)
-    r = render_state(state, cam, bg, sh_degree, means2d_offset=offset,
-                     use_confidence=use_confidence, backend=backend, active_degree=active_degree)
-    ll1 = l1_loss(r.color, gt_image)
-    loss = (1.0 - lambda_dssim) * ll1 + lambda_dssim * (1.0 - ssim(r.color, gt_image))
+    with span("train.render"):
+        offset = torch.zeros((state.num_gaussians, 2), device=state.device, requires_grad=True)
+        r = render_state(state, cam, bg, sh_degree, means2d_offset=offset,
+                         use_confidence=use_confidence, backend=backend, active_degree=active_degree)
+    with span("train.loss"):
+        ll1 = l1_loss(r.color, gt_image)
+        loss = (1.0 - lambda_dssim) * ll1 + lambda_dssim * (1.0 - ssim(r.color, gt_image))
     # the gradient is taken every step, as the reference's value_and_grad
     state.params.zero_grad(set_to_none=True)
-    loss.backward()
+    with span("train.backward"):
+        loss.backward()
     if update_stats:
-        G.update_max_radii(state, r.radii, r.visibility_filter)
-        G.add_densification_stats(state, offset.grad, r.visibility_filter)
+        with span("train.stats"):
+            G.update_max_radii(state, r.radii, r.visibility_filter)
+            G.add_densification_stats(state, offset.grad, r.visibility_filter)
     if apply_adam:
-        grads = {n: getattr(state.params, n).grad for n in G.PARAM_NAMES}
-        G.adam_step(state, grads, lrs)
+        with span("train.adam"):
+            grads = {n: getattr(state.params, n).grad for n in G.PARAM_NAMES}
+            G.adam_step(state, grads, lrs)
     with torch.no_grad():
         return {
             "loss": loss.detach(),
@@ -192,6 +198,10 @@ class BaselineTrainer:
         self.logger = logger
 
     def step(self, iteration: int) -> StepStats:
+        with span("train.step"):
+            return self._step(iteration)
+
+    def _step(self, iteration: int) -> StepStats:
         opt = self.opt
         if iteration % 500 == 0 and self.active_sh_degree < self.max_sh_degree:
             self.active_sh_degree += 1
@@ -226,11 +236,12 @@ class BaselineTrainer:
                          num_active=self.state.num_gaussians, num_instances=metrics["num_instances"])
 
     def densify(self, iteration: int) -> None:
-        cfg = densify_cfg(self.opt, self.scene.cameras_extent, iteration)
-        noise = None if self.split_noise is None else self.split_noise(iteration)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(iteration)
-        G.densify_and_prune(self.state, cfg, noise=noise, generator=gen)
+        with span("train.densify"):
+            cfg = densify_cfg(self.opt, self.scene.cameras_extent, iteration)
+            noise = None if self.split_noise is None else self.split_noise(iteration)
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(iteration)
+            G.densify_and_prune(self.state, cfg, noise=noise, generator=gen)
 
     @torch.no_grad()
     def check_finite(self, iteration: int, snapshot, checkpoint_dir) -> None:

@@ -96,6 +96,7 @@ from guidedvd3dgs_tpu_torch.scene.synthetic import GT_NPZ_KEYS
 from guidedvd3dgs_tpu_torch.train.baseline import BaselineTrainer, StepStats, lrs_for
 from guidedvd3dgs_tpu_torch.utils.general import resize_bilinear
 from guidedvd3dgs_tpu_torch.utils.losses import l1_loss, psnr, ssim
+from guidedvd3dgs_tpu_torch.utils.tracing import span
 from guidedvd3dgs_tpu_torch.utils.video import AsyncArtifactWriter, save_video, video_u8
 
 
@@ -177,7 +178,7 @@ class ViewCrafterEngine:
         generated (T, 3, height, width) video in [0, 1] on the engine's
         device. `noise` injects the request's noise; the rest is drawn from
         `generator`."""
-        with device_scope(self.device):
+        with span("engine.generate"), device_scope(self.device):
             return self._generate(pc_renders, guidance_images, guidance_masks, guidance_depths, generator,
                                   no_guidance, scale_guidance_weight, noise)
 
@@ -479,37 +480,44 @@ def train_step_guided(
     pseudo_vgg, psnr as device tensors; num_instances, the chain's)."""
     dev = state.device
     cams = [cam] if pseudo_cam is None else [cam, pseudo_cam]
-    offsets = torch.zeros((len(cams), state.num_gaussians, 2), device=dev, requires_grad=True)
-    rm = render_gaussians_multi(state.params, cams, bg, sh_degree, means2d_offset=offsets,
-                                confidence=state.confidence, use_confidence=use_confidence, backend=backend)
-    # the views' fields: one UnbindBackward node stacks their gradients
-    r, *rest = (RenderResult(*fields, rm.num_instances) for fields in zip(*(x.unbind(0) for x in rm[:5])))
+    with span("train.render"):
+        offsets = torch.zeros((len(cams), state.num_gaussians, 2), device=dev, requires_grad=True)
+        rm = render_gaussians_multi(state.params, cams, bg, sh_degree, means2d_offset=offsets,
+                                    confidence=state.confidence, use_confidence=use_confidence, backend=backend)
+        # the views' fields: one UnbindBackward node stacks their gradients
+        r, *rest = (RenderResult(*fields, rm.num_instances) for fields in zip(*(x.unbind(0) for x in rm[:5])))
     rp = rest[0] if rest else None
-    pl1, pvgg = torch.zeros((), device=dev), torch.zeros((), device=dev)
-    ll1 = l1_loss(r.color, gt_image)
-    loss = (1.0 - lambda_dssim) * ll1 + lambda_dssim * (1.0 - ssim(r.color, gt_image))
-    if rp is not None:
-        pl1 = l1_loss(rp.color, pseudo_gt)
-        if pseudo_ssim:
-            ploss = (1.0 - lambda_dssim) * pl1 + lambda_dssim * (1.0 - ssim(rp.color, pseudo_gt))
-        else:
-            ploss = pl1
-        if vgg_loss_fn is not None:
-            pvgg = vgg_loss_fn(torch.clamp(rp.color, 0, 1)[None], torch.clamp(pseudo_gt, 0, 1)[None])
-            ploss = ploss + pseudo_cam_lpips_weight * pvgg
-        loss = loss + pseudo_weight * ploss
-    state.params.zero_grad(set_to_none=True)
-    loss.backward()
-    if update_stats:
-        G.update_max_radii(state, r.radii, r.visibility_filter)
+    with span("train.loss"):
+        pl1, pvgg = torch.zeros((), device=dev), torch.zeros((), device=dev)
+        ll1 = l1_loss(r.color, gt_image)
+        loss = (1.0 - lambda_dssim) * ll1 + lambda_dssim * (1.0 - ssim(r.color, gt_image))
         if rp is not None:
-            G.update_max_radii(state, rp.radii, rp.visibility_filter)
-            G.add_densification_stats_with_novel_pose(state, offsets.grad[0], r.visibility_filter,
-                                                      offsets.grad[1], rp.visibility_filter)
-        else:
-            G.add_densification_stats(state, offsets.grad[0], r.visibility_filter)
+            pl1 = l1_loss(rp.color, pseudo_gt)
+            if pseudo_ssim:
+                ploss = (1.0 - lambda_dssim) * pl1 + lambda_dssim * (1.0 - ssim(rp.color, pseudo_gt))
+            else:
+                ploss = pl1
+            if vgg_loss_fn is not None:
+                x, y = torch.clamp(rp.color, 0, 1)[None], torch.clamp(pseudo_gt, 0, 1)[None]
+                with span("train.vgg"):
+                    pvgg = vgg_loss_fn(x, y)
+                ploss = ploss + pseudo_cam_lpips_weight * pvgg
+            loss = loss + pseudo_weight * ploss
+    state.params.zero_grad(set_to_none=True)
+    with span("train.backward"):
+        loss.backward()
+    if update_stats:
+        with span("train.stats"):
+            G.update_max_radii(state, r.radii, r.visibility_filter)
+            if rp is not None:
+                G.update_max_radii(state, rp.radii, rp.visibility_filter)
+                G.add_densification_stats_with_novel_pose(state, offsets.grad[0], r.visibility_filter,
+                                                          offsets.grad[1], rp.visibility_filter)
+            else:
+                G.add_densification_stats(state, offsets.grad[0], r.visibility_filter)
     if apply_adam:
-        G.adam_step(state, {n: getattr(state.params, n).grad for n in G.PARAM_NAMES}, lrs)
+        with span("train.adam"):
+            G.adam_step(state, {n: getattr(state.params, n).grad for n in G.PARAM_NAMES}, lrs)
     with torch.no_grad():
         return {"loss": loss.detach(), "l1": ll1.detach(), "pseudo_l1": pl1.detach(),
                 "pseudo_vgg": pvgg.detach(), "psnr": psnr(r.color, gt_image)[0, 0],
@@ -843,48 +851,44 @@ class GuidedTrainer(BaselineTrainer):
         (reference train_guidedvd.py:431-559). Each phase's seconds (its
         device work included) go into the record."""
         opt, iteration = self.opt, inp.iteration
+        phase = {}
         _sync(self.device)
-        t = time.perf_counter()
-        pc_renders = self.pc_render_along(inp.traj, inp.view, inp.train_image)
-        _sync(self.device)
-        t_pc = time.perf_counter() - t
+        with span("event.pc_render", into=phase, key="pc_render"):
+            pc_renders = self.pc_render_along(inp.traj, inp.view, inp.train_image)
+            _sync(self.device)
 
-        t = time.perf_counter()
-        rgb, alpha, depth = self._guidance_renders(inp.w2cs, inp.live)
-        gs_rgb = torch.clamp(rgb, 0, 1)  # (T, 3, H, W)
-        gs_alpha = (torch.clamp(alpha, 0, 1) < 0.9).to(torch.float32)[:, None]  # unobserved
-        gs_depth = depth[:, None]
-        _sync(self.device)
-        t_frozen = time.perf_counter() - t
+        with span("event.frozen", into=phase, key="frozen"):
+            rgb, alpha, depth = self._guidance_renders(inp.w2cs, inp.live)
+            gs_rgb = torch.clamp(rgb, 0, 1)  # (T, 3, H, W)
+            gs_alpha = (torch.clamp(alpha, 0, 1) < 0.9).to(torch.float32)[:, None]  # unobserved
+            gs_depth = depth[:, None]
+            _sync(self.device)
 
-        t = time.perf_counter()
-        if inp.event_dir:
-            self._save_event_artifacts(inp.event_dir, pc_renders, gs_rgb, gs_alpha, gs_depth)
-        t_art = time.perf_counter() - t
+        with span("event.artifacts", into=phase, key="artifacts"):
+            if inp.event_dir:
+                self._save_event_artifacts(inp.event_dir, pc_renders, gs_rgb, gs_alpha, gs_depth)
 
-        t = time.perf_counter()
-        if inp.stored is not None:
-            # a stored video instead of a request (reference --guidance_videos_from_file)
-            video = torch.from_numpy(np.load(inp.stored)["video"]).to(self.device)
-            print(f"  [event it{iteration}] video from file {inp.stored}", flush=True)
-        else:
-            video = self.engine.generate(pc_renders, gs_rgb, 1.0 - gs_alpha, gs_depth,
-                                         generator=self.generator,
-                                         no_guidance=getattr(opt, "no_guidance", False),
-                                         scale_guidance_weight=inp.sw)  # (T, 3, h, w) in [0, 1]
-            # the engine may run on another card and in bf16: the pseudo
-            # ground truth is float32 on the trainer's
-            video = video.to(self.device, torch.float32)
-            if video.shape[2:] != (self.H, self.W):
-                # back to the train resolution (reference train_guidedvd.py:557-559)
-                video = resize_renders(video.permute(0, 2, 3, 1), self.H, self.W).permute(0, 3, 1, 2)
-        _sync(self.device)
-        t_gen = time.perf_counter() - t
-        print(f"  [event it{iteration}] pc_render {t_pc:.3f}s frozen x{inp.traj.shape[0]} {t_frozen:.3f}s "
-              f"artifacts {t_art:.3f}s generate {t_gen:.3f}s", flush=True)
-        return EventRecord(inp.view, inp.traj, video, gs_alpha, gs_depth, inp.event_dir,
-                           inp.video_key, {"pc_render": t_pc, "frozen": t_frozen, "artifacts": t_art,
-                                           "generate": t_gen})
+        with span("event.generate", into=phase, key="generate"):
+            if inp.stored is not None:
+                # a stored video instead of a request (reference --guidance_videos_from_file)
+                video = torch.from_numpy(np.load(inp.stored)["video"]).to(self.device)
+                print(f"  [event it{iteration}] video from file {inp.stored}", flush=True)
+            else:
+                video = self.engine.generate(pc_renders, gs_rgb, 1.0 - gs_alpha, gs_depth,
+                                             generator=self.generator,
+                                             no_guidance=getattr(opt, "no_guidance", False),
+                                             scale_guidance_weight=inp.sw)  # (T, 3, h, w) in [0, 1]
+                # the engine may run on another card and in bf16: the pseudo
+                # ground truth is float32 on the trainer's
+                video = video.to(self.device, torch.float32)
+                if video.shape[2:] != (self.H, self.W):
+                    # back to the train resolution (reference train_guidedvd.py:557-559)
+                    video = resize_renders(video.permute(0, 2, 3, 1), self.H, self.W).permute(0, 3, 1, 2)
+            _sync(self.device)
+        print(f"  [event it{iteration}] pc_render {phase['pc_render']:.3f}s frozen x{inp.traj.shape[0]} "
+              f"{phase['frozen']:.3f}s artifacts {phase['artifacts']:.3f}s generate {phase['generate']:.3f}s",
+              flush=True)
+        return EventRecord(inp.view, inp.traj, video, gs_alpha, gs_depth, inp.event_dir, inp.video_key, phase)
 
     def _worker_streams(self) -> List[torch.cuda.Stream]:
         """The worker's CUDA streams, made once: one on each card of the
@@ -921,9 +925,10 @@ class GuidedTrainer(BaselineTrainer):
         for the worker's, its tensors marked as used on it."""
         if pending.future is None:
             return pending.record
-        t = time.perf_counter()
-        record, done = pending.future.result()
-        self.event_wait_s += time.perf_counter() - t
+        waited = {}
+        with span("event.wait", into=waited):
+            record, done = pending.future.result()
+        self.event_wait_s += waited["event.wait"]
         if done is not None:
             cur = torch.cuda.current_stream(self.device)
             cur.wait_event(done)
@@ -991,16 +996,16 @@ class GuidedTrainer(BaselineTrainer):
         569-612). Returns the number of points added; the seconds add to
         event_phase_s["lift"]."""
         _sync(self.device)
-        t = time.perf_counter()
-        frames = video.permute(0, 2, 3, 1)
-        rel = self.depth_estimator(frames * 2.0 - 1.0)
-        pts, rgbs = lift_video_to_points(frames.cpu().numpy(), rel.cpu().numpy(), gs_depth[:, 0].cpu().numpy(),
-                                         1.0 - gs_alpha[:, 0].cpu().numpy(), traj, self.intrinsic)
-        if pts.shape[0]:
-            G.add_points(self.state, pts, rgbs)
-        self.points_added += pts.shape[0]
-        _sync(self.device)
-        self.event_phase_s["lift"] += time.perf_counter() - t
+        with span("event.lift", into=self.event_phase_s, key="lift"):
+            frames = video.permute(0, 2, 3, 1)
+            rel = self.depth_estimator(frames * 2.0 - 1.0)
+            pts, rgbs = lift_video_to_points(frames.cpu().numpy(), rel.cpu().numpy(),
+                                             gs_depth[:, 0].cpu().numpy(), 1.0 - gs_alpha[:, 0].cpu().numpy(),
+                                             traj, self.intrinsic)
+            if pts.shape[0]:
+                G.add_points(self.state, pts, rgbs)
+            self.points_added += pts.shape[0]
+            _sync(self.device)
         return pts.shape[0]
 
     # -- per-iteration step ----------------------------------------------------
@@ -1028,7 +1033,7 @@ class GuidedTrainer(BaselineTrainer):
             w = opt.pseudo_cam_weight_start * (1 - frac) + frac * opt.pseudo_cam_weight_end
         return float(w)
 
-    def step(self, iteration: int) -> StepStats:
+    def _step(self, iteration: int) -> StepStats:
         opt = self.opt
         rc, gt = self.camera_on_device(self.pick_camera())
         pseudo = self._pick_pseudo(iteration)

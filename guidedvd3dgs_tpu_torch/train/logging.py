@@ -19,6 +19,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from guidedvd3dgs_tpu_torch.ops import _build
+from guidedvd3dgs_tpu_torch.utils import tracing
+
 
 class MetricsLogger:
     def __init__(self, model_path: str):
@@ -79,19 +82,28 @@ def maybe_profiler_trace(profile_dir: Optional[str], start: bool,
                          prof: Optional[torch.profiler.profile] = None) -> Optional[torch.profiler.profile]:
     """torch.profiler's trace window (JAX logging.py:73-83, which runs
     jax.profiler): with `start`, a started profiler of the CPU and, where
-    the host has one, CUDA activities; else `prof` stopped and its Chrome
-    trace written as `<profile_dir>/trace.json`. Nothing without a
-    profile_dir. Returns the running profiler, or None."""
+    the host has one, CUDA activities, the program's counters
+    (utils/tracing.py) reset; else `prof` stopped, its Chrome trace
+    written as `<profile_dir>/trace.json` and beside it `counts.json`: the
+    window's counters and its launches of the port's kernels by name (the
+    change of ops/_build.py::LAUNCHES). Nothing without a profile_dir.
+    Returns the running profiler, or None."""
     if not profile_dir:
         return None
     if start:
         acts = [torch.profiler.ProfilerActivity.CPU]
         if torch.cuda.is_available():
             acts.append(torch.profiler.ProfilerActivity.CUDA)
+        tracing.reset()
         prof = torch.profiler.profile(activities=acts)
+        prof.launches_at_start = dict(_build.LAUNCHES)
         prof.start()
         return prof
     prof.stop()
     os.makedirs(profile_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+    at_start = getattr(prof, "launches_at_start", {})
+    launches = {k: v - at_start.get(k, 0) for k, v in _build.LAUNCHES.items()}
+    with open(os.path.join(profile_dir, "counts.json"), "w") as f:
+        json.dump({"counts": dict(tracing.COUNTS), "launches": launches}, f, indent=1)
     return None

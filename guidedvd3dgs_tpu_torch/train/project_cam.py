@@ -87,7 +87,7 @@ class ProjectCamTrainer(BaselineTrainer):
                 for a in (cam.projected_image, cam.projected_mask))
         return self._projected[key]
 
-    def step(self, iteration: int) -> StepStats:
+    def _step(self, iteration: int) -> StepStats:
         opt = self.opt
         if iteration % 500 == 0 and self.active_sh_degree < self.max_sh_degree:
             self.active_sh_degree += 1

@@ -11,6 +11,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from guidedvd3dgs_tpu_torch.utils import tracing
+
 
 def l1_loss(x: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     return torch.abs(x - gt).mean()
@@ -46,7 +48,8 @@ def _ssim_window(window_size: int, sigma: float = 1.5) -> np.ndarray:
 
 def _ssim_map(img1: torch.Tensor, img2: torch.Tensor, window_size: int) -> torch.Tensor:
     c = img1.shape[1]
-    window = torch.from_numpy(_ssim_window(window_size)).to(img1.device)
+    with tracing.readback():  # a blocking copy to the card: the host waits for its queue
+        window = torch.from_numpy(_ssim_window(window_size)).to(img1.device)
     window = window.expand(c, 1, window_size, window_size).contiguous()
     pad = window_size // 2
 

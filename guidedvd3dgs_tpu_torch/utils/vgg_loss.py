@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from guidedvd3dgs_tpu_torch.utils import tracing
+
 Params = Dict[str, torch.Tensor]
 
 VGG_MEAN = (0.485, 0.456, 0.406)
@@ -64,8 +66,9 @@ def vgg_perceptual_loss(p: Params, x: torch.Tensor, y: torch.Tensor, mask: Optio
     max-pools' gradients switch on rounding-sized changes). A scalar, the
     mean of each block over the batch; with `per_sample`, (N,) losses, each
     sample's own means (the loss of each image alone)."""
-    mean = torch.tensor(VGG_MEAN, dtype=x.dtype, device=x.device).view(1, 3, 1, 1)
-    std = torch.tensor(VGG_STD, dtype=x.dtype, device=x.device).view(1, 3, 1, 1)
+    with tracing.readback(2):  # two blocking copies to the card
+        mean = torch.tensor(VGG_MEAN, dtype=x.dtype, device=x.device).view(1, 3, 1, 1)
+        std = torch.tensor(VGG_STD, dtype=x.dtype, device=x.device).view(1, 3, 1, 1)
     xi, yi = (x - mean) / std, (y - mean) / std
     if resize:
         shrink = x.shape[-2] > 224 or x.shape[-1] > 224
