@@ -130,13 +130,24 @@ and the exit code is non-zero; there is no CPU fallback):
               in bfloat16 with GEN_STEPS DDIM steps (cut from the default
               50; every step is the same program): conditioning, ms per
               step, decode, total, peak memory, L1's launches against
-              10 per step + 2, the frames finite in [0, 1]; one DDIM step
-              traced by stage with the idle share
+              10 per step + 2 and N1's against two UNet applications a
+              step and the decode (`n1_request_launches`), the frames
+              finite in [0, 1]; one DDIM step traced by stage with the
+              idle share
      7c. one DDIM step at full width in float32 through L1 and through
               its plain version: the latents agree within STEP_TOL; and
               the same step with L1's forward in bf16 (the bf16 kernels
               against the plain version of the same bf16 inputs) within
               STEP_TOL_BF16 in L2 norm
+     7d. kernel N1 (GroupNorm + SiLU, csrc/group_norm.cu) through the
+              wrapper nnops calls against its plain fold at the main path's
+              shapes (N1_SHAPES: the VAE's 5x320x448x128, the UNet's level 0
+              in 4D and 5D), SiLU on and off, bf16: forward and, under
+              autograd, backward within tests/group_norm_tol.py's
+              tolerances, one launch each way; ms of each by CUDA events,
+              the plain fold's ms (its backward through autograd), the
+              bound of the bytes the function needs (4 / 6 an element) and
+              of this design's traffic (6 / 10)
   8. guided   generation under scene-grounding guidance (the same
               ViewCrafter at full width), which differentiates through L1
      8a. L1's backward (the dK/dV and dQ kernels) against its plain
@@ -154,8 +165,8 @@ and the exit code is non-zero; there is no CPU fallback):
               renders and guidance with a hole in the observed masks:
               conditioning, per-step ms by part (CFG pair forward, decode
               gradients, each branch again with its VJP, update), decode,
-              total, peak memory, L1's
-              launches against the formula, rho > 0 at every step, frames
+              total, peak memory, L1's and N1's launches against their
+              formulas, rho > 0 at every step, frames
               finite in [0, 1], the masked L2 to the guidance against an
               unguided request with the same noise (a reading); one guided
               step traced by stage, backward kernels included
@@ -261,9 +272,10 @@ and the exit code is non-zero; there is no CPU fallback):
               once a step, the trace naming K1, K4 and K5
 `python3 chip_smoke.py --generate-only STEPS` runs phases 1, 2 and 7b
 alone with STEPS DDIM steps; `--guided-only STEPS` phases 1, 2 and 8b
-(the 50-step requests of PERF.md); `--backward-only` phases 1, 2, 8a and
-8b-8c (L1's backward kernels and the guided step); `--forward-only`
-phases 1, 2, 7a and 7b-7c (L1's forward kernels and the DDIM request);
+(the 50-step requests of PERF.md); `--backward-only` phases 1, 2, 7d, 8a
+and 8b-8c (N1, L1's backward kernels and the guided step);
+`--forward-only` phases 1, 2, 7a, 7d and 7b-7c (L1's forward kernels, N1
+and the DDIM request);
 `--gaussian-only` phases 1, 2, 3, 5 and 5b (the Gaussian kernels K1-K6
 and the trainer); `--guided-trainer-only` phases 1, 2 and 5c (the guided
 trainer); `--vc-trainer-only STEPS` phases 1, 2 and 5d with STEPS guided
@@ -274,7 +286,11 @@ DDIM steps (50: a real event's time); `--chain-only` phases 1, 2 and 6d
 The line before the last is the JSON kernel table (each kernel's launches
 summed over the phases that drive a path: K1-K6 over 4, 5, 5b, 5c, 5d, 6,
 6b, 6c, 6d, 9, 10, 11 and 12 (K1 and K2 not in 12c), L1's forward over 5d,
-6c, 7b, 8b, 9, 10 and 12, its backward over 5d, 6c, 8b, 10 and 12; each phase's count in `launches_by_phase`; for
+6c, 7b, 8b, 9, 10 and 12, its backward over 5d, 6c, 8b, 10 and 12, N1's
+over the phases that return its counts (7b, 8b, and 5d, 6c, 9, 10 and 12
+where their engines' are among them); each phase's count in
+`launches_by_phase`; N1's rows from 7d at N1_MAIN with SiLU, its other
+shapes in 7d's line; for
 K1-K6 `host_ms` beside `ms` and `ms_dense` and `bound_ms_dense` from
 phase 5b's view; for K1 also `ms_full_table`, `bound_ms_all_rows` and
 their `_dense` twins);
@@ -309,6 +325,7 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
+sys.path.append(str(ROOT / "tests"))  # group_norm_tol: N1's tolerances, shared with its tests
 
 from guidedvd3dgs_tpu_torch import dataset_to_colmap as port_d2c  # noqa: E402
 from guidedvd3dgs_tpu_torch import get_avg_results as port_avg  # noqa: E402
@@ -341,6 +358,8 @@ from guidedvd3dgs_tpu_torch.models import gaussians as G  # noqa: E402
 from guidedvd3dgs_tpu_torch.models.render import RenderResult, eval_render, render_gaussians  # noqa: E402
 from guidedvd3dgs_tpu_torch.ops import _build, expand, preprocess_fused, raster_tiles, segsum, tiling  # noqa: E402
 from guidedvd3dgs_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from guidedvd3dgs_tpu_torch.ops import group_norm as gn  # noqa: E402
+from group_norm_tol import bwd_tol, fwd_tol  # noqa: E402
 from guidedvd3dgs_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain  # noqa: E402
 from guidedvd3dgs_tpu_torch.ops.knn import dist_knn3  # noqa: E402
 from guidedvd3dgs_tpu_torch.scene import cameras, dataset_readers, synthetic  # noqa: E402
@@ -395,8 +414,12 @@ KERNELS = {
                            "jax/experimental/pallas/ops/tpu/flash_attention.py:941"),
     "flash_attn_bwd_dq": ("guidedvd3dgs_tpu_torch/csrc/flash_attn_bwd.cu",
                           "jax/experimental/pallas/ops/tpu/flash_attention.py:1287"),
+    # GroupNorm (+ SiLU), left to XLA there, and the backward XLA derives for it
+    "group_norm_fwd": ("guidedvd3dgs_tpu_torch/csrc/group_norm.cu", "guidedvd3dgs_tpu/diffusion/nnops.py:77"),
+    "group_norm_bwd": ("guidedvd3dgs_tpu_torch/csrc/group_norm.cu", "guidedvd3dgs_tpu/diffusion/nnops.py:77"),
 }
 L1_BWD_KERNELS = ("flash_attn_bwd_dkv", "flash_attn_bwd_dq")
+N1_KERNELS = ("group_norm_fwd", "group_norm_bwd")
 # the kernels of a render (phase 4); training (phase 5) runs K1-K6
 FORWARD_KERNELS = ("preprocess_fwd", "expand", "blend_fwd")
 GAUSSIAN_KERNELS = ("preprocess_fwd", "preprocess_bwd", "expand", "blend_fwd", "blend_bwd", "segsum")
@@ -519,6 +542,24 @@ STEP_TOL = 1e-3
 # 7.032e-5 with one key tile skipped; the weights left unrounded read
 # 3.541e-5, 2.625e-5, 5.715e-6, inside the kernels' own rounding gap
 STEP_TOL_BF16 = 6e-5
+# 7d: kernel N1 (GroupNorm + SiLU) against its plain fold at the main
+# path's shapes, 32 groups: the VAE decoder's last level (a decode chunk of
+# 5 frames at 320x448x128), the UNet's level 0 for the CFG pair (4D) and
+# its temporal form for one branch (5D); the pair's is the kernel table's
+# row. The tolerances are tests/group_norm_tol.py's
+N1_SHAPES = [((DECODE_CHUNK, 320, 448, 128), 1e-6), ((50, 40, 56, 320), 1e-5), ((1, 25, 40, 56, 320), 1e-5)]
+N1_MAIN = N1_SHAPES[1]
+N1_GROUPS = 32
+# f32 operations an element (expf as one): forward Welford's update (4),
+# the fold (1) and SiLU (3); backward the fold again, SiLU's derivative
+# (7), the two sums (3) and dx (4)
+N1_FWD_FLOPS, N1_BWD_FLOPS = 8, 15
+# GroupNorm calls, each an N1 launch in bf16, of one application of the
+# ViewCrafter UNet (22 res blocks of 2 spatial and 4 temporal, 32
+# transformers, the temporal init_attn, out.0) and of one VAE decoder
+# call (2 mid res blocks and the mid attention, 4 levels x 3 res blocks x
+# 2, norm_out)
+N1_UNET_CALLS, N1_DECODE_CALLS = 166, 30
 # 7b's and 8b's traces: the stage of each range of the diffusion primitives
 # (diffusion/nnops.py, "span:<label>" from utils/tracing.py)
 STAGES = {"nn.attention": "attention", "nn.conv": "conv", "nn.group_norm": "GroupNorm", "nn.linear": "matmul"}
@@ -1633,13 +1674,16 @@ def phase_guided_trainer(dev, work: Path):
 
 
 def vc_trainer_launches(ucfg, steps: int, renders: int, chains: int, train_steps: int) -> dict:
-    """K1-K6 and L1's launches of phase 5d: a guided step one chain of two
-    views, the frozen frames in their chains (launches_of); one guided
-    request of `steps` guided steps (L1's forward 20 a step and 2 for the
-    VAE's encode and decode, each backward kernel 15 a step)."""
-    fwd, bwd = guided_launches(ucfg, steps, GEN_FRAMES, ddim_guidance.GuidedSampleConfig().decode_chunk)
+    """K1-K6, L1's and N1's launches of phase 5d: a guided step one chain
+    of two views, the frozen frames in their chains (launches_of); one
+    guided request of `steps` guided steps (L1's forward 20 a step and 2
+    for the VAE's encode and decode, each backward kernel 15 a step; N1's
+    `n1_request_launches`)."""
+    fwd, bwd = guided_launches(ucfg, steps, GEN_FRAMES, DECODE_CHUNK)
+    n1 = n1_request_launches(steps, guided=True, chunks=-(-GEN_FRAMES // DECODE_CHUNK))
     want = launches_of(train_steps, train_steps, renders, chains)
-    want.update(flash_attn_fwd=fwd + 2, flash_attn_bwd_dkv=bwd, flash_attn_bwd_dq=bwd)
+    want.update(flash_attn_fwd=fwd + 2, flash_attn_bwd_dkv=bwd, flash_attn_bwd_dq=bwd, group_norm_fwd=n1[0],
+                group_norm_bwd=n1[1])
     return want
 
 
@@ -1733,7 +1777,7 @@ def phase_vc_trainer(dev, work: Path, steps: int, c5=None):
     want = vc_trainer_launches(mcfg.unet, steps, frames["frozen"], frames["frozen_chains"], GUIDED_TRAINER_STEPS)
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}: a chain of two views a guided step, K1, K3, K4 "
-                             f"more a frozen frame ({frames['frozen']}), L1 in event 1 only")
+                             f"more a frozen frame ({frames['frozen']}), L1 and N1 in event 1 only")
     if not all(math.isfinite(float(v)) for v in losses) or not all(p > 0.0 for p in pseudo_l1) \
             or not all(v > 0.0 for v in pseudo_vgg):
         raise AssertionError(f"losses {[float(v) for v in losses]}, pseudo_l1 {pseudo_l1}, "
@@ -2330,6 +2374,111 @@ def phase_l1(dev):
                                          library_ms_d512=vae["library_ms"], bound_ms_d512=vae["bound"][0]))
 
 
+def n1_inputs(dev, shape, seed: int):
+    """x and dy unit-normal, weight N(1, 0.5) and bias N(0, 0.5), in bf16."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    c = shape[-1]
+    x, dy = (torch.randn(shape, generator=gen, device=dev).to(BF16) for _ in range(2))
+    w = (1.0 + 0.5 * torch.randn(c, generator=gen, device=dev)).to(BF16)
+    b = (0.5 * torch.randn(c, generator=gen, device=dev)).to(BF16)
+    return x, w, b, dy
+
+
+def n1_check(x, w, b, dy, eps: float, silu: bool) -> dict:
+    """N1 through `ops/group_norm.group_norm` (as nnops calls it) forward
+    and, under autograd, backward against the plain fold: the largest
+    error over its tolerance each way (tests/group_norm_tol.py) and the
+    largest absolute error forward; raises unless each ratio is at most 1
+    and each way launched once."""
+    g, n, c = N1_GROUPS, x.shape[0], x.shape[-1]
+    before = dict(_build.LAUNCHES)
+    xg = x.detach().requires_grad_()
+    y = gn.group_norm(xg, w, b, g, eps, silu)
+    (dx,) = torch.autograd.grad(y, xg, dy)
+    ran = tuple(_build.LAUNCHES[k] - before[k] for k in N1_KERNELS)
+    y = y.detach()
+    want = gn.group_norm_plain(x, w, b, g, eps, silu)
+    pre = gn.group_norm_plain(x, w, b, g, eps)
+    x3, y3, want3, pre3 = (t.reshape(n, -1, c) for t in (x, y, want, pre))
+    var = torch.var_mean(x3.float().reshape(n, -1, g, c // g), dim=(1, 3), correction=0)[0]
+    scale = (torch.rsqrt(var + eps)[:, torch.arange(c, device=x.device) // (c // g)] * w.float())[:, None]
+    err = (y3.float() - want3.float()).abs()
+    tol = fwd_tol(want3, pre3, x3, scale, silu)
+    r = dict(max_abs_err=float(err.max()), fwd_err_over_tol=float((err / tol).max()))
+    del want, pre, x3, y3, want3, pre3, err, tol
+    xf = x.float().requires_grad_()
+    (want_dx,) = torch.autograd.grad(gn.group_norm_plain(xf, w, b, g, eps, silu), xf, dy.float())
+    r["bwd_err_over_tol"] = float(((dx.float() - want_dx).abs() / bwd_tol(want_dx)).max())
+    if ran != (1, 1) or not (r["fwd_err_over_tol"] <= 1.0 and r["bwd_err_over_tol"] <= 1.0):
+        raise AssertionError(f"N1 {tuple(x.shape)} silu={silu}: launches (fwd, bwd) {ran}, expected (1, 1); "
+                             f"error over tolerance {r['fwd_err_over_tol']:.3f} forward, "
+                             f"{r['bwd_err_over_tol']:.3f} backward")
+    return r
+
+
+def n1_times(x, w, b, dy, eps: float, silu: bool, blocks_per_sm: int = gn.BLOCKS_PER_SM) -> dict:
+    """Device ms a call by CUDA events (`event_ms`) of N1's forward and
+    backward launches at a grid of `blocks_per_sm` blocks an SM."""
+    g = N1_GROUPS
+    args = gn.prepare(x, w, b, g)
+    _, stats = gn._forward(*args, g, eps, silu, blocks_per_sm)
+    return dict(fwd=event_ms(lambda: gn._forward(*args, g, eps, silu, blocks_per_sm)),
+                bwd=event_ms(lambda: gn._backward(dy, *args, stats, g, silu, blocks_per_sm)))
+
+
+def n1_plain_times(x, w, b, dy, eps: float, silu: bool) -> dict:
+    """The same for the plain fold: its forward, and its backward through
+    autograd."""
+    g = N1_GROUPS
+    fwd = event_ms(lambda: gn.group_norm_plain(x, w, b, g, eps, silu))
+    xg = x.detach().requires_grad_()
+    y = gn.group_norm_plain(xg, w, b, g, eps, silu)
+    return dict(fwd=fwd, bwd=event_ms(lambda: torch.autograd.grad(y, xg, dy, retain_graph=True)))
+
+
+def n1_bounds(numel: int) -> dict:
+    """N1's least times: forward x read and y written (4 bytes an element),
+    backward x and dy read and dx written (6); and this design's traffic
+    beside them, x read twice forward (6) and x and dy twice backward (10)."""
+    fwd, bwd = N1_FWD_FLOPS * numel, N1_BWD_FLOPS * numel
+    return dict(fwd=bound(4 * numel, fwd), bwd=bound(6 * numel, bwd),
+                design_fwd=bound(6 * numel, fwd), design_bwd=bound(10 * numel, bwd))
+
+
+def phase_group_norm(dev) -> dict:
+    """7d: N1 against its plain fold at every shape of N1_SHAPES, SiLU on
+    and off: checked (`n1_check`), timed by CUDA events beside its bounds
+    and the plain fold's times. Returns the kernel table's entries of
+    group_norm_fwd and group_norm_bwd (N1_MAIN with SiLU)."""
+    rows, table = [], {}
+    for i, (shape, eps) in enumerate(N1_SHAPES):
+        x, w, b, dy = n1_inputs(dev, shape, SEED + 70 + i)
+        numel = x.numel()
+        bounds = n1_bounds(numel)
+        for silu in (False, True):
+            r = n1_check(x, w, b, dy, eps, silu)
+            k, pl = n1_times(x, w, b, dy, eps, silu), n1_plain_times(x, w, b, dy, eps, silu)
+            rows.append(f"{shape} eps {eps:g} silu={int(silu)}: err/tol {r['fwd_err_over_tol']:.3f} / "
+                        f"{r['bwd_err_over_tol']:.3f} | ms fwd {k['fwd']:.4f} (plain {pl['fwd']:.4f}, bound "
+                        f"{bounds['fwd'][0]:.4f}, {bounds['fwd'][0] / k['fwd']:.1%}; design's traffic "
+                        f"{bounds['design_fwd'][0]:.4f}) bwd {k['bwd']:.4f} (plain {pl['bwd']:.4f}, bound "
+                        f"{bounds['bwd'][0]:.4f}, {bounds['bwd'][0] / k['bwd']:.1%}; design's traffic "
+                        f"{bounds['design_bwd'][0]:.4f})")
+            if (shape, eps) == N1_MAIN and silu:
+                for way, name in (("fwd", "group_norm_fwd"), ("bwd", "group_norm_bwd")):
+                    table[name] = dict(max_abs_err=r["max_abs_err"], ms=k[way], plain_ms=pl[way],
+                                       bound=bounds[way], extra=dict(
+                                           shape=list(shape), silu=True, err_over_tol=r[f"{way}_err_over_tol"],
+                                           design_bound_ms=bounds[f"design_{way}"][0]))
+        del x, w, b, dy
+        torch.cuda.empty_cache()
+    log("phase 7d N1 (GroupNorm + SiLU) vs the plain fold (bf16, 32 groups; CUDA events over "
+        f"{EVENT_LAUNCHES} calls, the fold's backward through autograd; bound: 4 / 6 bytes an element at "
+        f"{PEAK_BYTES_PER_S / 1e12:g} TB/s): " + " | ".join(rows))
+    return table
+
+
 @contextlib.contextmanager
 def timed(module, name: str, record: list, outputs: list | None = None):
     """Time every call of module.name (the calling thread's stream
@@ -2445,9 +2594,10 @@ def gen_params(dev):
     return params, time.perf_counter() - t0
 
 
-def phase_generate(dev, steps: int, trace_and_f32: bool = True) -> int:
+def phase_generate(dev, steps: int, trace_and_f32: bool = True) -> dict:
     """7b (and 7c): one full-width request of `steps` DDIM steps through
-    the engine a user calls, in bfloat16. Returns L1's launches in it."""
+    the engine a user calls, in bfloat16. Returns L1's and N1's launches
+    in it."""
     mcfg = LatentDiffusionConfig(compute_dtype="bfloat16")
     scfg = synthesis.SynthesisConfig(ddim_steps=steps)
     params, init_s = gen_params(dev)
@@ -2475,8 +2625,10 @@ def phase_generate(dev, steps: int, trace_and_f32: bool = True) -> int:
     launches = dict(_build.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expected = 10 * steps + 2  # 5 level-0 spatial attentions x 2 CFG branches per step; VAE encode, decode
-    if launches["flash_attn_fwd"] != expected or any(launches[n] for n in GAUSSIAN_KERNELS + L1_BWD_KERNELS):
-        raise AssertionError(f"launches in the request {launches}; L1 expected {expected}")
+    n1 = n1_request_launches(steps, guided=False)
+    if launches["flash_attn_fwd"] != expected or any(launches[n] for n in GAUSSIAN_KERNELS + L1_BWD_KERNELS) \
+            or tuple(launches[n] for n in N1_KERNELS) != n1:
+        raise AssertionError(f"launches in the request {launches}; L1 expected {expected}, N1 (fwd, bwd) {n1}")
     if tuple(video.shape) != (GEN_FRAMES, 3, GEN_H, GEN_W) or not bool(torch.isfinite(video).all()) \
             or float(video.min()) < 0.0 or float(video.max()) > 1.0:
         raise AssertionError(f"bad video: shape {tuple(video.shape)}, range "
@@ -2488,9 +2640,11 @@ def phase_generate(dev, steps: int, trace_and_f32: bool = True) -> int:
         f"ms median {statistics.median(step_ms):.1f} (first {step_ms[0]:.1f}, min {min(step_ms):.1f}, "
         f"max {max(step_ms):.1f}; model pair {statistics.median(model_ms):.1f}) | decode "
         f"{decode_ms[0]:.1f} ms | total {total_s:.3f} s | peak allocated {peak_gb:.2f} GB | L1 launches "
-        f"{launches['flash_attn_fwd']} (expected {expected}) | video std {float(video.std()):.4f}")
+        f"{launches['flash_attn_fwd']} (expected {expected}) | N1 launches fwd {launches['group_norm_fwd']} bwd "
+        f"{launches['group_norm_bwd']} (expected {n1}) | video std {float(video.std()):.4f}")
+    request = {n: launches[n] for n in ("flash_attn_fwd",) + N1_KERNELS}
     if not trace_and_f32:
-        return launches["flash_attn_fwd"]
+        return request
 
     # one DDIM step traced by stage, outside the counted run
     cond, uncond, x, noise = ddim_step_inputs(dev, params, mcfg, scfg, engine, renders)
@@ -2537,7 +2691,7 @@ def phase_generate(dev, steps: int, trace_and_f32: bool = True) -> int:
         f"forward in bf16, the bf16 kernels vs the plain version of the same bf16 inputs: {err16:.4g} of "
         f"|latent| {want16.norm().item():.4g} (L2 norms; tol {STEP_TOL_BF16}); the kernels run twice "
         f"{(got16 - again16).norm().item():.3g}")
-    return launches["flash_attn_fwd"]
+    return request
 
 
 def ddim_step_inputs(dev, params, mcfg, scfg, engine, renders):
@@ -2670,6 +2824,20 @@ def guided_inputs(dev, gen):
     masks[:, :, HOLE[0], HOLE[1]] = 0.0
     depths = 1.0 + 2.0 * torch.rand((t, 1, GUIDE_H, GUIDE_W), generator=gen, device=dev)
     return renders, images, masks, depths
+
+
+def n1_request_launches(steps: int, guided: bool, chunks: int = 0) -> tuple[int, int]:
+    """N1's (forward, backward) launches in a bf16 request of `steps` DDIM
+    steps, guided ones with `chunks` decode chunks. Unguided, a step runs
+    the CFG pair as two UNet applications; guided, the pair batched (one
+    application), then each branch again forward and backward for its VJP,
+    and the decode gradients' VAE decoder forward and backward once a
+    chunk. The final decode runs the decoder once; the VAE encode runs at
+    the renders' float32, which takes the plain fold."""
+    if not guided:
+        return 2 * N1_UNET_CALLS * steps + N1_DECODE_CALLS, 0
+    per = chunks * N1_DECODE_CALLS
+    return steps * (3 * N1_UNET_CALLS + per) + N1_DECODE_CALLS, steps * (2 * N1_UNET_CALLS + per)
 
 
 def guided_launches(ucfg, steps: int, frames: int, chunk: int) -> tuple[int, int]:
@@ -2816,7 +2984,9 @@ def phase_guided(dev, steps: int, trace_and_f32: bool = True):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_steps = steps * gcfg.recur_steps
     fwd, bwd = guided_launches(mcfg.unet, n_steps, GEN_FRAMES, gcfg.decode_chunk)
-    expected = {"flash_attn_fwd": fwd + 2, "flash_attn_bwd_dkv": bwd, "flash_attn_bwd_dq": bwd}
+    n1 = n1_request_launches(n_steps, guided=True, chunks=-(-GEN_FRAMES // gcfg.decode_chunk))
+    expected = {"flash_attn_fwd": fwd + 2, "flash_attn_bwd_dkv": bwd, "flash_attn_bwd_dq": bwd,
+                "group_norm_fwd": n1[0], "group_norm_bwd": n1[1]}
     if any(launches[n] != e for n, e in expected.items()) or any(launches[n] for n in GAUSSIAN_KERNELS):
         raise AssertionError(f"launches in the guided request {launches}; expected {expected}")
     rhos = [float(rho) for _, rho in upd_out]
@@ -2840,7 +3010,8 @@ def phase_guided(dev, steps: int, trace_and_f32: bool = True):
         f"{step_ms[0]:.1f}, min {min(step_ms):.1f}); by part, medians: pair forward {med(pair_ms):.1f}, "
         f"decode gradients {med(grads_ms):.1f}, the branches again with their VJPs {med(vjp_ms):.1f}, update {med(ddim_ms) + med(upd_ms):.1f} | decode {decode_ms[0]:.1f} ms | total "
         f"{total_s:.3f} s | peak allocated {peak_gb:.2f} GB | launches fwd {launches['flash_attn_fwd']} "
-        f"dK/dV {launches['flash_attn_bwd_dkv']} dQ {launches['flash_attn_bwd_dq']} (expected {expected}) | "
+        f"dK/dV {launches['flash_attn_bwd_dkv']} dQ {launches['flash_attn_bwd_dq']} N1 fwd "
+        f"{launches['group_norm_fwd']} bwd {launches['group_norm_bwd']} (expected {expected}) | "
         f"rho per step {', '.join(f'{r:.4g}' for r in rhos)} | masked L2 to the guidance: guided "
         f"{l2_guided:.6f}, unguided with the same noise {l2_unguided:.6f}")
     if not trace_and_f32:
@@ -3517,10 +3688,12 @@ def pipeline_viewcrafter(dev, work: Path, room, pcd) -> tuple[dict, list, float]
     fwd, bwd = guided_launches(mcfg.unet, GUIDED_STEPS, GEN_FRAMES, DECODE_CHUNK)
     events = 2 + len(beside)
     want = launches_of(counter["steps"], counter["pseudo"], frames["frozen"], frames["frozen_chains"])
-    want.update(flash_attn_fwd=events * (fwd + 2), flash_attn_bwd_dkv=events * bwd, flash_attn_bwd_dq=events * bwd)
+    n1 = n1_request_launches(GUIDED_STEPS, guided=True, chunks=-(-GEN_FRAMES // DECODE_CHUNK))
+    want.update(flash_attn_fwd=events * (fwd + 2), flash_attn_bwd_dkv=events * bwd, flash_attn_bwd_dq=events * bwd,
+                group_norm_fwd=events * n1[0], group_norm_bwd=events * n1[1])
     if launches != want:
-        raise AssertionError(f"10b: launches {launches}, expected {want}: {events} events' L1 and frozen frames, "
-                             f"a chain a step")
+        raise AssertionError(f"10b: launches {launches}, expected {want}: {events} events' L1, N1 and frozen "
+                             f"frames, a chain a step")
     if trainer.events_run != events or not all(r["during"] for r in beside.values()) or peak_gb >= 80.0:
         raise AssertionError(f"10b: {trainer.events_run} events, steps beside "
                              f"{[len(r['during']) for r in beside.values()]}, peak {peak_gb:.2f} GB")
@@ -4515,9 +4688,11 @@ def main() -> None:
     parser.add_argument("--guided-only", type=int, metavar="STEPS", default=None,
                         help="run phases 1, 2 and 8b alone, with STEPS guided DDIM steps")
     parser.add_argument("--backward-only", action="store_true",
-                        help="run phases 1, 2, 8a and 8b-8c alone: L1's backward kernels and the guided step")
+                        help="run phases 1, 2, 7d, 8a and 8b-8c alone: N1, L1's backward kernels and the guided "
+                             "step")
     parser.add_argument("--forward-only", action="store_true",
-                        help="run phases 1, 2, 7a and 7b-7c alone: L1's forward kernels and the DDIM request")
+                        help="run phases 1, 2, 7a, 7d and 7b-7c alone: L1's forward kernels, N1 and the DDIM "
+                             "request")
     parser.add_argument("--gaussian-only", action="store_true",
                         help="run phases 1, 2, 3, 5 and 5b alone: the Gaussian kernels K1-K6 and the trainer")
     parser.add_argument("--guided-trainer-only", action="store_true",
@@ -4557,12 +4732,14 @@ def main() -> None:
         phase_guided(dev, args.guided_only, trace_and_f32=False)
         return
     if args.backward_only:
+        run("7d", phase_group_norm, dev)
         run("8a", phase_l1_bwd, dev)
         run("8b-8c", phase_guided, dev, GUIDED_STEPS)
         log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
         return
     if args.forward_only:
         run("7a", phase_l1, dev)
+        run("7d", phase_group_norm, dev)
         run("7b-7c", phase_generate, dev, GEN_STEPS)
         log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
         return
@@ -4614,7 +4791,8 @@ def main() -> None:
         by_phase["6c"] = run("6c", phase_vc_cli, dev, work, cli_src, base)
         by_phase["6d"] = run("6d", phase_chain, dev, work)
         res["flash_attn_fwd"] = run("7a", phase_l1, dev)
-        by_phase["7b"] = {"flash_attn_fwd": run("7b-7c", phase_generate, dev, GEN_STEPS)}
+        res.update(run("7d", phase_group_norm, dev))
+        by_phase["7b"] = run("7b-7c", phase_generate, dev, GEN_STEPS)
         res.update(run("8a", phase_l1_bwd, dev))
         by_phase["8b"], step_8b = run("8b-8c", phase_guided, dev, GUIDED_STEPS)
         by_phase["9"] = run("9", phase_geometry, dev, work, c5["host_ms"])

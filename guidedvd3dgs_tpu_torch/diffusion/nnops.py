@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from guidedvd3dgs_tpu_torch.ops import group_norm as gn_kernel
 from guidedvd3dgs_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain_autograd
 from guidedvd3dgs_tpu_torch.parallel import model_parallel
 from guidedvd3dgs_tpu_torch.parallel.model_parallel import Sharded, column_apply, row_apply
@@ -87,30 +88,18 @@ def embedding(p: Params, name: str, ids: torch.Tensor) -> torch.Tensor:
 
 
 def group_norm(p: Params, name: str, x: torch.Tensor, num_groups: int = 32,
-               eps: float = 1e-5) -> torch.Tensor:
-    """Channels-last GroupNorm with f32 statistics (reference nnops.py:77-110).
-    f32 inputs take the two-pass form; half-precision inputs take the
-    reference's folded form x*scale + shift in f32, cast back, with the
-    statistics from one var_mean pass over the f32 copy and the fold as
-    one addcmul (the activation is read and written as few times as the
-    f32 form allows)."""
+               eps: float = 1e-5, silu: bool = False) -> torch.Tensor:
+    """Channels-last GroupNorm with f32 statistics (reference nnops.py:77-110),
+    then SiLU if `silu` (the reference's silu(group_norm(...))). CUDA bf16
+    activations whose weight and bias need no gradient take kernel N1
+    (`ops/group_norm.py`, SiLU fused); everything else its plain version:
+    the two-pass form for f32, the reference's fold x*scale + shift in f32
+    for half precision."""
     with span("nn.group_norm"):
-        c = x.shape[-1]
-        g = num_groups
-        xg = x.reshape(x.shape[:-1] + (g, c // g))
-        red = tuple(range(1, x.dim() - 1)) + (x.dim(),)
-        w = p[f"{name}.weight"].float()
-        b = p[f"{name}.bias"].float()
-        if x.dtype == torch.float32:
-            mean = xg.mean(dim=red, keepdim=True)
-            var = xg.var(dim=red, keepdim=True, correction=0)
-            xg = (xg - mean) * torch.rsqrt(var + eps)
-            return xg.reshape(x.shape) * w + b
-        xf = xg.float()
-        var, mean = torch.var_mean(xf, dim=red, keepdim=True, correction=0)
-        scale = torch.rsqrt(var + eps) * w.reshape(g, c // g)
-        shift = b.reshape(g, c // g) - mean * scale
-        return torch.addcmul(shift, xf, scale).reshape(x.shape).to(x.dtype)
+        w, b = p[f"{name}.weight"], p[f"{name}.bias"]
+        if gn_kernel.takes_kernel(x, w, b):
+            return gn_kernel.group_norm(x, w, b, num_groups, eps, silu)
+        return gn_kernel.group_norm_plain(x, w, b, num_groups, eps, silu)
 
 
 def layer_norm(p: Params, name: str, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

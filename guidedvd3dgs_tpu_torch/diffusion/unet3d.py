@@ -129,18 +129,18 @@ def build_layout(cfg: UNetConfig):
 def temporal_conv_block(p: Params, prefix: str, x: torch.Tensor) -> torch.Tensor:
     """The identity-initialised 3D conv stack (reference openaimodel3d.py:239-279).
     x: (B, T, H, W, C); kernels (3, 1, 1), padding (1, 0, 0)."""
-    h = conv3d(p, f"{prefix}.conv1.2", silu(group_norm(p, f"{prefix}.conv1.0", x)))
+    h = conv3d(p, f"{prefix}.conv1.2", group_norm(p, f"{prefix}.conv1.0", x, silu=True))
     for i in (2, 3, 4):
-        h = conv3d(p, f"{prefix}.conv{i}.3", silu(group_norm(p, f"{prefix}.conv{i}.0", h)))
+        h = conv3d(p, f"{prefix}.conv{i}.3", group_norm(p, f"{prefix}.conv{i}.0", h, silu=True))
     return x + h
 
 
 def res_block(p: Params, prefix: str, x: torch.Tensor, emb: torch.Tensor, in_ch: int, out_ch: int,
               temporal: bool, batch: int) -> torch.Tensor:
     """reference openaimodel3d.py:210-237. x: ((B T), H, W, C); emb: ((B T), E)."""
-    h = conv2d(p, f"{prefix}.in_layers.2", silu(group_norm(p, f"{prefix}.in_layers.0", x)))
+    h = conv2d(p, f"{prefix}.in_layers.2", group_norm(p, f"{prefix}.in_layers.0", x, silu=True))
     h = h + linear(p, f"{prefix}.emb_layers.1", silu(emb))[:, None, None, :]
-    h = conv2d(p, f"{prefix}.out_layers.3", silu(group_norm(p, f"{prefix}.out_layers.0", h)))
+    h = conv2d(p, f"{prefix}.out_layers.3", group_norm(p, f"{prefix}.out_layers.0", h, silu=True))
     if out_ch == in_ch:
         skip = x
     else:
@@ -228,5 +228,5 @@ def unet_apply(p: Params, cfg: UNetConfig, x: torch.Tensor, timesteps: torch.Ten
     h = _apply_layers(p, middle, h, emb, context, cfg, b, plain)
     for layers in output_blocks:
         h = _apply_layers(p, layers, torch.cat([h, hs.pop()], dim=-1), emb, context, cfg, b, plain)
-    y = conv2d(p, "out.2", silu(group_norm(p, "out.0", h)))
+    y = conv2d(p, "out.2", group_norm(p, "out.0", h, silu=True))
     return y.reshape(b, t, hh, ww, cfg.out_channels)

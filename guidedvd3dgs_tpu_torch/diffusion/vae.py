@@ -21,7 +21,6 @@ from guidedvd3dgs_tpu_torch.diffusion.nnops import (
     attention,
     conv2d,
     group_norm,
-    silu,
     upsample_nearest_2x,
 )
 
@@ -42,8 +41,8 @@ class VAEConfig:
 
 
 def _resnet_block(p: Params, prefix: str, x: torch.Tensor, in_ch: int, out_ch: int) -> torch.Tensor:
-    h = conv2d(p, f"{prefix}.conv1", silu(group_norm(p, f"{prefix}.norm1", x, eps=1e-6)))
-    h = conv2d(p, f"{prefix}.conv2", silu(group_norm(p, f"{prefix}.norm2", h, eps=1e-6)))
+    h = conv2d(p, f"{prefix}.conv1", group_norm(p, f"{prefix}.norm1", x, eps=1e-6, silu=True))
+    h = conv2d(p, f"{prefix}.conv2", group_norm(p, f"{prefix}.norm2", h, eps=1e-6, silu=True))
     if in_ch != out_ch:
         x = conv2d(p, f"{prefix}.nin_shortcut", x, padding=0)
     return x + h
@@ -82,7 +81,7 @@ def encoder_apply(p: Params, cfg: VAEConfig, x: torch.Tensor) -> torch.Tensor:
     h = _resnet_block(p, "mid.block_1", h, ch, ch)
     h = _attn_block(p, "mid.attn_1", h)
     h = _resnet_block(p, "mid.block_2", h, ch, ch)
-    return conv2d(p, "conv_out", silu(group_norm(p, "norm_out", h, eps=1e-6)))
+    return conv2d(p, "conv_out", group_norm(p, "norm_out", h, eps=1e-6, silu=True))
 
 
 def decoder_apply(p: Params, cfg: VAEConfig, z: torch.Tensor, plain: bool = False) -> torch.Tensor:
@@ -100,7 +99,7 @@ def decoder_apply(p: Params, cfg: VAEConfig, z: torch.Tensor, plain: bool = Fals
             block_in = block_out
         if i != 0:
             h = conv2d(p, f"up.{i}.upsample.conv", upsample_nearest_2x(h))
-    return conv2d(p, "conv_out", silu(group_norm(p, "norm_out", h, eps=1e-6)))
+    return conv2d(p, "conv_out", group_norm(p, "norm_out", h, eps=1e-6, silu=True))
 
 
 def _sub(p: Params, prefix: str) -> Params:

@@ -56,6 +56,9 @@ SIGNATURES = {
     "flash_attn_fwd": [_P] * 5 + [_I] * 4 + [_F, _P],
     "flash_attn_bwd_dkv": [_P] * 8 + [_I] * 4 + [_F, _P],
     "flash_attn_bwd_dq": [_P] * 7 + [_I] * 4 + [_F, _P],
+    # each of the two launches two kernels (csrc/group_norm.cu)
+    "group_norm_fwd": [_P] * 3 + [_I] * 7 + [_F, _I] + [_P] * 5,
+    "group_norm_bwd": [_P] * 4 + [_I] * 8 + [_P] * 5,
 }
 
 # Launch counts of each kernel in this process; `launch` is the only writer.

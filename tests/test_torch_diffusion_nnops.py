@@ -37,10 +37,11 @@ def group_norm_f64(x, w, b, groups, eps):
     return y.reshape(x.shape) * w + b
 
 
+@pytest.mark.parametrize("silu", [False, True])
 @pytest.mark.parametrize("shape", [(2, 6, 5, 64), (1, 3, 4, 5, 64)])
 @pytest.mark.parametrize("dtype,loc,scale", [("float32", 0.0, 1.0), ("bfloat16", 0.0, 1.0),
                                              ("float32", 100.0, 0.1), ("bfloat16", 100.0, 0.1)])
-def test_group_norm(shape, dtype, loc, scale):
+def test_group_norm(shape, dtype, loc, scale, silu):
     """Both JAX forms: two-pass f32, and the folded x*scale + shift for
     half precision. N(100, 0.1) is the cancellation hazard of the folded
     form (ROADMAP queue 3). There |mean|/std = 1000 turns the f32 rounding
@@ -48,19 +49,29 @@ def test_group_norm(shape, dtype, loc, scale):
     f32 each package is held to the float64 result within 1e-3 and to the
     other within 1e-3. In bf16 both take the same fold and agree within
     one bf16 ulp; both are 0.03 from the float64 result of the rounded
-    input (the fold's cancellation, shared by design)."""
+    input (the fold's cancellation, shared by design). With `silu` the
+    port's group_norm(..., silu=True) is held to JAX's silu(group_norm(...))
+    by the f32 tolerances times SiLU's largest slope, 1.1, and in bf16 by
+    two ulps (JAX's bf16 silu rounds its sigmoid too); it is bitwise the
+    port's silu(group_norm(...)) on the CPU."""
     rng = np.random.default_rng(0)
     x = rnd(rng, *shape, scale=scale, loc=loc)
     p = {"n.weight": rnd(rng, 64, scale=0.5, loc=1.0), "n.bias": rnd(rng, 64, scale=0.5)}
     jp, tp = both(p)
     want = jnn.group_norm(jp, "n", jnp.asarray(x, dtype), num_groups=8, eps=1e-6)
-    got = nnops.group_norm(tp, "n", torch.from_numpy(x).to(getattr(torch, dtype)), num_groups=8, eps=1e-6)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = nnops.group_norm(tp, "n", xt, num_groups=8, eps=1e-6, silu=silu)
     assert got.dtype == getattr(torch, dtype)
+    truth = group_norm_f64(x, p["n.weight"], p["n.bias"], 8, 1e-6)
+    if silu:
+        want, truth = jnn.silu(want), truth / (1.0 + np.exp(-truth))
+        assert torch.equal(got, nnops.silu(nnops.group_norm(tp, "n", xt, num_groups=8, eps=1e-6)))
     if dtype == "float32":
-        atol = 1e-5 if loc == 0.0 else 1e-3
-        truth = group_norm_f64(x, p["n.weight"], p["n.bias"], 8, 1e-6)
+        atol = (1e-5 if loc == 0.0 else 1e-3) * (1.1 if silu else 1.0)
         close(got, truth, atol + 1e-5)
         close(got, want, atol)
+    elif silu:
+        close(got, want, 3e-2, rtol=2 ** -7)  # JAX's bf16 silu rounds its sigmoid too: two ulps
     else:
         close(got, want, 3e-2)  # outputs reach |4|: one bf16 ulp is 1.6e-2 there
 
