@@ -121,8 +121,9 @@ and the exit code is non-zero; there is no CPU fallback):
               towers, random weights from a seed)
      7a. kernel L1 (flash attention) against its plain version on the
               card at the UNet's (one CFG branch and the batched pair), the
-              VAE's (25 frames, the decode chunk, one frame) and a ragged
-              shape, in float32 and bfloat16: max abs error against the
+              VAE's (25 frames, the decode chunk, one frame), a ragged
+              shape, SVD-XT's decoder mid attention (chunks of 14 and 11)
+              and the 512-wide engine's (2,560 tokens), in float32 and bfloat16: max abs error against the
               stated tolerance, median ms, bound, plain ms and the ms of
               torch.nn.functional.scaled_dot_product_attention; for bf16
               the ratio to it and the share of the bound
@@ -142,7 +143,9 @@ and the exit code is non-zero; there is no CPU fallback):
      7d. kernel N1 (GroupNorm + SiLU, csrc/group_norm.cu) through the
               wrapper nnops calls against its plain fold at the main path's
               shapes (N1_SHAPES: the VAE's 5x320x448x128, the UNet's level 0
-              in 4D and 5D), SiLU on and off, bf16: forward and, under
+              in 4D and 5D; SVD-XT's temporal decoder over one video of 14
+              and of 11 frames and its UNet's level 0 for the CFG pair, in
+              5D), SiLU on and off, bf16: forward and, under
               autograd, backward within tests/group_norm_tol.py's
               tolerances, one launch each way; ms of each by CUDA events,
               the plain fold's ms (its backward through autograd), the
@@ -152,8 +155,9 @@ and the exit code is non-zero; there is no CPU fallback):
               ViewCrafter at full width), which differentiates through L1
      8a. L1's backward (the dK/dV and dQ kernels) against its plain
               backward on the card at the guided step's shapes (the UNet's
-              batched CFG pair and one branch, the VAE's decode chunk) and
-              a ragged one, in float32 and bfloat16: max abs error of dq,
+              batched CFG pair and one branch, the VAE's decode chunk, SVD-
+              XT's decoder chunks of 14 and 11, the 512-wide engine's) and a
+              ragged one, in float32 and bfloat16: max abs error of dq,
               dk, dv over max |grad| against L1_BWD_TOL, median ms of each
               kernel, bounds, the plain backward's ms and the backward of
               torch.nn.functional.scaled_dot_product_attention, the pair's
@@ -178,6 +182,14 @@ and the exit code is non-zero; there is no CPU fallback):
               (L2 norms); and that dL/dx with L1's backward in bf16 (the
               bf16 kernels against the plain backward of the same bf16
               inputs) within GUIDED_GRAD_TOL_BF16
+     8d. one SVD-XT request through `SVDEngine.generate(no_guidance=False)`
+              in bfloat16 (random weights in the diffusers layout at the
+              published widths) with SVD_STEPS guided Euler EDM steps of the
+              default 25, 8b's renders, guidance and hole, decode chunks of
+              SVD_CHUNK: every step's L1 and N1 launches exactly
+              (`svd_launches`: 17 / 12 / 12 and 431 / 326), the request's
+              with its conditioning and final decode, rho > 0 at every step,
+              frames finite in [0, 1]; the step's ms and the peak
   9. raw data, append, two-scale CFG, --nan_debug, viewer
      9a. phase 4's room written as a raw Replica sequence (traj_w_c.txt,
               rgb/rgb_<i>.png, the 660 frames of the 6-view split);
@@ -272,8 +284,9 @@ and the exit code is non-zero; there is no CPU fallback):
               once a step, the trace naming K1, K4 and K5
 `python3 chip_smoke.py --generate-only STEPS` runs phases 1, 2 and 7b
 alone with STEPS DDIM steps; `--guided-only STEPS` phases 1, 2 and 8b
-(the 50-step requests of PERF.md); `--backward-only` phases 1, 2, 7d, 8a
-and 8b-8c (N1, L1's backward kernels and the guided step);
+(the 50-step requests of PERF.md); `--backward-only` phases 1, 2, 7d, 8a,
+8b-8c and 8d (N1, L1's backward kernels and the guided steps);
+`--svd-only` phases 1, 2 and 8d (SVD-XT's guided request);
 `--forward-only` phases 1, 2, 7a, 7d and 7b-7c (L1's forward kernels, N1
 and the DDIM request);
 `--gaussian-only` phases 1, 2, 3, 5 and 5b (the Gaussian kernels K1-K6
@@ -286,8 +299,9 @@ DDIM steps (50: a real event's time); `--chain-only` phases 1, 2 and 6d
 The line before the last is the JSON kernel table (each kernel's launches
 summed over the phases that drive a path: K1-K6 over 4, 5, 5b, 5c, 5d, 6,
 6b, 6c, 6d, 9, 10, 11 and 12 (K1 and K2 not in 12c), L1's forward over 5d,
-6c, 7b, 8b, 9, 10 and 12, its backward over 5d, 6c, 8b, 10 and 12, N1's
-over the phases that return its counts (7b, 8b, and 5d, 6c, 9, 10 and 12
+6c, 7b, 8b, 8d, 9, 10 and 12, its backward over 5d, 6c, 8b, 8d, 10 and 12,
+N1's over the phases that return its counts (7b, 8b, 8d, and 5d, 6c, 9, 10
+and 12
 where their engines' are among them); each phase's count in
 `launches_by_phase`; N1's rows from 7d at N1_MAIN with SiLU, its other
 shapes in 7d's line; for
@@ -344,11 +358,13 @@ from guidedvd3dgs_tpu_torch.config import (  # noqa: E402
 )
 from guidedvd3dgs_tpu_torch.convert import params_from_numpy  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion import attention as d_attention  # noqa: E402
+from guidedvd3dgs_tpu_torch.diffusion import convert as d_convert  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion import schedules as S  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion import synthesis  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion.init import init_diffusion_params  # noqa: E402
-from guidedvd3dgs_tpu_torch.diffusion.model import Conditioning, LatentDiffusionConfig, apply_model  # noqa: E402
+from guidedvd3dgs_tpu_torch.diffusion.model import Conditioning, LatentDiffusionConfig, SVDConfig, apply_model  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion.samplers import ddim, ddim_guidance, ddim_multicond  # noqa: E402
+from guidedvd3dgs_tpu_torch.diffusion.samplers.euler_edm import EulerConfig  # noqa: E402
 from guidedvd3dgs_tpu_torch.geometry import dust3r  # noqa: E402
 from guidedvd3dgs_tpu_torch.geometry import global_aligner as GA  # noqa: E402
 from guidedvd3dgs_tpu_torch.geometry import pipeline as geometry_pipeline  # noqa: E402
@@ -374,6 +390,7 @@ from guidedvd3dgs_tpu_torch.train.guided import (  # noqa: E402
     FrozenRenderer,
     GuidedTrainer,
     OracleDiffusionEngine,
+    SVDEngine,
     ViewCrafterEngine,
     resize_renders,
 )
@@ -516,14 +533,20 @@ RESUME_STEPS, RESUME_AT, RESUME_EVERY = 24, 12, 8
 # spatial attention per CFG branch and with the guided step's CFG pair
 # batched, the VAE's mid-block attention with the 25 frames batched (encode
 # in float32, decode in bfloat16) and at the guided step's decode chunk,
-# the per-frame VAE shape of the JAX package, and a ragged tail
+# the per-frame VAE shape of the JAX package, and a ragged tail; then SVD-XT's
+# temporal decoder's mid attention at its decode chunks (14 and the 11 left
+# of 25 frames), and the 512-wide engine's (2,560 tokens a frame at level 0)
+# UNet pair and VAE attentions
 GEN_FRAMES, GEN_H, GEN_W = 25, 320, 448
 GEN_STEPS = 10  # of the default 50: every DDIM step is the same program
 BF16, F32 = torch.bfloat16, torch.float32
 DECODE_CHUNK = ddim_guidance.GuidedSampleConfig().decode_chunk
+SVD_CHUNK = synthesis.SVDSynthesisConfig().decode_chunk
 L1_SHAPES = [((25, 5, 2240, 64), BF16), ((25, 5, 2240, 64), F32), ((50, 5, 2240, 64), BF16),
              ((25, 1, 2240, 512), F32), ((25, 1, 2240, 512), BF16), ((DECODE_CHUNK, 1, 2240, 512), BF16),
-             ((1, 1, 2240, 512), F32), ((1, 1, 2240, 512), BF16), ((2, 3, 1200, 64), F32)]
+             ((1, 1, 2240, 512), F32), ((1, 1, 2240, 512), BF16), ((2, 3, 1200, 64), F32),
+             ((SVD_CHUNK, 1, 2240, 512), BF16), ((GEN_FRAMES % SVD_CHUNK, 1, 2240, 512), BF16),
+             ((50, 5, 2560, 64), BF16), ((25, 1, 2560, 512), BF16), ((DECODE_CHUNK, 1, 2560, 512), BF16)]
 L1_MAIN = L1_SHAPES[0]  # the UNet's, ten launches per DDIM step of the bf16 request
 L1_VAE = L1_SHAPES[5]  # the decode chunk's: its times are extra fields of the JSON line
 # L1 against its plain version on unit-normal inputs: float32 (another sum
@@ -546,8 +569,13 @@ STEP_TOL_BF16 = 6e-5
 # path's shapes, 32 groups: the VAE decoder's last level (a decode chunk of
 # 5 frames at 320x448x128), the UNet's level 0 for the CFG pair (4D) and
 # its temporal form for one branch (5D); the pair's is the kernel table's
-# row. The tolerances are tests/group_norm_tol.py's
-N1_SHAPES = [((DECODE_CHUNK, 320, 448, 128), 1e-6), ((50, 40, 56, 320), 1e-5), ((1, 25, 40, 56, 320), 1e-5)]
+# row; then SVD-XT's: the temporal decoder's temporal ResBlocks at its last
+# level over one video a decode chunk (14 frames, and the 11 left of 25),
+# about 2.0M pixels a sample, and the UNet's level-0 temporal ResBlocks for
+# the CFG pair (batch 2). The tolerances are tests/group_norm_tol.py's
+N1_SHAPES = [((DECODE_CHUNK, 320, 448, 128), 1e-6), ((50, 40, 56, 320), 1e-5), ((1, 25, 40, 56, 320), 1e-5),
+             ((1, SVD_CHUNK, 320, 448, 128), 1e-5), ((1, GEN_FRAMES % SVD_CHUNK, 320, 448, 128), 1e-5),
+             ((2, 25, 40, 56, 320), 1e-6)]
 N1_MAIN = N1_SHAPES[1]
 N1_GROUPS = 32
 # f32 operations an element (expf as one): forward Welford's update (4),
@@ -568,14 +596,21 @@ STAGE_ORDER = ("L1 fwd", "L1 bwd", "attention", "conv", "GroupNorm", "matmul", "
 # and guidance at the train resolution of the Replica camera (the engine
 # resizes them), the observed masks with a hole of a fifth of the frame
 GUIDED_STEPS = 3
+# 8d: SVD-XT's guided request (svd-guided-euler's): SVD_STEPS guided Euler
+# EDM steps of the default 25, its decode chunk SVD_CHUNK
+SVD_STEPS = 3
 GUIDE_H, GUIDE_W = 480, 640
 HOLE = (slice(120, 360), slice(0, 256))  # 240 x 256 of 480 x 640 = 0.2
 # L1's shapes in the guided step: the UNet's level-0 attention of one
 # branch (25; each branch's VJP runs alone) and with the CFG pair batched
-# (50, the pair's forward); the VAE's decode chunk; ragged
+# (50, the pair's forward); the VAE's decode chunk; ragged; SVD-XT's
+# temporal decoder's mid attention at its decode chunks (14, 11); the
+# 512-wide engine's branch and decode chunk (2,560 tokens)
 L1_BWD_SHAPES = [((25, 5, 2240, 64), BF16), ((25, 5, 2240, 64), F32), ((50, 5, 2240, 64), BF16),
                  ((50, 5, 2240, 64), F32), ((DECODE_CHUNK, 1, 2240, 512), BF16),
-                 ((DECODE_CHUNK, 1, 2240, 512), F32), ((2, 3, 1200, 64), F32)]
+                 ((DECODE_CHUNK, 1, 2240, 512), F32), ((2, 3, 1200, 64), F32),
+                 ((SVD_CHUNK, 1, 2240, 512), BF16), ((GEN_FRAMES % SVD_CHUNK, 1, 2240, 512), BF16),
+                 ((25, 5, 2560, 64), BF16), ((DECODE_CHUNK, 1, 2560, 512), BF16)]
 L1_BWD_MAIN = L1_BWD_SHAPES[0]
 L1_BWD_VAE = L1_BWD_SHAPES[4]  # the decode chunk's: its times are extra fields of the JSON line
 # dq, dk, dv against the plain backward of the same inputs, max abs error
@@ -1741,7 +1776,7 @@ def phase_vc_trainer(dev, work: Path, steps: int, c5=None):
     torch.cuda.synchronize()
     pool_s = time.perf_counter() - t0
     step_ms = []
-    with timed(ddim_guidance, "guided_step", step_ms):
+    with timed(ddim_guidance, "rule_step", step_ms):
         trainer.run_diffusion_event(1)
     event1 = dict(trainer.event_phase_s)
     l1_event = {n: _build.LAUNCHES[n] for n in ("flash_attn_fwd",) + L1_BWD_KERNELS}
@@ -2933,7 +2968,8 @@ def small_guided_step(params, mcfg, gcfg, sched, pr, cond, uncond, bufs, x, step
     c32, u32 = (Conditioning(c.context, c.concat[:, :t].contiguous(), c.fs) for c in (cond, uncond))
     g32 = make_guidance_fn(bufs._replace(images=bufs.images[:t], masks=bufs.masks[:t]))
     x32, n32 = x[:, :t].contiguous(), step_noise[:, :t].contiguous()
-    v_cond, v_uncond = ddim_guidance.pair_forward(params32, mcfg32, pr, c32, u32, x32, index)
+    rule = ddim_guidance.DDIMRule(sched, pr, gcfg)
+    v_cond, v_uncond = ddim_guidance.pair_forward(params32, mcfg32, rule, c32, u32, x32, index)
     pred_x0 = ddim_guidance.cfg_pred_x0(sched, pr, gcfg, x32, index, v_cond, v_uncond)[0]
 
     def step(plain: bool = False):
@@ -2942,7 +2978,7 @@ def small_guided_step(params, mcfg, gcfg, sched, pr, cond, uncond, bufs, x, step
 
     def grad(plain: bool = False):
         grads = ddim_guidance.per_frame_guidance_grads(params32, mcfg32, g32, pred_x0[0], index, gcfg, plain)
-        return ddim_guidance.pair_vjp(params32, mcfg32, sched, pr, c32, u32, gcfg, x32, index, v_cond, v_uncond,
+        return ddim_guidance.pair_vjp(params32, mcfg32, rule, c32, u32, x32, index, v_cond, v_uncond,
                                       grads[None], plain)
     return step, grad
 
@@ -2971,7 +3007,7 @@ def phase_guided(dev, steps: int, trace_and_f32: bool = True):
     _build.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     with timed(synthesis, "build_conditioning", cond_ms), timed(synthesis, "decode_video_frames", decode_ms), \
-            timed(ddim_guidance, "guided_step", step_ms), timed(ddim_guidance, "pair_forward", pair_ms), \
+            timed(ddim_guidance, "rule_step", step_ms), timed(ddim_guidance, "pair_forward", pair_ms), \
             timed(ddim_guidance, "per_frame_guidance_grads", grads_ms), \
             timed(ddim_guidance, "pair_vjp", vjp_ms), timed(ddim_guidance, "ddim_step", ddim_ms), \
             timed(ddim_guidance, "guidance_update", upd_ms, upd_out):
@@ -3090,6 +3126,101 @@ def phase_guided(dev, steps: int, trace_and_f32: bool = True):
         f"{GUIDED_GRAD_TOL_BF16}); the kernels run twice {rerun16:.3g}")
     return launches, med(step_ms)
 
+
+
+def n1_svd_calls(cfg: SVDConfig) -> tuple[int, int]:
+    """GroupNorm calls, each an N1 launch in bf16, of one application of
+    SVD-XT's UNet (four a spatio-temporal ResBlock, one a transformer,
+    conv_norm_out) and of one temporal decoder call (four a ResBlock, the
+    mid attention's, conv_norm_out)."""
+    u, d = cfg.unet, cfg.decoder
+    levels, nrb = len(u.channel_mult), u.num_res_blocks
+    attn = sum(u.has_attention(i) for i in range(levels))
+    unet = 4 * (levels * nrb + 2 + levels * (nrb + 1)) + (attn * nrb + 1 + attn * (nrb + 1)) + 1
+    return unet, 4 * (2 + len(d.block_out_channels) * (d.layers_per_block + 1)) + 2
+
+
+def svd_launches(cfg: SVDConfig, frames: int, chunk: int) -> tuple[dict, dict]:
+    """L1's and N1's launches in one guided Euler EDM step of SVD-XT and in
+    the request's final decode. A step runs the UNet three times forward
+    (the batched pair, then each branch for its VJP) and twice backward, and
+    the temporal decoder forward and backward once a decode chunk (its mid
+    attention L1's only one at 2,240 tokens besides the UNet's level 0). The
+    rest of a request: the conditioning's VAE encode of frame 0 at the
+    renders' float32 (its mid attention one L1 launch, its GroupNorms the
+    plain fold) and the final decode, the decoder once a chunk."""
+    fwd, bwd = guided_launches(cfg.unet, 1, frames, chunk)
+    unet, dec = n1_svd_calls(cfg)
+    chunks = -(-frames // chunk)
+    step = {"flash_attn_fwd": fwd, "flash_attn_bwd_dkv": bwd, "flash_attn_bwd_dq": bwd,
+            "group_norm_fwd": 3 * unet + chunks * dec, "group_norm_bwd": 2 * unet + chunks * dec}
+    return step, {"flash_attn_fwd": 1 + chunks, "group_norm_fwd": chunks * dec}
+
+
+def phase_svd(dev, steps: int = SVD_STEPS):
+    """8d: one SVD-XT request through `SVDEngine.generate(no_guidance=False)`
+    in bfloat16 (random weights in the diffusers layout, the published
+    widths) with `steps` guided Euler EDM steps, 25x320x448 from 480x640
+    renders and guidance with the HOLE, decode chunks of SVD_CHUNK: each
+    step's L1 and N1 launches and the request's exactly (`svd_launches`),
+    no other kernel, rho > 0 at every step, the frames finite in [0, 1];
+    the step's ms and the peak. Returns the request's launches and the
+    median step ms."""
+    cfg = SVDConfig(compute_dtype="bfloat16")
+    params = d_convert.convert_svd_state_dict(
+        d_convert.random_svd_state_dict(cfg, seed=SEED + 21, device=dev, dtype=BF16), dev, BF16)
+    scfg = synthesis.SVDSynthesisConfig(euler=EulerConfig(num_steps=steps))
+    engine = SVDEngine(params, cfg, scfg, video_length=GEN_FRAMES, height=GEN_H, width=GEN_W)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 22)
+    renders, images, masks, depths = guided_inputs(dev, gen)
+    f = 2 ** (len(cfg.vae.ch_mult) - 1)
+    noise = synthesis.SynthesisNoise(
+        encode_eps=torch.randn((1, GEN_H, GEN_W, 3), generator=gen, device=dev),
+        x_T=torch.randn((1, GEN_FRAMES, GEN_H // f, GEN_W // f, 4), generator=gen, device=dev))
+    per_step, step_ms, upd_ms, upd_out = [], [], [], []
+    real = ddim_guidance.rule_step
+
+    def counted(*args, **kwargs):
+        before = dict(_build.LAUNCHES)
+        out = real(*args, **kwargs)
+        per_step.append({n: _build.LAUNCHES[n] - before[n] for n in before})
+        return out
+
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(ddim_guidance, "rule_step", counted), timed(ddim_guidance, "rule_step", step_ms), \
+            timed(ddim_guidance, "guidance_update", upd_ms, upd_out):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        video = engine.generate(renders, images, masks, depths, no_guidance=False, noise=noise)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_want, rest_want = svd_launches(cfg, GEN_FRAMES, scfg.decode_chunk)
+    want = {n: steps * step_want.get(n, 0) + rest_want.get(n, 0) for n in launches}
+    bad = [i for i, got in enumerate(per_step) if any(got[n] != step_want.get(n, 0) for n in got)]
+    if len(per_step) != steps or bad or launches != want:
+        raise AssertionError(f"8d: launches by step {per_step} (expected {step_want} each, steps {bad} "
+                             f"differ), in the request {launches} (expected {want})")
+    rhos = [float(rho) for _, rho in upd_out]
+    if len(rhos) != steps or not all(math.isfinite(r) and r > 0 for r in rhos):
+        raise AssertionError(f"8d: rho per step {rhos}: expected {steps} positive values")
+    if tuple(video.shape) != (GEN_FRAMES, 3, GEN_H, GEN_W) or not bool(torch.isfinite(video).all()) \
+            or float(video.min()) < 0.0 or float(video.max()) > 1.0:
+        raise AssertionError(f"8d: bad video: shape {tuple(video.shape)}, range "
+                             f"[{float(video.min())}, {float(video.max())}]")
+    med = statistics.median(step_ms)
+    log(f"phase 8d SVD-XT guided request (published widths, random bf16 weights; {GEN_FRAMES}x{GEN_H}x{GEN_W} "
+        f"from {GUIDE_H}x{GUIDE_W} renders and guidance with the hole; {steps} guided Euler EDM steps of the "
+        f"default 25, decode chunk {scfg.decode_chunk}): guided step ms median {med:.1f} (all "
+        f"{', '.join(f'{m:.1f}' for m in step_ms)}) | total {total_s:.3f} s | peak allocated {peak_gb:.2f} GB | "
+        f"launches a step {step_want} each, exactly; the request's {want} | rho per step "
+        f"{', '.join(f'{r:.4g}' for r in rhos)}")
+    del engine, params
+    torch.cuda.empty_cache()
+    return {n: launches.get(n, 0) for n in KERNELS}, med
 
 # --- phase 9: from raw data, the append path, the two-scale CFG, --nan_debug and the viewer ----------
 
@@ -3643,7 +3774,7 @@ def pipeline_viewcrafter(dev, work: Path, room, pcd) -> tuple[dict, list, float]
     alone_s, alone_ms = [], []
     for it in (1, 2):
         ms = []
-        with timed(ddim_guidance, "guided_step", ms):
+        with timed(ddim_guidance, "rule_step", ms):
             t = time.perf_counter()
             trainer.finalize_diffusion_event(trainer.submit_diffusion_event(it))
             stream_sync()
@@ -3658,7 +3789,7 @@ def pipeline_viewcrafter(dev, work: Path, room, pcd) -> tuple[dict, list, float]
         if prio is not None:
             prio.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(prio) if prio is not None else contextlib.nullcontext():
-            with timed(ddim_guidance, "guided_step", r["step_ms"]):
+            with timed(ddim_guidance, "rule_step", r["step_ms"]):
                 it += 1
                 t0 = time.perf_counter()
                 pending = trainer.submit_diffusion_event(it)
@@ -4308,14 +4439,15 @@ def mesh_engine(dev) -> dict:
 
     # one UNet forward of the guided pair: both engines' bf16 against the f32 forward
     sched, pr, cond, uncond, x, _, index = guided_step_inputs(dev, params, mcfg, scfg, base, renders)
+    rule = ddim_guidance.DDIMRule(sched, pr, gcfg)
     with torch.no_grad():
-        pair = {k: ddim_guidance.pair_forward(e.params, mcfg, pr, cond, uncond, x, index)
+        pair = {k: ddim_guidance.pair_forward(e.params, mcfg, rule, cond, uncond, x, index)
                 for k, e in (("unsharded", base), ("sharded", tp))}
         p32 = params._replace(unet={k: v.float() for k, v in params.unet.items()})
         m32 = dataclasses.replace(mcfg, compute_dtype="float32")
         s32 = shard_params(p32, mesh)
-        truth = ddim_guidance.pair_forward(p32, m32, pr, cond, uncond, x, index)
-        truth_tp = ddim_guidance.pair_forward(s32, m32, pr, cond, uncond, x, index)
+        truth = ddim_guidance.pair_forward(p32, m32, rule, cond, uncond, x, index)
+        truth_tp = ddim_guidance.pair_forward(s32, m32, rule, cond, uncond, x, index)
     torch.cuda.empty_cache()
     errs = {k: [rel_errs(v, t) for v, t in zip(pair[k], truth)] for k in pair}
     between = [rel_errs(a, b) for a, b in zip(pair["sharded"], pair["unsharded"])]
@@ -4352,8 +4484,8 @@ def mesh_engine(dev) -> dict:
             return torch.autograd.grad(apply_model(p, m32, xg, tt, c), xg, cot)[0]
 
     def sampler_vjp(p, xv):
-        v_cond, v_uncond = ddim_guidance.pair_forward(p, m32, pr, c5, u5, xv, index)
-        return ddim_guidance.pair_vjp(p, m32, sched, pr, c5, u5, gcfg, xv, index, v_cond, v_uncond, cot)
+        v_cond, v_uncond = ddim_guidance.pair_forward(p, m32, rule, c5, u5, xv, index)
+        return ddim_guidance.pair_vjp(p, m32, rule, c5, u5, xv, index, v_cond, v_uncond, cot)
 
     with deterministic_cudnn():
         berr = [rel_errs(branch_vjp(s32, c), branch_vjp(p32, c)) for c in (c5, u5)]
@@ -4688,11 +4820,13 @@ def main() -> None:
     parser.add_argument("--guided-only", type=int, metavar="STEPS", default=None,
                         help="run phases 1, 2 and 8b alone, with STEPS guided DDIM steps")
     parser.add_argument("--backward-only", action="store_true",
-                        help="run phases 1, 2, 7d, 8a and 8b-8c alone: N1, L1's backward kernels and the guided "
-                             "step")
+                        help="run phases 1, 2, 7d, 8a, 8b-8c and 8d alone: N1, L1's backward kernels and the "
+                             "guided steps")
     parser.add_argument("--forward-only", action="store_true",
                         help="run phases 1, 2, 7a, 7d and 7b-7c alone: L1's forward kernels, N1 and the DDIM "
                              "request")
+    parser.add_argument("--svd-only", action="store_true",
+                        help="run phases 1, 2 and 8d alone: SVD-XT's guided request and its launches")
     parser.add_argument("--gaussian-only", action="store_true",
                         help="run phases 1, 2, 3, 5 and 5b alone: the Gaussian kernels K1-K6 and the trainer")
     parser.add_argument("--guided-trainer-only", action="store_true",
@@ -4735,6 +4869,11 @@ def main() -> None:
         run("7d", phase_group_norm, dev)
         run("8a", phase_l1_bwd, dev)
         run("8b-8c", phase_guided, dev, GUIDED_STEPS)
+        run("8d", phase_svd, dev)
+        log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+        return
+    if args.svd_only:
+        run("8d", phase_svd, dev)
         log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
         return
     if args.forward_only:
@@ -4795,6 +4934,7 @@ def main() -> None:
         by_phase["7b"] = run("7b-7c", phase_generate, dev, GEN_STEPS)
         res.update(run("8a", phase_l1_bwd, dev))
         by_phase["8b"], step_8b = run("8b-8c", phase_guided, dev, GUIDED_STEPS)
+        by_phase["8d"], _ = run("8d", phase_svd, dev)
         by_phase["9"] = run("9", phase_geometry, dev, work, c5["host_ms"])
         by_phase["10"], step_10b = run("10", phase_pipeline, dev, work, (cli_src, base))
         by_phase["11"] = run("11", phase_multi, dev, work)

@@ -10,6 +10,14 @@ reference's antialiased bicubic resize to 224x224 is torch's
 
 ViT-H-14: text width 1024, 24 layers, 16 heads, context 77, vocab 49408;
 vision width 1280, 32 layers, 16 heads, patch 14, 224 input (257 tokens).
+
+`image_embed` is the same vision tower as Stable Video Diffusion reads it
+(transformers' `CLIPVisionModelWithProjection.image_embeds`, sgm's
+`FrozenOpenCLIPImageEmbedder`): the class token after ln_post, projected
+1280 -> 1024 by `proj.weight` (diffusion/convert.py renames SVD's
+image_encoder to these names). Departure: the resize to 224x224 is this
+module's antialiased bicubic (align_corners False), not kornia's
+(align_corners True) or diffusers' blur-then-bicubic.
 """
 
 from __future__ import annotations
@@ -98,3 +106,10 @@ def image_encode(p: Params, cfg: VisionConfig, images: torch.Tensor) -> torch.Te
     for i in range(cfg.layers):
         x = _resblock(p, f"transformer.resblocks.{i}", x, cfg.heads)
     return x
+
+
+def image_embed(p: Params, cfg: VisionConfig, images: torch.Tensor) -> torch.Tensor:
+    """images: (B, H, W, 3) in [-1, 1] -> (B, proj_dim): the pooled class
+    token after ln_post, projected."""
+    x = layer_norm(p, "ln_post", image_encode(p, cfg, images)[:, 0])
+    return linear(p, "proj", x)

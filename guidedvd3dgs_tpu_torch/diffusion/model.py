@@ -6,6 +6,15 @@ latents concatenated on channels + the cross-attention context,
 DiffusionWrapper ddpm3d.py:1420-1492), per-frame VAE encode and decode
 (perframe_ae, ddpm3d.py:620-666) and the v-parameterization schedule.
 The frames of a video go through the VAE as one batch.
+
+Stable Video Diffusion beside it (`SVDConfig`, `SVDParams`,
+`SVDConditioning`; diffusers `StableVideoDiffusionPipeline`, sgm
+`DiffusionEngine` with svd_xt.yaml): the spatio-temporal UNet on the noisy
+latent (scaled by c_in) with the conditioning latent on channels, the
+image embedding as its context and the three added time ids; the
+temporal VAE decoder over a chunk of consecutive frames. `apply_model`
+and `decode_video_frames` take either model by its config's type, so the
+guided sampler (samplers/ddim_guidance.py) drives both.
 """
 
 from __future__ import annotations
@@ -16,8 +25,16 @@ from typing import NamedTuple, Optional
 import torch
 
 from guidedvd3dgs_tpu_torch.diffusion.schedules import DiffusionSchedule, make_schedule
+from guidedvd3dgs_tpu_torch.diffusion.clip import VisionConfig
 from guidedvd3dgs_tpu_torch.diffusion.unet3d import UNetConfig, unet_apply
-from guidedvd3dgs_tpu_torch.diffusion.vae import VAEConfig, vae_decode, vae_encode
+from guidedvd3dgs_tpu_torch.diffusion.unet_st import STUNetConfig, unet_st_apply
+from guidedvd3dgs_tpu_torch.diffusion.vae import (
+    TemporalDecoderConfig,
+    VAEConfig,
+    temporal_decode,
+    vae_decode,
+    vae_encode,
+)
 
 
 class DiffusionParams(NamedTuple):
@@ -65,10 +82,44 @@ class Conditioning(NamedTuple):
     fs: torch.Tensor  # (B,) int
 
 
-def apply_model(params: DiffusionParams, cfg: LatentDiffusionConfig, x_noisy: torch.Tensor,
-                t: torch.Tensor, cond: Conditioning, plain: bool = False) -> torch.Tensor:
+class SVDParams(NamedTuple):
+    """SVD-XT's three sub-models' flat parameter dicts (diffusion/convert.py):
+    the UNet and the temporal decoder under diffusers' names, the encoder
+    under vae.py's, the image encoder under clip.py's."""
+
+    unet: dict
+    vae: dict
+    clip_image: dict
+
+
+@dataclass(frozen=True)
+class SVDConfig:
+    unet: STUNetConfig = field(default_factory=STUNetConfig)
+    vae: VAEConfig = field(default_factory=VAEConfig)  # the KL-f8 encoder
+    decoder: TemporalDecoderConfig = field(default_factory=TemporalDecoderConfig)
+    vision: VisionConfig = field(default_factory=VisionConfig)
+    compute_dtype: str = "float32"  # the UNet's and the decoder's
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
+
+
+class SVDConditioning(NamedTuple):
+    """One CFG branch of an SVD request."""
+
+    context: torch.Tensor  # (B, 1, 1024) the image embedding (zeros: unconditional)
+    concat: torch.Tensor  # (B, T, h, w, 4) the noise-augmented first frame's latent (zeros: unconditional)
+    time_ids: torch.Tensor  # (B, 3) float32: fps - 1, motion bucket id, noise augmentation strength
+
+
+def apply_model(params, cfg, x_noisy: torch.Tensor, t: torch.Tensor, cond, plain: bool = False) -> torch.Tensor:
     """The v prediction under hybrid conditioning (reference ddpm3d.py:723-738,
-    :1447-1452), the UNet in cfg.compute_dtype, returned at x_noisy's dtype."""
+    :1447-1452), the UNet in cfg.compute_dtype, returned at x_noisy's dtype.
+    With an `SVDConfig`, SVD's UNet on the model input x_noisy (already
+    c_in x) at c_noise `t` (`svd_apply_model`)."""
+    if isinstance(cfg, SVDConfig):
+        return svd_apply_model(params, cfg, x_noisy, t, cond, plain)
     xc = torch.cat([x_noisy, cond.concat.to(x_noisy.dtype)], dim=-1)
     v = unet_apply(params.unet, cfg.unet, xc.to(cfg.dtype), t, cond.context.to(cfg.dtype),
                    fs=cond.fs, plain=plain)
@@ -91,9 +142,22 @@ def decode_frame(params: DiffusionParams, cfg: LatentDiffusionConfig, z: torch.T
     return decode_video_frames(params, cfg, z[None])[0]
 
 
-def decode_video_frames(params: DiffusionParams, cfg: LatentDiffusionConfig,
-                        zs: torch.Tensor, plain: bool = False) -> torch.Tensor:
+def decode_video_frames(params, cfg, zs: torch.Tensor, plain: bool = False) -> torch.Tensor:
     """(T, h, w, 4) -> (T, H, W, 3), the frames decoded as one batch in
-    cfg.compute_dtype and returned at zs's dtype. `plain=True` runs L1's
-    plain version where the kernel would run."""
+    cfg.compute_dtype and returned at zs's dtype; with an `SVDConfig`, as
+    one video by the temporal decoder. `plain=True` runs L1's plain version
+    where the kernel would run."""
+    if isinstance(cfg, SVDConfig):
+        return temporal_decode(params.vae, cfg.decoder, zs.to(cfg.dtype), plain=plain).to(zs.dtype)
     return vae_decode(params.vae, cfg.vae, zs.to(cfg.dtype), plain=plain).to(zs.dtype)
+
+
+def svd_apply_model(params: SVDParams, cfg: SVDConfig, x_in: torch.Tensor, t: torch.Tensor,
+                    cond: SVDConditioning, plain: bool = False) -> torch.Tensor:
+    """F(c_in x, c_noise): x_in (B, T, h, w, 4) the scaled noisy latent, the
+    conditioning latent concatenated after it (diffusers' pipeline), in
+    cfg.compute_dtype, returned at x_in's dtype."""
+    xc = torch.cat([x_in, cond.concat.to(x_in.dtype)], dim=-1)
+    v = unet_st_apply(params.unet, cfg.unet, xc.to(cfg.dtype), t, cond.context.to(cfg.dtype), cond.time_ids,
+                      plain=plain)
+    return v.to(x_in.dtype)

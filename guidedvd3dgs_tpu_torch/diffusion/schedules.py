@@ -1,10 +1,16 @@
-"""DDPM / DDIM schedule math.
+"""DDPM / DDIM schedule math, and the EDM sigmas of Stable Video Diffusion.
 
 Counterpart of `guidedvd3dgs_tpu/diffusion/schedules.py` (reference
 ddpm3d.py:123-187 register_schedule, :239-250 v-parameterization
 identities; utils_diffusion.py:31-158). The tables are computed in float64
 numpy, exactly as the reference does, and held as float32 tensors on the
 device the caller names.
+
+EDM (Karras et al., arXiv:2206.00364; SVD-XT's scheduler_config.json,
+diffusers `EulerDiscreteScheduler` with use_karras_sigmas and
+timestep_type "continuous", sgm `EDMDiscretization` and
+`VScalingWithEDMcNoise`): `karras_sigmas` and the v-prediction
+preconditioning `edm_scalings`.
 """
 
 from __future__ import annotations
@@ -156,3 +162,47 @@ def rescale_noise_cfg(noise_cfg, noise_pred_text, guidance_rescale: float = 0.0)
     std_cfg = noise_cfg.std(dim=dims, keepdim=True)
     rescaled = noise_cfg * (std_text / std_cfg)
     return guidance_rescale * rescaled + (1 - guidance_rescale) * noise_cfg
+
+
+# EDM (Stable Video Diffusion)
+
+
+def karras_sigmas(num_steps: int, sigma_min: float = 0.002, sigma_max: float = 700.0,
+                  rho: float = 7.0) -> np.ndarray:
+    """(num_steps + 1,) float64: the Karras ramp from sigma_max down to
+    sigma_min, then 0 (diffusers `_convert_to_karras` and its final zero)."""
+    ramp = np.linspace(0.0, 1.0, num_steps)
+    lo, hi = sigma_min ** (1.0 / rho), sigma_max ** (1.0 / rho)
+    return np.append((hi + ramp * (lo - hi)) ** rho, 0.0)
+
+
+@dataclass(frozen=True)
+class EDMParams:
+    """Per-step tables of an EDM sampler over S steps (f32): sigmas[i] of
+    step i (descending) and sigmas[i + 1] after it; the v-prediction
+    scalings of sigmas[i]."""
+
+    sigmas: torch.Tensor  # (S + 1,)
+    c_skip: torch.Tensor  # (S,)
+    c_out: torch.Tensor
+    c_in: torch.Tensor
+    c_noise: torch.Tensor
+
+    @property
+    def num_steps(self) -> int:
+        return self.c_skip.shape[0]
+
+
+def edm_scalings(sigma: np.ndarray):
+    """`VScalingWithEDMcNoise`: (c_skip, c_out, c_in, c_noise) of sigma;
+    the denoiser is D(x) = c_skip x + c_out F(c_in x, c_noise)."""
+    s2 = sigma ** 2 + 1.0
+    return 1.0 / s2, -sigma / np.sqrt(s2), 1.0 / np.sqrt(s2), 0.25 * np.log(sigma)
+
+
+def make_edm_params(num_steps: int, sigma_min: float = 0.002, sigma_max: float = 700.0, rho: float = 7.0,
+                    device="cpu") -> EDMParams:
+    sig = karras_sigmas(num_steps, sigma_min, sigma_max, rho)
+    c_skip, c_out, c_in, c_noise = edm_scalings(sig[:-1])
+    return EDMParams(sigmas=_f32(sig, device), c_skip=_f32(c_skip, device), c_out=_f32(c_out, device),
+                     c_in=_f32(c_in, device), c_noise=_f32(c_noise, device))

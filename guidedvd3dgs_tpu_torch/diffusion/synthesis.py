@@ -20,6 +20,22 @@ Noise: the three draws of a request (the VAE encode's eps, x_T, the step
 noise) are taken from `noise` where given, else from `generator`.
 Conditioning and the final decode run without autograd; the guided
 sampler turns it on for its own gradients.
+
+Stable Video Diffusion (`build_svd_conditioning`, `svd_synthesis`;
+diffusers `StableVideoDiffusionPipeline.__call__`):
+
+  cond   = (CLIP image embedding of frame 0, the VAE encoder's mode of
+            frame 0 + noise_aug_strength * eps, on every frame's channels)
+  uncond = (zeros, zeros)
+  time ids (both) = (fps - 1, motion_bucket_id, noise_aug_strength)
+
+then the Euler EDM sampler with per-frame CFG (samplers/euler_edm.py),
+guided through the shared guided step when a guidance function is given,
+and the temporal decode in chunks of `decode_chunk` consecutive frames.
+The conditioning latent is the encoder's unscaled mode, as the source's.
+A request's draws: `SynthesisNoise.encode_eps` the augmentation noise of
+frame 0 (1, H, W, 3), `x_T` standard normal (scaled by the sampler's
+initial sigma here), `steps` the re-noise draws of recur_steps > 1.
 """
 
 from __future__ import annotations
@@ -33,6 +49,9 @@ import torch
 from guidedvd3dgs_tpu_torch.diffusion import clip as clip_mod
 from guidedvd3dgs_tpu_torch.diffusion import schedules as S
 from guidedvd3dgs_tpu_torch.diffusion.model import (
+    SVDConditioning,
+    SVDConfig,
+    SVDParams,
     Conditioning,
     DiffusionParams,
     LatentDiffusionConfig,
@@ -42,7 +61,19 @@ from guidedvd3dgs_tpu_torch.diffusion.model import (
 )
 from guidedvd3dgs_tpu_torch.diffusion.resampler import ResamplerConfig, resampler_apply
 from guidedvd3dgs_tpu_torch.diffusion.samplers.ddim import ddim_sample
-from guidedvd3dgs_tpu_torch.diffusion.samplers.ddim_guidance import GuidedSampleConfig, guided_ddim_sample
+from guidedvd3dgs_tpu_torch.diffusion.samplers.ddim_guidance import (
+    GuidedSampleConfig,
+    guided_ddim_sample,
+    guided_sample,
+)
+from guidedvd3dgs_tpu_torch.diffusion.samplers.euler_edm import (
+    EulerConfig,
+    EulerEDMRule,
+    euler_edm_sample,
+    frame_scales,
+    init_noise_sigma,
+)
+from guidedvd3dgs_tpu_torch.diffusion.vae import vae_encode_moments
 from guidedvd3dgs_tpu_torch.diffusion.samplers.ddim_multicond import ddim_sample_multicond
 from guidedvd3dgs_tpu_torch.diffusion.tokenizer import tokenize
 from guidedvd3dgs_tpu_torch.guidance.loss_guidance import GuidanceFn
@@ -190,3 +221,75 @@ def image_guided_synthesis(params: DiffusionParams, mcfg: LatentDiffusionConfig,
                                     guidance_fn=guidance_fn, guided_cfg=guided_cfg,
                                     scale_guidance_weight=scale_guidance_weight,
                                     pred_x0_trace=pred_x0_trace, uncond_img=uncond_img)
+
+
+@dataclass(frozen=True)
+class SVDSynthesisConfig:
+    """An SVD-XT request: the pipeline's defaults for XT (fps 7, motion
+    bucket 127, noise augmentation 0.02, decode chunk 14 as Stability's
+    simple_video_sample.py's decoding_t) and the Euler EDM sampler's."""
+
+    euler: EulerConfig = field(default_factory=EulerConfig)
+    fps: int = 7  # the added time id is fps - 1
+    motion_bucket_id: int = 127
+    noise_aug_strength: float = 0.02
+    decode_chunk: int = 14
+
+
+def build_svd_conditioning(params: SVDParams, cfg: SVDConfig, scfg: SVDSynthesisConfig, video: torch.Tensor,
+                           aug_noise: Optional[torch.Tensor] = None,
+                           generator: Optional[torch.Generator] = None):
+    """(cond, uncond) SVDConditioning of renders `video` (T, H, W, 3) in
+    [-1, 1], conditioned on frame 0; aug_noise (1, H, W, 3), else drawn
+    from `generator`."""
+    frame0 = video[:1]
+    emb = clip_mod.image_embed(params.clip_image, cfg.vision, frame0)[:, None]
+    if aug_noise is None:
+        aug_noise = torch.randn(frame0.shape, generator=generator, dtype=frame0.dtype, device=frame0.device)
+    moments = vae_encode_moments(params.vae, cfg.vae, frame0 + scfg.noise_aug_strength * aug_noise.to(frame0.dtype))
+    mean = moments.chunk(2, dim=-1)[0]
+    concat = mean[:, None].expand(1, video.shape[0], *mean.shape[1:])
+    ids = torch.tensor([[scfg.fps - 1, scfg.motion_bucket_id, scfg.noise_aug_strength]], dtype=torch.float32,
+                       device=video.device)
+    return (SVDConditioning(context=emb, concat=concat, time_ids=ids),
+            SVDConditioning(context=torch.zeros_like(emb), concat=torch.zeros_like(concat), time_ids=ids))
+
+
+def decode_chunks(params: SVDParams, cfg: SVDConfig, zs: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(T, h, w, 4) -> (T, H, W, 3): consecutive chunks of `chunk` frames,
+    each decoded as one video."""
+    return torch.cat([decode_video_frames(params, cfg, zs[c0:c0 + chunk]) for c0 in range(0, zs.shape[0], chunk)])
+
+
+def svd_sample_from_conditioning(params: SVDParams, cfg: SVDConfig, scfg: SVDSynthesisConfig,
+                                 cond: SVDConditioning, uncond: SVDConditioning,
+                                 noise: SynthesisNoise = SynthesisNoise(),
+                                 generator: Optional[torch.Generator] = None,
+                                 guidance_fn: Optional[GuidanceFn] = None,
+                                 guided_cfg: GuidedSampleConfig = GuidedSampleConfig(),
+                                 scale_guidance_weight: float = 1.0, pred_x0_trace: bool = False):
+    """The generated video (T, H, W, 3) in [-1, 1]; guided by `guidance_fn`
+    with `guided_cfg` (its decode chunk taken from `scfg`) when given. With
+    `pred_x0_trace`, (video, the guided sampler's per-step D latents or
+    None)."""
+    dev = cond.concat.device
+    edm = scfg.euler.params(dev)
+    _, t, lh, lw, _ = cond.concat.shape
+    scales = frame_scales(scfg.euler, t, dev)
+    x_T = noise.x_T
+    if x_T is None:
+        x_T = torch.randn((1, t, lh, lw, 4), generator=generator, dtype=torch.float32, device=dev)
+    x_T = x_T * init_noise_sigma(edm)
+    trace = None
+    if guidance_fn is not None:
+        rule = EulerEDMRule(edm, scales, dataclasses.replace(guided_cfg, decode_chunk=scfg.decode_chunk))
+        x0 = guided_sample(params, cfg, rule, cond, uncond, x_T, guidance_fn, scale_guidance_weight,
+                           noise=noise.steps, generator=generator, return_trace=pred_x0_trace)
+        if pred_x0_trace:
+            x0, trace = x0
+    else:
+        with torch.no_grad():
+            x0 = euler_edm_sample(params, cfg, edm, scales, cond, uncond, x_T)
+    with torch.no_grad():
+        frames = decode_chunks(params, cfg, x0[0], scfg.decode_chunk)
+    return (frames, trace) if pred_x0_trace else frames

@@ -7,6 +7,18 @@ downsample padding, :151-210 ResnetBlock, :364-560 Encoder/Decoder).
 Channels-last activations (B, H, W, C), torch-named flat parameters. The
 guidedvd config: ch 128, ch_mult (1,2,4,4), 2 res blocks, no attention
 resolutions (the mid block's attention only), z 4, double_z.
+
+Beside it, Stable Video Diffusion's temporal decoder (`temporal_decode`:
+diffusers `AutoencoderKLTemporalDecoder`'s `TemporalDecoder`, sgm's
+`VideoDecoder`): the same KL-f8 encoder (SVD's encoder weights, renamed
+to the names here by diffusion/convert.py), and a decoder whose ResBlocks
+are spatio-temporal (`unet_st.st_res_block` with a learned blend and
+switch_spatial_to_temporal_mix) and whose output passes a (3, 1, 1)
+`time_conv_out` over the frames, so the frames decoded together are one
+video: diffusers names (`decoder.mid_block.resnets.0...`), no
+post_quant_conv. Its temporal parts run under the span "svd.temporal".
+The mid-block attention (one head of 512 over h*w tokens) is diffusers'
+`Attention` with its GroupNorm and residual.
 """
 
 from __future__ import annotations
@@ -16,6 +28,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from guidedvd3dgs_tpu_torch.diffusion import nnops
+from guidedvd3dgs_tpu_torch.diffusion.unet_st import TEMPORAL, st_res_block
 from guidedvd3dgs_tpu_torch.diffusion.nnops import (
     Params,
     attention,
@@ -23,6 +37,7 @@ from guidedvd3dgs_tpu_torch.diffusion.nnops import (
     group_norm,
     upsample_nearest_2x,
 )
+from guidedvd3dgs_tpu_torch.utils.tracing import span
 
 
 @dataclass(frozen=True)
@@ -129,3 +144,61 @@ def vae_decode(p: Params, cfg: VAEConfig, z: torch.Tensor, unscale: bool = True,
     if unscale:
         z = z / cfg.scale_factor
     return decoder_apply(_sub(p, "decoder."), cfg, conv2d(p, "post_quant_conv", z, padding=0), plain)
+
+
+@dataclass(frozen=True)
+class TemporalDecoderConfig:
+    """SVD-XT's vae/config.json decoder: block_out_channels (128, 256, 512,
+    512), layers_per_block 2, latent 4, out 3, scaling factor 0.18215."""
+
+    block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
+    layers_per_block: int = 2
+    latent_channels: int = 4
+    out_channels: int = 3
+    scaling_factor: float = 0.18215
+
+
+def _st_res(p: Params, prefix: str, h: torch.Tensor) -> torch.Tensor:
+    """The decoder's SpatioTemporalResBlock: no time embedding, spatial eps
+    1e-6, temporal eps 1e-5, learned blend with the switch."""
+    return st_res_block(p, prefix, h, None, 1, 1e-6, temporal_eps=1e-5, switch=True)
+
+
+def _mid_attention(p: Params, prefix: str, x: torch.Tensor, plain: bool) -> torch.Tensor:
+    """diffusers `Attention(heads=1, dim_head=C, norm_num_groups=32,
+    bias=True, residual_connection=True)` over the h*w tokens of a frame."""
+    b, hh, ww, c = x.shape
+    h = nnops.group_norm(p, f"{prefix}.group_norm", x, eps=1e-6).reshape(b, hh * ww, c)
+    q, k, v = (nnops.linear(p, f"{prefix}.{nm}", h)[:, None] for nm in ("to_q", "to_k", "to_v"))
+    out = nnops.attention(q, k, v, c ** -0.5, plain=plain)[:, 0]
+    return nnops.linear(p, f"{prefix}.to_out.0", out).reshape(b, hh, ww, c) + x
+
+
+def temporal_decoder_apply(p: Params, cfg: TemporalDecoderConfig, z: torch.Tensor,
+                           plain: bool = False) -> torch.Tensor:
+    """diffusers `TemporalDecoder.forward` with num_frames = z.shape[0]: z
+    (N, h, w, latent) the N frames of one video -> (N, f*h, f*w, 3)."""
+    widths = tuple(cfg.block_out_channels)
+    n = len(widths)
+    h = nnops.conv2d(p, "conv_in", z)
+    h = _st_res(p, "mid_block.resnets.0", h)
+    h = _mid_attention(p, "mid_block.attentions.0", h, plain)
+    h = _st_res(p, "mid_block.resnets.1", h)
+    for i in range(n):
+        for j in range(cfg.layers_per_block + 1):
+            h = _st_res(p, f"up_blocks.{i}.resnets.{j}", h)
+        if i != n - 1:
+            h = nnops.conv2d(p, f"up_blocks.{i}.upsamplers.0.conv", upsample_nearest_2x(h))
+    h = nnops.conv2d(p, "conv_out", nnops.group_norm(p, "conv_norm_out", h, eps=1e-6, silu=True))
+    with span(TEMPORAL):
+        return nnops.conv3d(p, "time_conv_out", h[None])[0]
+
+
+def temporal_decode(p: Params, cfg: TemporalDecoderConfig, z: torch.Tensor, unscale: bool = True,
+                    plain: bool = False) -> torch.Tensor:
+    """(N, h, w, 4) latents of N consecutive frames -> (N, H, W, 3) pixels,
+    decoded together (diffusers `AutoencoderKLTemporalDecoder.decode` of
+    one chunk)."""
+    if unscale:
+        z = z / cfg.scaling_factor
+    return temporal_decoder_apply(_sub(p, "decoder."), cfg, z, plain)

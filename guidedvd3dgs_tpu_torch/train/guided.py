@@ -25,7 +25,9 @@ Counterpart of `guidedvd3dgs_tpu/train/guided.py`'s per-step path
     (reference :431-636).
 The engines: `ViewCrafterEngine` (the ViewCrafter stack with guidance,
 reference utils/viewcrafter_wrapper.py:550-573, driven by the trainer as
-the reference's), `MockDiffusionEngine` (the frozen renders with the holes
+the reference's), `SVDEngine` (Stable Video Diffusion XT as a second
+guided prior: the same guidance loss through the Euler EDM sampler,
+conditioned on frame 0), `MockDiffusionEngine` (the frozen renders with the holes
 filled by the point-cloud render) and `OracleDiffusionEngine` (renders of
 known ground-truth Gaussians: a perfect prior for validation runs).
 Around each event, as the JAX package: the per-event videos (render0,
@@ -69,13 +71,23 @@ import torch
 
 from guidedvd3dgs_tpu_torch.convert import params_from_numpy
 
-from guidedvd3dgs_tpu_torch.diffusion.model import DiffusionParams, LatentDiffusionConfig, decode_video_frames
+from guidedvd3dgs_tpu_torch.diffusion.model import (
+    DiffusionParams,
+    LatentDiffusionConfig,
+    SVDConfig,
+    SVDParams,
+    decode_video_frames,
+)
 from guidedvd3dgs_tpu_torch.diffusion.samplers.ddim_guidance import GuidedSampleConfig
 from guidedvd3dgs_tpu_torch.diffusion.synthesis import (
+    SVDSynthesisConfig,
     SynthesisConfig,
     SynthesisNoise,
+    build_svd_conditioning,
+    decode_chunks,
     encode_text_pair,
     image_guided_synthesis,
+    svd_sample_from_conditioning,
 )
 from guidedvd3dgs_tpu_torch.guidance import morphology as morph
 from guidedvd3dgs_tpu_torch.guidance.depth_lift import lift_video_to_points
@@ -126,7 +138,71 @@ class DiffusionEngine(Protocol):
         ...
 
 
-class ViewCrafterEngine:
+class _VideoPriorEngine:
+    """What the video-prior engines share behind DiffusionEngine: a
+    request's resize, its guidance loss (`w_recon`, `ssim_guidance`,
+    `recon_loss`, `lpips_fn`; reference LossGuidance,
+    viewcrafter_wrapper.py:47-99), the verbose line and the per-step
+    pred_x0 videos. An engine supplies `_sample` (its conditioning and
+    sampler) and `_decode` (latents to frames), and sets `device`, `height`,
+    `width` and the settings read here."""
+
+    label = ""  # the verbose line's name of the prior
+    guides = True  # whether a request not marked no_guidance is guided
+
+    def generate(self, pc_renders, guidance_images=None, guidance_masks=None, guidance_depths=None,
+                 generator: Optional[torch.Generator] = None, no_guidance: bool = False,
+                 scale_guidance_weight: float = 1.0,
+                 noise: SynthesisNoise = SynthesisNoise()) -> torch.Tensor:
+        """pc_renders: (T, H, W, 3) point-cloud renders in [0, 1] at any
+        size (resized to the engine's, reference guided.py:557-565); the
+        guidance images (T, 3, Hg, Wg) in [0, 1], masks and depths (T, 1,
+        Hg, Wg) at any size (resized by resize_guidance). Returns the
+        generated (T, 3, height, width) video in [0, 1] on the engine's
+        device. `noise` injects the request's noise; the rest is drawn from
+        `generator`."""
+        with span("engine.generate"), device_scope(self.device):
+            dev = self.device
+            with torch.no_grad():
+                video = resize_renders(pc_renders.to(dev, torch.float32), self.height, self.width)
+            guided = not no_guidance and self.guides
+            guidance_fn = None
+            if guided:
+                as_dev = (lambda a: None if a is None else a.to(dev, torch.float32))
+                buffers = resize_guidance(as_dev(guidance_images), self.height, self.width,
+                                          masks=None if self.scale_weight_mode else as_dev(guidance_masks),
+                                          depths=as_dev(guidance_depths))
+                guidance_fn = make_guidance_fn(buffers, w_recon=self.w_recon, ssim_guidance=self.ssim_guidance,
+                                               lpips_fn=self.lpips_fn, recon_loss=self.recon_loss)
+            if self.verbose:
+                print(f"  [engine] {self.label}{self.height}x{self.width}x{video.shape[0]} recon={self.recon_loss} "
+                      f"w_recon={self.w_recon} ssim={self.ssim_guidance} lpips={self.lpips_fn is not None} "
+                      f"guided={not no_guidance} sw={scale_guidance_weight}", flush=True)
+            want_trace = bool(self.save_pred_x0_dir) and guided
+            frames = self._sample(video * 2.0 - 1.0, generator, noise, guidance_fn, scale_guidance_weight,
+                                  want_trace)
+            if want_trace:
+                frames, trace = frames
+                self._save_pred_x0_videos(trace)
+            return torch.clamp((frames + 1.0) / 2.0, 0.0, 1.0).permute(0, 3, 1, 2)
+
+    def _save_pred_x0_videos(self, trace: torch.Tensor) -> None:
+        """Decode the (S, T, h, w, 4) pred_x0 latents and write one video a
+        step, named by the steps left as the DDIM sampler's descending index
+        (the reference's pred_x0_step<index>)."""
+        s = trace.shape[0]
+        for i in range(s):
+            with torch.no_grad():
+                frames = self._decode(trace[i])
+            u8 = video_u8((frames + 1.0) / 2.0)
+            path = os.path.join(self.save_pred_x0_dir, f"pred_x0_step{s - 1 - i:03d}.mp4")
+            if self.artifact_writer is not None:
+                self.artifact_writer.submit(save_video, u8, path)
+            else:
+                save_video(u8, path)
+
+
+class ViewCrafterEngine(_VideoPriorEngine):
     """The ViewCrafter stack behind DiffusionEngine. `params` live on the
     device the engine runs on, or, with a `mesh`, are split over its model
     axis (parallel/model_parallel.py::shard_params) with the requests, their
@@ -167,66 +243,60 @@ class ViewCrafterEngine:
         with torch.no_grad(), device_scope(self.device):
             self.text_pair = encode_text_pair(params, scfg, self.device)
 
-    def generate(self, pc_renders, guidance_images=None, guidance_masks=None, guidance_depths=None,
-                 generator: Optional[torch.Generator] = None, no_guidance: bool = False,
-                 scale_guidance_weight: float = 1.0,
-                 noise: SynthesisNoise = SynthesisNoise()) -> torch.Tensor:
-        """pc_renders: (T, H, W, 3) point-cloud renders in [0, 1] at any
-        size (resized to the engine's, reference guided.py:557-565); the
-        guidance images (T, 3, Hg, Wg) in [0, 1], masks and depths (T, 1,
-        Hg, Wg) at any size (resized by resize_guidance). Returns the
-        generated (T, 3, height, width) video in [0, 1] on the engine's
-        device. `noise` injects the request's noise; the rest is drawn from
-        `generator`."""
-        with span("engine.generate"), device_scope(self.device):
-            return self._generate(pc_renders, guidance_images, guidance_masks, guidance_depths, generator,
-                                  no_guidance, scale_guidance_weight, noise)
-
-    def _generate(self, pc_renders, guidance_images, guidance_masks, guidance_depths, generator,
-                  no_guidance, scale_guidance_weight, noise) -> torch.Tensor:
-        dev = self.device
-        with torch.no_grad():
-            video = resize_renders(pc_renders.to(dev, torch.float32), self.height, self.width)
+    @property
+    def guides(self) -> bool:
         # a two-scale CFG request runs unguided, as the reference's multicond
         # sampler (JAX train/guided.py:582-584)
-        guided = not no_guidance and not self.scfg.multiple_cond_cfg
-        guidance_fn = None
-        if guided:
-            as_dev = (lambda a: None if a is None else a.to(dev, torch.float32))
-            buffers = resize_guidance(as_dev(guidance_images), self.height, self.width,
-                                      masks=None if self.scale_weight_mode else as_dev(guidance_masks),
-                                      depths=as_dev(guidance_depths))
-            guidance_fn = make_guidance_fn(buffers, w_recon=self.w_recon, ssim_guidance=self.ssim_guidance,
-                                           lpips_fn=self.lpips_fn, recon_loss=self.recon_loss)
-        if self.verbose:
-            print(f"  [engine] {self.height}x{self.width}x{video.shape[0]} recon={self.recon_loss} "
-                  f"w_recon={self.w_recon} ssim={self.ssim_guidance} lpips={self.lpips_fn is not None} "
-                  f"guided={not no_guidance} sw={scale_guidance_weight}", flush=True)
-        want_trace = bool(self.save_pred_x0_dir) and guided
-        frames = image_guided_synthesis(self.params, self.mcfg, self.scfg, video * 2.0 - 1.0,
-                                        generator=generator, noise=noise, guidance_fn=guidance_fn,
-                                        guided_cfg=self.guided_cfg,
-                                        scale_guidance_weight=scale_guidance_weight,
-                                        text_pair=self.text_pair, pred_x0_trace=want_trace)
-        if want_trace:
-            frames, trace = frames
-            self._save_pred_x0_videos(trace)
-        return torch.clamp((frames + 1.0) / 2.0, 0.0, 1.0).permute(0, 3, 1, 2)
+        return not self.scfg.multiple_cond_cfg
 
-    def _save_pred_x0_videos(self, trace: torch.Tensor) -> None:
-        """Decode the (S, T, h, w, 4) pred_x0 latents and write one video a
-        DDIM step, named by the sampler's descending index as the reference
-        (pred_x0_step<index>)."""
-        s = trace.shape[0]
-        for i in range(s):
-            with torch.no_grad():
-                frames = decode_video_frames(self.params, self.mcfg, trace[i])
-            u8 = video_u8((frames + 1.0) / 2.0)
-            path = os.path.join(self.save_pred_x0_dir, f"pred_x0_step{s - 1 - i:03d}.mp4")
-            if self.artifact_writer is not None:
-                self.artifact_writer.submit(save_video, u8, path)
-            else:
-                save_video(u8, path)
+    def _sample(self, video, generator, noise, guidance_fn, scale_guidance_weight, want_trace):
+        return image_guided_synthesis(self.params, self.mcfg, self.scfg, video, generator=generator, noise=noise,
+                                      guidance_fn=guidance_fn, guided_cfg=self.guided_cfg,
+                                      scale_guidance_weight=scale_guidance_weight, text_pair=self.text_pair,
+                                      pred_x0_trace=want_trace)
+
+    def _decode(self, latents: torch.Tensor) -> torch.Tensor:
+        return decode_video_frames(self.params, self.mcfg, latents)
+
+
+class SVDEngine(_VideoPriorEngine):
+    """Stable Video Diffusion XT behind DiffusionEngine: `params` (SVDParams)
+    live on the engine's device. A request conditions on frame 0 of the
+    point-cloud renders (the train view) and runs the Euler EDM sampler of
+    `scfg`, guided as ViewCrafterEngine's requests are (the same guidance
+    loss and settings, `guided_cfg` for rho_scale and recur_steps; the
+    decode chunk is `scfg.decode_chunk`). With `save_pred_x0_dir` set, a
+    guided request also writes each step's denoised latent as a video."""
+
+    label = "SVD "
+
+    def __init__(self, params: SVDParams, cfg: SVDConfig, scfg: Optional[SVDSynthesisConfig] = None,
+                 guided_cfg: Optional[GuidedSampleConfig] = None, video_length: int = 25, height: int = 320,
+                 width: int = 448, w_recon: float = 0.5, ssim_guidance: bool = False, lpips_fn=None,
+                 recon_loss: str = "l2"):
+        self.params, self.cfg = params, cfg
+        self.scfg = scfg or SVDSynthesisConfig()
+        self.guided_cfg = guided_cfg or GuidedSampleConfig()
+        self.device = params.unet["conv_out.weight"].device
+        self.video_length, self.height, self.width = video_length, height, width
+        self.w_recon, self.ssim_guidance, self.lpips_fn = w_recon, ssim_guidance, lpips_fn
+        self.recon_loss = recon_loss
+        self.scale_weight_mode = False
+        self.verbose = False
+        self.save_pred_x0_dir: Optional[str] = None
+        self.artifact_writer: Optional[AsyncArtifactWriter] = None
+
+    def _sample(self, video, generator, noise, guidance_fn, scale_guidance_weight, want_trace):
+        with torch.no_grad():
+            cond, uncond = build_svd_conditioning(self.params, self.cfg, self.scfg, video,
+                                                  aug_noise=noise.encode_eps, generator=generator)
+        return svd_sample_from_conditioning(self.params, self.cfg, self.scfg, cond, uncond, noise=noise,
+                                            generator=generator, guidance_fn=guidance_fn,
+                                            guided_cfg=self.guided_cfg, scale_guidance_weight=scale_guidance_weight,
+                                            pred_x0_trace=want_trace)
+
+    def _decode(self, latents: torch.Tensor) -> torch.Tensor:
+        return decode_chunks(self.params, self.cfg, latents, self.scfg.decode_chunk)
 
 
 def _sync(device: torch.device) -> None:

@@ -7,7 +7,7 @@ then
 
     python -m guidedvd3dgs_tpu_torch.train_guidedvd -s <source_path> -m <model_path> \\
         --baseline_path <baseline_path> [--baseline_iteration 10000] \\
-        [--viewcrafter_ckpt <model.ckpt> [--guidance_gpu_id 1]] \\
+        [--viewcrafter_ckpt <model.ckpt> | --svd_ckpt <svd-xt dir or file> [--guidance_gpu_id 1]] \\
         [--oracle_gt_npz <source_path>/gt_gaussians.npz] [--vgg19_weights <vgg19.pth>] \\
         [--mask_baseline_path <path> [--mask_baseline_iteration 10000]] [--device cuda|cpu]
 
@@ -16,7 +16,14 @@ trained model starts from the scene's point cloud, as the reference's
 does. The engine: `--viewcrafter_ckpt` loads the ViewCrafter checkpoint
 (bf16 on a card) and runs the guided DDIM sampler, at 320x448 or 320x512
 by the scene's aspect ratio, on `cuda:<guidance_gpu_id>` where the host
-has that card and on the trainer's otherwise; `--oracle_gt_npz` renders
+has that card and on the trainer's otherwise; `--svd_ckpt` loads Stable
+Video Diffusion XT instead (diffusion/convert.py::load_svd_checkpoint: the
+diffusers repository's directory, unet/ vae/ image_encoder/ with their
+.safetensors or .bin files, or one torch file of the three state dicts
+under the prefixes "unet.", "vae.", "image_encoder."; its weights are not
+in the repository) and runs its guided Euler EDM sampler (25 steps, CFG
+1 -> 3 over the frames) at the same sizes, bf16 on a card and float32 on
+the CPU; `--oracle_gt_npz` renders
 the pseudo ground truth from known ground-truth Gaussians (validation);
 without either the mock engine (the frozen renders with the holes filled
 by the point-cloud render), announced. The perceptual pseudo term
@@ -57,8 +64,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from guidedvd3dgs_tpu_torch.diffusion.convert import load_viewcrafter_checkpoint
-from guidedvd3dgs_tpu_torch.diffusion.model import DiffusionParams, LatentDiffusionConfig
+from guidedvd3dgs_tpu_torch.diffusion.convert import load_svd_checkpoint, load_viewcrafter_checkpoint
+from guidedvd3dgs_tpu_torch.diffusion.model import DiffusionParams, LatentDiffusionConfig, SVDConfig
 from guidedvd3dgs_tpu_torch.diffusion.samplers.ddim_guidance import GuidedSampleConfig
 from guidedvd3dgs_tpu_torch.diffusion.synthesis import SynthesisConfig
 from guidedvd3dgs_tpu_torch.config import (
@@ -78,6 +85,7 @@ from guidedvd3dgs_tpu_torch.train.guided import (
     GuidedTrainer,
     MockDiffusionEngine,
     OracleDiffusionEngine,
+    SVDEngine,
     ViewCrafterEngine,
 )
 from guidedvd3dgs_tpu_torch.train.logging import MetricsLogger
@@ -120,7 +128,30 @@ def engine_width(opt, height: int, width: int) -> int:
     return 448 if abs(width / height - 1.4) < 0.2 else 512
 
 
+def build_svd_engine(args, opt, height: int, width: int, device) -> SVDEngine:
+    """--svd_ckpt: SVD-XT on the engine's device, bf16 on a card (weights and
+    compute), float32 on the CPU."""
+    if getattr(opt, "guidance_tp", 1) > 1:
+        raise ValueError("--guidance_tp splits the ViewCrafter engine only; SVD-XT runs on one device")
+    dev = guidance_device(opt, device)
+    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    print(f"Loading SVD-XT weights {args.svd_ckpt} ({dtype}) onto {dev} ...")
+    params = load_svd_checkpoint(args.svd_ckpt, device=dev, dtype=dtype)
+    cfg = SVDConfig(compute_dtype="bfloat16" if dtype == torch.bfloat16 else "float32")
+    d_w = engine_width(opt, height, width)
+    print(f"SVD-XT engine on {dev}: 25x320x{d_w}, 25 guided Euler EDM steps (trainer on {device})")
+    return SVDEngine(params, cfg, guided_cfg=GuidedSampleConfig(recur_steps=opt.guidance_recur_steps),
+                     video_length=25, height=320, width=d_w, recon_loss=opt.guidance_recon_loss)
+
+
 def build_engine(args, opt, height: int, width: int, device):
+    svd_ckpt = getattr(args, "svd_ckpt", None)
+    if args.viewcrafter_ckpt and svd_ckpt:
+        raise ValueError("give --viewcrafter_ckpt or --svd_ckpt, not both")
+    if svd_ckpt:
+        if getattr(opt, "guidance_mean_loss", False):
+            raise ValueError("guidance_mean_loss must stay False (the reference's LossGuidance asserts it)")
+        return build_svd_engine(args, opt, height, width, device)
     if args.viewcrafter_ckpt:
         if getattr(opt, "guidance_mean_loss", False):
             # the reference's LossGuidance asserts it off (viewcrafter_wrapper.py:86)
@@ -163,7 +194,7 @@ def configure_engine(engine, opt, vgg_fn) -> None:
     """The guidance loss's settings from the options (JAX train_guidedvd.py:
     223-238): the perceptual term is the VGG loss, frame by frame, with
     guidance_with_lpips and weights only."""
-    if not isinstance(engine, ViewCrafterEngine):
+    if not isinstance(engine, (ViewCrafterEngine, SVDEngine)):
         return
     if getattr(opt, "guidance_with_lpips", False) and vgg_fn is not None:
         engine.lpips_fn = frame_lpips_fn(vgg_fn)
@@ -193,6 +224,12 @@ def main(argv: Optional[List[str]] = None) -> GuidedTrainer:
                         help="model_path of the trained baseline (the frozen renderer)")
     parser.add_argument("--baseline_iteration", type=int, default=10_000)
     parser.add_argument("--viewcrafter_ckpt", type=str, default=None)
+    parser.add_argument("--svd_ckpt", type=str, default=None,
+                        help="Stable Video Diffusion XT as the guided prior: the diffusers repository "
+                             "stabilityai/stable-video-diffusion-img2vid-xt (a directory with unet/, vae/ and "
+                             "image_encoder/ weights, .safetensors or .bin) or one torch file of the three state "
+                             "dicts under the prefixes 'unet.', 'vae.', 'image_encoder.'; the weights are not in "
+                             "this repository")
     parser.add_argument("--oracle_gt_npz", type=str, default=None,
                         help="validation mode: pseudo ground truth rendered from these "
                              "ground-truth Gaussians (the synthetic scene's gt_gaussians.npz)")

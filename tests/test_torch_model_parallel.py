@@ -256,8 +256,9 @@ def test_sharded_pair_vjp_matches_reference_and_unsharded():
     sgn = torch.from_numpy(rng.integers(0, 2, lat).astype(np.float32) * 2.0 - 1.0)
 
     def vjp(p, xv):
-        vc, vu = pdg.pair_forward(p, pm, tpr, cond, uncond, xv, index)
-        return pdg.pair_vjp(p, pm, tsched, tpr, cond, uncond, pdg.GuidedSampleConfig(), xv, index, vc, vu, tcot)
+        rule = pdg.DDIMRule(tsched, tpr, pdg.GuidedSampleConfig())
+        vc, vu = pdg.pair_forward(p, pm, rule, cond, uncond, xv, index)
+        return pdg.pair_vjp(p, pm, rule, cond, uncond, xv, index, vc, vu, tcot)
 
     def branch_vjp(p, c):
         xg = tx.clone().requires_grad_()
