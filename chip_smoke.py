@@ -151,6 +151,23 @@ and the exit code is non-zero; there is no CPU fallback):
               the plain fold's ms (its backward through autograd), the
               bound of the bytes the function needs (4 / 6 an element) and
               of this design's traffic (6 / 10)
+     7e. kernel L2 (short and cross attention at D = 64,
+              csrc/short_attn.cu) through the wrapper nnops calls against
+              the einsum form at the shapes the UNets give it (L2_SHAPES:
+              the temporal self-attention over 25 frames, the
+              cross-attention to 77, 16 and SVD-XT's 1 token, the spatial
+              self-attention below level 0 and in the middle block, at
+              widths 448 and 512), bf16: forward within L1_TOL, its row
+              log-sum-exp within LSE_TOL of torch.logsumexp and, under
+              autograd, the gradients within L1_BWD_TOL of the einsum
+              form's autograd gradients on the same leaves, one launch
+              each way; ms of each by CUDA events beside the einsum
+              form's (its backward through autograd), torch's
+              scaled_dot_product_attention's (forward, and backward
+              through autograd) and the bound (`l2_bounds`); 7b, 8b and
+              8d also check the counters nn.attention.l2 / l2_bwd / plain
+              of a step (`l2_step_counts`) and L2's launches in the
+              requests
   8. guided   generation under scene-grounding guidance (the same
               ViewCrafter at full width), which differentiates through L1
      8a. L1's backward (the dK/dV and dQ kernels) against its plain
@@ -284,10 +301,10 @@ and the exit code is non-zero; there is no CPU fallback):
               once a step, the trace naming K1, K4 and K5
 `python3 chip_smoke.py --generate-only STEPS` runs phases 1, 2 and 7b
 alone with STEPS DDIM steps; `--guided-only STEPS` phases 1, 2 and 8b
-(the 50-step requests of PERF.md); `--backward-only` phases 1, 2, 7d, 8a,
+(the 50-step requests of PERF.md); `--backward-only` phases 1, 2, 7d, 7e, 8a,
 8b-8c and 8d (N1, L1's backward kernels and the guided steps);
 `--svd-only` phases 1, 2 and 8d (SVD-XT's guided request);
-`--forward-only` phases 1, 2, 7a, 7d and 7b-7c (L1's forward kernels, N1
+`--forward-only` phases 1, 2, 7a, 7d, 7e and 7b-7c (L1's forward kernels, N1, L2
 and the DDIM request);
 `--gaussian-only` phases 1, 2, 3, 5 and 5b (the Gaussian kernels K1-K6
 and the trainer); `--guided-trainer-only` phases 1, 2 and 5c (the guided
@@ -304,7 +321,7 @@ N1's over the phases that return its counts (7b, 8b, 8d, and 5d, 6c, 9, 10
 and 12
 where their engines' are among them); each phase's count in
 `launches_by_phase`; N1's rows from 7d at N1_MAIN with SiLU, its other
-shapes in 7d's line; for
+shapes in 7d's line; L2's rows from 7e at L2_MAIN; for
 K1-K6 `host_ms` beside `ms` and `ms_dense` and `bound_ms_dense` from
 phase 5b's view; for K1 also `ms_full_table`, `bound_ms_all_rows` and
 their `_dense` twins);
@@ -363,6 +380,7 @@ from guidedvd3dgs_tpu_torch.diffusion import schedules as S  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion import synthesis  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion.init import init_diffusion_params  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion.model import Conditioning, LatentDiffusionConfig, SVDConfig, apply_model  # noqa: E402
+from guidedvd3dgs_tpu_torch.diffusion.unet3d import UNetConfig  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion.samplers import ddim, ddim_guidance, ddim_multicond  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion.samplers.euler_edm import EulerConfig  # noqa: E402
 from guidedvd3dgs_tpu_torch.geometry import dust3r  # noqa: E402
@@ -375,6 +393,7 @@ from guidedvd3dgs_tpu_torch.models.render import RenderResult, eval_render, rend
 from guidedvd3dgs_tpu_torch.ops import _build, expand, preprocess_fused, raster_tiles, segsum, tiling  # noqa: E402
 from guidedvd3dgs_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from guidedvd3dgs_tpu_torch.ops import group_norm as gn  # noqa: E402
+from guidedvd3dgs_tpu_torch.ops import short_attention as sa  # noqa: E402
 from group_norm_tol import bwd_tol, fwd_tol  # noqa: E402
 from guidedvd3dgs_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain  # noqa: E402
 from guidedvd3dgs_tpu_torch.ops.knn import dist_knn3  # noqa: E402
@@ -434,9 +453,13 @@ KERNELS = {
     # GroupNorm (+ SiLU), left to XLA there, and the backward XLA derives for it
     "group_norm_fwd": ("guidedvd3dgs_tpu_torch/csrc/group_norm.cu", "guidedvd3dgs_tpu/diffusion/nnops.py:77"),
     "group_norm_bwd": ("guidedvd3dgs_tpu_torch/csrc/group_norm.cu", "guidedvd3dgs_tpu/diffusion/nnops.py:77"),
+    # the einsum form of short and cross attention, left to XLA there, and its backward
+    "short_attn_fwd": ("guidedvd3dgs_tpu_torch/csrc/short_attn.cu", "guidedvd3dgs_tpu/diffusion/nnops.py:317"),
+    "short_attn_bwd": ("guidedvd3dgs_tpu_torch/csrc/short_attn.cu", "guidedvd3dgs_tpu/diffusion/nnops.py:317"),
 }
 L1_BWD_KERNELS = ("flash_attn_bwd_dkv", "flash_attn_bwd_dq")
 N1_KERNELS = ("group_norm_fwd", "group_norm_bwd")
+L2_KERNELS = ("short_attn_fwd", "short_attn_bwd")
 # the kernels of a render (phase 4); training (phase 5) runs K1-K6
 FORWARD_KERNELS = ("preprocess_fwd", "expand", "blend_fwd")
 GAUSSIAN_KERNELS = ("preprocess_fwd", "preprocess_bwd", "expand", "blend_fwd", "blend_bwd", "segsum")
@@ -588,6 +611,31 @@ N1_FWD_FLOPS, N1_BWD_FLOPS = 8, 15
 # call (2 mid res blocks and the mid attention, 4 levels x 3 res blocks x
 # 2, norm_out)
 N1_UNET_CALLS, N1_DECODE_CALLS = 166, 30
+# 7e: kernel L2 (short and cross attention, D = 64, bf16) against the
+# einsum form at the shapes the UNets give it, as (batch, heads, Lq, Lk):
+# the temporal self-attention over 25 frames at level 0 (2,240 pixels x 5
+# heads = 11,200 problems); the text and image cross-attention at level 0
+# (77 and 16 keys) and the 512-wide engine's (2,560 rows, 77 keys);
+# SVD-XT's cross-attention to one token, temporal at levels 0 and 1 (the
+# CFG pair's 25 x 2,240 and 25 x 560 rows a video) and spatial at level 1;
+# the spatial self-attention at levels 1 and 2 (560 and 140 tokens; 640
+# and 160 at width 512) and in the middle block (35; 40 at width 512),
+# whose 33-64 keys take the forward's 64-key tile. q, k, v are split_heads
+# views of (batch, L, heads x 64) rows, as the UNets pass them;
+# self-attention takes dq, dk and dv, cross-attention dq only. The forward
+# within L1_TOL[BF16] of the einsum form on the same bf16 inputs (relative
+# above 1: with 25 keys outputs reach 2-4, where one bf16 ulp is 1.6e-2);
+# the row log-sum-exp within LSE_TOL of torch.logsumexp of the f32
+# logits; the gradients within L1_BWD_TOL[BF16] of max |grad| (at least
+# 1e-3: with one key dq is 0 up to rounding) of the einsum form's autograd
+# gradients on the same leaves (which round the weights and dP to bf16)
+L2_SHAPES = [((2240, 5, 25, 25), "T"), ((25, 5, 2240, 77), "X"), ((25, 5, 2240, 16), "X"),
+             ((2, 5, 56000, 1), "X"), ((2, 10, 14000, 1), "X"), ((50, 10, 560, 1), "X"),
+             ((25, 5, 2560, 77), "X"), ((25, 10, 560, 560), "S"), ((25, 10, 640, 640), "S"),
+             ((25, 20, 140, 140), "S"), ((25, 20, 160, 160), "S"), ((25, 20, 35, 35), "S"),
+             ((25, 20, 40, 40), "S")]
+L2_MAIN = L2_SHAPES[0]  # the temporal attention's: 34 of the 77 calls a UNet application
+L2_COUNTERS = ("nn.attention.l2", "nn.attention.l2_bwd", "nn.attention.plain")
 # 7b's and 8b's traces: the stage of each range of the diffusion primitives
 # (diffusion/nnops.py, "span:<label>" from utils/tracing.py)
 STAGES = {"nn.attention": "attention", "nn.conv": "conv", "nn.group_norm": "GroupNorm", "nn.linear": "matmul"}
@@ -1709,16 +1757,17 @@ def phase_guided_trainer(dev, work: Path):
 
 
 def vc_trainer_launches(ucfg, steps: int, renders: int, chains: int, train_steps: int) -> dict:
-    """K1-K6, L1's and N1's launches of phase 5d: a guided step one chain
-    of two views, the frozen frames in their chains (launches_of); one
-    guided request of `steps` guided steps (L1's forward 20 a step and 2
-    for the VAE's encode and decode, each backward kernel 15 a step; N1's
-    `n1_request_launches`)."""
+    """K1-K6, L1's, N1's and L2's launches of phase 5d: a guided step one
+    chain of two views, the frozen frames in their chains (launches_of);
+    one guided request of `steps` guided steps (L1's forward 20 a step and
+    2 for the VAE's encode and decode, each backward kernel 15 a step; N1's
+    `n1_request_launches`; L2's `l2_step_counts` a step)."""
     fwd, bwd = guided_launches(ucfg, steps, GEN_FRAMES, DECODE_CHUNK)
     n1 = n1_request_launches(steps, guided=True, chunks=-(-GEN_FRAMES // DECODE_CHUNK))
     want = launches_of(train_steps, train_steps, renders, chains)
+    l2 = l2_step_counts(ucfg, guided=True)
     want.update(flash_attn_fwd=fwd + 2, flash_attn_bwd_dkv=bwd, flash_attn_bwd_dq=bwd, group_norm_fwd=n1[0],
-                group_norm_bwd=n1[1])
+                group_norm_bwd=n1[1], short_attn_fwd=steps * l2[0], short_attn_bwd=steps * l2[1])
     return want
 
 
@@ -2514,6 +2563,97 @@ def phase_group_norm(dev) -> dict:
     return table
 
 
+def l2_inputs(dev, shape, seed: int):
+    """q, k, v, dO as `split_heads` views of unit-normal bf16 rows:
+    (batch, L, heads x 64) for q and dO, (batch, Lk, heads x 64) for k, v."""
+    b, h, lq, lk = shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rows = [torch.randn((b, n, h * sa.HEAD_DIM), generator=gen, device=dev).to(BF16) for n in (lq, lk, lk, lq)]
+    return [d_attention.split_heads(t, h) for t in rows]
+
+
+def l2_bounds(shape, need_kv: bool) -> dict:
+    """L2's least times: forward q, k, v read and o written, against the
+    two products (4 B H Lq Lk D operations); backward q, o, dO, k, v and the
+    log-sum-exp read and dq (and dk, dv) written, against the products S,
+    dP and dQ (and dV, dK): 6 (10) B H Lq Lk D operations; bf16 peak."""
+    b, h, lq, lk = shape
+    rq, rk, d = b * h * lq, b * h * lk, sa.HEAD_DIM
+    fwd = bound(2 * d * (2 * rq + 2 * rk), 4 * rq * lk * d, PEAK_BF16_FLOPS)
+    bwd_bytes = 2 * d * (4 * rq + 2 * rk + (2 * rk if need_kv else 0)) + 4 * rq
+    return dict(fwd=fwd, bwd=bound(bwd_bytes, (10 if need_kv else 6) * rq * lk * d, PEAK_BF16_FLOPS))
+
+
+def phase_short_attention(dev) -> dict:
+    """7e: kernel L2 through `ops/short_attention` (as nnops calls it)
+    against the einsum form at every shape of L2_SHAPES, forward, row
+    log-sum-exp and autograd backward: checked, timed by CUDA events beside
+    its bounds, the einsum form's and sdpa's forward and autograd backward.
+    Returns the kernel table's entries of short_attn_fwd and short_attn_bwd
+    (L2_MAIN)."""
+    rows, table = [], {}
+    for i, (shape, cls) in enumerate(L2_SHAPES):
+        q, k, v, do = l2_inputs(dev, shape, SEED + 75 + i)
+        scale = sa.HEAD_DIM ** -0.5
+        need_kv = cls != "X"
+        leaves = [t.detach().requires_grad_(g) for t, g in ((q, True), (k, need_kv), (v, need_kv))]
+        wrt = [t for t in leaves if t.requires_grad]
+        before = dict(_build.LAUNCHES)
+        out = sa.short_attention(*leaves, scale)
+        grads = torch.autograd.grad(out, wrt, do)
+        ran = tuple(_build.LAUNCHES[n] - before[n] for n in L2_KERNELS)
+        plain_out = sa.attention_plain(*leaves, scale)
+        want_g = torch.autograd.grad(plain_out, wrt, do, retain_graph=True)
+        with torch.no_grad():
+            o, lse = sa._forward(q, k, v, scale, with_lse=True)
+            fwd_err = float(((out.detach().float() - plain_out.detach().float()).abs()
+                             / plain_out.detach().float().abs().clamp(min=1.0)).max())
+            want_lse = torch.logsumexp(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, dim=-1)
+            lse_err = float((lse - want_lse).abs().max())
+            bwd_errs = [float((g.float() - w.float()).abs().max() / w.float().abs().max().clamp(min=1e-3))
+                        for g, w in zip(grads, want_g)]
+        del want_lse, want_g, grads
+        if ran != (1, 1) or not (fwd_err <= L1_TOL[BF16] and lse_err <= LSE_TOL
+                                 and all(e <= L1_BWD_TOL[BF16] for e in bwd_errs)):
+            raise AssertionError(f"L2 {shape}: launches (fwd, bwd) {ran}, expected (1, 1); forward err "
+                                 f"{fwd_err:.3g} (tol {L1_TOL[BF16]}), log-sum-exp err {lse_err:.3g} (tol "
+                                 f"{LSE_TOL}), dq/dk/dv err over max |grad| {bwd_errs} (tol {L1_BWD_TOL[BF16]})")
+        bounds = l2_bounds(shape, need_kv)
+        with torch.no_grad():
+            k_ms = dict(fwd=event_ms(lambda: sa._forward(q, k, v, scale, False)),
+                        bwd=event_ms(lambda: sa._backward(q, k, v, o, lse, do, scale, need_kv)))
+            p_fwd = event_ms(lambda: sa.attention_plain(q, k, v, scale))
+            lib_fwd = event_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+        p_ms = dict(fwd=p_fwd, bwd=event_ms(lambda: torch.autograd.grad(plain_out, wrt, do, retain_graph=True)))
+        del plain_out
+        lib_out = F.scaled_dot_product_attention(*leaves, scale=scale)
+        lib_ms = dict(fwd=lib_fwd, bwd=event_ms(lambda: torch.autograd.grad(lib_out, wrt, do, retain_graph=True)))
+        del lib_out
+        rows.append(f"{cls} {shape}: err {fwd_err:.3g} / lse {lse_err:.3g} / {max(bwd_errs):.3g} (tol "
+                    f"{L1_TOL[BF16]} / {LSE_TOL} / {L1_BWD_TOL[BF16]}) | ms fwd {k_ms['fwd']:.4f} (einsum "
+                    f"{p_ms['fwd']:.4f}, sdpa {lib_ms['fwd']:.4f}, {k_ms['fwd'] / lib_ms['fwd']:.2f}x sdpa's; bound "
+                    f"{bounds['fwd'][0]:.4f} {bounds['fwd'][1]}, {bounds['fwd'][0] / k_ms['fwd']:.1%}) bwd "
+                    f"{k_ms['bwd']:.4f} (einsum {p_ms['bwd']:.4f}, sdpa {lib_ms['bwd']:.4f}, "
+                    f"{k_ms['bwd'] / lib_ms['bwd']:.2f}x sdpa's; bound {bounds['bwd'][0]:.4f} "
+                    f"{bounds['bwd'][1]}, {bounds['bwd'][0] / k_ms['bwd']:.1%})")
+        if (shape, cls) == L2_MAIN:
+            for way, name in (("fwd", "short_attn_fwd"), ("bwd", "short_attn_bwd")):
+                table[name] = dict(max_abs_err=fwd_err if way == "fwd" else max(bwd_errs), ms=k_ms[way],
+                                   plain_ms=p_ms[way], library_ms=lib_ms[way], bound=bounds[way],
+                                   extra=dict(shape=list(shape), lse_err=lse_err,
+                                              err_is="forward: abs err over max(1, |o|); backward: abs err "
+                                                     "over max |grad| of the einsum form's autograd gradients",
+                                              library_ms_of="scaled_dot_product_attention" + (
+                                                  "'s backward through autograd" if way == "bwd" else "")))
+        del q, k, v, do, leaves, wrt, out, o, lse
+        torch.cuda.empty_cache()
+    log("phase 7e L2 (short and cross attention, bf16, D = 64) vs the einsum form and sdpa (split_heads views; "
+        f"CUDA events over {EVENT_LAUNCHES} calls, the einsum form's and sdpa's backward through autograd; bounds "
+        f"at {PEAK_BYTES_PER_S / 1e12:g} TB/s and {PEAK_BF16_FLOPS / 1e12:g} TFLOP/s): " + " | ".join(rows))
+    return table
+
+
 @contextlib.contextmanager
 def timed(module, name: str, record: list, outputs: list | None = None):
     """Time every call of module.name (the calling thread's stream
@@ -2661,9 +2801,11 @@ def phase_generate(dev, steps: int, trace_and_f32: bool = True) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expected = 10 * steps + 2  # 5 level-0 spatial attentions x 2 CFG branches per step; VAE encode, decode
     n1 = n1_request_launches(steps, guided=False)
+    l2 = (steps * l2_step_counts(mcfg.unet, guided=False)[0], 0)
     if launches["flash_attn_fwd"] != expected or any(launches[n] for n in GAUSSIAN_KERNELS + L1_BWD_KERNELS) \
-            or tuple(launches[n] for n in N1_KERNELS) != n1:
-        raise AssertionError(f"launches in the request {launches}; L1 expected {expected}, N1 (fwd, bwd) {n1}")
+            or tuple(launches[n] for n in N1_KERNELS) != n1 or tuple(launches[n] for n in L2_KERNELS) != l2:
+        raise AssertionError(f"launches in the request {launches}; L1 expected {expected}, N1 (fwd, bwd) {n1}, "
+                             f"L2 (fwd, bwd) {l2}")
     if tuple(video.shape) != (GEN_FRAMES, 3, GEN_H, GEN_W) or not bool(torch.isfinite(video).all()) \
             or float(video.min()) < 0.0 or float(video.max()) > 1.0:
         raise AssertionError(f"bad video: shape {tuple(video.shape)}, range "
@@ -2676,8 +2818,9 @@ def phase_generate(dev, steps: int, trace_and_f32: bool = True) -> dict:
         f"max {max(step_ms):.1f}; model pair {statistics.median(model_ms):.1f}) | decode "
         f"{decode_ms[0]:.1f} ms | total {total_s:.3f} s | peak allocated {peak_gb:.2f} GB | L1 launches "
         f"{launches['flash_attn_fwd']} (expected {expected}) | N1 launches fwd {launches['group_norm_fwd']} bwd "
-        f"{launches['group_norm_bwd']} (expected {n1}) | video std {float(video.std()):.4f}")
-    request = {n: launches[n] for n in ("flash_attn_fwd",) + N1_KERNELS}
+        f"{launches['group_norm_bwd']} (expected {n1}) | L2 launches fwd {launches['short_attn_fwd']} bwd "
+        f"{launches['short_attn_bwd']} (expected {l2}) | video std {float(video.std()):.4f}")
+    request = {n: launches[n] for n in ("flash_attn_fwd",) + N1_KERNELS + L2_KERNELS}
     if not trace_and_f32:
         return request
 
@@ -2687,13 +2830,18 @@ def phase_generate(dev, steps: int, trace_and_f32: bool = True) -> dict:
     with torch.no_grad():
         one_step(params, mcfg, scfg, cond, uncond, x, index, noise)
         torch.cuda.synchronize()
+        tracing.reset()
         with torch.profiler.profile(activities=PROFILER_ACTIVITIES) as prof:
             one_step(params, mcfg, scfg, cond, uncond, x, index, noise)
             torch.cuda.synchronize()
+    counts, want = l2_counts(), l2_step_counts(mcfg.unet, guided=False)
+    if counts != want:
+        raise AssertionError(f"7b: the traced step's {L2_COUNTERS} {counts}, expected {want}")
     dev_ms, idle, top = stage_summary(prof)
     log("phase 7b one DDIM step traced (bf16, CFG pair + update), device ms: "
         + fmt_diffusion_stages(dev_ms, idle) + "; largest attention kernels: "
-        + "; ".join(f"{name[:70]} {ms:.3f}" for name, ms in top))
+        + "; ".join(f"{name[:70]} {ms:.3f}" for name, ms in top)
+        + f"; counters {dict(zip(L2_COUNTERS, counts))} (expected)")
 
     # 7c: one float32 step through L1 and through its plain version
     step32 = f32_step(params, mcfg, scfg, cond, uncond, x, noise)
@@ -2888,6 +3036,36 @@ def guided_launches(ucfg, steps: int, frames: int, chunk: int) -> tuple[int, int
     return steps * (3 * level0 + chunks), steps * (2 * level0 + chunks)
 
 
+def l2_unet_calls(ucfg) -> int:
+    """Kernel L2's calls in one application of a UNet at GEN_H x GEN_W
+    (level 0 2,240 tokens, level 1 560): every spatial transformer's text
+    cross-attention (and ViewCrafter's image cross-attention), its
+    self-attention below level 0, and two attentions over the frames each
+    (ViewCrafter's temporal transformers and init_attn; SVD-XT's temporal
+    block's self- and cross-attention). 77 for ViewCrafter, 59 for SVD-XT."""
+    levels = [lv for lv in range(len(ucfg.channel_mult)) if 2 ** lv in ucfg.attention_resolutions]
+    spatial = (len(levels) * (2 * ucfg.num_res_blocks + 1) + 1) * ucfg.transformer_depth
+    level0 = (2 * ucfg.num_res_blocks + 1) * (1 in ucfg.attention_resolutions) + (len(ucfg.channel_mult) == 1)
+    if isinstance(ucfg, UNetConfig):
+        temporal = spatial * ucfg.temporal_attention + ucfg.addition_attention
+        return spatial * (1 + ucfg.image_cross_attention) + spatial - level0 + 2 * temporal
+    return spatial + spatial - level0 + 2 * spatial
+
+
+def l2_step_counts(ucfg, guided: bool) -> tuple:
+    """(nn.attention.l2, nn.attention.l2_bwd, nn.attention.plain) of one
+    sampler step: unguided the CFG pair as two applications; guided the
+    batched pair, then each branch again forward and backward. No call
+    takes the einsum form."""
+    n = l2_unet_calls(ucfg)
+    return (3 * n, 2 * n, 0) if guided else (2 * n, 0, 0)
+
+
+def l2_counts() -> tuple:
+    """The counters of L2_COUNTERS over the last traced stretch."""
+    return tuple(tracing.COUNTS.get(k, 0) for k in L2_COUNTERS)
+
+
 def masked_l2(video, buffers) -> float:
     m = buffers.masks.permute(0, 3, 1, 2)
     return float(((video - buffers.images.permute(0, 3, 1, 2)) ** 2 * m).sum() / (3 * m.sum()))
@@ -3021,8 +3199,10 @@ def phase_guided(dev, steps: int, trace_and_f32: bool = True):
     n_steps = steps * gcfg.recur_steps
     fwd, bwd = guided_launches(mcfg.unet, n_steps, GEN_FRAMES, gcfg.decode_chunk)
     n1 = n1_request_launches(n_steps, guided=True, chunks=-(-GEN_FRAMES // gcfg.decode_chunk))
+    l2 = l2_step_counts(mcfg.unet, guided=True)
     expected = {"flash_attn_fwd": fwd + 2, "flash_attn_bwd_dkv": bwd, "flash_attn_bwd_dq": bwd,
-                "group_norm_fwd": n1[0], "group_norm_bwd": n1[1]}
+                "group_norm_fwd": n1[0], "group_norm_bwd": n1[1], "short_attn_fwd": n_steps * l2[0],
+                "short_attn_bwd": n_steps * l2[1]}
     if any(launches[n] != e for n, e in expected.items()) or any(launches[n] for n in GAUSSIAN_KERNELS):
         raise AssertionError(f"launches in the guided request {launches}; expected {expected}")
     rhos = [float(rho) for _, rho in upd_out]
@@ -3047,7 +3227,8 @@ def phase_guided(dev, steps: int, trace_and_f32: bool = True):
         f"decode gradients {med(grads_ms):.1f}, the branches again with their VJPs {med(vjp_ms):.1f}, update {med(ddim_ms) + med(upd_ms):.1f} | decode {decode_ms[0]:.1f} ms | total "
         f"{total_s:.3f} s | peak allocated {peak_gb:.2f} GB | launches fwd {launches['flash_attn_fwd']} "
         f"dK/dV {launches['flash_attn_bwd_dkv']} dQ {launches['flash_attn_bwd_dq']} N1 fwd "
-        f"{launches['group_norm_fwd']} bwd {launches['group_norm_bwd']} (expected {expected}) | "
+        f"{launches['group_norm_fwd']} bwd {launches['group_norm_bwd']} L2 fwd {launches['short_attn_fwd']} "
+        f"bwd {launches['short_attn_bwd']} (expected {expected}) | "
         f"rho per step {', '.join(f'{r:.4g}' for r in rhos)} | masked L2 to the guidance: guided "
         f"{l2_guided:.6f}, unguided with the same noise {l2_unguided:.6f}")
     if not trace_and_f32:
@@ -3063,13 +3244,18 @@ def phase_guided(dev, steps: int, trace_and_f32: bool = True):
 
     step()
     torch.cuda.synchronize()
+    tracing.reset()
     with torch.profiler.profile(activities=PROFILER_ACTIVITIES) as prof:
         step()
         torch.cuda.synchronize()
+    counts = l2_counts()
+    if counts != l2:
+        raise AssertionError(f"8b: the traced step's {L2_COUNTERS} {counts}, expected {l2}")
     dev_ms, idle, _ = stage_summary(prof)
     log("phase 8b one guided step traced (bf16: CFG pair forward, decode gradients, each branch again "
         "with its VJP, update), "
-        "device ms: " + fmt_diffusion_stages(dev_ms, idle))
+        "device ms: " + fmt_diffusion_stages(dev_ms, idle) + f"; counters {dict(zip(L2_COUNTERS, counts))} "
+        "(expected)")
 
     # 8c: one float32 guided step of STEP32_FRAMES frames through L1's
     # kernels and through its plain forward and backward
@@ -3141,8 +3327,8 @@ def n1_svd_calls(cfg: SVDConfig) -> tuple[int, int]:
 
 
 def svd_launches(cfg: SVDConfig, frames: int, chunk: int) -> tuple[dict, dict]:
-    """L1's and N1's launches in one guided Euler EDM step of SVD-XT and in
-    the request's final decode. A step runs the UNet three times forward
+    """L1's, N1's and L2's launches in one guided Euler EDM step of SVD-XT
+    and in the request's final decode. A step runs the UNet three times forward
     (the batched pair, then each branch for its VJP) and twice backward, and
     the temporal decoder forward and backward once a decode chunk (its mid
     attention L1's only one at 2,240 tokens besides the UNet's level 0). The
@@ -3152,8 +3338,10 @@ def svd_launches(cfg: SVDConfig, frames: int, chunk: int) -> tuple[dict, dict]:
     fwd, bwd = guided_launches(cfg.unet, 1, frames, chunk)
     unet, dec = n1_svd_calls(cfg)
     chunks = -(-frames // chunk)
+    l2 = l2_step_counts(cfg.unet, guided=True)
     step = {"flash_attn_fwd": fwd, "flash_attn_bwd_dkv": bwd, "flash_attn_bwd_dq": bwd,
-            "group_norm_fwd": 3 * unet + chunks * dec, "group_norm_bwd": 2 * unet + chunks * dec}
+            "group_norm_fwd": 3 * unet + chunks * dec, "group_norm_bwd": 2 * unet + chunks * dec,
+            "short_attn_fwd": l2[0], "short_attn_bwd": l2[1]}
     return step, {"flash_attn_fwd": 1 + chunks, "group_norm_fwd": chunks * dec}
 
 
@@ -3178,12 +3366,18 @@ def phase_svd(dev, steps: int = SVD_STEPS):
     noise = synthesis.SynthesisNoise(
         encode_eps=torch.randn((1, GEN_H, GEN_W, 3), generator=gen, device=dev),
         x_T=torch.randn((1, GEN_FRAMES, GEN_H // f, GEN_W // f, 4), generator=gen, device=dev))
-    per_step, step_ms, upd_ms, upd_out = [], [], [], []
+    per_step, step_ms, upd_ms, upd_out, counts = [], [], [], [], []
     real = ddim_guidance.rule_step
 
     def counted(*args, **kwargs):
         before = dict(_build.LAUNCHES)
-        out = real(*args, **kwargs)
+        if per_step:
+            out = real(*args, **kwargs)
+        else:  # the first step under a host-only profiler: its counters
+            tracing.reset()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+                out = real(*args, **kwargs)
+            counts.extend(l2_counts())
         per_step.append({n: _build.LAUNCHES[n] - before[n] for n in before})
         return out
 
@@ -3201,9 +3395,11 @@ def phase_svd(dev, steps: int = SVD_STEPS):
     step_want, rest_want = svd_launches(cfg, GEN_FRAMES, scfg.decode_chunk)
     want = {n: steps * step_want.get(n, 0) + rest_want.get(n, 0) for n in launches}
     bad = [i for i, got in enumerate(per_step) if any(got[n] != step_want.get(n, 0) for n in got)]
-    if len(per_step) != steps or bad or launches != want:
+    l2 = l2_step_counts(cfg.unet, guided=True)
+    if len(per_step) != steps or bad or launches != want or tuple(counts) != l2:
         raise AssertionError(f"8d: launches by step {per_step} (expected {step_want} each, steps {bad} "
-                             f"differ), in the request {launches} (expected {want})")
+                             f"differ), in the request {launches} (expected {want}); the first step's "
+                             f"{L2_COUNTERS} {counts} (expected {l2})")
     rhos = [float(rho) for _, rho in upd_out]
     if len(rhos) != steps or not all(math.isfinite(r) and r > 0 for r in rhos):
         raise AssertionError(f"8d: rho per step {rhos}: expected {steps} positive values")
@@ -3216,7 +3412,8 @@ def phase_svd(dev, steps: int = SVD_STEPS):
         f"from {GUIDE_H}x{GUIDE_W} renders and guidance with the hole; {steps} guided Euler EDM steps of the "
         f"default 25, decode chunk {scfg.decode_chunk}): guided step ms median {med:.1f} (all "
         f"{', '.join(f'{m:.1f}' for m in step_ms)}) | total {total_s:.3f} s | peak allocated {peak_gb:.2f} GB | "
-        f"launches a step {step_want} each, exactly; the request's {want} | rho per step "
+        f"launches a step {step_want} each, exactly; the request's {want} | the first step's counters "
+        f"{dict(zip(L2_COUNTERS, counts))} (expected) | rho per step "
         f"{', '.join(f'{r:.4g}' for r in rhos)}")
     del engine, params
     torch.cuda.empty_cache()
@@ -3820,8 +4017,10 @@ def pipeline_viewcrafter(dev, work: Path, room, pcd) -> tuple[dict, list, float]
     events = 2 + len(beside)
     want = launches_of(counter["steps"], counter["pseudo"], frames["frozen"], frames["frozen_chains"])
     n1 = n1_request_launches(GUIDED_STEPS, guided=True, chunks=-(-GEN_FRAMES // DECODE_CHUNK))
+    l2 = l2_step_counts(mcfg.unet, guided=True)
     want.update(flash_attn_fwd=events * (fwd + 2), flash_attn_bwd_dkv=events * bwd, flash_attn_bwd_dq=events * bwd,
-                group_norm_fwd=events * n1[0], group_norm_bwd=events * n1[1])
+                group_norm_fwd=events * n1[0], group_norm_bwd=events * n1[1],
+                short_attn_fwd=events * GUIDED_STEPS * l2[0], short_attn_bwd=events * GUIDED_STEPS * l2[1])
     if launches != want:
         raise AssertionError(f"10b: launches {launches}, expected {want}: {events} events' L1, N1 and frozen "
                              f"frames, a chain a step")
@@ -4820,11 +5019,11 @@ def main() -> None:
     parser.add_argument("--guided-only", type=int, metavar="STEPS", default=None,
                         help="run phases 1, 2 and 8b alone, with STEPS guided DDIM steps")
     parser.add_argument("--backward-only", action="store_true",
-                        help="run phases 1, 2, 7d, 8a, 8b-8c and 8d alone: N1, L1's backward kernels and the "
-                             "guided steps")
+                        help="run phases 1, 2, 7d, 7e, 8a, 8b-8c and 8d alone: N1, L2, L1's backward kernels "
+                             "and the guided steps")
     parser.add_argument("--forward-only", action="store_true",
-                        help="run phases 1, 2, 7a, 7d and 7b-7c alone: L1's forward kernels, N1 and the DDIM "
-                             "request")
+                        help="run phases 1, 2, 7a, 7d, 7e and 7b-7c alone: L1's forward kernels, N1, L2 and "
+                             "the DDIM request")
     parser.add_argument("--svd-only", action="store_true",
                         help="run phases 1, 2 and 8d alone: SVD-XT's guided request and its launches")
     parser.add_argument("--gaussian-only", action="store_true",
@@ -4867,6 +5066,7 @@ def main() -> None:
         return
     if args.backward_only:
         run("7d", phase_group_norm, dev)
+        run("7e", phase_short_attention, dev)
         run("8a", phase_l1_bwd, dev)
         run("8b-8c", phase_guided, dev, GUIDED_STEPS)
         run("8d", phase_svd, dev)
@@ -4879,6 +5079,7 @@ def main() -> None:
     if args.forward_only:
         run("7a", phase_l1, dev)
         run("7d", phase_group_norm, dev)
+        run("7e", phase_short_attention, dev)
         run("7b-7c", phase_generate, dev, GEN_STEPS)
         log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
         return
@@ -4931,6 +5132,7 @@ def main() -> None:
         by_phase["6d"] = run("6d", phase_chain, dev, work)
         res["flash_attn_fwd"] = run("7a", phase_l1, dev)
         res.update(run("7d", phase_group_norm, dev))
+        res.update(run("7e", phase_short_attention, dev))
         by_phase["7b"] = run("7b-7c", phase_generate, dev, GEN_STEPS)
         res.update(run("8a", phase_l1_bwd, dev))
         by_phase["8b"], step_8b = run("8b-8c", phase_guided, dev, GUIDED_STEPS)

@@ -32,7 +32,7 @@ from guidedvd3dgs_tpu_torch.diffusion.nnops import (
 )
 from guidedvd3dgs_tpu_torch.parallel.mesh import device_scope
 from guidedvd3dgs_tpu_torch.parallel.model_parallel import Sharded, shard_call, sum_partials
-from guidedvd3dgs_tpu_torch.utils.tracing import span
+from guidedvd3dgs_tpu_torch.utils.tracing import count, span
 
 
 def relative_position_bias(p: Params, name: str, length_q: int, length_k: int,
@@ -54,6 +54,7 @@ def _attend(qh, kh, vh, scale: float, mask, rel, plain: bool) -> torch.Tensor:
         return attention(qh, kh, vh, scale, mask=mask, plain=plain)  # its own "nn.attention"
     k2, v2 = rel
     with span("nn.attention"):
+        count("nn.attention.plain")
         sim = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
         sim = sim + torch.einsum("bhtd,tsd->bhts", qh.float(), k2.float()) * scale
         if mask is not None:

@@ -24,10 +24,11 @@ import torch
 import torch.nn.functional as F
 
 from guidedvd3dgs_tpu_torch.ops import group_norm as gn_kernel
+from guidedvd3dgs_tpu_torch.ops import short_attention as sa_kernel
 from guidedvd3dgs_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain_autograd
 from guidedvd3dgs_tpu_torch.parallel import model_parallel
 from guidedvd3dgs_tpu_torch.parallel.model_parallel import Sharded, column_apply, row_apply
-from guidedvd3dgs_tpu_torch.utils.tracing import span
+from guidedvd3dgs_tpu_torch.utils.tracing import count, span
 
 Params = dict  # flat {torch_name: tensor}
 
@@ -145,22 +146,23 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     """Softmax attention; q, k, v: (B, H, N, D); softmax in f32.
 
     Unmasked self-attention of at least FLASH_MIN_SEQ tokens takes kernel L1
-    (`ops.flash_attention`, reference nnops.py:295-303); `plain=True` sends
-    it to L1's plain version instead, whose backward under autograd is L1's
-    plain backward. Everything else (cross-attention,
-    masked or biased attention, shorter sequences) takes the einsum form of
-    reference nnops.py:317-323."""
+    (`ops.flash_attention`, reference nnops.py:295-303); of the rest, what
+    kernel L2 takes (`ops/short_attention.py::takes_kernel`: CUDA bf16
+    heads of 64 dims, no mask or bias: the UNets' temporal, cross and
+    short spatial attention) takes L2, counted under "nn.attention.l2";
+    everything else (float32, the CPU, masked or biased attention, other
+    head sizes) takes the einsum form of reference nnops.py:317-323
+    (`attention_plain`), counted under "nn.attention.plain". `plain=True` sends L1's calls to
+    L1's plain version, whose backward under autograd is L1's plain
+    backward, and L2's to the einsum form."""
     with span("nn.attention"):
         if bias is None and mask is None and q.shape[2] == k.shape[2] and q.shape[2] >= FLASH_MIN_SEQ:
             args = (q.contiguous(), k.contiguous(), v.contiguous(), scale)
             return flash_attention_plain_autograd(*args) if plain else flash_attention(*args)
-        sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-        if bias is not None:
-            sim = sim + bias
-        if mask is not None:
-            sim = torch.where(mask, sim, torch.finfo(sim.dtype).min)
-        attn = torch.softmax(sim, dim=-1)
-        return torch.matmul(attn.to(v.dtype), v)
+        if not plain and sa_kernel.takes_kernel(q, k, v, mask, bias):
+            return sa_kernel.short_attention(q, k, v, scale)
+        count("nn.attention.plain")
+        return sa_kernel.attention_plain(q, k, v, scale, bias, mask)
 
 
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:

@@ -59,6 +59,9 @@ SIGNATURES = {
     # each of the two launches two kernels (csrc/group_norm.cu)
     "group_norm_fwd": [_P] * 3 + [_I] * 7 + [_F, _I] + [_P] * 5,
     "group_norm_bwd": [_P] * 4 + [_I] * 8 + [_P] * 5,
+    # strides as a pointer to (batch, head, row) element strides of each operand
+    "short_attn_fwd": [_P] * 6 + [_I] * 9 + [_F, _P],
+    "short_attn_bwd": [_P] * 10 + [_I] * 10 + [_F, _P],
 }
 
 # Launch counts of each kernel in this process; `launch` is the only writer.
