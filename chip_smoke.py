@@ -193,7 +193,7 @@ and the exit code is non-zero; there is no CPU fallback):
               step traced by stage, backward kernels included
      8c. one float32 guided step at full spatial width with STEP32_FRAMES
               frames through L1's kernels and through its plain forward and
-              backward (`plain=True`): x_prev agrees within GUIDED_STEP_TOL;
+              backward (`plain_versions()`): x_prev agrees within GUIDED_STEP_TOL;
               its dL/dx through L1's backward kernels and through its
               plain backward after the same forward within GUIDED_GRAD_TOL
               (L2 norms); and that dL/dx with L1's backward in bf16 (the
@@ -2746,13 +2746,13 @@ def fmt_diffusion_stages(dev_ms: dict, idle: float) -> str:
             + f" (total {sum(dev_ms.values()):.3f}), idle share {idle:.3f} (under the profiler)")
 
 
-def one_step(params, mcfg, scfg, cond, uncond, x, index, noise, plain=False):
+def one_step(params, mcfg, scfg, cond, uncond, x, index, noise):
     """One DDIM step of the request's sampler (CFG pair, then the update)."""
     sched = mcfg.schedule(x.device)
     pr = S.make_ddim_params(sched, scfg.ddim_steps, eta=scfg.ddim_eta, method=scfg.timestep_spacing)
     t = pr.timesteps[index].expand(x.shape[0])
-    mo, _ = ddim.cfg_model_output(lambda x_, t_: apply_model(params, mcfg, x_, t_, cond, plain=plain),
-                                  lambda x_, t_: apply_model(params, mcfg, x_, t_, uncond, plain=plain),
+    mo, _ = ddim.cfg_model_output(lambda x_, t_: apply_model(params, mcfg, x_, t_, cond),
+                                  lambda x_, t_: apply_model(params, mcfg, x_, t_, uncond),
                                   x, t, scfg.cfg_scale, scfg.guidance_rescale)
     return ddim.ddim_step(sched, pr, index, x, mo, noise).x_prev
 
@@ -2848,7 +2848,8 @@ def phase_generate(dev, steps: int, trace_and_f32: bool = True) -> dict:
     before = _build.LAUNCHES["flash_attn_fwd"]
     got = step32(index)
     mid = _build.LAUNCHES["flash_attn_fwd"]
-    want = step32(index, plain=True)
+    with _build.plain_versions():
+        want = step32(index)
     # the bf16 check: the same step with L1's forward in bf16, the bf16
     # kernels (twice) against the plain version of the same bf16 inputs
     with mock.patch.object(fa, "_launch_fwd", bf16_forward()):
@@ -2892,15 +2893,15 @@ def ddim_step_inputs(dev, params, mcfg, scfg, engine, renders):
 
 
 def f32_step(params, mcfg, scfg, cond, uncond, x, noise):
-    """7c's step: step(index, plain=False) -> x_prev of one DDIM step of
+    """7c's step: step(index) -> x_prev of one DDIM step of
     the bf16 request's inputs in float32 (the UNet's weights cast; run it
     with TF32 off), without autograd."""
     mcfg32 = dataclasses.replace(mcfg, compute_dtype="float32")
     params32 = params._replace(unet={k: v.float() for k, v in params.unet.items()})
 
-    def step(index: int, plain: bool = False):
+    def step(index: int):
         with torch.no_grad():
-            return one_step(params32, mcfg32, scfg, cond, uncond, x, index, noise, plain=plain)
+            return one_step(params32, mcfg32, scfg, cond, uncond, x, index, noise)
     return step
 
 
@@ -3133,8 +3134,8 @@ def small_guided_step(params, mcfg, gcfg, sched, pr, cond, uncond, bufs, x, step
     """8c's step: one guided step of the first STEP32_FRAMES frames of the
     bf16 request's inputs, in float32 (the UNet's and the VAE's weights
     cast; run it with TF32 off) or in the request's bfloat16. Returns
-    (step, grad): step(plain=False) -> (x_prev, pred_x0, rho) of the whole
-    step; grad(plain=False) -> the step's dL/dx from the pred_x0 and the
+    (step, grad): step() -> (x_prev, pred_x0, rho) of the whole
+    step; grad() -> the step's dL/dx from the pred_x0 and the
     branches' v of one forward through L1's kernel: the decode gradients
     and the pair's VJP alone."""
     t = STEP32_FRAMES
@@ -3150,14 +3151,13 @@ def small_guided_step(params, mcfg, gcfg, sched, pr, cond, uncond, bufs, x, step
     v_cond, v_uncond = ddim_guidance.pair_forward(params32, mcfg32, rule, c32, u32, x32, index)
     pred_x0 = ddim_guidance.cfg_pred_x0(sched, pr, gcfg, x32, index, v_cond, v_uncond)[0]
 
-    def step(plain: bool = False):
-        return ddim_guidance.guided_step(params32, mcfg32, sched, pr, c32, u32, gcfg, g32, 1.0, x32, index,
-                                         n32, plain)
+    def step():
+        return ddim_guidance.guided_step(params32, mcfg32, sched, pr, c32, u32, gcfg, g32, 1.0, x32, index, n32)
 
-    def grad(plain: bool = False):
-        grads = ddim_guidance.per_frame_guidance_grads(params32, mcfg32, g32, pred_x0[0], index, gcfg, plain)
+    def grad():
+        grads = ddim_guidance.per_frame_guidance_grads(params32, mcfg32, g32, pred_x0[0], index, gcfg)
         return ddim_guidance.pair_vjp(params32, mcfg32, rule, c32, u32, x32, index, v_cond, v_uncond,
-                                      grads[None], plain)
+                                      grads[None])
     return step, grad
 
 
@@ -3264,7 +3264,8 @@ def phase_guided(dev, steps: int, trace_and_f32: bool = True):
     before = dict(_build.LAUNCHES)
     got, _, rho_k = step32()
     mid = dict(_build.LAUNCHES)
-    want, _, rho_p = step32(plain=True)
+    with _build.plain_versions():
+        want, _, rho_p = step32()
     torch.cuda.synchronize()
     plain_launched = {n: _build.LAUNCHES[n] - mid[n] for n in mid}
     # the same kernel step again: how far two runs of it differ (cuDNN's

@@ -5,9 +5,8 @@ lvdm/modules/attention.py): CrossAttention with the image cross-attention
 (separate K/V over the image tokens; :42-210), BasicTransformerBlock
 (:212-247), SpatialTransformer (:249-311) and TemporalTransformer
 (:313-413) with the optional relative-position tables. Activations are
-channels-last; `prefix` strings are the torch module paths. `plain=True`
-sends every attention that would take kernel L1 to its plain version.
-Weights may be sharded over a mesh's model axis (`cross_attention`).
+channels-last; `prefix` strings are the torch module paths. Weights may
+be sharded over a mesh's model axis (`cross_attention`).
 """
 
 from __future__ import annotations
@@ -32,7 +31,6 @@ from guidedvd3dgs_tpu_torch.diffusion.nnops import (
 )
 from guidedvd3dgs_tpu_torch.parallel.mesh import device_scope
 from guidedvd3dgs_tpu_torch.parallel.model_parallel import Sharded, shard_call, sum_partials
-from guidedvd3dgs_tpu_torch.utils.tracing import count, span
 
 
 def relative_position_bias(p: Params, name: str, length_q: int, length_k: int,
@@ -43,25 +41,6 @@ def relative_position_bias(p: Params, name: str, length_q: int, length_k: int,
     ar = functools.partial(torch.arange, device=table.device)
     idx = torch.clamp(ar(length_k)[None, :] - ar(length_q)[:, None], -max_rel, max_rel) + max_rel
     return table[idx]
-
-
-def _attend(qh, kh, vh, scale: float, mask, rel, plain: bool) -> torch.Tensor:
-    """Attention over (B, H, N, D) heads; with `rel`, the relative-position
-    tables (k2, v2) (Lq, Lk, D): their bias on the logits and their term on
-    the output need the weights explicitly (reference attention.py:
-    100-127)."""
-    if rel is None:
-        return attention(qh, kh, vh, scale, mask=mask, plain=plain)  # its own "nn.attention"
-    k2, v2 = rel
-    with span("nn.attention"):
-        count("nn.attention.plain")
-        sim = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
-        sim = sim + torch.einsum("bhtd,tsd->bhts", qh.float(), k2.float()) * scale
-        if mask is not None:
-            sim = torch.where(mask, sim, torch.finfo(sim.dtype).min)
-        attn = torch.softmax(sim, dim=-1)
-        out = torch.matmul(attn.to(vh.dtype), vh)
-        return out + torch.einsum("bhts,tsd->bhtd", attn.to(v2.dtype), v2).to(out.dtype)
 
 
 def _head_parallel(p: Params, prefix: str, names, heads: int) -> Optional[Sharded]:
@@ -82,8 +61,7 @@ def cross_attention(p: Params, prefix: str, x: torch.Tensor, context: Optional[t
                     heads: int, dim_head: int, mask: Optional[torch.Tensor] = None,
                     image_cross_attention: bool = False,
                     image_cross_attention_scale: float = 1.0, text_context_len: int = 77,
-                    relative_position: bool = False, temporal_length: Optional[int] = None,
-                    plain: bool = False) -> torch.Tensor:
+                    relative_position: bool = False, temporal_length: Optional[int] = None) -> torch.Tensor:
     """reference attention.py:81-144. x: (B, N, C). With sharded weights
     whose heads split over the model axis (`_head_parallel`), each device
     projects, attends and multiplies by its row piece of `to_out.0` for
@@ -110,12 +88,11 @@ def cross_attention(p: Params, prefix: str, x: torch.Tensor, context: Optional[t
         qh = split_heads(proj("to_q", x), n_heads)
         r = None if rel is None else tuple(t.to(dev) for t in rel)
         mm = None if m is None else m.to(dev)
-        out = merge_heads(_attend(qh, split_heads(proj("to_k", ctx), n_heads),
-                                  split_heads(proj("to_v", ctx), n_heads), scale, mm, r, plain))
+        out = merge_heads(attention(qh, split_heads(proj("to_k", ctx), n_heads),
+                                    split_heads(proj("to_v", ctx), n_heads), scale, mask=mm, rel=r))
         if image:
             out_ip = merge_heads(attention(qh, split_heads(proj("to_k_ip", ctx_img), n_heads),
-                                           split_heads(proj("to_v_ip", ctx_img), n_heads), scale,
-                                           plain=plain))
+                                           split_heads(proj("to_v_ip", ctx_img), n_heads), scale))
             if f"{prefix}.alpha" in p:  # the learnable gate (reference attention.py:115-118)
                 gate = (torch.tanh(p[f"{prefix}.alpha"].to(dev)) + 1.0).to(out.dtype)
                 out = out + image_cross_attention_scale * out_ip * gate
@@ -148,10 +125,9 @@ def basic_transformer_block(p: Params, prefix: str, x: torch.Tensor,
                             context: Optional[torch.Tensor], heads: int, dim_head: int,
                             mask: Optional[torch.Tensor] = None,
                             image_cross_attention: bool = False,
-                            relative_position: bool = False, temporal_length: Optional[int] = None,
-                            plain: bool = False) -> torch.Tensor:
+                            relative_position: bool = False, temporal_length: Optional[int] = None) -> torch.Tensor:
     """reference attention.py:240-247: self-attention, cross-attention, FF."""
-    rel = dict(relative_position=relative_position, temporal_length=temporal_length, plain=plain)
+    rel = dict(relative_position=relative_position, temporal_length=temporal_length)
     x = cross_attention(p, f"{prefix}.attn1", layer_norm(p, f"{prefix}.norm1", x), None, heads,
                         dim_head, mask=mask, **rel) + x
     x = cross_attention(p, f"{prefix}.attn2", layer_norm(p, f"{prefix}.norm2", x), context, heads,
@@ -161,7 +137,7 @@ def basic_transformer_block(p: Params, prefix: str, x: torch.Tensor,
 
 def spatial_transformer(p: Params, prefix: str, x: torch.Tensor, context: Optional[torch.Tensor],
                         heads: int, dim_head: int, depth: int = 1, use_linear: bool = True,
-                        image_cross_attention: bool = False, plain: bool = False) -> torch.Tensor:
+                        image_cross_attention: bool = False) -> torch.Tensor:
     """reference attention.py:294-311. x: (B, H, W, C)."""
     b, h, w, _ = x.shape
     x_in = x
@@ -173,8 +149,7 @@ def spatial_transformer(p: Params, prefix: str, x: torch.Tensor, context: Option
         x = linear(p, f"{prefix}.proj_in", x)
     for d in range(depth):
         x = basic_transformer_block(p, f"{prefix}.transformer_blocks.{d}", x, context, heads,
-                                    dim_head, image_cross_attention=image_cross_attention,
-                                    plain=plain)
+                                    dim_head, image_cross_attention=image_cross_attention)
     if use_linear:
         x = linear(p, f"{prefix}.proj_out", x)
     x = x.reshape(b, h, w, x.shape[-1])
@@ -186,7 +161,7 @@ def spatial_transformer(p: Params, prefix: str, x: torch.Tensor, context: Option
 def temporal_transformer(p: Params, prefix: str, x: torch.Tensor, heads: int, dim_head: int,
                          depth: int = 1, use_linear: bool = False,
                          causal_attention: bool = False, relative_position: bool = False,
-                         temporal_length: Optional[int] = None, plain: bool = False) -> torch.Tensor:
+                         temporal_length: Optional[int] = None) -> torch.Tensor:
     """reference attention.py:366-413, self-attention only: the tokens are
     the T frames of each (b, h, w). x: (B, T, H, W, C)."""
     b, t, h, w, c = x.shape
@@ -201,7 +176,7 @@ def temporal_transformer(p: Params, prefix: str, x: torch.Tensor, heads: int, di
     for d in range(depth):
         x = basic_transformer_block(p, f"{prefix}.transformer_blocks.{d}", x, None, heads, dim_head,
                                     mask=mask, relative_position=relative_position,
-                                    temporal_length=temporal_length, plain=plain)
+                                    temporal_length=temporal_length)
     x = linear(p, f"{prefix}.proj_out", x) if use_linear else conv1d_k1(p, f"{prefix}.proj_out", x)
     x = x.reshape(b, h, w, t, x.shape[-1]).permute(0, 3, 1, 2, 4)
     return x + x_in

@@ -113,16 +113,16 @@ class SVDConditioning(NamedTuple):
     time_ids: torch.Tensor  # (B, 3) float32: fps - 1, motion bucket id, noise augmentation strength
 
 
-def apply_model(params, cfg, x_noisy: torch.Tensor, t: torch.Tensor, cond, plain: bool = False) -> torch.Tensor:
+def apply_model(params, cfg, x_noisy: torch.Tensor, t: torch.Tensor, cond) -> torch.Tensor:
     """The v prediction under hybrid conditioning (reference ddpm3d.py:723-738,
     :1447-1452), the UNet in cfg.compute_dtype, returned at x_noisy's dtype.
     With an `SVDConfig`, SVD's UNet on the model input x_noisy (already
     c_in x) at c_noise `t` (`svd_apply_model`)."""
     if isinstance(cfg, SVDConfig):
-        return svd_apply_model(params, cfg, x_noisy, t, cond, plain)
+        return svd_apply_model(params, cfg, x_noisy, t, cond)
     xc = torch.cat([x_noisy, cond.concat.to(x_noisy.dtype)], dim=-1)
     v = unet_apply(params.unet, cfg.unet, xc.to(cfg.dtype), t, cond.context.to(cfg.dtype),
-                   fs=cond.fs, plain=plain)
+                   fs=cond.fs)
     return v.to(x_noisy.dtype)
 
 
@@ -142,22 +142,20 @@ def decode_frame(params: DiffusionParams, cfg: LatentDiffusionConfig, z: torch.T
     return decode_video_frames(params, cfg, z[None])[0]
 
 
-def decode_video_frames(params, cfg, zs: torch.Tensor, plain: bool = False) -> torch.Tensor:
+def decode_video_frames(params, cfg, zs: torch.Tensor) -> torch.Tensor:
     """(T, h, w, 4) -> (T, H, W, 3), the frames decoded as one batch in
     cfg.compute_dtype and returned at zs's dtype; with an `SVDConfig`, as
-    one video by the temporal decoder. `plain=True` runs L1's plain version
-    where the kernel would run."""
+    one video by the temporal decoder."""
     if isinstance(cfg, SVDConfig):
-        return temporal_decode(params.vae, cfg.decoder, zs.to(cfg.dtype), plain=plain).to(zs.dtype)
-    return vae_decode(params.vae, cfg.vae, zs.to(cfg.dtype), plain=plain).to(zs.dtype)
+        return temporal_decode(params.vae, cfg.decoder, zs.to(cfg.dtype)).to(zs.dtype)
+    return vae_decode(params.vae, cfg.vae, zs.to(cfg.dtype)).to(zs.dtype)
 
 
 def svd_apply_model(params: SVDParams, cfg: SVDConfig, x_in: torch.Tensor, t: torch.Tensor,
-                    cond: SVDConditioning, plain: bool = False) -> torch.Tensor:
+                    cond: SVDConditioning) -> torch.Tensor:
     """F(c_in x, c_noise): x_in (B, T, h, w, 4) the scaled noisy latent, the
     conditioning latent concatenated after it (diffusers' pipeline), in
     cfg.compute_dtype, returned at x_in's dtype."""
     xc = torch.cat([x_in, cond.concat.to(x_in.dtype)], dim=-1)
-    v = unet_st_apply(params.unet, cfg.unet, xc.to(cfg.dtype), t, cond.context.to(cfg.dtype), cond.time_ids,
-                      plain=plain)
+    v = unet_st_apply(params.unet, cfg.unet, xc.to(cfg.dtype), t, cond.context.to(cfg.dtype), cond.time_ids)
     return v.to(x_in.dtype)

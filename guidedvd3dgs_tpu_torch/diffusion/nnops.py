@@ -23,8 +23,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from guidedvd3dgs_tpu_torch.ops import group_norm as gn_kernel
-from guidedvd3dgs_tpu_torch.ops import short_attention as sa_kernel
+from guidedvd3dgs_tpu_torch.ops import _build, group_norm as gn_kernel, short_attention as sa_kernel
 from guidedvd3dgs_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain_autograd
 from guidedvd3dgs_tpu_torch.parallel import model_parallel
 from guidedvd3dgs_tpu_torch.parallel.model_parallel import Sharded, column_apply, row_apply
@@ -93,7 +92,8 @@ def group_norm(p: Params, name: str, x: torch.Tensor, num_groups: int = 32,
     """Channels-last GroupNorm with f32 statistics (reference nnops.py:77-110),
     then SiLU if `silu` (the reference's silu(group_norm(...))). CUDA bf16
     activations whose weight and bias need no gradient take kernel N1
-    (`ops/group_norm.py`, SiLU fused); everything else its plain version:
+    (`ops/group_norm.py`, SiLU fused) outside `_build.plain_versions()`;
+    everything else its plain version:
     the two-pass form for f32, the reference's fold x*scale + shift in f32
     for half precision."""
     with span("nn.group_norm"):
@@ -142,7 +142,7 @@ def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
               bias: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None,
-              plain: bool = False) -> torch.Tensor:
+              rel: Optional[tuple] = None) -> torch.Tensor:
     """Softmax attention; q, k, v: (B, H, N, D); softmax in f32.
 
     Unmasked self-attention of at least FLASH_MIN_SEQ tokens takes kernel L1
@@ -150,19 +150,20 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     kernel L2 takes (`ops/short_attention.py::takes_kernel`: CUDA bf16
     heads of 64 dims, no mask or bias: the UNets' temporal, cross and
     short spatial attention) takes L2, counted under "nn.attention.l2";
-    everything else (float32, the CPU, masked or biased attention, other
-    head sizes) takes the einsum form of reference nnops.py:317-323
-    (`attention_plain`), counted under "nn.attention.plain". `plain=True` sends L1's calls to
+    everything else (float32, the CPU, masked or biased attention, the
+    relative-position tables `rel`, other head sizes) takes the einsum form
+    of reference nnops.py:317-323 (`attention_plain`), counted under
+    "nn.attention.plain". Inside `_build.plain_versions()` L1's calls take
     L1's plain version, whose backward under autograd is L1's plain
-    backward, and L2's to the einsum form."""
+    backward, and L2's the einsum form."""
     with span("nn.attention"):
-        if bias is None and mask is None and q.shape[2] == k.shape[2] and q.shape[2] >= FLASH_MIN_SEQ:
+        if rel is None and bias is None and mask is None and q.shape[2] == k.shape[2] >= FLASH_MIN_SEQ:
             args = (q.contiguous(), k.contiguous(), v.contiguous(), scale)
-            return flash_attention_plain_autograd(*args) if plain else flash_attention(*args)
-        if not plain and sa_kernel.takes_kernel(q, k, v, mask, bias):
+            return flash_attention_plain_autograd(*args) if _build.forced_plain() else flash_attention(*args)
+        if rel is None and sa_kernel.takes_kernel(q, k, v, mask, bias):
             return sa_kernel.short_attention(q, k, v, scale)
         count("nn.attention.plain")
-        return sa_kernel.attention_plain(q, k, v, scale, bias, mask)
+        return sa_kernel.attention_plain(q, k, v, scale, bias, mask, rel)
 
 
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:

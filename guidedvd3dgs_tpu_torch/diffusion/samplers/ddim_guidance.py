@@ -85,7 +85,7 @@ class GuidedSampleConfig:
 
 def per_frame_guidance_grads(params: DiffusionParams, mcfg: LatentDiffusionConfig,
                              guidance_fn: GuidanceFn, zs: torch.Tensor, index: int,
-                             scfg: GuidedSampleConfig, plain: bool = False) -> torch.Tensor:
+                             scfg: GuidedSampleConfig) -> torch.Tensor:
     """dL/dpred_x0 of every frame through the VAE decode: zs (T, h, w, 4)
     pred_x0 latents -> (T, h, w, 4), `decode_chunk` frames per decode (the
     last chunk takes what is left). Each frame's gradient is divided by its
@@ -98,7 +98,7 @@ def per_frame_guidance_grads(params: DiffusionParams, mcfg: LatentDiffusionConfi
         for c0 in range(0, n, ck):
             with torch.enable_grad():
                 z = zs[c0:c0 + ck].detach().requires_grad_()
-                frames = decode_video_frames(params, mcfg, z, plain=plain)
+                frames = decode_video_frames(params, mcfg, z)
                 idx = torch.arange(c0, c0 + z.shape[0], device=zs.device)
                 loss, numel = guidance_fn(frames, index, idx)
                 (g,) = torch.autograd.grad(loss.sum(), z)
@@ -159,19 +159,19 @@ class DDIMRule(NamedTuple):
         return torch.sqrt(beta_t) * x_prev + torch.sqrt(1.0 - beta_t) * noise
 
 
-def pair_forward(params, mcfg, rule, cond, uncond, x: torch.Tensor, index: int, plain: bool = False):
+def pair_forward(params, mcfg, rule, cond, uncond, x: torch.Tensor, index: int):
     """The CFG pair as one UNet application at batch 2b on the rule's model
     input, without autograd: (v_cond, v_uncond)."""
     b = x.shape[0]
     with span("ddim.pair_forward"), torch.no_grad():
         x_in, t = rule.model_args(x, index)
         cu = type(cond)(*(torch.cat([c, u]) for c, u in zip(cond, uncond)))
-        vs = apply_model(params, mcfg, torch.cat([x_in, x_in]), torch.cat([t, t]), cu, plain=plain)
+        vs = apply_model(params, mcfg, torch.cat([x_in, x_in]), torch.cat([t, t]), cu)
     return vs[:b], vs[b:]
 
 
 def pair_vjp(params, mcfg, rule, cond, uncond, x: torch.Tensor, index: int, v_cond: torch.Tensor,
-             v_uncond: torch.Tensor, grads: torch.Tensor, plain: bool = False) -> torch.Tensor:
+             v_uncond: torch.Tensor, grads: torch.Tensor) -> torch.Tensor:
     """dL/dx for the rule's pred_x0(x) of the pair, `grads` = dL/dpred_x0.
     The VJP of the CFG combination gives the cotangents of x itself and of
     each branch's v; each branch then runs again under autograd at batch b
@@ -184,7 +184,7 @@ def pair_vjp(params, mcfg, rule, cond, uncond, x: torch.Tensor, index: int, v_co
         for c, g in ((cond, g_cond), (uncond, g_uncond)):
             xg = x.detach().requires_grad_()
             x_in, t = rule.model_args(xg, index)
-            v = apply_model(params, mcfg, x_in, t, c, plain=plain)
+            v = apply_model(params, mcfg, x_in, t, c)
             gx = gx + torch.autograd.grad(v, xg, g)[0]
     return gx
 
@@ -210,7 +210,7 @@ def check_pair_batch(cond: Conditioning, uncond: Conditioning, b: int) -> None:
 
 
 def rule_step(params, mcfg, rule, cond, uncond, guidance_fn: GuidanceFn, scale_guidance_weight,
-              x: torch.Tensor, index: int, noise: Optional[torch.Tensor], plain: bool = False):
+              x: torch.Tensor, index: int, noise: Optional[torch.Tensor]):
     """One guided step of the rule's sampler at step `index`: x (1, T, h, w,
     4); noise the step's noise (None for a rule without). Returns (x_prev,
     pred_x0, rho)."""
@@ -218,14 +218,14 @@ def rule_step(params, mcfg, rule, cond, uncond, guidance_fn: GuidanceFn, scale_g
     if b != 1:
         raise ValueError(f"the guided sampler takes one video, got a latent batch of {b}")
     check_pair_batch(cond, uncond, b)
-    v_cond, v_uncond = pair_forward(params, mcfg, rule, cond, uncond, x, index, plain)
+    v_cond, v_uncond = pair_forward(params, mcfg, rule, cond, uncond, x, index)
     with span("ddim.update"):
         pred_x0, mo = rule.pred_x0(x, index, v_cond, v_uncond)
     x_next, pred_out = rule.update(x, index, pred_x0, mo, noise)  # its own "ddim.update"
     # the decode gradients start from pred_x0 without its graph: the
     # reference's detach, JAX's stop_gradient (:221)
-    grads = per_frame_guidance_grads(params, mcfg, guidance_fn, pred_x0[0], index, rule.scfg, plain)
-    gx = pair_vjp(params, mcfg, rule, cond, uncond, x, index, v_cond, v_uncond, grads[None], plain)
+    grads = per_frame_guidance_grads(params, mcfg, guidance_fn, pred_x0[0], index, rule.scfg)
+    gx = pair_vjp(params, mcfg, rule, cond, uncond, x, index, v_cond, v_uncond, grads[None])
     with span("ddim.update"):
         x_prev, rho = guidance_update(x_next, gx, rule.correction(index, v_cond, v_uncond), rule.scfg,
                                       scale_guidance_weight)
@@ -235,13 +235,11 @@ def rule_step(params, mcfg, rule, cond, uncond, guidance_fn: GuidanceFn, scale_g
 def guided_step(params: DiffusionParams, mcfg: LatentDiffusionConfig, sched: DiffusionSchedule,
                 pr: DDIMParams, cond: Conditioning, uncond: Conditioning, scfg: GuidedSampleConfig,
                 guidance_fn: GuidanceFn, scale_guidance_weight, x: torch.Tensor, index: int,
-                noise: torch.Tensor, plain: bool = False):
+                noise: torch.Tensor):
     """One guided DDIM step x_t -> x_{t-1} (JAX `_guided_step`): x (1, T, h,
-    w, 4); noise the step's eta noise. Returns (x_prev, pred_x0, rho).
-    `plain=True` runs L1's plain forward and backward where its kernels
-    would run."""
+    w, 4); noise the step's eta noise. Returns (x_prev, pred_x0, rho)."""
     return rule_step(params, mcfg, DDIMRule(sched, pr, scfg), cond, uncond, guidance_fn, scale_guidance_weight,
-                     x, index, noise, plain)
+                     x, index, noise)
 
 
 def guided_sample(params, mcfg, rule, cond, uncond, x_T: torch.Tensor, guidance_fn: GuidanceFn,

@@ -114,15 +114,15 @@ class EulerEDMRule:
         return self.scales * (self.edm.c_out[index] * (v_cond - v_uncond))
 
 
-def euler_edm_sample(params, mcfg, edm: EDMParams, scales: torch.Tensor, cond, uncond, x_T: torch.Tensor,
-                     plain: bool = False) -> torch.Tensor:
+def euler_edm_sample(params, mcfg, edm: EDMParams, scales: torch.Tensor, cond, uncond,
+                     x_T: torch.Tensor) -> torch.Tensor:
     """The plain S-step Euler EDM reverse process from x_T (already times
     `init_noise_sigma`): the CFG pair as one application at batch 2 a
     step (ddim_guidance.pair_forward), without autograd."""
     rule = EulerEDMRule(edm, scales, GuidedSampleConfig())
     x = x_T
     for i in range(edm.num_steps):
-        vc, vu = ddim_guidance.pair_forward(params, mcfg, rule, cond, uncond, x, i, plain)
+        vc, vu = ddim_guidance.pair_forward(params, mcfg, rule, cond, uncond, x, i)
         with span("ddim.update"):
             denoised = rule.pred_x0(x, i, vc, vu)[0]
         x = euler_step(edm, i, x, denoised)

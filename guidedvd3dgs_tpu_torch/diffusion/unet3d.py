@@ -156,17 +156,17 @@ def res_block(p: Params, prefix: str, x: torch.Tensor, emb: torch.Tensor, in_ch:
 
 
 def _temporal(p: Params, prefix: str, h: torch.Tensor, batch: int, heads: int, dim_head: int,
-              cfg: UNetConfig, use_linear: bool, plain: bool) -> torch.Tensor:
+              cfg: UNetConfig, use_linear: bool) -> torch.Tensor:
     bt, hh, ww, c = h.shape
     hv = temporal_transformer(p, prefix, h.reshape(batch, bt // batch, hh, ww, c), heads, dim_head,
                               depth=cfg.transformer_depth, use_linear=use_linear,
                               relative_position=cfg.use_relative_position,
-                              temporal_length=cfg.temporal_length, plain=plain)
+                              temporal_length=cfg.temporal_length)
     return hv.reshape(bt, hh, ww, c)
 
 
 def _apply_layers(p: Params, layers: List[Block], h: torch.Tensor, emb: torch.Tensor,
-                  context: torch.Tensor, cfg: UNetConfig, batch: int, plain: bool) -> torch.Tensor:
+                  context: torch.Tensor, cfg: UNetConfig, batch: int) -> torch.Tensor:
     for kind, prefix, meta in layers:
         if kind == "conv_in":
             h = conv2d(p, prefix, h)
@@ -175,10 +175,9 @@ def _apply_layers(p: Params, layers: List[Block], h: torch.Tensor, emb: torch.Te
         elif kind == "spatial":
             h = spatial_transformer(p, prefix, h, context, meta["heads"], meta["dim_head"],
                                     depth=cfg.transformer_depth, use_linear=cfg.use_linear,
-                                    image_cross_attention=cfg.image_cross_attention, plain=plain)
+                                    image_cross_attention=cfg.image_cross_attention)
         elif kind == "temporal":
-            h = _temporal(p, prefix, h, batch, meta["heads"], meta["dim_head"], cfg, cfg.use_linear,
-                          plain)
+            h = _temporal(p, prefix, h, batch, meta["heads"], meta["dim_head"], cfg, cfg.use_linear)
         elif kind == "down":
             h = conv2d(p, f"{prefix}.op", h, stride=2, padding=1)
         elif kind == "up":
@@ -189,12 +188,10 @@ def _apply_layers(p: Params, layers: List[Block], h: torch.Tensor, emb: torch.Te
 
 
 def unet_apply(p: Params, cfg: UNetConfig, x: torch.Tensor, timesteps: torch.Tensor,
-               context: torch.Tensor, fs: Optional[torch.Tensor] = None,
-               plain: bool = False) -> torch.Tensor:
+               context: torch.Tensor, fs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """reference openaimodel3d.py:548-601. x: (B, T, H, W, C_in);
     timesteps: (B,); context: (B, 77 [+ T*16], context_dim); fs: (B,) int.
-    Returns (B, T, H, W, out_channels). `plain=True` runs L1's plain version
-    where the kernel would run."""
+    Returns (B, T, H, W, out_channels)."""
     b, t, hh, ww, _ = x.shape
     emb = linear(p, "time_embed.2",
                  silu(linear(p, "time_embed.0", timestep_embedding(timesteps, cfg.model_channels).to(x.dtype))))
@@ -219,14 +216,14 @@ def unet_apply(p: Params, cfg: UNetConfig, x: torch.Tensor, timesteps: torch.Ten
     input_blocks, middle, output_blocks = build_layout(cfg)
     hs = []
     for i, layers in enumerate(input_blocks):
-        h = _apply_layers(p, layers, h, emb, context, cfg, b, plain)
+        h = _apply_layers(p, layers, h, emb, context, cfg, b)
         if i == 0 and cfg.addition_attention:
             # init_attn: a temporal transformer with conv1d projections
             # (reference :389-400; use_linear defaults to False there)
-            h = _temporal(p, "init_attn.0", h, b, 8, cfg.num_head_channels, cfg, False, plain)
+            h = _temporal(p, "init_attn.0", h, b, 8, cfg.num_head_channels, cfg, False)
         hs.append(h)
-    h = _apply_layers(p, middle, h, emb, context, cfg, b, plain)
+    h = _apply_layers(p, middle, h, emb, context, cfg, b)
     for layers in output_blocks:
-        h = _apply_layers(p, layers, torch.cat([h, hs.pop()], dim=-1), emb, context, cfg, b, plain)
+        h = _apply_layers(p, layers, torch.cat([h, hs.pop()], dim=-1), emb, context, cfg, b)
     y = conv2d(p, "out.2", group_norm(p, "out.0", h, silu=True))
     return y.reshape(b, t, hh, ww, cfg.out_channels)

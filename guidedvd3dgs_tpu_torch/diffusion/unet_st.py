@@ -139,15 +139,15 @@ def st_res_block(p: Params, prefix: str, x: torch.Tensor, emb: Optional[torch.Te
         return blend(p, f"{prefix}.time_mixer", hv, tv, switch).reshape(bt, hh, ww, c)
 
 
-def attention_layer(p: Params, prefix: str, x: torch.Tensor, context: Optional[torch.Tensor], heads: int,
-                    plain: bool = False) -> torch.Tensor:
+def attention_layer(p: Params, prefix: str, x: torch.Tensor, context: Optional[torch.Tensor],
+                    heads: int) -> torch.Tensor:
     """diffusers `Attention` (no q/k/v bias, to_out with bias). x: (B, N,
     C); context: (B, M, C_ctx) or None (self-attention)."""
     ctx = x if context is None else context
     q = nnops.split_heads(nnops.linear(p, f"{prefix}.to_q", x), heads)
     k = nnops.split_heads(nnops.linear(p, f"{prefix}.to_k", ctx), heads)
     v = nnops.split_heads(nnops.linear(p, f"{prefix}.to_v", ctx), heads)
-    out = nnops.attention(q, k, v, q.shape[-1] ** -0.5, plain=plain)
+    out = nnops.attention(q, k, v, q.shape[-1] ** -0.5)
     return nnops.linear(p, f"{prefix}.to_out.0", nnops.merge_heads(out))
 
 
@@ -157,18 +157,16 @@ def feed_forward(p: Params, prefix: str, x: torch.Tensor) -> torch.Tensor:
     return nnops.linear(p, f"{prefix}.net.2", a * nnops.gelu(gate))
 
 
-def basic_block(p: Params, prefix: str, x: torch.Tensor, context: torch.Tensor, heads: int,
-                plain: bool) -> torch.Tensor:
+def basic_block(p: Params, prefix: str, x: torch.Tensor, context: torch.Tensor, heads: int) -> torch.Tensor:
     """diffusers `BasicTransformerBlock`: self-attention, cross-attention to
     the frame's image embedding, GEGLU feed-forward. x: ((B T), HW, C)."""
-    x = attention_layer(p, f"{prefix}.attn1", nnops.layer_norm(p, f"{prefix}.norm1", x), None, heads, plain) + x
-    x = attention_layer(p, f"{prefix}.attn2", nnops.layer_norm(p, f"{prefix}.norm2", x), context, heads,
-                        plain) + x
+    x = attention_layer(p, f"{prefix}.attn1", nnops.layer_norm(p, f"{prefix}.norm1", x), None, heads) + x
+    x = attention_layer(p, f"{prefix}.attn2", nnops.layer_norm(p, f"{prefix}.norm2", x), context, heads) + x
     return feed_forward(p, f"{prefix}.ff", nnops.layer_norm(p, f"{prefix}.norm3", x)) + x
 
 
 def temporal_block(p: Params, prefix: str, x: torch.Tensor, batch: int, time_context: torch.Tensor,
-                   heads: int, plain: bool) -> torch.Tensor:
+                   heads: int) -> torch.Tensor:
     """diffusers `TemporalBasicTransformerBlock` (its inner width the
     block's): a feed-forward in, self-attention over the T frames of each
     pixel, cross-attention to the video's first-frame context, GEGLU
@@ -177,15 +175,15 @@ def temporal_block(p: Params, prefix: str, x: torch.Tensor, batch: int, time_con
     t = bt // batch
     h = x.reshape(batch, t, s, c).permute(0, 2, 1, 3).reshape(batch * s, t, c)
     h = feed_forward(p, f"{prefix}.ff_in", nnops.layer_norm(p, f"{prefix}.norm_in", h)) + h
-    h = attention_layer(p, f"{prefix}.attn1", nnops.layer_norm(p, f"{prefix}.norm1", h), None, heads, plain) + h
+    h = attention_layer(p, f"{prefix}.attn1", nnops.layer_norm(p, f"{prefix}.norm1", h), None, heads) + h
     q = nnops.layer_norm(p, f"{prefix}.norm2", h).reshape(batch, s * t, c)
-    h = attention_layer(p, f"{prefix}.attn2", q, time_context, heads, plain).reshape(batch * s, t, c) + h
+    h = attention_layer(p, f"{prefix}.attn2", q, time_context, heads).reshape(batch * s, t, c) + h
     h = feed_forward(p, f"{prefix}.ff", nnops.layer_norm(p, f"{prefix}.norm3", h)) + h
     return h.reshape(batch, s, t, c).permute(0, 2, 1, 3).reshape(bt, s, c)
 
 
 def st_transformer(p: Params, prefix: str, x: torch.Tensor, context: torch.Tensor, batch: int, heads: int,
-                   depth: int, plain: bool = False) -> torch.Tensor:
+                   depth: int) -> torch.Tensor:
     """diffusers `TransformerSpatioTemporalModel` (sgm
     `SpatialVideoTransformer`). x: ((B T), H, W, C); context: ((B T), M,
     C_ctx), the image embedding repeated per frame."""
@@ -198,22 +196,21 @@ def st_transformer(p: Params, prefix: str, x: torch.Tensor, context: torch.Tenso
         frames = torch.arange(t, device=x.device).repeat(batch)
         pos = mlp_embedding(p, f"{prefix}.time_pos_embed", nnops.timestep_embedding(frames, c).to(h.dtype))
     for d in range(depth):
-        h = basic_block(p, f"{prefix}.transformer_blocks.{d}", h, context, heads, plain)
+        h = basic_block(p, f"{prefix}.transformer_blocks.{d}", h, context, heads)
         with span(TEMPORAL):
             hm = temporal_block(p, f"{prefix}.temporal_transformer_blocks.{d}", h + pos[:, None, :], batch,
-                                time_context, heads, plain)
+                                time_context, heads)
             h = blend(p, f"{prefix}.time_mixer", h, hm)
     h = nnops.linear(p, f"{prefix}.proj_out", h)
     return h.reshape(bt, hh, ww, c) + x
 
 
 def unet_st_apply(p: Params, cfg: STUNetConfig, x: torch.Tensor, timesteps: torch.Tensor,
-                  context: torch.Tensor, added_time_ids: torch.Tensor, plain: bool = False) -> torch.Tensor:
+                  context: torch.Tensor, added_time_ids: torch.Tensor) -> torch.Tensor:
     """The v prediction F(c_in x, c_noise). x: (B, T, H, W, in_channels)
     (the scaled latent and the conditioning latent on channels);
     timesteps: (B,) c_noise; context: (B, M, context_dim) the image
-    embedding; added_time_ids: (B, 3). Returns (B, T, H, W, out_channels).
-    `plain=True` runs L1's plain version where the kernel would run."""
+    embedding; added_time_ids: (B, 3). Returns (B, T, H, W, out_channels)."""
     b, t, hh, ww, _ = x.shape
     mc = cfg.model_channels
     emb = mlp_embedding(p, "time_embedding", nnops.timestep_embedding(timesteps, mc).to(x.dtype))
@@ -232,15 +229,14 @@ def unet_st_apply(p: Params, cfg: STUNetConfig, x: torch.Tensor, timesteps: torc
             h = st_res_block(p, f"down_blocks.{i}.resnets.{j}", h, emb, b, 1e-6 if attn else 1e-5)
             if attn:
                 h = st_transformer(p, f"down_blocks.{i}.attentions.{j}", h, context, b, cfg.heads(ch),
-                                   cfg.transformer_depth, plain)
+                                   cfg.transformer_depth)
             skips.append(h)
         if i != n - 1:
             h = nnops.conv2d(p, f"down_blocks.{i}.downsamplers.0.conv", h, stride=2, padding=1)
             skips.append(h)
 
     h = st_res_block(p, "mid_block.resnets.0", h, emb, b, 1e-5)
-    h = st_transformer(p, "mid_block.attentions.0", h, context, b, cfg.heads(widths[-1]), cfg.transformer_depth,
-                       plain)
+    h = st_transformer(p, "mid_block.attentions.0", h, context, b, cfg.heads(widths[-1]), cfg.transformer_depth)
     h = st_res_block(p, "mid_block.resnets.1", h, emb, b, 1e-5)
 
     for i, ch in enumerate(reversed(widths)):
@@ -250,7 +246,7 @@ def unet_st_apply(p: Params, cfg: STUNetConfig, x: torch.Tensor, timesteps: torc
             h = st_res_block(p, f"up_blocks.{i}.resnets.{j}", torch.cat([h, skips.pop()], dim=-1), emb, b, 1e-6)
             if attn:
                 h = st_transformer(p, f"up_blocks.{i}.attentions.{j}", h, context, b, cfg.heads(ch),
-                                   cfg.transformer_depth, plain)
+                                   cfg.transformer_depth)
         if level != 0:
             h = nnops.conv2d(p, f"up_blocks.{i}.upsamplers.0.conv", nnops.upsample_nearest_2x(h))
     y = nnops.conv2d(p, "conv_out", nnops.group_norm(p, "conv_norm_out", h, eps=1e-5, silu=True))

@@ -63,15 +63,14 @@ def _resnet_block(p: Params, prefix: str, x: torch.Tensor, in_ch: int, out_ch: i
     return x + h
 
 
-def _attn_block(p: Params, prefix: str, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+def _attn_block(p: Params, prefix: str, x: torch.Tensor) -> torch.Tensor:
     """Single-head spatial self-attention (reference ae_modules.py:26-77);
-    at full size 40*56 = 2240 tokens of 512 dims, which takes kernel L1
-    (its plain version with `plain`)."""
+    at full size 40*56 = 2240 tokens of 512 dims, which takes kernel L1."""
     b, hh, ww, c = x.shape
     h = group_norm(p, f"{prefix}.norm", x, eps=1e-6)
     q, k, v = (conv2d(p, f"{prefix}.{nm}", h, padding=0).reshape(b, 1, hh * ww, c)
                for nm in ("q", "k", "v"))
-    out = attention(q, k, v, c ** -0.5, plain=plain).reshape(b, hh, ww, c)
+    out = attention(q, k, v, c ** -0.5).reshape(b, hh, ww, c)
     return x + conv2d(p, f"{prefix}.proj_out", out, padding=0)
 
 
@@ -99,13 +98,13 @@ def encoder_apply(p: Params, cfg: VAEConfig, x: torch.Tensor) -> torch.Tensor:
     return conv2d(p, "conv_out", group_norm(p, "norm_out", h, eps=1e-6, silu=True))
 
 
-def decoder_apply(p: Params, cfg: VAEConfig, z: torch.Tensor, plain: bool = False) -> torch.Tensor:
+def decoder_apply(p: Params, cfg: VAEConfig, z: torch.Tensor) -> torch.Tensor:
     """z: (B, h, w, z_channels) -> (B, f*h, f*w, 3)."""
     n = len(cfg.ch_mult)
     block_in = cfg.ch * cfg.ch_mult[-1]
     h = conv2d(p, "conv_in", z)
     h = _resnet_block(p, "mid.block_1", h, block_in, block_in)
-    h = _attn_block(p, "mid.attn_1", h, plain)
+    h = _attn_block(p, "mid.attn_1", h)
     h = _resnet_block(p, "mid.block_2", h, block_in, block_in)
     for i in reversed(range(n)):
         block_out = cfg.ch * cfg.ch_mult[i]
@@ -138,12 +137,11 @@ def vae_encode(p: Params, cfg: VAEConfig, x: torch.Tensor, eps: Optional[torch.T
     return cfg.scale_factor * (mean + std * eps.to(mean.dtype))
 
 
-def vae_decode(p: Params, cfg: VAEConfig, z: torch.Tensor, unscale: bool = True,
-               plain: bool = False) -> torch.Tensor:
+def vae_decode(p: Params, cfg: VAEConfig, z: torch.Tensor, unscale: bool = True) -> torch.Tensor:
     """(B, h, w, z) latent -> (B, H, W, 3) pixels (reference ddpm3d.py:646-675)."""
     if unscale:
         z = z / cfg.scale_factor
-    return decoder_apply(_sub(p, "decoder."), cfg, conv2d(p, "post_quant_conv", z, padding=0), plain)
+    return decoder_apply(_sub(p, "decoder."), cfg, conv2d(p, "post_quant_conv", z, padding=0))
 
 
 @dataclass(frozen=True)
@@ -164,25 +162,24 @@ def _st_res(p: Params, prefix: str, h: torch.Tensor) -> torch.Tensor:
     return st_res_block(p, prefix, h, None, 1, 1e-6, temporal_eps=1e-5, switch=True)
 
 
-def _mid_attention(p: Params, prefix: str, x: torch.Tensor, plain: bool) -> torch.Tensor:
+def _mid_attention(p: Params, prefix: str, x: torch.Tensor) -> torch.Tensor:
     """diffusers `Attention(heads=1, dim_head=C, norm_num_groups=32,
     bias=True, residual_connection=True)` over the h*w tokens of a frame."""
     b, hh, ww, c = x.shape
     h = nnops.group_norm(p, f"{prefix}.group_norm", x, eps=1e-6).reshape(b, hh * ww, c)
     q, k, v = (nnops.linear(p, f"{prefix}.{nm}", h)[:, None] for nm in ("to_q", "to_k", "to_v"))
-    out = nnops.attention(q, k, v, c ** -0.5, plain=plain)[:, 0]
+    out = nnops.attention(q, k, v, c ** -0.5)[:, 0]
     return nnops.linear(p, f"{prefix}.to_out.0", out).reshape(b, hh, ww, c) + x
 
 
-def temporal_decoder_apply(p: Params, cfg: TemporalDecoderConfig, z: torch.Tensor,
-                           plain: bool = False) -> torch.Tensor:
+def temporal_decoder_apply(p: Params, cfg: TemporalDecoderConfig, z: torch.Tensor) -> torch.Tensor:
     """diffusers `TemporalDecoder.forward` with num_frames = z.shape[0]: z
     (N, h, w, latent) the N frames of one video -> (N, f*h, f*w, 3)."""
     widths = tuple(cfg.block_out_channels)
     n = len(widths)
     h = nnops.conv2d(p, "conv_in", z)
     h = _st_res(p, "mid_block.resnets.0", h)
-    h = _mid_attention(p, "mid_block.attentions.0", h, plain)
+    h = _mid_attention(p, "mid_block.attentions.0", h)
     h = _st_res(p, "mid_block.resnets.1", h)
     for i in range(n):
         for j in range(cfg.layers_per_block + 1):
@@ -194,11 +191,10 @@ def temporal_decoder_apply(p: Params, cfg: TemporalDecoderConfig, z: torch.Tenso
         return nnops.conv3d(p, "time_conv_out", h[None])[0]
 
 
-def temporal_decode(p: Params, cfg: TemporalDecoderConfig, z: torch.Tensor, unscale: bool = True,
-                    plain: bool = False) -> torch.Tensor:
+def temporal_decode(p: Params, cfg: TemporalDecoderConfig, z: torch.Tensor, unscale: bool = True) -> torch.Tensor:
     """(N, h, w, 4) latents of N consecutive frames -> (N, H, W, 3) pixels,
     decoded together (diffusers `AutoencoderKLTemporalDecoder.decode` of
     one chunk)."""
     if unscale:
         z = z / cfg.scaling_factor
-    return temporal_decoder_apply(_sub(p, "decoder."), cfg, z, plain)
+    return temporal_decoder_apply(_sub(p, "decoder."), cfg, z)

@@ -21,6 +21,7 @@ keeps the error `cudaGetLastError()` reads per host thread.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -68,6 +69,8 @@ SIGNATURES = {
 LAUNCHES = {name: 0 for name in SIGNATURES}
 _launch_lock = threading.Lock()
 
+_plain = False  # inside `plain_versions()`
+
 _lib = None  # the loaded library, once built
 _lib_lock = threading.Lock()
 
@@ -76,6 +79,26 @@ def reset_launches() -> None:
     with _launch_lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Inside it, process-wide, every call that would take kernel L1, L2 or
+    N1 takes its plain version instead (`diffusion/nnops.py::attention`,
+    the `takes_kernel` of `short_attention` and `group_norm`), for the
+    checks that compare the two on the card; the program never enters it.
+    Nests, and leaves the switch as it found it, on an exception too."""
+    global _plain
+    before, _plain = _plain, True
+    try:
+        yield
+    finally:
+        _plain = before
+
+
+def forced_plain() -> bool:
+    """Whether a `plain_versions()` scope is open."""
+    return _plain
 
 
 def _nvcc() -> str:

@@ -200,8 +200,8 @@ def flash_attention_plain_autograd(q: torch.Tensor, k: torch.Tensor, v: torch.Te
                                    scale: float) -> torch.Tensor:
     """L1's plain version on any device: flash_attention_plain, and under
     autograd the plain forward/backward pair (flash_attention_plain_lse,
-    flash_attention_bwd_plain). What `nnops.attention(..., plain=True)`
-    runs; chosen by that argument only, never in place of a kernel."""
+    flash_attention_bwd_plain). What `nnops.attention` runs inside
+    `_build.plain_versions()`; chosen there only, never in place of a kernel."""
     if _needs_grad(q, k, v):
         return FlashAttention.apply(q, k, v, scale, True)
     return flash_attention_plain(q, k, v, scale)

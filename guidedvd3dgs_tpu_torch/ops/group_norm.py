@@ -11,7 +11,8 @@ group sums, then dx), for bf16 activations, behind the autograd Function
 `_GroupNorm`. `diffusion/nnops.py::group_norm` sends here what
 `takes_kernel` accepts: CUDA bf16 activations whose weight and bias need
 no gradient (the port never asks for one: the guided sampler
-differentiates the latent only). Everything else takes the plain version.
+differentiates the latent only), outside `_build.plain_versions()`.
+Everything else takes the plain version.
 What is sent here the kernels take, or `prepare` raises: x is copied
 where it is not contiguous at a 16-byte boundary, the weight and bias are
 taken in x's dtype (as every layer of nnops takes its weight), and C must
@@ -65,8 +66,9 @@ def group_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, 
 
 def takes_kernel(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> bool:
     """Whether the kernels take this call (module docstring): decided from
-    what the tensors show, nothing else."""
-    return x.is_cuda and x.dtype == torch.bfloat16 and not weight.requires_grad and not bias.requires_grad
+    what the tensors show and `_build.plain_versions()`, nothing else."""
+    return (not _build.forced_plain() and x.is_cuda and x.dtype == torch.bfloat16
+            and not weight.requires_grad and not bias.requires_grad)
 
 
 def threads_for(c: int):

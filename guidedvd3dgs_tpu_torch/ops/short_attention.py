@@ -5,7 +5,8 @@ Counterpart of the einsum form of `guidedvd3dgs_tpu/diffusion/nnops.py::
 attention` (and of `_grouped_small_attention`, its block-diagonal grouping
 of short sequences on the TPU). `takes_kernel` says what the kernels
 take: CUDA bf16 q, k, v of 64 dims, no mask and no bias, at any lengths
-(keys stream). `diffusion/nnops.py::attention` gives kernel L1 its case
+(keys stream), outside `_build.plain_versions()`.
+`diffusion/nnops.py::attention` gives kernel L1 its case
 first and sends here the rest that `takes_kernel` accepts: in the UNets
 the temporal self-attention (25 frames), the text and image
 cross-attention (77, 16 or 1 keys) and the spatial self-attention under
@@ -13,9 +14,10 @@ nnops' FLASH_MIN_SEQ tokens. Cross-attention whose k or v needs a gradient keeps
 the plain version (the port never asks for one: k and v are projections
 of a constant context), as kernel N1 refuses a weight that needs one.
 
-`attention_plain` is the einsum form: f32 logits times `scale`, the bias
-and the mask where given, f32 softmax, the weights cast to v's type, then
-the second product. It runs for everything the kernel does not take.
+`attention_plain` is the einsum form: f32 logits times `scale`, the
+relative-position bias, the bias and the mask where given, f32 softmax,
+the weights cast to v's type, then the products with v and the
+relative-position table. It runs for everything the kernel does not take.
 
 The CUDA kernels (csrc/short_attn.cu) read q, k, v (and, backward, o and
 dO) through their strides, so `split_heads`'s views are read in place;
@@ -46,17 +48,26 @@ BWD_TILES = (32, 64)  # and of the dQ pass's
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                    bias: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    bias: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None,
+                    rel: Optional[tuple] = None) -> torch.Tensor:
     """The einsum form (reference nnops.py:317-323); q: (B, H, Nq, D), k, v:
     (B, H, Nk, D); `bias` added to the scaled logits, `mask` (True keeps)
-    applied before the f32 softmax."""
+    applied before the f32 softmax; `rel`, the relative-position tables
+    (k2, v2) (Nq, Nk, D), adds their bias and their output term (reference
+    lvdm/modules/attention.py:100-127)."""
     sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if rel is not None:
+        k2, v2 = rel
+        sim = sim + torch.einsum("bhtd,tsd->bhts", q.float(), k2.float()) * scale
     if bias is not None:
         sim = sim + bias
     if mask is not None:
         sim = torch.where(mask, sim, torch.finfo(sim.dtype).min)
     attn = torch.softmax(sim, dim=-1)
-    return torch.matmul(attn.to(v.dtype), v)
+    out = torch.matmul(attn.to(v.dtype), v)
+    if rel is not None:
+        out = out + torch.einsum("bhts,tsd->bhtd", attn.to(v2.dtype), v2).to(out.dtype)
+    return out
 
 
 def _kv_grad(k: torch.Tensor, v: torch.Tensor) -> bool:
@@ -65,8 +76,8 @@ def _kv_grad(k: torch.Tensor, v: torch.Tensor) -> bool:
 
 def takes_kernel(q, k, v, mask=None, bias=None) -> bool:
     """Whether the kernels take this call (module docstring): decided from
-    what the tensors show, nothing else."""
-    if mask is not None or bias is not None:
+    what the tensors show and `_build.plain_versions()`, nothing else."""
+    if _build.forced_plain() or mask is not None or bias is not None:
         return False
     if not (q.is_cuda and q.dtype == k.dtype == v.dtype == torch.bfloat16):
         return False

@@ -44,6 +44,7 @@ import chip_smoke as cs  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion import synthesis  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion.samplers import ddim  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion.model import decode_video_frames  # noqa: E402
+from guidedvd3dgs_tpu_torch.ops import _build  # noqa: E402
 from guidedvd3dgs_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from guidedvd3dgs_tpu_torch.train.guided import ViewCrafterEngine  # noqa: E402
 
@@ -97,7 +98,9 @@ def main() -> None:
 
     out = {"step_tol": cs.STEP_TOL, "step_tol_bf16": cs.STEP_TOL_BF16}
     for index in (0, scfg.ddim_steps // 2, scfg.ddim_steps - 1):
-        f32_err = (step(index) - step(index, plain=True)).abs().max().item()
+        with _build.plain_versions():
+            want32 = step(index)
+        f32_err = (step(index) - want32).abs().max().item()
         want, want_mo = step_and_output(step, index, cs.bf16_forward(plain=True))
         out[f"index {index}: f32 kernel vs plain, max abs"] = f32_err
         print(f"index {index}: f32 step, L1's kernel vs its plain version: max abs {f32_err:.4g} "

@@ -17,7 +17,7 @@ frames, TF32 off), run with L1 swapped piece by piece:
                             to bfloat16, their gradients cast back
 
 For each: the whole step's x_prev and pred_x0 against the plain chain's
-(`plain=True`; max abs difference over max |x_prev|, max |pred_x0|) and
+(`plain_versions()`; max abs difference over max |x_prev|, max |pred_x0|) and
 rho; and 8c's dL/dx from one forward's pred_x0 and v (the decode
 gradients and the pair's VJP alone, cuDNN deterministic) against that of
 L1's kernel forward with its plain backward (`chip_smoke.plain_backward`),
@@ -51,6 +51,7 @@ import chip_smoke as cs  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion import synthesis  # noqa: E402
 from guidedvd3dgs_tpu_torch.diffusion.model import LatentDiffusionConfig  # noqa: E402
 from guidedvd3dgs_tpu_torch.guidance.loss_guidance import resize_guidance  # noqa: E402
+from guidedvd3dgs_tpu_torch.ops import _build  # noqa: E402
 from guidedvd3dgs_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from guidedvd3dgs_tpu_torch.train.guided import ViewCrafterEngine  # noqa: E402
 
@@ -86,7 +87,8 @@ def main() -> None:
     step, grad = cs.small_guided_step(params, mcfg, engine.guided_cfg, sched, pr, cond, uncond, bufs, x,
                                       step_noise, index)
 
-    want_x, want_p0, want_rho = step(plain=True)
+    with _build.plain_versions():
+        want_x, want_p0, want_rho = step()
     with cs.deterministic_cudnn(), cs.plain_backward():
         want_g = grad()
     sx, sp, sg = (a.abs().max().item() for a in (want_x, want_p0, want_g))

@@ -714,7 +714,7 @@ def test_l1_lse_matches_logsumexp(dev, dtype, shape):
 def test_l1_bwd_matches_plain(dev, dtype, tol, shape):
     """dq, dk, dv of the two kernels against the plain backward of the same
     inputs, max abs error over max |grad|; and the Function under autograd
-    against the plain pair (nnops.attention(plain=True)'s)."""
+    against the plain pair (nnops.attention's inside `plain_versions()`)."""
     q, k, v, do = l1_inputs(dev, shape, dtype, shape[2] + 1)
     scale = shape[3] ** -0.5
     out, lse = flash_attention.flash_attention_lse(q, k, v, scale)

@@ -20,6 +20,7 @@ import torch
 
 from guidedvd3dgs_tpu.diffusion import nnops as jnn
 from guidedvd3dgs_tpu_torch.diffusion import nnops
+from guidedvd3dgs_tpu_torch.ops import _build
 from guidedvd3dgs_tpu_torch.ops import flash_attention as fa
 
 torch.set_num_threads(2)
@@ -107,6 +108,7 @@ def test_dispatch_rule(monkeypatch, case):
 def test_plain_flag_takes_the_plain_version(monkeypatch):
     calls = _spy(monkeypatch)
     q, k, v = map(torch.from_numpy, qkv((1, 1, 1024, 32), 6))
-    out = nnops.attention(q, k, v, 0.2, plain=True)
+    with _build.plain_versions():
+        out = nnops.attention(q, k, v, 0.2)
     assert not calls
     assert torch.equal(out, fa.flash_attention_plain(q, k, v, 0.2))

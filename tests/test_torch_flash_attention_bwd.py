@@ -27,6 +27,7 @@ import torch
 
 from guidedvd3dgs_tpu.diffusion import nnops as jnn
 from guidedvd3dgs_tpu_torch.diffusion import nnops
+from guidedvd3dgs_tpu_torch.ops import _build
 from guidedvd3dgs_tpu_torch.ops import flash_attention as fa
 
 torch.set_num_threads(2)
@@ -109,13 +110,17 @@ def test_plain_lse_matches_library_residuals():
 
 @pytest.mark.parametrize("plain", [False, True])
 def test_function_on_cpu(plain):
-    """Under autograd the wrapper (and `nnops.attention(plain=True)`, the
-    plain pair) runs the plain forward and the plain backward on CPU
-    tensors: the same output as without autograd, and
-    flash_attention_bwd_plain's gradients exactly."""
+    """Under autograd the wrapper (and `nnops.attention` inside
+    `plain_versions()`, the plain pair) runs the plain forward and the
+    plain backward on CPU tensors: the same output as without autograd,
+    and flash_attention_bwd_plain's gradients exactly."""
     q, k, v, do = map(torch.from_numpy, arrays((1, 2, 1024, 32), 5))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    out = nnops.attention(*leaves, 0.2, plain=True) if plain else fa.flash_attention(*leaves, 0.2)
+    if plain:
+        with _build.plain_versions():
+            out = nnops.attention(*leaves, 0.2)
+    else:
+        out = fa.flash_attention(*leaves, 0.2)
     assert out.grad_fn is not None and "FlashAttention" in type(out.grad_fn).__name__
     assert torch.equal(out.detach(), fa.flash_attention_plain(q, k, v, 0.2))
     got = torch.autograd.grad(out, leaves, do)

@@ -20,6 +20,7 @@ import torch
 
 from group_norm_tol import fwd_tol
 from guidedvd3dgs_tpu_torch.diffusion import nnops
+from guidedvd3dgs_tpu_torch.ops import _build
 from guidedvd3dgs_tpu_torch.ops import group_norm as gn
 
 torch.set_num_threads(2)
@@ -83,6 +84,15 @@ def test_dispatch(device, dtype, pdtype, grad, shape, takes):
     w = param(device, c, pdtype, grad == "weight")
     b = param(device, c, pdtype, grad == "bias")
     assert gn.takes_kernel(x, w, b) is takes
+
+
+def test_dispatch_inside_plain_versions():
+    """Inside `plain_versions()` the kernels take nothing, and outside it
+    again what they took before."""
+    x, w, b = fake_cuda((2, 6, 5, 64), BF), param("cuda", 64, BF), param("cuda", 64, BF)
+    with _build.plain_versions():
+        assert not gn.takes_kernel(x, w, b)
+    assert gn.takes_kernel(x, w, b)
 
 
 @pytest.mark.parametrize("how", ["aligned", "offset", "strided"])

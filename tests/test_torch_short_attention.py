@@ -21,8 +21,8 @@ import pytest
 import torch
 
 from guidedvd3dgs_tpu.diffusion import nnops as jnn
-from guidedvd3dgs_tpu_torch.diffusion import attention as d_attention
 from guidedvd3dgs_tpu_torch.diffusion import nnops
+from guidedvd3dgs_tpu_torch.ops import _build
 from guidedvd3dgs_tpu_torch.ops import flash_attention as fa
 from guidedvd3dgs_tpu_torch.ops import short_attention as sa
 from guidedvd3dgs_tpu_torch.utils import tracing
@@ -65,6 +65,17 @@ SHAPES = [(cls, s) for cls, shapes in CLASSES.items() for s in shapes]
 def test_takes_the_classes(cls, shape):
     b, h, lq, lk = shape
     assert sa.takes_kernel(*fakes(b, h, lq, lk, kgrad=cls != "X", vgrad=cls != "X"))
+
+
+@pytest.mark.parametrize("cls", sorted(CLASSES))
+def test_refuses_inside_plain_versions(cls):
+    """Inside `plain_versions()` the kernels take nothing, and outside it
+    again what they took before."""
+    b, h, lq, lk = CLASSES[cls][0]
+    args = fakes(b, h, lq, lk, kgrad=cls != "X", vgrad=cls != "X")
+    with _build.plain_versions():
+        assert not sa.takes_kernel(*args)
+    assert sa.takes_kernel(*args)
 
 
 @pytest.mark.parametrize("case", ["mask", "bias", "f32", "cpu", "d80", "d512", "l1", "cross_k_grad",
@@ -246,10 +257,29 @@ def test_cpu_takes_the_einsum_form_and_counts_it():
         with pytest.raises(ValueError, match="no short-attention kernel"):
             sa.short_attention(q, k, k, 0.125)
         rel = (torch.zeros((25, 7, 64), dtype=BF),) * 2
-        d_attention._attend(q, k, k, 0.125, None, rel, False)
+        nnops.attention(q, k, k, 0.125, rel=rel)
     assert torch.equal(got, sa.attention_plain(q, k, k, 0.125))
     assert tracing.COUNTS.get("nn.attention.plain") == 2 and "nn.attention.l2" not in tracing.COUNTS
     tracing.reset()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_relative_position_form_is_the_attend_math(masked):
+    """nnops.attention with the relative-position tables `rel` is, bit for
+    bit at f32, the form the transformer blocks computed for themselves
+    before it moved into `attention_plain`: the tables' bias on the scaled
+    logits, the causal mask, the f32 softmax and the tables' output term."""
+    rng = np.random.default_rng(9 + masked)
+    q, k, v = (torch.from_numpy(rng.standard_normal((3, 2, 6, 8)).astype(np.float32)) for _ in range(3))
+    k2, v2 = (torch.from_numpy(rng.standard_normal((6, 6, 8)).astype(np.float32)) for _ in range(2))
+    mask = torch.tril(torch.ones((6, 6), dtype=torch.bool))[None, None] if masked else None
+    sim = torch.matmul(q, k.transpose(-1, -2)) * 0.35
+    sim = sim + torch.einsum("bhtd,tsd->bhts", q, k2) * 0.35
+    if mask is not None:
+        sim = torch.where(mask, sim, torch.finfo(sim.dtype).min)
+    attn = torch.softmax(sim, dim=-1)
+    want = torch.matmul(attn, v) + torch.einsum("bhts,tsd->bhtd", attn, v2)
+    assert torch.equal(nnops.attention(q, k, v, 0.35, mask=mask, rel=(k2, v2)), want)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
